@@ -1,0 +1,31 @@
+"""diffco_tpu_torch: the PyTorch/CUDA port of ``diffco_tpu``.
+
+Differentiable kernel-perceptron collision proxies for motion planning,
+on PyTorch tensors, with hand-written CUDA kernels (``csrc/``) on the
+hot paths. This slice holds the main path: the ``PandaFK`` DH robot and
+its analytic FK derivatives, a ``ShapeEnv`` scene with the
+``CapsuleChainCollision`` ground truth, ``ForwardKinematicsDiffCo`` (fit,
+verify, collision_score) and Adam trajectory optimization.
+
+Entry points run on CUDA unless the caller passes ``device='cpu'``; they
+raise rather than fall back when no card is present. Nothing here imports
+JAX or ``diffco_tpu``.
+"""
+
+from . import utils
+from . import kernels
+from . import optim
+from .device import resolve_device
+from .robots import Model, DHParameters, DHChainRobot, PandaFK
+from .robots.capsule_chain import CapsuleChainCollision
+from .envs import ShapeEnv
+from .perceptron import Perceptron, DiffCo
+from .checkers import CollisionChecker, RBFDiffCo, ForwardKinematicsDiffCo
+from .convert import load_reference_state
+
+__all__ = [
+    'utils', 'kernels', 'optim', 'resolve_device', 'Model', 'DHParameters',
+    'DHChainRobot', 'PandaFK', 'CapsuleChainCollision', 'ShapeEnv',
+    'Perceptron', 'DiffCo', 'CollisionChecker', 'RBFDiffCo',
+    'ForwardKinematicsDiffCo', 'load_reference_state',
+]

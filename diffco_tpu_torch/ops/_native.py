@@ -1,0 +1,137 @@
+"""Build and bind the hand-written CUDA kernels (``diffco_tpu_torch/csrc``).
+
+At first use each ``csrc/*.cu`` is compiled by its own ``nvcc`` process
+(all started together) into a shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o <lib>.so <src>.cu
+
+The libraries go to ``build/diffco_tpu_torch/`` at the root of the
+checkout, named by a hash of every source, header and flag, so an edit
+rebuilds and an unchanged tree reuses the build. They are loaded with
+ctypes. A missing ``nvcc`` or a failed build is an error: there is no
+fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parents[1] / 'csrc'
+_BUILD = Path(__file__).resolve().parents[2] / 'build' / 'diffco_tpu_torch'
+_NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+MAX_J = 8    # dh_chain.cuh kMaxJ
+MAX_P = 16   # dh_chain.cuh kMaxP
+MAX_F = 64   # poly_score.cu: F padded to a multiple of 8, at most 64
+
+
+class DHSpec(ctypes.Structure):
+    """Mirror of ``struct DHSpec`` in csrc/dh_chain.cuh."""
+    _fields_ = [('J', ctypes.c_int),
+                ('P', ctypes.c_int),
+                ('dh', (ctypes.c_float * 5) * MAX_J),
+                ('frame', ctypes.c_int * MAX_P),
+                ('off', (ctypes.c_float * 3) * MAX_P),
+                ('base_r', ctypes.c_float * 9),
+                ('base_t', ctypes.c_float * 3)]
+
+
+_libs = {}
+build_log = ''        # nvcc's output (ptxas register/spill report)
+build_seconds = None
+
+
+def _nvcc() -> str:
+    path = shutil.which('nvcc')
+    if path is None and os.path.exists('/usr/local/cuda/bin/nvcc'):
+        path = '/usr/local/cuda/bin/nvcc'
+    if path is None:
+        raise RuntimeError('nvcc not found: the CUDA kernels of '
+                           'diffco_tpu_torch cannot be built')
+    return path
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(' '.join(_NVCC_FLAGS).encode())
+    for p in sorted(_CSRC.iterdir()):
+        if p.suffix in ('.cu', '.cuh'):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Compile every ``csrc/*.cu`` not yet built for this source hash (one
+    nvcc per source, in parallel) and load the libraries. Idempotent."""
+    global build_log, build_seconds
+    if _libs:
+        return _libs
+    t0 = time.perf_counter()
+    tag = _source_hash()
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    sources = sorted(_CSRC.glob('*.cu'))
+    targets = {src.stem: _BUILD / f'{src.stem}-{tag}.so' for src in sources}
+    procs = []
+    for src in sources:
+        out = targets[src.stem]
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp), str(src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, out, tmp, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f'== {src.name}\n{text}')
+        if proc.returncode != 0:
+            failed.append(src.name)
+        else:
+            os.replace(tmp, out)
+    build_log = '\n'.join(logs)
+    if failed:
+        raise RuntimeError(f'nvcc failed for {failed}:\n{build_log}')
+    for name, path in targets.items():
+        _libs[name] = ctypes.CDLL(str(path))
+    _bind(_libs)
+    build_seconds = time.perf_counter() - t0
+    return _libs
+
+
+def _bind(libs):
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    fn = libs['poly_score'].poly_score_grad
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
+    fn.restype = cint
+    fn = libs['dh_score'].dh_score_grad
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
+                   ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
+
+
+def check_cuda_inputs(name, *tensors):
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on one
+    device (what the kernels take)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != 'cuda':
+            raise ValueError(f'{name}: all inputs must be on one CUDA device')
+        if t.dtype != torch.float32:
+            raise ValueError(f'{name}: inputs must be float32, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: inputs must be contiguous')
+
+
+def raise_on_error(name, rc: int):
+    if rc != 0:
+        raise RuntimeError(f'{name}: CUDA launch failed with cudaError {rc}')

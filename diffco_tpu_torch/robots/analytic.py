@@ -1,0 +1,177 @@
+"""Analytic (closed-form) robot models, batched and differentiable
+(PyTorch counterpart of ``diffco_tpu/robots/analytic.py``: ``Model``,
+``DHParameters``, ``DHChainRobot`` and ``PandaFK``).
+
+Robots are device-agnostic: their DH constants are Python floats, so
+``fkine`` runs wherever ``q`` lies. ``limits`` is a CPU tensor that callers
+move next to their data.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..utils import wrap2pi
+from .soa import (vec_add, transform_compose, dh_rot_trans, rot_from_static,
+                  stack_points)
+from .fk_jvp import make_dh_fkine
+
+PI = math.pi
+
+
+class Model:
+    """Base robot model."""
+    dof: int
+    limits: torch.Tensor  # [dof, 2], CPU
+
+    def fkine(self, q):
+        raise NotImplementedError
+
+    def wrap(self, q):
+        raise NotImplementedError
+
+    def rand_configs(self, num_cfgs: int, generator: Optional[
+            torch.Generator] = None, device=None) -> torch.Tensor:
+        """Uniform configurations within the joint limits on ``device``
+        (default CUDA). The draw happens on the generator's device (CPU
+        when none is given), so a seeded CPU generator yields the same
+        configurations whatever device they end up on."""
+        dev = resolve_device(device)
+        gdev = generator.device if generator is not None else 'cpu'
+        u = torch.rand((num_cfgs, self.dof), generator=generator,
+                       device=gdev, dtype=self.limits.dtype)
+        lims = self.limits.to(gdev)
+        lo, hi = lims[:, 0], lims[:, 1]
+        return (u * (hi - lo) + lo).to(dev)
+
+    @property
+    def joint_limits(self):
+        return self.limits
+
+
+class DHParameters:
+    """Standard DH parameter pack (float32 CPU tensors)."""
+
+    def __init__(self, a=0, alpha=0, d=0, theta=0):
+        self.a = torch.as_tensor(a, dtype=torch.float32)
+        self.alpha = torch.as_tensor(alpha, dtype=torch.float32)
+        self.d = torch.as_tensor(d, dtype=torch.float32)
+        self.theta = torch.as_tensor(theta, dtype=torch.float32)
+        self.s_alpha = torch.sin(self.alpha)
+        self.c_alpha = torch.cos(self.alpha)
+
+
+def _dh_consts_and_specs(dhparams, fk_mask):
+    """Per-joint DH constants + masked point specs (one source of truth for
+    the spec format)."""
+    consts = [(float(a), float(d), float(sa), float(ca), float(th))
+              for a, d, sa, ca, th in zip(
+                  dhparams.a.tolist(), dhparams.d.tolist(),
+                  dhparams.s_alpha.tolist(), dhparams.c_alpha.tolist(),
+                  dhparams.theta.tolist())]
+    specs = tuple((i + 1, (0.0, 0.0, 0.0))
+                  for i, masked in enumerate(fk_mask) if masked)
+    return consts, specs
+
+
+class DHChainRobot(Model):
+    """Serial arm from standard DH parameters with an fk_mask selecting
+    which cumulative frames become control points."""
+
+    def __init__(self, dhparams: DHParameters, limits,
+                 fk_mask: Sequence[bool], base: Optional[np.ndarray] = None):
+        self.dhparams = dhparams
+        self.limits = torch.as_tensor(np.asarray(limits), dtype=torch.float32)
+        self.dof = self.limits.shape[0]
+        self.fk_mask = list(fk_mask)
+        self.base = None if base is None else np.asarray(base)  # [4, 4]
+        self._dh_const, self._point_specs = _dh_consts_and_specs(
+            dhparams, self.fk_mask)
+        self._fkine_flat = make_dh_fkine(
+            self._dh_const, self._point_specs, base=self._base_soa())
+
+    def _base_soa(self):
+        if self.base is None:
+            return None
+        return (rot_from_static(self.base[:3, :3]),
+                tuple(float(v) for v in self.base[:3, 3]))
+
+    def _fk_frames_soa(self, q):
+        """Cumulative frames as SoA (rot 9-tuple, trans 3-tuple of [B])."""
+        q = torch.reshape(q, (-1, self.dof))
+        frames = []
+        r_acc = t_acc = None
+        if self.base is not None:
+            zb = torch.zeros(q.shape[0], dtype=q.dtype, device=q.device)
+            r_acc = tuple(zb + v for v in rot_from_static(self.base[:3, :3]))
+            t_acc = tuple(zb + float(v) for v in self.base[:3, 3])
+        for i, (a, d, sa, ca, th) in enumerate(self._dh_const):
+            r_j, t_j = dh_rot_trans(q[:, i] + th, a, d, sa, ca)
+            if r_acc is None:
+                r_acc, t_acc = r_j, t_j
+            else:
+                r_acc, t_acc = transform_compose(r_acc, t_acc, r_j, t_j)
+            frames.append((r_acc, t_acc))
+        return frames
+
+    def fkine(self, q, flat: bool = False):
+        q = torch.reshape(q, (-1, self.dof))
+        out = self._fkine_flat(q)
+        if flat:
+            return out
+        return out.reshape(q.shape[0], -1, 3)
+
+    def _fkine_soa_autodiff(self, q, flat: bool = False):
+        """Plain-autograd SoA FK (no analytic derivatives): the oracle for
+        ``make_dh_fkine``."""
+        frames = self._fk_frames_soa(q)
+        pts = [t for i, (r, t) in enumerate(frames) if self.fk_mask[i]]
+        return stack_points(pts, flat=flat)
+
+    def wrap(self, q):
+        return wrap2pi(q)
+
+
+_PANDA_LIMITS = [[-2.8973, 2.8973],
+                 [-1.7628, 1.7628],
+                 [-2.8973, 2.8973],
+                 [-3.0718, -0.0698],
+                 [-2.8973, 2.8973],
+                 [-0.0175, 3.7525],
+                 [-2.8973, 2.8973]]
+
+
+class PandaFK(DHChainRobot):
+    """7-DOF Franka Panda with two extra gripper-finger control points:
+    5 masked frames plus 2 finger points on frame 7 (F = 21)."""
+
+    def __init__(self):
+        L = np.array([0.3330, 0.3160, 0.0825, 0.3840, 0.0880, 0.1070 * 2])
+        dh = DHParameters(
+            a=[0, 0, L[2], -L[2], 0, L[4], 0],
+            alpha=[-PI / 2, PI / 2, PI / 2, -PI / 2, PI / 2, PI / 2, 0],
+            d=[L[0], 0, L[1], 0, L[3], 0, L[5]],
+            theta=[0, 0, 0, 0, 0, 0, 0])
+        super().__init__(dh, _PANDA_LIMITS,
+                         fk_mask=[True, False, True, True, True, False, True])
+        # two finger control points offset +-d[-1]/2 along ee-frame y
+        fy = 0.5 * float(dh.d[-1])
+        n = len(self._dh_const)
+        self._point_specs = self._point_specs + (
+            (n, (0.0, fy, 0.0)), (n, (0.0, -fy, 0.0)))
+        self._fkine_flat = make_dh_fkine(
+            self._dh_const, self._point_specs, base=self._base_soa())
+
+    def _fkine_soa_autodiff(self, q, flat: bool = False):
+        frames = self._fk_frames_soa(q)
+        pts = [t for i, (r, t) in enumerate(frames) if self.fk_mask[i]]
+        r_ee, t_ee = frames[-1]
+        fy = 0.5 * float(self.dhparams.d[-1])
+        y_col = (r_ee[1], r_ee[4], r_ee[7])  # ee-frame y axis in world
+        left = vec_add(t_ee, tuple(c * fy for c in y_col))
+        right = vec_add(t_ee, tuple(c * (-fy) for c in y_col))
+        return stack_points(pts + [left, right], flat=flat)

@@ -1,0 +1,84 @@
+"""The hand-written CUDA kernels against their plain PyTorch twins, on the
+card. Run there with ``python -m pytest -m cuda tests/test_torch_cuda.py``;
+without a card every test skips (the fixture decides, at run time)."""
+import numpy as np
+import pytest
+import torch
+
+from diffco_tpu_torch.ops import fk_score, fused_score
+from diffco_tpu_torch.robots import PandaFK
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+# score rtol/atol 1e-4, gradient 1e-3: kernel and twin sum in other orders
+SHAPES = [(37, 5), (300, 130), (65536 + 37, 512)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return torch.device('cuda')
+
+
+def _inputs(B, S, dev, seed=0):
+    robot = PandaFK()
+    g = torch.Generator().manual_seed(seed)
+    q = robot.rand_configs(B, g, dev)
+    sup = robot.fkine(robot.rand_configs(S, g, dev), flat=True).contiguous()
+    w = (torch.randn(S, generator=g) * 0.05).to(dev)
+    return robot, q, sup, w
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize('B,S', SHAPES)
+def test_poly_score_kernel_matches_plain(cuda, B, S):
+    robot, q, sup, w = _inputs(B, S, cuda)
+    x = robot.fkine(q, flat=True).contiguous()
+    before = fused_score.poly_score_grad_launches
+    score, dx = fused_score.poly_score_grad(x, sup, w)
+    torch.cuda.synchronize()
+    assert fused_score.poly_score_grad_launches == before + 1
+    ref, ref_dx = fused_score._poly_score_grad_plain(x, sup, w)
+    _close(score, ref, 1e-4)
+    _close(dx, ref_dx, 1e-3)
+
+
+@pytest.mark.parametrize('B,S', SHAPES)
+def test_dh_score_kernel_matches_plain(cuda, B, S):
+    robot, q, sup, w = _inputs(B, S, cuda, seed=1)
+    spec = fk_score.robot_spec(robot)
+    before = fk_score.dh_score_grad_launches
+    score, dq = fk_score.dh_score_grad(q, sup, w, spec)
+    torch.cuda.synchronize()
+    assert fk_score.dh_score_grad_launches == before + 1
+    ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
+    _close(score, ref, 1e-4)
+    _close(dq, ref_dq, 1e-3)
+
+
+def test_auto_router_gradient_is_kernel_dq(cuda):
+    robot, q, sup, w = _inputs(65536, 512, cuda, seed=2)
+    qg = q.clone().requires_grad_(True)
+    out = fk_score.fk_polyharmonic_score_auto(qg, robot, sup, w)
+    g, = torch.autograd.grad(out.sum(), qg)
+    _, dq = fk_score.dh_score_grad(q, sup, w, fk_score.robot_spec(robot))
+    _close(g, dq, 1e-6)
+
+
+def test_kernels_reject_what_they_cannot_take(cuda):
+    robot, q, sup, w = _inputs(64, 16, cuda)
+    spec = fk_score.robot_spec(robot)
+    with pytest.raises(ValueError):
+        fk_score.dh_score_grad(q.double(), sup, w, spec)
+    with pytest.raises(ValueError):
+        fused_score.poly_score_grad(torch.zeros(4, 65, device=cuda),
+                                    torch.zeros(3, 65, device=cuda),
+                                    torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):
+        fused_score.poly_score_grad(sup.T, sup.T, w[:21])
