@@ -179,11 +179,18 @@ def journey(robot, dev):
     _phase('verify', t0, configs=VERIFY_SAMPLES, acc=vacc, tpr=vtpr,
            tnr=vtnr)
 
+    # both sweeps with their gradients, as an optimizer takes them: the
+    # backward of each kernel's autograd Function returns the dq (dx) of the
+    # same launch
     t0 = time.perf_counter()
     q = robot.rand_configs(B_BENCH, torch.Generator().manual_seed(3), dev)
-    with torch.no_grad():
-        s_q = checker.collision_score(q)
-        s_p = checker.collision_score(q_link_pos=robot.fkine(q))
+    qg = q.clone().requires_grad_(True)
+    xg = robot.fkine(q).requires_grad_(True)
+    s_q = checker.collision_score(qg)
+    s_p = checker.collision_score(q_link_pos=xg)
+    dq, = torch.autograd.grad(s_q.sum(), qg)
+    dx, = torch.autograd.grad(s_p.sum(), xg)
+    s_q, s_p, dx = s_q.detach(), s_p.detach(), dx.reshape(B_BENCH, -1)
     torch.cuda.synchronize()
     if s_q.shape != (B_BENCH, 1) or not bool(torch.isfinite(s_q).all()):
         raise AssertionError('collision_score: bad shape or non-finite')
@@ -197,15 +204,22 @@ def journey(robot, dev):
     w = p.rbf_nodes * p.valid_mask.to(p.rbf_nodes.dtype) / p.rbf_kernel.epsilon
     sup = p.support_transformed
     with torch.no_grad():
-        ref_q, _ = fk_score._dh_score_grad_plain(
+        ref_q, ref_dq = fk_score._dh_score_grad_plain(
             q, sup, w, fk_score.robot_spec(robot))
-        ref_p, _ = fused_score._poly_score_grad_plain(
+        ref_p, ref_dx = fused_score._poly_score_grad_plain(
             robot.fkine(q, flat=True), sup, w)
     bias = checker.safety_bias
     _check_close('collision_score(q) vs plain twin', s_q.reshape(-1) - bias,
                  ref_q, 1e-4)
+    _check_close('collision_score(q) dq vs plain twin', dq, ref_dq, 1e-3)
     _check_close('collision_score(q_link_pos) vs plain twin',
                  s_p.reshape(-1) - bias, ref_p, 1e-4)
+    _check_close('collision_score(q_link_pos) dx vs plain twin', dx, ref_dx,
+                 1e-3)
+    print(f'sweeps vs plain twins at S = {sup.shape[0]}: max_abs_err '
+          f'B1 {_max_err([(s_q.reshape(-1) - bias, ref_q), (dq, ref_dq)])} '
+          f'B2 {_max_err([(s_p.reshape(-1) - bias, ref_p), (dx, ref_dx)])}',
+          flush=True)
 
     t0 = time.perf_counter()
     results = []
@@ -258,24 +272,34 @@ def _dh_ops(J, P):
     return 83 * J + 39 * P
 
 
+def _score_ops(B, S, F):
+    """fp32 operations the score block's function needs, counted in the
+    expanded form ||x||^2 + ||s||^2 - 2 x.s that the TPU kernel computes
+    (an FMA is 2, an rsqrt 1): per pair 2F for x.s, 3 to form d2, 2 for the
+    clamp and the 1e-12 floor, 1 rsqrt, 1 for r, 2 for the score, 2 for
+    rowsum and 2F for su; per row 2F for ||x||^2 and 2F for dx; per support
+    2F for ||s||^2. The kernels' direct difference sum (x - s)^2 does F
+    more per pair, which the bound does not count."""
+    return B * S * (4 * F + 11) + B * 4 * F + S * 2 * F
+
+
 def kernel_table(b2, b1, launches):
     """Time each kernel and its plain twin at the checked shapes; the bound
     counts each input read once and each output written once, and
-    B*S*(5F + 6) fp32 operations + B*S rsqrt for the score block (plus
-    ``_dh_ops`` per configuration for B1's FK and its backward)."""
+    ``_score_ops`` for the score block (plus ``_dh_ops`` per configuration
+    for B1's FK and its backward)."""
     from diffco_tpu_torch.ops import fk_score, fused_score
     x, sup, w = b2['args']
     B, F = x.shape
     S = sup.shape[0]
-    ops2 = B * S * (5 * F + 6) + B * S
+    ops2 = _score_ops(B, S, F)
     bytes2 = 4 * (B * F + S * F + S + B + B * F)
     bound2, by2 = _bound(bytes2, ops2)
     q, sup1, w1, spec = b1['args']
     B1, J = q.shape
     S1, F1 = sup1.shape
     point_specs = spec[1]
-    ops1 = (B1 * S1 * (5 * F1 + 6) + B1 * S1
-            + _dh_ops(J, len(point_specs)) * B1)
+    ops1 = _score_ops(B1, S1, F1) + _dh_ops(J, len(point_specs)) * B1
     bytes1 = 4 * (B1 * J + S1 * F1 + S1 + B1 + B1 * J)
     bound1, by1 = _bound(bytes1, ops1)
     rows = [

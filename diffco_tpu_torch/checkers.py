@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import kernels as kernel
-from .device import resolve_device
+from .device import fp32_matmul, resolve_device
 from .envs.shape_env import ShapeEnv
 from .perceptron import DiffCo
 
@@ -257,10 +257,11 @@ class RBFDiffCo(CollisionChecker):
         def fn(q):
             pt = transform(q)
             sup = perceptron.support_transformed
-            kv = rbf_kernel(pt, sup) * perceptron.valid_mask.to(
-                pt.dtype)[None, :]
-            return (kv @ perceptron.rbf_nodes.reshape(-1, 1)).reshape(-1) \
-                + bias
+            with fp32_matmul():
+                kv = rbf_kernel(pt, sup) * perceptron.valid_mask.to(
+                    pt.dtype)[None, :]
+                out = kv @ perceptron.rbf_nodes.reshape(-1, 1)
+            return out.reshape(-1) + bias
         return fn
 
     def _sweep_raw(self, q):

@@ -18,18 +18,6 @@ _TENSOR_FIELDS = ('support_points', 'support_transformed', 'gains',
                   'hypothesis', 'y', 'kernel_matrix', 'rbf_nodes')
 
 
-def reference_state(checker) -> Dict[str, np.ndarray]:
-    """The arrays ``load_reference_state`` takes, read off a fitted checker
-    of either package (attribute access and ``np.asarray`` only)."""
-    p = checker.perceptron
-    out = {k: np.asarray(getattr(p, k)) for k in _TENSOR_FIELDS}
-    out['valid_mask'] = np.asarray(p.valid_mask)
-    out['num_valid'] = np.asarray(p.num_valid)
-    out['epsilon'] = np.asarray(p.rbf_kernel.epsilon)
-    out['safety_bias'] = np.asarray(checker.safety_bias)
-    return out
-
-
 def load_reference_state(checker, arrays: Dict[str, np.ndarray]):
     """Fill a port checker (``RBFDiffCo`` / ``ForwardKinematicsDiffCo``)
     with a fitted state: ``support_points``, ``support_transformed``,
@@ -39,10 +27,10 @@ def load_reference_state(checker, arrays: Dict[str, np.ndarray]):
     p = checker.perceptron
     dev = checker.device
     for k in _TENSOR_FIELDS:
-        setattr(p, k, torch.as_tensor(np.asarray(arrays[k], np.float32),
-                                      device=dev))
-    p.valid_mask = torch.as_tensor(np.asarray(arrays['valid_mask'], bool),
-                                   device=dev)
+        setattr(p, k, torch.tensor(np.asarray(arrays[k], np.float32),
+                                   device=dev))
+    p.valid_mask = torch.tensor(np.asarray(arrays['valid_mask'], bool),
+                                device=dev)
     p.num_valid = int(arrays['num_valid'])
     p.rbf_kernel = Polyharmonic(k=1, epsilon=float(arrays['epsilon']))
     checker.safety_bias = float(arrays['safety_bias'])

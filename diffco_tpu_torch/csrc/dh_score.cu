@@ -12,9 +12,10 @@
 // and weights are read and only score [B] and dq [B, J] are written.
 //
 // What bounds it on this card: arithmetic. At the main path's shape
-// (B = 65536, S = 512, P = 7 so F = 21) the score block does about
-// B*S*(5F + 6) fp32 operations plus B*S rsqrt (~3.8 GFLOP); FK and its
-// backward add ~10^3 operations per configuration; the bytes in and out
+// (B = 65536, S = 512, P = 7 so F = 21) the score block's function needs
+// about B*S*(4F + 11) fp32 operations, rsqrt included (~3.2 GFLOP; the
+// direct difference here costs 5F + 8 per pair, about F more); FK and its
+// backward add ~850 operations per configuration; the bytes in and out
 // are ~4 MB. So the CUDA cores (67 TFLOP/s fp32), not HBM, set the floor.
 //
 // Design: one thread per configuration (128 per block). FK runs in

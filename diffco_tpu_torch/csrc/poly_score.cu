@@ -9,9 +9,12 @@
 //                                               - sum_j s_j w_j / r_bj.
 //
 // What bounds it on this card: arithmetic. At the main path's shape
-// (B = 65536, S = 512, F = 21) it does about B*S*(5F + 6) fp32 operations
-// plus B*S rsqrt (~3.8 GFLOP) and moves ~11 MB in and out, so the CUDA
-// cores (67 TFLOP/s fp32), not HBM (3.35 TB/s), set the floor.
+// (B = 65536, S = 512, F = 21) the function needs about B*S*(4F + 11)
+// fp32 operations, rsqrt included (~3.2 GFLOP, counted in the TPU kernel's
+// expanded form ||x||^2 + ||s||^2 - 2 x.s), and moves ~11 MB in and out,
+// so the CUDA cores (67 TFLOP/s fp32), not HBM (3.35 TB/s), set the floor.
+// The direct difference of score_block.cuh costs 5F + 8 per pair, about
+// F more (113 against 95 at F = 21), and has no cancellation.
 //
 // Design: one thread per query row (128 per block) keeps its row, its
 // running score/rowsum and the F-vector su in registers; F is padded to

@@ -4,7 +4,10 @@
 // For one query x (FP components, zero-padded past F) against a chunk of
 // supports s_j with weights w_j:
 //
-//   d2     = sum_f (x_f - s_jf)^2            (direct difference, fp32)
+//   d2     = sum_f (x_f - s_jf)^2            (direct difference, fp32;
+//                                             about F more operations per pair
+//                                             than the expanded square,
+//                                             and no cancellation)
 //   rinv   = rsqrt(max(d2, 0) + 1e-12)       (one transcendental per pair)
 //   score += w_j * d2 * rinv                 (= w_j * ||x - s_j||)
 //   rowsum += w_j * rinv,  su_f += w_j * s_jf * rinv

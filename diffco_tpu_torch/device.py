@@ -6,21 +6,31 @@ port never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raises when CUDA is asked for and absent.
-
-    On CUDA, float32 matrix products stay in full float32 (TF32 off): the
-    Gram build, the RBF solve and ``score_fn`` are the JAX package's
-    ``precision='highest'`` matmuls.
-    """
+    """``None`` -> ``cuda``; raises when CUDA is asked for and absent."""
     dev = torch.device('cuda' if device is None else device)
-    if dev.type == 'cuda':
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'CUDA device requested but no CUDA card is available; '
-                "pass device='cpu' to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'CUDA device requested but no CUDA card is available; '
+            "pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Float32 matrix products in full float32 inside the block
+    (``torch.backends.cuda.matmul.allow_tf32 = False``), the caller's
+    setting restored after it. The Gram build, the RBF solve and
+    ``score_fn`` run under it: they are the JAX package's
+    ``precision='highest'`` matmuls."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

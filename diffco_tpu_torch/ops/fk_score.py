@@ -28,6 +28,7 @@ _FK_FUSED_MIN_BATCH = 4096
 # launches of the CUDA kernel (not of the plain twin), for run accounting
 dh_score_grad_launches = 0
 
+
 def robot_spec(robot) -> Tuple:
     """Hashable (dh_const, point_specs, base) spec for a DHChainRobot."""
     dh_const = tuple(tuple(float(v) for v in row)

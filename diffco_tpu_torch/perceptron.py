@@ -5,9 +5,9 @@
 The greedy min-margin trainer runs over a precomputed Gram matrix as a
 Python loop of tensor ops that stay on the device. A finished state is a
 fixed point of the loop body (its update is zero), so the loop reads the
-``done`` flag back only every ``check_every`` iterations and records on
-the device the iteration at which it first held: the result equals that
-of a loop that stops at once.
+``done`` flag back only every ``_DONE_CHECK_EVERY`` iterations and
+records on the device the iteration at which it first held: the result
+equals that of a loop that stops at once.
 
 Support sets are fixed-shape padded arrays with a validity mask, as in
 the JAX package.
@@ -19,12 +19,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .device import fp32_matmul
 from .kernels import KernelFunc, RQKernel, Polyharmonic
+
+# iterations between host reads of the train loop's done flag
+_DONE_CHECK_EVERY = 64
 
 
 def perceptron_train_loop(K, y, beta: float, max_iteration: int,
                           init_gains=None, init_hypothesis=None,
-                          valid_mask=None, check_every: int = 64):
+                          valid_mask=None):
     """Greedy kernel-perceptron training over the Gram K [N, N].
 
     Each iteration performs either a min-margin gain update or a
@@ -74,7 +78,7 @@ def perceptron_train_loop(K, y, beta: float, max_iteration: int,
         gains = gains.index_add(0, idx, delta)
         hyp = hyp + delta * K[idx][0]
         it = torch.where(done & (it == max_iteration), i + 1, it)
-        if (i + 1) % check_every == 0 and bool(it < max_iteration):
+        if (i + 1) % _DONE_CHECK_EVERY == 0 and bool(it < max_iteration):
             break
     return gains, hyp, it.reshape(())
 
@@ -194,7 +198,8 @@ class DiffCo(Perceptron):
                 f'{N} rows need the lazy-row trainer, not ported yet '
                 '(ROADMAP A5, lazy trainer)')
         Xt = self._apply_transform(X)
-        K = self.kernel_func(Xt, Xt)
+        with fp32_matmul():
+            K = self.kernel_func(Xt, Xt)
         gains, hyp, it = perceptron_train_loop(K, y, self.beta,
                                                int(max_iteration))
         self.train_iterations = int(it)
@@ -247,9 +252,11 @@ class DiffCo(Perceptron):
             yv = self.y
         else:
             raise ValueError(f'unknown target {target}')
-        kmat = self.rbf_kernel(self.support_transformed,
-                               self.support_transformed)
-        self.rbf_nodes = masked_rbf_solve(kmat, yv, self.valid_mask, reg=reg)
+        with fp32_matmul():
+            kmat = self.rbf_kernel(self.support_transformed,
+                                   self.support_transformed)
+            self.rbf_nodes = masked_rbf_solve(kmat, yv, self.valid_mask,
+                                              reg=reg)
 
     # -- inference --------------------------------------------------------
 

@@ -14,7 +14,7 @@ from diffco_tpu.robots import PandaFK as JPanda
 from diffco_tpu.robots.capsule_chain import CapsuleChainCollision as JCap
 import diffco_tpu_torch as tdc
 from diffco_tpu_torch import optim as toptim
-from diffco_tpu_torch.convert import reference_state, load_reference_state
+from diffco_tpu_torch.convert import load_reference_state
 from diffco_tpu_torch.ops import fk_score as tfk
 from diffco_tpu_torch.robots.capsule_chain import CapsuleChainCollision as TCap
 
@@ -33,6 +33,18 @@ SHAPES = {'box1': {'type': 'Box', 'params': {'extents': [0.1, 0.1, 0.1]},
                    'transform': _T([0.5, 0.5, 0.5])},
           'sphere1': {'type': 'Sphere', 'params': {'radius': 0.1},
                       'transform': _T([0.5, 0, 0])}}
+
+
+def reference_state(checker):
+    """The arrays load_reference_state takes, read off a fitted JAX
+    checker: np.asarray of each DiffCo attribute."""
+    p = checker.perceptron
+    out = {k: np.asarray(getattr(p, k)) for k in (
+        'support_points', 'support_transformed', 'gains', 'hypothesis', 'y',
+        'kernel_matrix', 'rbf_nodes', 'valid_mask', 'num_valid')}
+    out['epsilon'] = np.asarray(p.rbf_kernel.epsilon)
+    out['safety_bias'] = np.asarray(checker.safety_bias)
+    return out
 
 
 def _q(n, seed):
@@ -187,3 +199,20 @@ def test_device_defaults_to_cuda():
         tdc.ForwardKinematicsDiffCo(robot=tdc.PandaFK(),
                                     environment=tdc.ShapeEnv(SHAPES))
     assert tfk._FK_FUSED_MIN_BATCH == 4096
+
+
+@pytest.mark.parametrize('caller_setting', [False, True])
+def test_fp32_matmul_is_scoped(caller_setting):
+    """TF32 is off inside the Gram/solve/score_fn block and the caller's
+    setting comes back after it, even when the block raises."""
+    from diffco_tpu_torch.device import fp32_matmul
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = caller_setting
+    try:
+        with pytest.raises(ValueError):
+            with fp32_matmul():
+                assert torch.backends.cuda.matmul.allow_tf32 is False
+                raise ValueError
+        assert torch.backends.cuda.matmul.allow_tf32 is caller_setting
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
