@@ -1,12 +1,20 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: python3 chip_smoke.py
 
 Builds the hand-written kernels from csrc/, holds each against its plain
-PyTorch twin at the main path's shapes, drives the main path (PandaFK +
-ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify / collision_score
-sweeps -> Adam trajectory optimization -> ground-truth check of the dense
-paths) and shows through the launch counters that the sweeps went through
-both kernels. Then it times each kernel and its plain twin with CUDA
-events.
+PyTorch twin at the main paths' shapes (B3 on three URDF robots: a serial
+arm, a branching tree and a prismatic + mimic rig), then drives the two
+main paths through the entry points a user calls:
+
+- PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
+  collision_score sweeps -> Adam trajectory optimization -> ground-truth
+  check of the dense paths;
+- the README quick start: FrankaPanda (URDF, sphere model, ACM) in the
+  4-shape scene with its own ground truth -> fit -> the same sweeps ->
+  Adam trajectory optimization -> ground-truth check.
+
+Each path runs with the launch counters set to 0 just before it and read
+just after, which shows that its sweeps went through its kernels. Then
+it times each kernel and its plain twin with CUDA events.
 
 Prints the device, the card's name and power limit (nvidia-smi), one
 line per phase, a ``{"kernels": [...]}`` JSON line, and last
@@ -24,20 +32,33 @@ import time
 import numpy as np
 import torch
 
+from diffco_tpu_torch.ops.bounds import (bound, chain_ops, dh_ops,
+                                         fk_score_bytes, score_ops)
+
 # the main path's shapes (bench.py's primitive: B = 65536, S = 512)
 B_BENCH = 65536
 B_RAGGED = B_BENCH + 37          # a ragged end for the kernel checks
 S_BENCH = 512
+B_CHAIN_SMALL = 4096 + 5          # B3 on the tree and the mimic rig
+S_CHAIN_SMALL = 128
 FIT_SAMPLES = 5000               # ForwardKinematicsDiffCo.fit's default
+URDF_FIT_SAMPLES = 3000          # the README quick start's
+# The URDF trajopt departs from the README's options in two places. 83 %
+# of FrankaPanda's random configurations collide (mostly self-collision of
+# the generated sphere model), and the 3000-sample proxy leaves
+# free-looking holes there that every optimized path finds: no
+# ground-truth-valid path on the 4 problems, in this package or in the JAX
+# reference (PERF.md, section 6). So it refits on the dense trainer's largest
+# size (14400 training rows), and checks the path at the density the
+# ground truth checks it (10 points per segment, not 4), which took every
+# path clear of the scene on the card.
+URDF_TRAJ_FIT_SAMPLES = 16000
+URDF_TRAJ_DENSE_SUB = 10
 VERIFY_SAMPLES = 16384
 LINK_RADIUS = 0.15
 N_PROBLEMS = 4
 TRAJ_OPTIONS = {'N_WAYPOINTS': 20, 'NUM_RE_TRIALS': 8, 'MAXITER': 300,
                 'max_speed': 2.0, 'dense_sub': 4, 'history': False}
-
-# H100 SXM published peaks (NVIDIA data sheet, at 700 W)
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 
 
 def _phase(name, t0, **info):
@@ -46,24 +67,32 @@ def _phase(name, t0, **info):
 
 
 def _ptxas_report(log):
-    """'kernel<FP>: registers/spill stores' per compiled kernel instance,
-    from nvcc's ``-Xptxas -v`` output."""
-    out, kernel, spill = [], None, None
+    """'kernel<FP>: registers/spill stores/stack frame' per compiled kernel
+    instance, from nvcc's ``-Xptxas -v`` output."""
+    out, kernel, spill, stack = [], None, None, None
     for ln in log.splitlines():
-        m = re.search(r'((?:poly|dh)_score_grad_kernel)ILi(\d+)E', ln)
+        m = re.search(r'((?:poly|dh|chain)_score_grad_kernel)ILi(\d+)E', ln)
         if 'Compiling entry function' in ln and m:
             kernel = f'{m.group(1)}<{m.group(2)}>'
-        m = re.search(r'(\d+) bytes spill stores', ln)
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores',
+                      ln)
         if m:
-            spill = m.group(1)
+            stack, spill = m.group(1), m.group(2)
         m = re.search(r'Used (\d+) registers', ln)
         if m and kernel:
-            out.append(f'{kernel}: {m.group(1)} regs/{spill} B spilled')
+            out.append(f'{kernel}: {m.group(1)} regs/{spill} B spilled/'
+                       f'{stack} B stack')
     return out
 
 
 def _max_err(pairs):
     return max(float((a - b).abs().max()) for a, b in pairs)
+
+
+def _rel_err(pairs):
+    """max |a - b| / max |b| over the pairs (each pair's own scale)."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in pairs)
 
 
 def _check_close(name, a, b, tol):
@@ -76,9 +105,9 @@ def _check_close(name, a, b, tol):
 def _inputs(robot, B, S, dev, seed):
     g = torch.Generator().manual_seed(seed)
     q = robot.rand_configs(B, g, dev)
-    sup = robot.fkine(robot.rand_configs(S, g, dev), flat=True).contiguous()
+    sup = robot.fkine(robot.rand_configs(S, g, dev)).reshape(S, -1)
     w = (torch.randn(S, generator=g) * 0.05).to(dev)
-    return q, sup, w
+    return q, sup.contiguous(), w
 
 
 def check_poly_kernel(robot, dev):
@@ -120,19 +149,73 @@ def check_dh_kernel(robot, dev):
     return dict(args=(q, sup, w, spec), err=err)
 
 
+def check_chain_kernel(dev):
+    """B3 against its plain twin: FrankaPanda at B = 65536 + 37, S = 512
+    (F = 24), and the generated branching trifinger and prismatic + mimic
+    lift rig at B = 4096 + 5, S = 128, so that every joint type runs on
+    the card; then autograd through fk_polyharmonic_score_auto on
+    FrankaPanda against the kernel's dq."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import robot_data
+    from diffco_tpu_torch.ops import fk_score
+    robot_data.ensure_default_assets()
+    cases = [('FrankaPanda', dc.FrankaPanda(load_gripper=True, device=dev),
+              B_RAGGED, S_BENCH)]
+    for name in ('trifinger_simple.urdf', 'lift_rig.urdf'):
+        cases.append((name, dc.URDFRobot(
+            f'{robot_data.data_dir}/{name}', device=dev, setup_acm=False),
+            B_CHAIN_SMALL, S_CHAIN_SMALL))
+    errs, out = [], None
+    for seed, (name, robot, B, S) in enumerate(cases, start=5):
+        t0 = time.perf_counter()
+        q, sup, w = _inputs(robot, B, S, dev, seed=seed)
+        cs = fk_score.robot_chain_statics(robot)
+        score, dq = fk_score.chain_score_grad(q, sup, w, cs)
+        ref, ref_dq = fk_score._chain_score_grad_plain(q, sup, w, cs)
+        torch.cuda.synchronize()
+        _check_close(f'chain_score_grad score ({name})', score, ref, 1e-4)
+        _check_close(f'chain_score_grad dq ({name})', dq, ref_dq, 1e-3)
+        err = _max_err([(score, ref), (dq, ref_dq)])
+        errs.append(err)
+        c = fk_score._c_chain_spec(cs)
+        _phase(f'B3 chain_score_grad vs plain, {name}', t0, B=B, S=S,
+               D=q.shape[1], moving_joints=c.M, points=c.P,
+               max_abs_err=err)
+        if out is None:
+            qg = q.clone().requires_grad_(True)
+            s_auto = fk_score.fk_polyharmonic_score_auto(qg, robot, sup, w)
+            g, = torch.autograd.grad(s_auto.sum(), qg)
+            _check_close('autograd through fk_polyharmonic_score_auto '
+                         '(FrankaPanda)', g, dq, 1e-6)
+            out = dict(args=(q, sup, w, cs))
+    out['err'] = max(errs)
+    return out
+
+
 def _scene():
     import diffco_tpu_torch as dc
+    # the box + sphere of tests/test_checkers.py::panda_world
+    return dc.ShapeEnv({k: v for k, v in _shapes().items()
+                        if k in ('box1', 'sphere1')})
 
+
+def _shapes():
     def T(t):
         m = np.eye(4)
         m[:3, 3] = t
         return m
-    # the box + sphere of tests/test_checkers.py::panda_world
-    return dc.ShapeEnv({
+    # the 4-shape scene of tests/test_checkers.py::panda_world
+    return {
         'box1': {'type': 'Box', 'params': {'extents': [0.1, 0.1, 0.1]},
                  'transform': T([0.5, 0.5, 0.5])},
         'sphere1': {'type': 'Sphere', 'params': {'radius': 0.1},
-                    'transform': T([0.5, 0, 0])}})
+                    'transform': T([0.5, 0, 0])},
+        'cylinder1': {'type': 'Cylinder',
+                      'params': {'radius': 0.1, 'height': 0.2},
+                      'transform': T([0, -0.5, 0.5])},
+        'capsule1': {'type': 'Capsule',
+                     'params': {'radius': 0.1, 'height': 0.2},
+                     'transform': T([0.5, 0.5, 0])}}
 
 
 def _problems(robot, gt, dev, n, seed=7):
@@ -152,37 +235,32 @@ def _problems(robot, gt, dev, n, seed=7):
     raise AssertionError(f'found only {len(pairs)} colliding straight lines')
 
 
-def journey(robot, dev):
-    """The main path through the entry points a user calls."""
-    import diffco_tpu_torch as dc
-    from diffco_tpu_torch import optim
-    from diffco_tpu_torch.ops import fk_score, fused_score
-    from diffco_tpu_torch.utils import dense_path
-    env = _scene()
-    gt_model = dc.CapsuleChainCollision(robot, link_radius=LINK_RADIUS)
-    gt = gt_model.checker_fn(env)
-    checker = dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
-                                         gt_check_func=gt, seed=0)
-
+def _fit(checker, num_samples, tag, verify=True):
     t0 = time.perf_counter()
-    acc, tpr, tnr = checker.fit(num_samples=FIT_SAMPLES)
+    acc, tpr, tnr = checker.fit(num_samples=num_samples)
     torch.cuda.synchronize()
     p = checker.perceptron
-    _phase('fit', t0, samples=FIT_SAMPLES, iterations=p.train_iterations,
-           supports=p.num_valid, acc=acc, tpr=tpr, tnr=tnr,
-           safety_bias=checker.safety_bias)
+    _phase(f'{tag} fit', t0, samples=num_samples,
+           iterations=p.train_iterations, supports=p.num_valid, acc=acc,
+           tpr=tpr, tnr=tnr, safety_bias=checker.safety_bias)
     if not tpr >= 0.9:
-        raise AssertionError(f'fit TPR {tpr} < 0.9')
-
+        raise AssertionError(f'{tag} fit TPR {tpr} < 0.9')
+    if not verify:
+        return
     t0 = time.perf_counter()
     vacc, vtpr, vtnr = checker.verify(num_samples=VERIFY_SAMPLES)
-    _phase('verify', t0, configs=VERIFY_SAMPLES, acc=vacc, tpr=vtpr,
+    _phase(f'{tag} verify', t0, configs=VERIFY_SAMPLES, acc=vacc, tpr=vtpr,
            tnr=vtnr)
 
-    # both sweeps with their gradients, as an optimizer takes them: the
-    # backward of each kernel's autograd Function returns the dq (dx) of the
-    # same launch
+
+def _sweeps(checker, robot, gt, dev, kernel_plain, tag):
+    """Both sweeps with their gradients, as an optimizer takes them: the
+    backward of each kernel's autograd Function returns the dq (dx) of
+    the same launch. Then each sweep's kernel against its plain twin at
+    the fitted supports, with the error beside the values' own scale."""
+    from diffco_tpu_torch.ops import fused_score
     t0 = time.perf_counter()
+    p = checker.perceptron
     q = robot.rand_configs(B_BENCH, torch.Generator().manual_seed(3), dev)
     qg = q.clone().requires_grad_(True)
     xg = robot.fkine(q).requires_grad_(True)
@@ -193,55 +271,128 @@ def journey(robot, dev):
     s_q, s_p, dx = s_q.detach(), s_p.detach(), dx.reshape(B_BENCH, -1)
     torch.cuda.synchronize()
     if s_q.shape != (B_BENCH, 1) or not bool(torch.isfinite(s_q).all()):
-        raise AssertionError('collision_score: bad shape or non-finite')
-    # the same proxy from configurations (B1) and from link points (B2)
-    _check_close('collision_score q vs q_link_pos', s_q, s_p, 1e-3)
-    _phase('collision_score sweeps', t0, configs=B_BENCH,
-           supports=p.support_transformed.shape[0],
+        raise AssertionError(f'{tag} collision_score: bad shape or '
+                             'non-finite')
+    # the same proxy from configurations (B1 / B3) and from link points (B2)
+    _check_close(f'{tag} collision_score q vs q_link_pos', s_q, s_p, 1e-3)
+    _phase(f'{tag} collision_score sweeps', t0, configs=B_BENCH,
+           supports=p.support_transformed.shape[0], F=dx.shape[1],
            gt_agreement=float(((s_q.reshape(-1) > 0) == gt(q)).float()
                               .mean()))
-    # each sweep's kernel against its plain twin at the sweep's own shapes
+    # each sweep's kernel against its plain twin at the fitted supports.
+    # Fitted weights alternate in sign and sum |w_j| r_j far beyond
+    # |score|, so the twin runs in float64 here: in float32 its own
+    # rounding (~1e-4 at these supports) would take up the tolerance
     w = p.rbf_nodes * p.valid_mask.to(p.rbf_nodes.dtype) / p.rbf_kernel.epsilon
     sup = p.support_transformed
+    q64, sup64, w64 = q.double(), sup.double(), w.double()
+    x64 = robot.fkine(q64).reshape(B_BENCH, -1)
     with torch.no_grad():
-        ref_q, ref_dq = fk_score._dh_score_grad_plain(
-            q, sup, w, fk_score.robot_spec(robot))
-        ref_p, ref_dx = fused_score._poly_score_grad_plain(
-            robot.fkine(q, flat=True), sup, w)
+        ref_q, ref_dq = kernel_plain(q64, sup64, w64)
+        ref_p, ref_dx = fused_score._poly_score_grad_plain(x64, sup64, w64)
+        twin_q, twin_dq = kernel_plain(q, sup, w)
+        cond = max(float((torch.cdist(xc, sup64) * w64.abs()).sum(1).max())
+                   for xc in torch.split(x64, 8192))
     bias = checker.safety_bias
-    _check_close('collision_score(q) vs plain twin', s_q.reshape(-1) - bias,
-                 ref_q, 1e-4)
-    _check_close('collision_score(q) dq vs plain twin', dq, ref_dq, 1e-3)
-    _check_close('collision_score(q_link_pos) vs plain twin',
-                 s_p.reshape(-1) - bias, ref_p, 1e-4)
-    _check_close('collision_score(q_link_pos) dx vs plain twin', dx, ref_dx,
-                 1e-3)
-    print(f'sweeps vs plain twins at S = {sup.shape[0]}: max_abs_err '
-          f'B1 {_max_err([(s_q.reshape(-1) - bias, ref_q), (dq, ref_dq)])} '
-          f'B2 {_max_err([(s_p.reshape(-1) - bias, ref_p), (dx, ref_dx)])}',
-          flush=True)
+    out_q = (s_q.reshape(-1) - bias).double()
+    out_p = (s_p.reshape(-1) - bias).double()
+    _check_close(f'{tag} collision_score(q) vs plain twin', out_q, ref_q,
+                 1e-4)
+    _check_close(f'{tag} collision_score(q) dq vs plain twin', dq.double(),
+                 ref_dq, 1e-3)
+    _check_close(f'{tag} collision_score(q_link_pos) vs plain twin', out_p,
+                 ref_p, 1e-4)
+    _check_close(f'{tag} collision_score(q_link_pos) dx vs plain twin',
+                 dx.double(), ref_dx, 1e-3)
+    pq = [(out_q, ref_q), (dq.double(), ref_dq)]
+    pp = [(out_p, ref_p), (dx.double(), ref_dx)]
+    tw = [(twin_q.double(), ref_q), (twin_dq.double(), ref_dq)]
+    print(f'{tag} sweeps vs the plain twin in float64 at S = {sup.shape[0]}:'
+          f' from q max_abs_err score {_max_err(pq[:1])} grad '
+          f'{_max_err(pq[1:])}; from points score {_max_err(pp[:1])} grad '
+          f'{_max_err(pp[1:])}; the float32 plain twin itself score '
+          f'{_max_err(tw[:1])} grad {_max_err(tw[1:])}; max |score| '
+          f'{float(ref_q.abs().max())}, max |dq| '
+          f'{float(ref_dq.abs().max())}, max sum_j |w_j| r_j {cond}; '
+          f'max_rel_err (to max |score|, max |dq|) from q score '
+          f'{_rel_err(pq[:1])} grad {_rel_err(pq[1:])}', flush=True)
 
+
+def _trajopt(checker, robot, gt, dev, tag, **options):
+    from diffco_tpu_torch import optim
+    from diffco_tpu_torch.utils import dense_path
     t0 = time.perf_counter()
     results = []
     for i, (start, target) in enumerate(_problems(robot, gt, dev,
                                                   N_PROBLEMS)):
         opts = dict(TRAJ_OPTIONS, seed=i,
-                    safety_margin=-checker.safety_bias)
+                    safety_margin=-checker.safety_bias, **options)
         rec = optim.adam_traj_optimize(
             robot, lambda pp: checker.collision_score(pp, bias=0)
             .reshape(-1), start, target, opts)
         sol = torch.as_tensor(rec['solution'], device=dev)
-        gt_free = not bool(gt(dense_path(sol, 10)).any())
-        results.append((rec['success'], gt_free, rec['cost'], rec['time']))
+        hits = int(gt(dense_path(sol, 10)).sum())
+        results.append((rec['success'], hits == 0, rec['cost'], rec['time'],
+                        hits))
     torch.cuda.synchronize()
-    _phase('trajopt', t0, problems=N_PROBLEMS,
+    _phase(f'{tag} trajopt', t0, problems=N_PROBLEMS,
            success=[r[0] for r in results], gt_valid=[r[1] for r in results],
+           gt_hits_of_191=[r[4] for r in results],
            cost=[round(r[2], 4) for r in results],
            seconds=[round(r[3], 2) for r in results])
     if not all(math.isfinite(r[2]) for r in results):
-        raise AssertionError('trajopt: non-finite cost')
+        raise AssertionError(f'{tag} trajopt: non-finite cost')
     if not any(r[1] for r in results):
-        raise AssertionError('trajopt: no ground-truth-valid path')
+        raise AssertionError(f'{tag} trajopt: no ground-truth-valid path')
+
+
+def journey(robot, dev):
+    """The PandaFK path through the entry points a user calls."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.ops import fk_score
+    env = _scene()
+    gt = dc.CapsuleChainCollision(robot, link_radius=LINK_RADIUS) \
+        .checker_fn(env)
+    checker = dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
+                                         gt_check_func=gt, seed=0,
+                                         device=dev)
+    _fit(checker, FIT_SAMPLES, 'PandaFK')
+    spec = fk_score.robot_spec(robot)
+    _sweeps(checker, robot, gt, dev,
+            lambda q, s, w: fk_score._dh_score_grad_plain(q, s, w, spec),
+            'PandaFK')
+    _trajopt(checker, robot, gt, dev, 'PandaFK')
+
+
+def urdf_journey(dev):
+    """The README quick start at the flagship test's width
+    (tests/test_checkers.py::test_fk_diffco_panda_fit): FrankaPanda with
+    24-sphere links and the ACM in the 4-shape scene, the robot's own
+    ground truth (environment + self collision); fit on 3000 samples,
+    verify and the sweeps; then a refit on URDF_TRAJ_FIT_SAMPLES for the
+    trajectory optimization, which checks its paths URDF_TRAJ_DENSE_SUB
+    points per segment."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.ops import fk_score
+    t0 = time.perf_counter()
+    robot = dc.FrankaPanda(load_gripper=True, setup_acm=True,
+                           link_spheres=24, device=dev)
+    env = dc.ShapeEnv(_shapes())
+    checker = dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
+                                         seed=0, device=dev)
+    gt = checker.gt_check_func
+    _phase('FrankaPanda robot', t0, urdf=robot.urdf_path.split('/')[-1],
+           dof=robot.dof, spheres=robot.link_sphere_centers.shape[0],
+           self_pairs=robot._self_pair_i.shape[0],
+           control_points=len(robot.unique_position_link_names))
+    _fit(checker, URDF_FIT_SAMPLES, 'FrankaPanda')
+    cs = fk_score.robot_chain_statics(robot)
+    _sweeps(checker, robot, gt, dev,
+            lambda q, s, w: fk_score._chain_score_grad_plain(q, s, w, cs),
+            'FrankaPanda')
+    _fit(checker, URDF_TRAJ_FIT_SAMPLES, 'FrankaPanda trajopt', verify=False)
+    _trajopt(checker, robot, gt, dev, 'FrankaPanda',
+             dense_sub=URDF_TRAJ_DENSE_SUB)
 
 
 def _time_ms(fn, warmup, iters):
@@ -257,75 +408,70 @@ def _time_ms(fn, warmup, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def _bound(bytes_moved, ops):
-    t_bytes = bytes_moved / PEAK_HBM_BYTES
-    t_ops = ops / PEAK_FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes > t_ops
-                                       else 'operations')
-
-
-def _dh_ops(J, P):
-    """fp32 operations of one configuration's DH FK and suffix-sum backward,
-    counted from csrc/dh_chain.cuh (an FMA is 2): per joint 66 for the
-    transform compose (incl. sin and cos) and 17 for dq_j; per point 18 to
-    place it and 21 to fold its gradient into the suffix sums."""
-    return 83 * J + 39 * P
-
-
-def _score_ops(B, S, F):
-    """fp32 operations the score block's function needs, counted in the
-    expanded form ||x||^2 + ||s||^2 - 2 x.s that the TPU kernel computes
-    (an FMA is 2, an rsqrt 1): per pair 2F for x.s, 3 to form d2, 2 for the
-    clamp and the 1e-12 floor, 1 rsqrt, 1 for r, 2 for the score, 2 for
-    rowsum and 2F for su; per row 2F for ||x||^2 and 2F for dx; per support
-    2F for ||s||^2. The kernels' direct difference sum (x - s)^2 does F
-    more per pair, which the bound does not count."""
-    return B * S * (4 * F + 11) + B * 4 * F + S * 2 * F
-
-
-def kernel_table(b2, b1, launches):
+def kernel_table(b2, b1, b3, launches):
     """Time each kernel and its plain twin at the checked shapes; the bound
     counts each input read once and each output written once, and
-    ``_score_ops`` for the score block (plus ``_dh_ops`` per configuration
-    for B1's FK and its backward)."""
+    ``score_ops`` for the score block, plus per configuration ``dh_ops``
+    (B1) or ``chain_ops`` (B3) for the FK and its backward
+    (diffco_tpu_torch/ops/bounds.py)."""
     from diffco_tpu_torch.ops import fk_score, fused_score
     x, sup, w = b2['args']
     B, F = x.shape
     S = sup.shape[0]
-    ops2 = _score_ops(B, S, F)
-    bytes2 = 4 * (B * F + S * F + S + B + B * F)
-    bound2, by2 = _bound(bytes2, ops2)
+    bound2, by2 = bound(4 * (B * F + S * F + S + B + B * F),
+                        score_ops(B, S, F))
     q, sup1, w1, spec = b1['args']
     B1, J = q.shape
     S1, F1 = sup1.shape
-    point_specs = spec[1]
-    ops1 = _score_ops(B1, S1, F1) + _dh_ops(J, len(point_specs)) * B1
-    bytes1 = 4 * (B1 * J + S1 * F1 + S1 + B1 + B1 * J)
-    bound1, by1 = _bound(bytes1, ops1)
-    rows = [
-        dict(name='poly_score_grad', route='cuda',
-             source='diffco_tpu_torch/csrc/poly_score.cu',
-             replaces='diffco_tpu/ops/fused_score.py:138',
-             shape=[B, S, F], launches=launches['poly_score_grad'],
-             max_abs_err=b2['err'],
-             ms=_time_ms(lambda: fused_score.poly_score_grad(x, sup, w),
-                         5, 50),
-             plain_ms=_time_ms(
-                 lambda: fused_score._poly_score_grad_plain(x, sup, w), 1, 3),
-             bound_ms=bound2, bound_by=by2, library_ms=None),
-        dict(name='dh_score_grad', route='cuda',
-             source='diffco_tpu_torch/csrc/dh_score.cu',
-             replaces='diffco_tpu/ops/fk_score.py:505',
-             shape=[B1, S1, J], launches=launches['dh_score_grad'],
-             max_abs_err=b1['err'],
-             ms=_time_ms(lambda: fk_score.dh_score_grad(q, sup1, w1, spec),
-                         5, 50),
-             plain_ms=_time_ms(
-                 lambda: fk_score._dh_score_grad_plain(q, sup1, w1, spec),
-                 1, 3),
-             bound_ms=bound1, bound_by=by1, library_ms=None),
+    bound1, by1 = bound(fk_score_bytes(B1, S1, F1, J),
+                        score_ops(B1, S1, F1)
+                        + dh_ops(J, len(spec[1])) * B1)
+    q3, sup3, w3, cs = b3['args']
+    B3, D = q3.shape
+    S3, F3 = sup3.shape
+    bound3, by3 = bound(fk_score_bytes(B3, S3, F3, D),
+                        score_ops(B3, S3, F3)
+                        + chain_ops(fk_score._c_chain_spec(cs)) * B3)
+
+    def row(name, source, replaces, shape, check, fn, plain, b, by):
+        return dict(name=name, route='cuda', source=source,
+                    replaces=replaces, shape=shape,
+                    launches=sum(n[name] for n in launches.values()),
+                    launches_by_path={k: n[name]
+                                      for k, n in launches.items()},
+                    max_abs_err=check['err'], ms=_time_ms(fn, 5, 50),
+                    plain_ms=_time_ms(plain, 1, 3), bound_ms=b, bound_by=by,
+                    library_ms=None)
+
+    return [
+        row('poly_score_grad', 'diffco_tpu_torch/csrc/poly_score.cu',
+            'diffco_tpu/ops/fused_score.py:138', [B, S, F], b2,
+            lambda: fused_score.poly_score_grad(x, sup, w),
+            lambda: fused_score._poly_score_grad_plain(x, sup, w),
+            bound2, by2),
+        row('dh_score_grad', 'diffco_tpu_torch/csrc/dh_score.cu',
+            'diffco_tpu/ops/fk_score.py:505', [B1, S1, J], b1,
+            lambda: fk_score.dh_score_grad(q, sup1, w1, spec),
+            lambda: fk_score._dh_score_grad_plain(q, sup1, w1, spec),
+            bound1, by1),
+        row('chain_score_grad', 'diffco_tpu_torch/csrc/chain_score.cu',
+            'diffco_tpu/ops/fk_score.py:587', [B3, S3, D], b3,
+            lambda: fk_score.chain_score_grad(q3, sup3, w3, cs),
+            lambda: fk_score._chain_score_grad_plain(q3, sup3, w3, cs),
+            bound3, by3),
     ]
-    return rows
+
+
+def _read_launches(fused_score, fk_score):
+    return {'poly_score_grad': fused_score.poly_score_grad_launches,
+            'dh_score_grad': fk_score.dh_score_grad_launches,
+            'chain_score_grad': fk_score.chain_score_grad_launches}
+
+
+def _zero_launches(fused_score, fk_score):
+    fused_score.poly_score_grad_launches = 0
+    fk_score.dh_score_grad_launches = 0
+    fk_score.chain_score_grad_launches = 0
 
 
 def main():
@@ -357,20 +503,27 @@ def main():
     robot = dc.PandaFK()
     b2 = check_poly_kernel(robot, dev)
     b1 = check_dh_kernel(robot, dev)
+    b3 = check_chain_kernel(dev)
 
-    # count only the main path's launches
-    fused_score.poly_score_grad_launches = 0
-    fk_score.dh_score_grad_launches = 0
+    # count only each main path's own launches
+    launches = {}
+    _zero_launches(fused_score, fk_score)
     journey(robot, dev)
-    launches = {'poly_score_grad': fused_score.poly_score_grad_launches,
-                'dh_score_grad': fk_score.dh_score_grad_launches}
-    print(f'launches on the main path: {launches}', flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f'{k} was never launched on the main path')
+    launches['PandaFK'] = _read_launches(fused_score, fk_score)
+    _zero_launches(fused_score, fk_score)
+    urdf_journey(dev)
+    launches['FrankaPanda'] = _read_launches(fused_score, fk_score)
+    print(f'launches on the main paths: {launches}', flush=True)
+    for path, k in (('PandaFK', 'poly_score_grad'),
+                    ('PandaFK', 'dh_score_grad'),
+                    ('FrankaPanda', 'poly_score_grad'),
+                    ('FrankaPanda', 'chain_score_grad')):
+        if launches[path][k] <= 0:
+            raise AssertionError(f'{k} was never launched on the {path} '
+                                 'path')
 
     t0 = time.perf_counter()
-    rows = kernel_table(b2, b1, launches)
+    rows = kernel_table(b2, b1, b3, launches)
     _phase('kernel timing', t0)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.perf_counter() - t_start:.1f}s', flush=True)

@@ -2,10 +2,12 @@
 
 Differentiable kernel-perceptron collision proxies for motion planning,
 on PyTorch tensors, with hand-written CUDA kernels (``csrc/``) on the
-hot paths. This slice holds the main path: the ``PandaFK`` DH robot and
-its analytic FK derivatives, a ``ShapeEnv`` scene with the
-``CapsuleChainCollision`` ground truth, ``ForwardKinematicsDiffCo`` (fit,
-verify, collision_score) and Adam trajectory optimization.
+hot paths. It holds the ``PandaFK`` DH robot and the URDF robots
+(``URDFRobot``, ``FrankaPanda`` and the other convenience robots) with
+their analytic FK derivatives, a ``ShapeEnv`` scene with the
+``CapsuleChainCollision`` or sphere-model ground truth,
+``ForwardKinematicsDiffCo`` (fit, verify, collision_score) and Adam
+trajectory optimization.
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; they
 raise rather than fall back when no card is present. Nothing here imports
@@ -18,6 +20,8 @@ from . import optim
 from .device import resolve_device
 from .robots import Model, DHParameters, DHChainRobot, PandaFK
 from .robots.capsule_chain import CapsuleChainCollision
+from .robots.urdf import (URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot,
+                          TrifingerEdu, parse_urdf, robot_description_folder)
 from .envs import ShapeEnv
 from .perceptron import Perceptron, DiffCo
 from .checkers import CollisionChecker, RBFDiffCo, ForwardKinematicsDiffCo
@@ -25,7 +29,9 @@ from .convert import load_reference_state
 
 __all__ = [
     'utils', 'kernels', 'optim', 'resolve_device', 'Model', 'DHParameters',
-    'DHChainRobot', 'PandaFK', 'CapsuleChainCollision', 'ShapeEnv',
+    'DHChainRobot', 'PandaFK', 'CapsuleChainCollision', 'URDFRobot',
+    'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu', 'parse_urdf',
+    'robot_description_folder', 'ShapeEnv',
     'Perceptron', 'DiffCo', 'CollisionChecker', 'RBFDiffCo',
     'ForwardKinematicsDiffCo', 'load_reference_state',
 ]

@@ -12,6 +12,7 @@ seed gives the same datasets on every device.
 """
 from __future__ import annotations
 
+import os
 from functools import partial
 from typing import Dict
 
@@ -22,6 +23,7 @@ from . import kernels as kernel
 from .device import fp32_matmul, resolve_device
 from .envs.shape_env import ShapeEnv
 from .perceptron import DiffCo
+from .robots.urdf import URDFRobot
 
 
 class CollisionChecker:
@@ -32,14 +34,18 @@ class CollisionChecker:
                  environment=None, robot_topic=None,
                  planning_scene_topic=None, gt_check_func=None,
                  device=None, seed: int = 0, mesh=None):
-        del robot_base_transform, planning_scene_topic
+        del planning_scene_topic
         self.device = resolve_device(device)
         if mesh is not None:
             raise NotImplementedError(
                 'mesh= is not ported yet (ROADMAP A15, torch.distributed)')
         if isinstance(robot, str):
-            raise NotImplementedError(
-                'URDF robots are not ported yet (ROADMAP A10)')
+            if not os.path.isfile(robot):
+                raise ValueError('Invalid robot URDF file path')
+            name = os.path.basename(robot).split('.')[0]
+            robot = URDFRobot(robot, name=name,
+                              base_transform=robot_base_transform,
+                              device=self.device)
         if robot_topic is not None:
             raise NotImplementedError(
                 'ROS robots are not ported yet (ROADMAP A15)')
@@ -73,6 +79,10 @@ class CollisionChecker:
 
     def collision(self, q):
         return self._gt_labels(q)
+
+    def fkine(self, q, return_collision=False, **kwargs):
+        return self.robot.compute_forward_kinematics_all_links(
+            q, return_collision=return_collision, **kwargs)
 
     def normalizer(self, unnormalized_q):
         raise NotImplementedError
@@ -113,8 +123,9 @@ class RBFDiffCo(CollisionChecker):
                  planning_scene_topic=None, gt_check_func=None, device=None,
                  kernel_func=None, perceptron_class=DiffCo, seed: int = 0,
                  mesh=None, **perceptron_kwargs):
-        super().__init__(robot=robot, environment=environment,
-                         robot_topic=robot_topic,
+        super().__init__(robot=robot,
+                         robot_base_transform=robot_base_transform,
+                         environment=environment, robot_topic=robot_topic,
                          gt_check_func=gt_check_func, device=device,
                          seed=seed, mesh=mesh)
         if kernel_func is None:
@@ -301,10 +312,14 @@ class ForwardKinematicsDiffCo(RBFDiffCo):
                  perceptron_class=DiffCo, seed: int = 0, mesh=None,
                  **perceptron_kwargs):
         CollisionChecker.__init__(
-            self, robot=robot, environment=environment,
-            robot_topic=robot_topic, gt_check_func=gt_check_func,
-            device=device, seed=seed, mesh=mesh)
+            self, robot=robot, robot_base_transform=robot_base_transform,
+            environment=environment, robot_topic=robot_topic,
+            gt_check_func=gt_check_func, device=device, seed=seed,
+            mesh=mesh)
         self.tensorized_fkine = self.robot.fkine
+        if hasattr(self.robot, 'unique_position_link_names'):
+            self.unique_position_link_names = \
+                self.robot.unique_position_link_names
         self.kernel_func = kernel.RQKernel(
             perceptron_kwargs.pop('gamma', 10))
         self.kernel_transform = self.tensorized_fkine

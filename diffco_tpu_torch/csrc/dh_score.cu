@@ -14,7 +14,7 @@
 // What bounds it on this card: arithmetic. At the main path's shape
 // (B = 65536, S = 512, P = 7 so F = 21) the score block's function needs
 // about B*S*(4F + 11) fp32 operations, rsqrt included (~3.2 GFLOP; the
-// direct difference here costs 5F + 8 per pair, about F more); FK and its
+// direct difference and compensated score here cost 5F + 14); FK and its
 // backward add ~850 operations per configuration; the bytes in and out
 // are ~4 MB. So the CUDA cores (67 TFLOP/s fp32), not HBM, set the floor.
 //
@@ -60,20 +60,20 @@ dh_score_grad_kernel(const float* __restrict__ q, const float* __restrict__ s,
     float az[3 * kMaxJ], ao[3 * kMaxJ];  // dead here: recomputed below
     dh_chain<KP>(qr, sp, x, az, ao);
   }
-  float sc = 0.f, rs = 0.f;
+  float sc = 0.f, scc = 0.f, rs = 0.f;
   const int F = 3 * sp.P;
   for (int c0 = 0; c0 < S; c0 += kChunk) {
     const int n = min(kChunk, S - c0);
     __syncthreads();
     stage_supports<FP>(s, w, c0, n, F, s_sh, w_sh);
     __syncthreads();
-    score_grad_accumulate<FP>(x, s_sh, w_sh, n, sc, rs, su);
+    score_grad_accumulate<FP>(x, s_sh, w_sh, n, sc, scc, rs, su);
   }
   float az[3 * kMaxJ], ao[3 * kMaxJ], dqr[kMaxJ];
   dh_chain<KP>(qr, sp, x, az, ao);
   dh_backward<KP>(sp, x, az, ao, rs, su, dqr);
   if (live) {
-    score[b] = sc;
+    score[b] = sc + scc;
 #pragma unroll
     for (int j = 0; j < kMaxJ; ++j)
       if (j < J) dq[static_cast<size_t>(b) * J + j] = dqr[j];

@@ -13,8 +13,9 @@
 // fp32 operations, rsqrt included (~3.2 GFLOP, counted in the TPU kernel's
 // expanded form ||x||^2 + ||s||^2 - 2 x.s), and moves ~11 MB in and out,
 // so the CUDA cores (67 TFLOP/s fp32), not HBM (3.35 TB/s), set the floor.
-// The direct difference of score_block.cuh costs 5F + 8 per pair, about
-// F more (113 against 95 at F = 21), and has no cancellation.
+// The direct difference and compensated score sum of score_block.cuh
+// cost 5F + 14 per pair (119 against 95 at F = 21), and the difference
+// has no cancellation.
 //
 // Design: one thread per query row (128 per block) keeps its row, its
 // running score/rowsum and the F-vector su in registers; F is padded to
@@ -47,16 +48,16 @@ poly_score_grad_kernel(const float* __restrict__ x,
     xr[f] = (live && f < F) ? x[static_cast<size_t>(b) * F + f] : 0.f;
     su[f] = 0.f;
   }
-  float sc = 0.f, rs = 0.f;
+  float sc = 0.f, scc = 0.f, rs = 0.f;
   for (int c0 = 0; c0 < S; c0 += kChunk) {
     const int n = min(kChunk, S - c0);
     __syncthreads();
     stage_supports<FP>(s, w, c0, n, F, s_sh, w_sh);
     __syncthreads();
-    score_grad_accumulate<FP>(xr, s_sh, w_sh, n, sc, rs, su);
+    score_grad_accumulate<FP>(xr, s_sh, w_sh, n, sc, scc, rs, su);
   }
   if (live) {
-    score[b] = sc;
+    score[b] = sc + scc;
 #pragma unroll
     for (int f = 0; f < FP; ++f)
       if (f < F) dx[static_cast<size_t>(b) * F + f] = xr[f] * rs - su[f];

@@ -131,8 +131,8 @@ def scene_from_dict(shapes: Dict[str, dict], dtype=torch.float32
             cap_n.append(name)
         elif kind == 'Mesh':
             raise NotImplementedError(
-                'Mesh obstacles need geometry/mesh.py, not ported yet '
-                '(ROADMAP A6, mesh obstacles)')
+                'Mesh obstacles are not ported yet (ROADMAP A6, mesh '
+                'obstacles)')
         else:
             raise ValueError(f'unknown shape type {kind}')
 
@@ -170,3 +170,13 @@ def spheres_vs_scene_signed_dist(centers, radii, scene: SceneArrays):
     sdf = scene.point_sdf_per_object(centers)       # [..., P, n_objects]
     signed = radii[:, None] - sdf
     return torch.amax(signed, dim=-2)
+
+
+def sphere_set_self_distance(centers, radii, pair_i, pair_j):
+    """Signed distance of selected sphere pairs (self-collision):
+    centers [..., P, 3] -> [..., n_pairs]; >0 = overlap. pair_i/j index
+    the sphere arrays."""
+    ci, cj = centers[..., pair_i, :], centers[..., pair_j, :]
+    rr = radii[pair_i] + radii[pair_j]
+    d = torch.sqrt(torch.sum((ci - cj) ** 2, -1) + 1e-12)
+    return rr - d

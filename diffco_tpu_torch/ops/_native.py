@@ -32,6 +32,9 @@ _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 MAX_J = 8    # dh_chain.cuh kMaxJ
 MAX_P = 16   # dh_chain.cuh kMaxP
 MAX_F = 64   # poly_score.cu: F padded to a multiple of 8, at most 64
+MAX_M = 16   # chain_fk.cuh kMaxM (moving joints)
+MAX_D = 16   # chain_fk.cuh kMaxD (dofs)
+MAX_CP = 21  # chain_fk.cuh kMaxCP (control points)
 
 
 class DHSpec(ctypes.Structure):
@@ -43,6 +46,23 @@ class DHSpec(ctypes.Structure):
                 ('off', (ctypes.c_float * 3) * MAX_P),
                 ('base_r', ctypes.c_float * 9),
                 ('base_t', ctypes.c_float * 3)]
+
+
+class ChainSpec(ctypes.Structure):
+    """Mirror of ``struct ChainSpec`` in csrc/chain_fk.cuh."""
+    _fields_ = [('M', ctypes.c_int),
+                ('P', ctypes.c_int),
+                ('D', ctypes.c_int),
+                ('mparent', ctypes.c_int * MAX_M),
+                ('jtype', ctypes.c_int * MAX_M),
+                ('dof', ctypes.c_int * MAX_M),
+                ('mult', ctypes.c_float * MAX_M),
+                ('off', ctypes.c_float * MAX_M),
+                ('axis', (ctypes.c_float * 3) * MAX_M),
+                ('pre_r', (ctypes.c_float * 9) * MAX_M),
+                ('pre_t', (ctypes.c_float * 3) * MAX_M),
+                ('pframe', ctypes.c_int * MAX_CP),
+                ('poff', (ctypes.c_float * 3) * MAX_CP)]
 
 
 _libs = {}
@@ -116,6 +136,10 @@ def _bind(libs):
     fn = libs['dh_score'].dh_score_grad
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
                    ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
+    fn = libs['chain_score'].chain_score_grad
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
+                   ctypes.POINTER(ChainSpec), ptr]
     fn.restype = cint
 
 

@@ -1,0 +1,133 @@
+"""Least-time bounds of the repo's seven TPU kernels (B1-B7) on one H100.
+
+A bound is the larger of two times for the same work: the bytes the
+function must move (each input read once, each output written once) over
+the card's memory rate, and the fp32 operations it needs over the card's
+fp32 rate (an FMA is 2 operations, an rsqrt, sin or cos 1). Score-block
+operations are counted in the TPU kernels' expanded form
+``||x||^2 + ||s||^2 - 2 x.s``; FK and backward operations are counted
+from the hand-written CUDA code (``csrc/dh_chain.cuh``,
+``csrc/chain_fk.cuh``) or, for the kernels not ported yet, from the ported
+kernels they extend. ``chip_smoke.py`` computes B1-B3's bounds with these
+functions from each run's inputs;
+
+    python3 -m diffco_tpu_torch.ops.bounds
+
+prints the bounds of all seven at the shapes PERF.md states (no card
+needed: this is arithmetic on shapes).
+"""
+from __future__ import annotations
+
+import json
+
+# H100 SXM published peaks (NVIDIA data sheet, at 700 W)
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(bytes_moved, ops):
+    """(least ms, 'bytes' or 'operations')."""
+    t_bytes = bytes_moved / PEAK_HBM_BYTES
+    t_ops = ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes > t_ops
+                                       else 'operations')
+
+
+def score_ops(B, S, F, C=1):
+    """Score block with C weight columns: per pair 2F (x.s) + 3 (form d2)
+    + 2 (clamp, 1e-12 floor) + 1 rsqrt + 1 (r) shared, and per class 2
+    (score) + 2 (rowsum) + 2F (su); per row 2F (||x||^2) and 2F per class
+    (dx); per support 2F (||s||^2)."""
+    return (B * S * (2 * F + 7 + C * (2 * F + 4)) + B * 2 * F * (1 + C)
+            + S * 2 * F)
+
+
+def dh_ops(J, P, C=1):
+    """DH FK and suffix-sum backward per configuration, from
+    csrc/dh_chain.cuh: per joint 66 for the transform compose (sin and
+    cos included) and per point 18 to place it, once; per class 17 per
+    joint for dq_j and 21 per point to fold its gradient into the suffix
+    sums."""
+    return 66 * J + 18 * P + C * (17 * J + 21 * P)
+
+
+def chain_ops(c, C=1):
+    """General-chain FK and moving-ancestor backward per configuration,
+    from csrc/chain_fk.cuh, for a folded ``_native.ChainSpec`` ``c``.
+    Once: per moving joint 63 (parent x pre-transform), 2 (theta), 15
+    (world axis), then 2 (sin, cos) + 34 (Rodrigues) + 45 (rotation
+    compose) for a revolute joint or 6 (slide) for a prismatic one; per
+    point on a moving frame 18 to place it. Per class: 6 per point for
+    its gradient, and per (point, moving ancestor) pair 19 (revolute: the
+    lever arm, cross, dot, scaled add) or 7 (prismatic)."""
+    fk, pairs = 0, 0
+    for m in range(c.M):
+        fk += 80 + (81 if c.jtype[m] == 1 else 6)
+    for k in range(c.P):
+        m = c.pframe[k]
+        fk += 18 if m >= 0 else 0
+        while m >= 0:
+            pairs += 19 if c.jtype[m] == 1 else 7
+            m = c.mparent[m]
+    return fk + C * (6 * c.P + pairs)
+
+
+def fk_score_bytes(B, S, F, D, C=1):
+    """q [B, D] + s [S, F] + w [S, C] in; score [B, C] + dq [C, B, D]
+    out; fp32."""
+    return 4 * (B * D + S * F + S * C + B * C + C * B * D)
+
+
+def table():
+    """Bounds of B1-B7 at the shapes PERF.md states: B = 65536, S = 512;
+    PandaFK (J = 7, P = 7, F = 21) for the DH kernels, FrankaPanda's
+    generated panda_simple chain (D = M = 7, P = 8, F = 24, 45 point /
+    ancestor pairs) for the chain kernels, C = 2 for the multi-class
+    ones."""
+    from ..robots.urdf import FrankaPanda
+    from .fk_score import _c_chain_spec, robot_chain_statics
+    B, S = 65536, 512
+    J, P, F = 7, 7, 21
+    panda = _c_chain_spec(robot_chain_statics(FrankaPanda(
+        device='cpu', setup_acm=False, link_spheres=1)))
+    rows = {}
+
+    def put(key, bytes_moved, ops, shape):
+        ms, by = bound(bytes_moved, ops)
+        rows[key] = dict(shape=shape, bytes=bytes_moved, ops=ops,
+                         bound_ms=ms, bound_by=by)
+
+    put('B1', fk_score_bytes(B, S, F, J),
+        score_ops(B, S, F) + B * dh_ops(J, P), dict(B=B, S=S, J=J, F=F))
+    put('B2', 4 * (B * F + S * F + S + B + B * F), score_ops(B, S, F),
+        dict(B=B, S=S, F=F))
+    put('B3', fk_score_bytes(B, S, 24, 7),
+        score_ops(B, S, 24) + B * chain_ops(panda),
+        dict(B=B, S=S, D=7, F=24))
+    put('B4', fk_score_bytes(B, S, F, J, C=2),
+        score_ops(B, S, F, C=2) + B * dh_ops(J, P, C=2),
+        dict(B=B, S=S, J=J, F=F, C=2))
+    put('B5', fk_score_bytes(B, S, 24, 7, C=2),
+        score_ops(B, S, 24, C=2) + B * chain_ops(panda, C=2),
+        dict(B=B, S=S, D=7, F=24, C=2))
+    put('B6', fk_score_bytes(B, S, F, J),
+        score_ops(B, S, F) + B * dh_ops(J, P), dict(B=B, S=S, J=J, F=F))
+    # B7: the ablations of scripts/roofline_fk_score.py::make_ablations,
+    # each writing one float per configuration
+    fk = 66 * J + 18 * P
+    q_out = 4 * (B * J + B)
+    put('B7 fk_only', q_out, B * (fk + 3 * P), dict(B=B, J=J, P=P))
+    put('B7 mxu', q_out + 4 * S * F, B * fk + B * S * (2 * F + 1),
+        dict(B=B, S=S, J=J, F=F))
+    put('B7 mxu_rsqrt', q_out + 4 * S * F,
+        B * fk + B * S * (2 * F + 9) + B * 2 * F + S * 2 * F,
+        dict(B=B, S=S, J=J, F=F))
+    put('B7 fwd', q_out + 4 * (S * F + S),
+        B * fk + B * S * (2 * F + 9) + B * 2 * F + S * 2 * F,
+        dict(B=B, S=S, J=J, F=F))
+    return rows
+
+
+if __name__ == '__main__':
+    for k, v in table().items():
+        print(json.dumps(dict(kernel=k, **v)))

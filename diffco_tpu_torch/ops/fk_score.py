@@ -1,12 +1,15 @@
-"""DH-chain FK + polyharmonic score + configuration gradient (PyTorch
-counterpart of ``diffco_tpu/ops/fk_score.py``, DH branch).
+"""Chain FK + polyharmonic score + configuration gradient (PyTorch
+counterpart of ``diffco_tpu/ops/fk_score.py``, DH and general-chain
+branches).
 
 The trajopt inner-loop primitive is ``score(fkine(q))`` with its gradient
-in ``q``. At batch >= ``_FK_FUSED_MIN_BATCH`` a DH robot runs it through
-``dh_score_grad``: FK, score and the suffix-sum backward in one pass (the
-hand-written CUDA kernel ``csrc/dh_score.cu`` for a CUDA tensor, its plain
-twin ``_dh_score_grad_plain`` for a CPU tensor). Below the gate, and for
-robots that are not DH chains, it is FK + ``polyharmonic_score``.
+in ``q``. At batch >= ``_FK_FUSED_MIN_BATCH`` it runs FK, score and the
+configuration gradient in one pass: ``dh_score_grad`` for a DH robot (the
+hand-written CUDA kernel ``csrc/dh_score.cu``) and ``chain_score_grad``
+for a URDF robot (``csrc/chain_score.cu``), each with a plain twin
+(``_dh_score_grad_plain``, ``_chain_score_grad_plain``) that a CPU tensor
+runs. Below the gate, and for other robots, it is FK +
+``polyharmonic_score``.
 """
 from __future__ import annotations
 
@@ -14,19 +17,25 @@ import ctypes
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import _native
 from .fused_score import _poly_score_grad_plain, polyharmonic_score
 from ..robots.analytic import DHChainRobot
-from ..robots.fk_jvp import _IDENT9, _ZERO3, DHStatics, dh_chain, dh_vjp
+from ..robots.fk_jvp import (_FIXED, _IDENT9, _ZERO3, ChainStatics,
+                             DHStatics, chain_vjp, dh_chain, dh_vjp,
+                             eval_chain)
+from ..robots.soa import stack_points
+from ..robots.urdf import URDFRobot
 
 # the JAX package's batch gate (fk_score.py:693-701), kept as the contract:
 # below it the route stays twice-differentiable in every argument
 _FK_FUSED_MIN_BATCH = 4096
 
-# launches of the CUDA kernel (not of the plain twin), for run accounting
+# launches of each CUDA kernel (not of the plain twins), for run accounting
 dh_score_grad_launches = 0
+chain_score_grad_launches = 0
 
 
 def robot_spec(robot) -> Tuple:
@@ -119,14 +128,15 @@ def dh_score_grad(q, s, w, spec):
     return score, dq
 
 
-class _DHPolyScore(torch.autograd.Function):
-    """score [B, 1] whose VJP is ``g * dq`` from the same pass. Supports
+class _FKPolyScore(torch.autograd.Function):
+    """score [B, 1] whose VJP is ``g * dq`` from the same pass of
+    ``score_grad`` (``dh_score_grad`` or ``chain_score_grad``). Supports
     and weights get zero cotangents; forward mode raises."""
 
     @staticmethod
-    def forward(ctx, q, s, w, spec):
-        score, dq = dh_score_grad(q.contiguous(), s.contiguous(),
-                                  w.contiguous(), spec)
+    def forward(ctx, q, s, w, score_grad, spec):
+        score, dq = score_grad(q.contiguous(), s.contiguous(),
+                               w.contiguous(), spec)
         ctx.save_for_backward(dq)
         ctx.shapes = (s.shape, w.shape)
         return score[:, None]
@@ -135,12 +145,13 @@ class _DHPolyScore(torch.autograd.Function):
     def backward(ctx, g):
         dq, = ctx.saved_tensors
         s_shape, w_shape = ctx.shapes
-        return g * dq, g.new_zeros(s_shape), g.new_zeros(w_shape), None
+        return (g * dq, g.new_zeros(s_shape), g.new_zeros(w_shape), None,
+                None)
 
     @staticmethod
     def jvp(ctx, *tangents):
         raise RuntimeError(
-            'dh_polyharmonic_score has no forward-mode derivative (the JAX '
+            'the one-pass FK score has no forward-mode derivative (the JAX '
             'twin is a custom_vjp); keep the batch below '
             f'{_FK_FUSED_MIN_BATCH} for forward mode')
 
@@ -151,17 +162,134 @@ def dh_polyharmonic_score(q, supports, weights, spec):
     DIFFERENTIATION CONTRACT: differentiable w.r.t. ``q`` only; supports
     and weights get zero cotangents and forward mode raises. Callers that
     need more stay below ``_FK_FUSED_MIN_BATCH``."""
-    return _DHPolyScore.apply(q, supports, weights, spec)
+    return _FKPolyScore.apply(q, supports, weights, dh_score_grad, spec)
+
+
+# ---------------------------------------------------------------------------
+# general chains (URDF robots): kernel B3
+
+
+def robot_chain_statics(robot) -> ChainStatics:
+    """ChainStatics of a URDFRobot's control-point fkine (the statics its
+    ``fkine`` evaluates), or None if it has no unique-position links."""
+    fk = robot._fkine_sel
+    return None if fk is None else fk.statics
+
+
+def _fold_chain(cs: ChainStatics):
+    """Fold every fixed joint of ``cs`` into the constant transform in
+    front of the next moving joint (float64 on the host), the form
+    ``csrc/chain_fk.cuh`` composes. Returns (joints, points): per moving
+    joint (moving parent or -1, joint type, dof, mult, offset, axis,
+    pre rotation [3, 3], pre translation [3]) in topological order, and
+    per point (moving joint or -1, offset in that frame, or the world
+    point when -1)."""
+    base = (np.asarray(cs.base_rot, np.float64).reshape(3, 3),
+            np.asarray(cs.base_trans, np.float64))
+    # per link: the moving joint whose frame it is rigid in (-1: the
+    # world) and its pose in that frame
+    anchor, rel, joints = [], [], []
+    for i, p in enumerate(cs.parent):
+        pa, (pr, pt) = (anchor[p], rel[p]) if p >= 0 else (-1, base)
+        f_rot = np.asarray(cs.f_rot[i], np.float64).reshape(3, 3)
+        r, t = pr @ f_rot, pt + pr @ np.asarray(cs.f_trans[i], np.float64)
+        if cs.jtype[i] == _FIXED:
+            anchor.append(pa)
+            rel.append((r, t))
+        else:
+            anchor.append(len(joints))
+            rel.append((np.eye(3), np.zeros(3)))
+            joints.append((pa, cs.jtype[i], cs.dof_idx[i], cs.m_mult[i],
+                           cs.m_off[i], cs.axis[i], r, t))
+    points = [(anchor[li], rel[li][0] @ np.asarray(off, np.float64)
+               + rel[li][1]) for li, off in cs.point_specs]
+    return joints, points
+
+
+@functools.lru_cache(maxsize=64)
+def _c_chain_spec(cs: ChainStatics) -> _native.ChainSpec:
+    """The kernel's by-value ChainSpec argument for a chain (cached per
+    chain). Raises beyond the kernel's compile-time bounds."""
+    joints, points = _fold_chain(cs)
+    M, P, D = len(joints), len(points), cs.n_dofs
+    for what, n, bound in (('moving joints', M, _native.MAX_M),
+                           ('dofs', D, _native.MAX_D),
+                           ('control points', P, _native.MAX_CP)):
+        if not 1 <= n <= bound:
+            raise ValueError(f'chain_score_grad: {n} {what}, the kernel '
+                             f'takes 1 to {bound}')
+    c = _native.ChainSpec()
+    c.M, c.P, c.D = M, P, D
+    for m, (mp, jt, dof, mult, off, axis, r, t) in enumerate(joints):
+        c.mparent[m], c.jtype[m], c.dof[m] = mp, jt, dof
+        c.mult[m], c.off[m] = mult, off
+        c.axis[m][:] = axis
+        c.pre_r[m][:] = r.reshape(-1).tolist()
+        c.pre_t[m][:] = t.tolist()
+    for k, (m, off) in enumerate(points):
+        c.pframe[k] = m
+        c.poff[k][:] = off.tolist()
+    return c
+
+
+def _chain_score_grad_plain(q, s, w, cs: ChainStatics):
+    """Plain PyTorch twin of ``csrc/chain_score.cu``: the port's
+    ``eval_chain``, the score block of ``_poly_score_grad_plain``, then
+    the moving-ancestor backward. q [B, D] -> (score [B], dq [B, D])."""
+    joints, pts = eval_chain(cs, q)
+    score, dx = _poly_score_grad_plain(stack_points(pts, flat=True), s, w)
+    return score, chain_vjp(cs, joints, pts, dx)
+
+
+def chain_score_grad(q, s, w, cs: ChainStatics):
+    """Score and configuration gradient in one pass: q [B, D] ->
+    (score [B], dq [B, D]). A CUDA tensor launches ``csrc/chain_score.cu``
+    (or raises); a CPU tensor runs the plain twin."""
+    global chain_score_grad_launches
+    if q.device.type == 'cpu':
+        return _chain_score_grad_plain(q, s, w, cs)
+    _native.check_cuda_inputs('chain_score_grad', q, s, w)
+    c = _c_chain_spec(cs)
+    B, D = q.shape
+    S = s.shape[0]
+    if D != c.D or s.shape[1] != 3 * c.P or w.shape != (S,):
+        raise ValueError(f'chain_score_grad: shapes q {tuple(q.shape)}, '
+                         f's {tuple(s.shape)}, w {tuple(w.shape)} do not '
+                         f'fit D = {c.D}, P = {c.P}')
+    score = torch.empty(B, dtype=q.dtype, device=q.device)
+    dq = torch.empty_like(q)
+    if B == 0:
+        return score, dq
+    lib = _native.build()['chain_score']
+    rc = lib.chain_score_grad(
+        q.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
+        dq.data_ptr(), B, S, ctypes.byref(c),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _native.raise_on_error('chain_score_grad', rc)
+    chain_score_grad_launches += 1
+    return score, dq
+
+
+def chain_polyharmonic_score(q, supports, weights, cs: ChainStatics):
+    """URDF-chain counterpart of ``dh_polyharmonic_score``, [B, 1], with
+    the same differentiation contract (``q`` only; forward mode
+    raises)."""
+    return _FKPolyScore.apply(q, supports, weights, chain_score_grad, cs)
 
 
 def dh_score_grad_available(robot, batch: int) -> bool:
     return isinstance(robot, DHChainRobot) and batch >= _FK_FUSED_MIN_BATCH
 
 
+def chain_score_grad_available(robot, batch: int) -> bool:
+    return (isinstance(robot, URDFRobot) and batch >= _FK_FUSED_MIN_BATCH
+            and robot._fkine_sel is not None)
+
+
 def fk_polyharmonic_score_auto(q, robot, supports, weights, valid_mask=None,
                                epsilon: float = 1.0):
-    """Route ``score(fkine(q))`` [B, 1] through the one-pass DH route when
-    available, else FK + ``polyharmonic_score``."""
+    """Route ``score(fkine(q))`` [B, 1] through the one-pass route of a DH
+    or URDF robot when available, else FK + ``polyharmonic_score``."""
     w = weights.reshape(-1)
     if valid_mask is not None:
         w = w * valid_mask.to(w.dtype)
@@ -173,6 +301,9 @@ def fk_polyharmonic_score_auto(q, robot, supports, weights, valid_mask=None,
             spec = robot_spec(robot)
             robot._dh_spec_cache = spec
         return dh_polyharmonic_score(q, supports, w, spec)
+    if chain_score_grad_available(robot, q.shape[0]):
+        return chain_polyharmonic_score(q, supports, w,
+                                        robot_chain_statics(robot))
     if isinstance(robot, DHChainRobot):
         pts = robot.fkine(q, flat=True)
     else:

@@ -23,6 +23,21 @@ from .fk_jvp import make_dh_fkine
 PI = math.pi
 
 
+def uniform_configs(limits, num_cfgs: int, generator: Optional[
+        torch.Generator] = None, device=None) -> torch.Tensor:
+    """Uniform configurations within ``limits`` [dof, 2] on ``device``
+    (default CUDA). The draw happens on the generator's device (CPU when
+    none is given), so a seeded CPU generator yields the same
+    configurations whatever device they end up on."""
+    dev = resolve_device(device)
+    gdev = generator.device if generator is not None else 'cpu'
+    u = torch.rand((num_cfgs, limits.shape[0]), generator=generator,
+                   device=gdev, dtype=limits.dtype)
+    lims = limits.to(gdev)
+    lo, hi = lims[:, 0], lims[:, 1]
+    return (u * (hi - lo) + lo).to(dev)
+
+
 class Model:
     """Base robot model."""
     dof: int
@@ -37,16 +52,8 @@ class Model:
     def rand_configs(self, num_cfgs: int, generator: Optional[
             torch.Generator] = None, device=None) -> torch.Tensor:
         """Uniform configurations within the joint limits on ``device``
-        (default CUDA). The draw happens on the generator's device (CPU
-        when none is given), so a seeded CPU generator yields the same
-        configurations whatever device they end up on."""
-        dev = resolve_device(device)
-        gdev = generator.device if generator is not None else 'cpu'
-        u = torch.rand((num_cfgs, self.dof), generator=generator,
-                       device=gdev, dtype=self.limits.dtype)
-        lims = self.limits.to(gdev)
-        lo, hi = lims[:, 0], lims[:, 1]
-        return (u * (hi - lo) + lo).to(dev)
+        (default CUDA), drawn by ``uniform_configs``."""
+        return uniform_configs(self.limits, num_cfgs, generator, device)
 
     @property
     def joint_limits(self):

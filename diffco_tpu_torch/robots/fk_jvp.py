@@ -18,14 +18,21 @@ through sums over the chain:
 ``make_dh_fkine`` wraps both in one ``torch.autograd.Function``. Its
 ``backward`` recomputes the chain from ``q`` with differentiable ops, so
 the FK stays differentiable to higher orders in reverse mode.
+
+General (tree-topology, URDF) chains do not admit the prefix/suffix
+factoring; ``make_chain_fkine`` sums over each point's static set of
+moving ancestors instead (``chain_vjp`` / ``chain_jvp``), with revolute
+joints about any axis, prismatic joints and mimic multipliers.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .soa import dh_rot_trans, stack_points, transform_compose
+from .soa import (dh_rot_trans, rot_apply, rot_compose, rot_from_axis_angle,
+                  stack_points, transform_compose, vec_add)
 
 _ZERO3 = (0.0, 0.0, 0.0)
 _IDENT9 = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
@@ -177,4 +184,210 @@ def make_dh_fkine(dh_const: Sequence[Tuple[float, float, float, float,
         return _DHFkine.apply(q, st)
 
     fkine_flat.statics = st
+    return fkine_flat
+
+
+# ---------------------------------------------------------------------------
+# general (tree-topology) chains: the URDF counterpart of the DH chain above
+
+# joint-type codes mirrored from kinematics.py (import cycle avoidance)
+_FIXED, _REVOLUTE, _PRISMATIC = 0, 1, 2
+
+
+class ChainStatics(NamedTuple):
+    """Hashable static chain description (nested float tuples): the FK's
+    constants, and the key under which the B3 kernel's folded spec is
+    cached (ops/fk_score.py)."""
+    parent: Tuple          # per link, -1 for the root
+    jtype: Tuple           # per link: _FIXED / _REVOLUTE / _PRISMATIC
+    axis: Tuple            # per link (x, y, z)
+    f_rot: Tuple           # per link, 9 floats row-major
+    f_trans: Tuple         # per link, 3 floats
+    dof_idx: Tuple         # per link, -1 for fixed links
+    m_mult: Tuple          # per link mimic multiplier
+    m_off: Tuple           # per link mimic offset
+    base_rot: Tuple        # 9 floats
+    base_trans: Tuple      # 3 floats
+    point_specs: Tuple     # per point (link index, (ox, oy, oz))
+    point_chains: Tuple    # per point, its moving ancestors (root first)
+    n_dofs: int
+
+
+def chain_statics(spec, point_specs, base=None) -> ChainStatics:
+    """Everything static of a ChainSpec + point specs + optional base
+    ``(rot 3x3, trans 3)`` as nested float tuples."""
+    point_specs = tuple((int(li), tuple(float(v) for v in off))
+                        for li, off in point_specs)
+    parent = tuple(int(p) for p in spec.parent)
+    jtype = tuple(int(t) for t in spec.jtype)
+    if base is not None:
+        base_rot = tuple(float(v) for v in np.asarray(base[0]).reshape(-1))
+        base_trans = tuple(float(v) for v in np.asarray(base[1]))
+    else:
+        base_rot, base_trans = _IDENT9, _ZERO3
+
+    # moving ancestors of a link, itself included: its own joint moves
+    # every point attached to it
+    def _moving_chain(li):
+        chain = []
+        while li >= 0:
+            if jtype[li] != _FIXED:
+                chain.append(li)
+            li = parent[li]
+        return tuple(reversed(chain))
+
+    return ChainStatics(
+        parent, jtype,
+        tuple(tuple(float(v) for v in a) for a in spec.axis),
+        tuple(tuple(float(v) for v in np.asarray(r).reshape(-1))
+              for r in spec.fixed_rot),
+        tuple(tuple(float(v) for v in t) for t in spec.fixed_trans),
+        tuple(int(d) for d in spec.dof_idx),
+        tuple(float(m) for m in spec.mimic_mult),
+        tuple(float(o) for o in spec.mimic_offset),
+        base_rot, base_trans, point_specs,
+        tuple(_moving_chain(li) for li, _ in point_specs),
+        int(spec.n_dofs))
+
+
+def eval_chain(cs: ChainStatics, q):
+    """SoA chain FK: q [B, D] -> (joints {link: (world axis, world
+    origin)} of every moving joint, points [(x, y, z)] of [B] tensors).
+
+    A revolute joint composes ``f_rot @ R(axis, theta)``; its world axis
+    is ``R_world @ axis`` and its origin the link's world origin. A
+    prismatic joint slides along ``f_rot @ axis``, whose world direction
+    is ``R_parent @ f_rot @ axis``. ``theta = q[dof] * mult + off``.
+    Points under all-fixed subtrees are constants, broadcast to [B].
+    """
+    zb = torch.zeros_like(q[:, 0])
+    L = len(cs.parent)
+    rots, trans = [None] * L, [None] * L
+    joints = {}
+    for i in range(L):
+        jt = cs.jtype[i]
+        if jt == _FIXED:
+            j_rot, j_trans = cs.f_rot[i], cs.f_trans[i]
+        else:
+            th = q[:, cs.dof_idx[i]] * cs.m_mult[i] + cs.m_off[i]
+            if jt == _REVOLUTE:
+                j_rot = rot_compose(cs.f_rot[i],
+                                    rot_from_axis_angle(cs.axis[i], th))
+                j_trans = cs.f_trans[i]
+            else:  # PRISMATIC: slide along the (fixed-rotated) axis
+                ax = rot_apply(cs.f_rot[i], cs.axis[i])  # constant floats
+                j_rot = cs.f_rot[i]
+                j_trans = (cs.f_trans[i][0] + ax[0] * th,
+                           cs.f_trans[i][1] + ax[1] * th,
+                           cs.f_trans[i][2] + ax[2] * th)
+        p = cs.parent[i]
+        if p < 0:
+            pr, pt = cs.base_rot, cs.base_trans
+        else:
+            pr, pt = rots[p], trans[p]
+        rots[i], trans[i] = transform_compose(pr, pt, j_rot, j_trans)
+        if jt == _REVOLUTE:
+            # the axis is invariant under its own rotation
+            joints[i] = (rot_apply(rots[i], cs.axis[i]), trans[i])
+        elif jt == _PRISMATIC:
+            joints[i] = (rot_apply(pr, rot_apply(cs.f_rot[i], cs.axis[i])),
+                         trans[i])
+    pts = []
+    for li, off in cs.point_specs:
+        p = trans[li] if off == _ZERO3 else vec_add(
+            trans[li], rot_apply(rots[li], off))
+        pts.append(tuple(zb + c for c in p))
+    return joints, pts
+
+
+def chain_vjp(cs: ChainStatics, joints, pts, g):
+    """Moving-ancestor VJP: point cotangents g [B, 3P] -> dq [B, D] with
+    ``dq[dof_i] += m_i (z_i x (p_k - o_i)) . g_k`` (revolute i) or
+    ``m_i z_i . g_k`` (prismatic i) over each point's moving ancestors."""
+    zero = torch.zeros_like(g[:, 0])
+    dq = [zero] * cs.n_dofs
+    for k, chain in enumerate(cs.point_chains):
+        gk = (g[:, 3 * k], g[:, 3 * k + 1], g[:, 3 * k + 2])
+        p = pts[k]
+        for i in chain:
+            z, o = joints[i]
+            if cs.jtype[i] == _REVOLUTE:
+                c = _cross(z, (p[0] - o[0], p[1] - o[1], p[2] - o[2]))
+            else:
+                c = z
+            val = c[0] * gk[0] + c[1] * gk[1] + c[2] * gk[2]
+            d = cs.dof_idx[i]
+            dq[d] = dq[d] + cs.m_mult[i] * val
+    return torch.stack(dq, dim=-1)
+
+
+def chain_jvp(cs: ChainStatics, joints, pts, dq):
+    """Moving-ancestor JVP: joint tangents dq [B, D] -> point tangents
+    [B, 3P], ``dp_k = sum_i dth_i (z_i x (p_k - o_i))`` (revolute) or
+    ``dth_i z_i`` (prismatic), ``dth_i = m_i dq[dof_i]``."""
+    zero = torch.zeros_like(dq[:, 0])
+    cols = []
+    for k, chain in enumerate(cs.point_chains):
+        p = pts[k]
+        d = [zero, zero, zero]
+        for i in chain:
+            z, o = joints[i]
+            dth = dq[:, cs.dof_idx[i]] * cs.m_mult[i]
+            if cs.jtype[i] == _REVOLUTE:
+                c = _cross(z, (p[0] - o[0], p[1] - o[1], p[2] - o[2]))
+            else:
+                c = z
+            d = [d[0] + dth * c[0], d[1] + dth * c[1], d[2] + dth * c[2]]
+        cols.extend(d)
+    return torch.stack(cols, dim=-1)
+
+
+class _ChainFkine(torch.autograd.Function):
+    """q [B, D] -> points [B, 3P] of a general chain, with the analytic
+    VJP and JVP (both recompute the chain from q with differentiable ops,
+    so the FK stays differentiable to higher orders)."""
+
+    @staticmethod
+    def forward(q, cs):
+        _, pts = eval_chain(cs, q)
+        return stack_points(pts, flat=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, cs = inputs
+        ctx.cs = cs
+        ctx.save_for_backward(q)
+        ctx.save_for_forward(q)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, = ctx.saved_tensors
+        joints, pts = eval_chain(ctx.cs, q)
+        return chain_vjp(ctx.cs, joints, pts, g), None
+
+    @staticmethod
+    def jvp(ctx, dq, _):
+        q, = ctx.saved_tensors
+        joints, pts = eval_chain(ctx.cs, q)
+        return chain_jvp(ctx.cs, joints, pts, dq)
+
+
+def make_chain_fkine(spec, point_specs: Sequence[Tuple[int, Tuple[float,
+                                                                  float,
+                                                                  float]]],
+                     base: Optional[Tuple] = None):
+    """General (tree-topology) chain FK ``q [B, D] -> pts [B, 3 * P]``
+    with the analytic geometric-Jacobian VJP and JVP: the URDF
+    counterpart of :func:`make_dh_fkine`.
+
+    point_specs: ``(link_idx, (ox, oy, oz))`` offsets in the link frame
+    (control points and collision-sphere centers alike). base: optional
+    ``(rot 3x3, trans 3)`` applied at the root.
+    """
+    cs = chain_statics(spec, point_specs, base)
+
+    def fkine_flat(q):
+        return _ChainFkine.apply(q, cs)
+
+    fkine_flat.statics = cs
     return fkine_flat

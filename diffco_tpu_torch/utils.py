@@ -13,6 +13,20 @@ def wrap2pi(theta):
     return torch.remainder(PI + theta, 2 * PI) - PI
 
 
+def axis_angle_mat(axis, angle):
+    """Rodrigues rotation of ``angle`` about the unit ``axis``:
+    axis [..., 3], angle [...] -> [..., 3, 3]."""
+    axis = torch.as_tensor(axis)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    s, c = torch.sin(angle), torch.cos(angle)
+    C = 1.0 - c
+    return torch.stack([
+        torch.stack([x * x * C + c, x * y * C - z * s, x * z * C + y * s], -1),
+        torch.stack([y * x * C + z * s, y * y * C + c, y * z * C - x * s], -1),
+        torch.stack([z * x * C - y * s, z * y * C + x * s, z * z * C + c], -1),
+    ], -2)
+
+
 def DH2mat(q, a, d, s_alpha, c_alpha):
     """Batched standard-DH transform matrices.
 

@@ -1,18 +1,27 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card. Run there with ``python -m pytest -m cuda tests/test_torch_cuda.py``;
 without a card every test skips (the fixture decides, at run time)."""
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from diffco_tpu_torch import robot_data
 from diffco_tpu_torch.ops import fk_score, fused_score
-from diffco_tpu_torch.robots import PandaFK
+from diffco_tpu_torch.robots import PandaFK, URDFRobot
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 # score rtol/atol 1e-4, gradient 1e-3: kernel and twin sum in other orders
 SHAPES = [(37, 5), (300, 130), (65536 + 37, 512)]
+# B3 on a serial arm with a fixed gripper, a branching tree and a
+# prismatic + mimic rig
+CHAIN_CASES = [('panda_simple.urdf', 37, 5),
+               ('panda_simple.urdf', 65536 + 37, 512),
+               ('trifinger_simple.urdf', 4096 + 5, 128),
+               ('lift_rig.urdf', 4096 + 5, 128)]
 
 
 @pytest.fixture
@@ -82,3 +91,57 @@ def test_kernels_reject_what_they_cannot_take(cuda):
                                     torch.zeros(3, device=cuda))
     with pytest.raises(ValueError):
         fused_score.poly_score_grad(sup.T, sup.T, w[:21])
+
+
+def _chain_inputs(name, B, S, dev, seed=0):
+    robot = URDFRobot(os.path.join(robot_data.ensure_default_assets(), name),
+                      device=dev, setup_acm=False, link_spheres=2)
+    g = torch.Generator().manual_seed(seed)
+    q = robot.rand_configs(B, g, dev)
+    sup = robot.fkine(robot.rand_configs(S, g, dev)).reshape(S, -1)
+    w = (torch.randn(S, generator=g) * 0.05).to(dev)
+    return robot, q, sup.contiguous(), w
+
+
+@pytest.mark.parametrize('name,B,S', CHAIN_CASES)
+def test_chain_score_kernel_matches_plain(cuda, name, B, S):
+    robot, q, sup, w = _chain_inputs(name, B, S, cuda, seed=3)
+    cs = fk_score.robot_chain_statics(robot)
+    before = fk_score.chain_score_grad_launches
+    score, dq = fk_score.chain_score_grad(q, sup, w, cs)
+    torch.cuda.synchronize()
+    assert fk_score.chain_score_grad_launches == before + 1
+    ref, ref_dq = fk_score._chain_score_grad_plain(q, sup, w, cs)
+    _close(score, ref, 1e-4)
+    _close(dq, ref_dq, 1e-3)
+
+
+def test_chain_auto_router_gradient_is_kernel_dq(cuda):
+    robot, q, sup, w = _chain_inputs('panda_simple.urdf', 65536, 512, cuda,
+                                     seed=4)
+    qg = q.clone().requires_grad_(True)
+    out = fk_score.fk_polyharmonic_score_auto(qg, robot, sup, w)
+    g, = torch.autograd.grad(out.sum(), qg)
+    _, dq = fk_score.chain_score_grad(q, sup, w,
+                                      fk_score.robot_chain_statics(robot))
+    _close(g, dq, 1e-6)
+
+
+def test_chain_kernel_rejects_what_it_cannot_take(cuda, tmp_path):
+    robot, q, sup, w = _chain_inputs('lift_rig.urdf', 64, 16, cuda)
+    cs = fk_score.robot_chain_statics(robot)
+    with pytest.raises(ValueError):
+        fk_score.chain_score_grad(q.double(), sup, w, cs)
+    with pytest.raises(ValueError):
+        fk_score.chain_score_grad(q, sup[:, :6].contiguous(), w, cs)
+    # 20 moving joints: beyond the kernel's compile-time bound of 16
+    rope = URDFRobot(robot_data.generate_rope_urdf(
+        n_links=20, path=str(tmp_path / 'rope_20.urdf')), device=cuda,
+        setup_acm=False, link_spheres=1)
+    g = torch.Generator().manual_seed(0)
+    qr = rope.rand_configs(64, g, cuda)
+    sr = rope.fkine(rope.rand_configs(8, g, cuda)).reshape(8, -1)
+    with pytest.raises(ValueError, match='moving joints'):
+        fk_score.chain_score_grad(qr, sr.contiguous(),
+                                  torch.zeros(8, device=cuda),
+                                  fk_score.robot_chain_statics(rope))

@@ -1,5 +1,6 @@
 """The port stands alone: importing diffco_tpu_torch and scoring on the
-CPU loads neither JAX nor the JAX package."""
+CPU (a DH robot and a URDF robot) loads neither JAX nor the JAX
+package."""
 import os
 import subprocess
 import sys
@@ -19,6 +20,11 @@ g = torch.Generator().manual_seed(0)
 q = robot.rand_configs(8, g, 'cpu')
 sup = robot.fkine(robot.rand_configs(16, g, 'cpu'), flat=True)
 w = torch.randn(16, generator=g)
+s = fk_score.fk_polyharmonic_score_auto(q, robot, sup, w)
+assert s.shape == (8, 1) and bool(torch.isfinite(s).all())
+robot = dc.FrankaPanda(device='cpu', setup_acm=False, link_spheres=2)
+q = robot.rand_configs(8, g)
+sup = robot.fkine(robot.rand_configs(16, g)).reshape(16, -1)
 s = fk_score.fk_polyharmonic_score_auto(q, robot, sup, w)
 assert s.shape == (8, 1) and bool(torch.isfinite(s).all())
 bad = sorted(m for m in sys.modules
