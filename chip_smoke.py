@@ -1,16 +1,24 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: python3 chip_smoke.py
 
 Builds the hand-written kernels from csrc/, holds each against its plain
-PyTorch twin at the main paths' shapes (B3 on three URDF robots: a serial
-arm, a branching tree and a prismatic + mimic rig), then drives the two
-main paths through the entry points a user calls:
+PyTorch twin at the main paths' shapes (B3 and B5 on three URDF robots: a
+serial arm, a branching tree and a prismatic + mimic rig; B4 with two
+and five classes), then drives four paths through the entry points a
+user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
   check of the dense paths;
 - the README quick start: FrankaPanda (URDF, sphere model, ACM) in the
   4-shape scene with its own ground truth -> fit -> the same sweeps ->
-  Adam trajectory optimization -> ground-truth check.
+  Adam trajectory optimization -> ground-truth check;
+- PandaFK multi-class: a MultiDiffCo proxy over two obstacle classes
+  (box, sphere) -> fit -> verify -> collision_score [B, 2] sweeps with a
+  class-mixed gradient -> Adam trajectory optimization on the max over
+  classes -> ground-truth check (any class);
+- FrankaPanda multi-class at the quick start's width: five classes
+  (self-collision and each of the 4 shapes) -> fit -> verify -> the
+  [B, 5] sweeps.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after, which shows that its sweeps went through its kernels. Then
@@ -39,8 +47,9 @@ from diffco_tpu_torch.ops.bounds import (bound, chain_ops, dh_ops,
 B_BENCH = 65536
 B_RAGGED = B_BENCH + 37          # a ragged end for the kernel checks
 S_BENCH = 512
-B_CHAIN_SMALL = 4096 + 5          # B3 on the tree and the mimic rig
+B_CHAIN_SMALL = 4096 + 5          # B3 and B5 on the tree and the mimic rig
 S_CHAIN_SMALL = 128
+S_URDF_MULTI = 1024              # FrankaPanda's 5-class proxy: 973 supports
 FIT_SAMPLES = 5000               # ForwardKinematicsDiffCo.fit's default
 URDF_FIT_SAMPLES = 3000          # the README quick start's
 # The URDF trajopt departs from the README's options in two places. 83 %
@@ -71,7 +80,8 @@ def _ptxas_report(log):
     instance, from nvcc's ``-Xptxas -v`` output."""
     out, kernel, spill, stack = [], None, None, None
     for ln in log.splitlines():
-        m = re.search(r'((?:poly|dh|chain)_score_grad_kernel)ILi(\d+)E', ln)
+        m = re.search(r'((?:poly|dh|chain)(?:_multi)?_score_grad_kernel)'
+                      r'ILi(\d+)E', ln)
         if 'Compiling entry function' in ln and m:
             kernel = f'{m.group(1)}<{m.group(2)}>'
         m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores',
@@ -189,6 +199,98 @@ def check_chain_kernel(dev):
                          '(FrankaPanda)', g, dq, 1e-6)
             out = dict(args=(q, sup, w, cs))
     out['err'] = max(errs)
+    return out
+
+
+def _class_weights(S, C, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(S, C, generator=g) * 0.05).to(dev)
+
+
+def _check_multi(tag, kernel, plain, q, sup, W, spec):
+    """A multi-class kernel against its plain twin; returns the error."""
+    score, dq = kernel(q, sup, W, spec)
+    ref, ref_dq = plain(q, sup, W, spec)
+    torch.cuda.synchronize()
+    B, C = q.shape[0], W.shape[1]
+    if score.shape != (B, C) or dq.shape != (C, B, q.shape[1]):
+        raise AssertionError(f'{tag}: shapes {tuple(score.shape)}, '
+                             f'{tuple(dq.shape)}')
+    _check_close(f'{tag} score', score, ref, 1e-4)
+    _check_close(f'{tag} dq', dq, ref_dq, 1e-3)
+    return _max_err([(score, ref), (dq, ref_dq)]), dq
+
+
+def _check_multi_autograd(tag, robot, q, sup, W, dq, dev):
+    """A class mix g [B, C] through fk_polyharmonic_multi_score_auto gives
+    einsum('bc,cbj->bj', g, dq) of the kernel's dq."""
+    from diffco_tpu_torch.ops import fk_score
+    mix = _class_weights(q.shape[0], W.shape[1], dev, seed=99)
+    qg = q.clone().requires_grad_(True)
+    out = fk_score.fk_polyharmonic_multi_score_auto(qg, robot, sup, W)
+    g, = torch.autograd.grad((out * mix).sum(), qg)
+    _check_close(f'autograd through fk_polyharmonic_multi_score_auto '
+                 f'({tag})', g, torch.einsum('bc,cbj->bj', mix, dq), 1e-6)
+
+
+def check_dh_multi_kernel(robot, dev):
+    """B4 against its plain twin on PandaFK at B = 65536 + 37, S = 512, for
+    C = 2 (one class tile) and C = 5 (three), and the class-mixed autograd
+    through fk_polyharmonic_multi_score_auto against its dq."""
+    from diffco_tpu_torch.ops import fk_score
+    spec = fk_score.robot_spec(robot)
+    out = None
+    for C in (2, 5):
+        t0 = time.perf_counter()
+        q, sup, _ = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=10 + C)
+        W = _class_weights(S_BENCH, C, dev, seed=C)
+        err, dq = _check_multi(f'dh_multi_score_grad C={C}',
+                               fk_score.dh_multi_score_grad,
+                               fk_score._dh_multi_score_grad_plain, q, sup,
+                               W, spec)
+        _check_multi_autograd(f'PandaFK, C={C}', robot, q, sup, W, dq, dev)
+        _phase(f'B4 dh_multi_score_grad vs plain, C={C}', t0, B=B_RAGGED,
+               S=S_BENCH, J=q.shape[1], max_abs_err=err)
+        if out is None:   # the PandaFK multi-class path's C
+            out = dict(args=(q, sup, W, spec), err=err)
+        else:             # timed beside it: three class tiles
+            out['args_c5'] = (q, sup, W, spec)
+        out['err'] = max(out['err'], err)
+    return out
+
+
+def check_chain_multi_kernel(dev):
+    """B5 against its plain twin: FrankaPanda at B = 65536 + 37, S = 1024,
+    C = 5 (the multi-class quick start's shape), with the class-mixed
+    autograd check; the trifinger tree and the prismatic + mimic lift rig
+    at B = 4096 + 5, S = 128, C = 2, so that every joint type runs on the
+    card."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import robot_data
+    from diffco_tpu_torch.ops import fk_score
+    robot_data.ensure_default_assets()
+    cases = [('FrankaPanda', dc.FrankaPanda(load_gripper=True, device=dev),
+              B_RAGGED, S_URDF_MULTI, 5)]
+    for name in ('trifinger_simple.urdf', 'lift_rig.urdf'):
+        cases.append((name, dc.URDFRobot(
+            f'{robot_data.data_dir}/{name}', device=dev, setup_acm=False),
+            B_CHAIN_SMALL, S_CHAIN_SMALL, 2))
+    out = None
+    for seed, (name, robot, B, S, C) in enumerate(cases, start=20):
+        t0 = time.perf_counter()
+        q, sup, _ = _inputs(robot, B, S, dev, seed=seed)
+        W = _class_weights(S, C, dev, seed=seed)
+        cs = fk_score.robot_chain_statics(robot)
+        err, dq = _check_multi(f'chain_multi_score_grad ({name})',
+                               fk_score.chain_multi_score_grad,
+                               fk_score._chain_multi_score_grad_plain, q, sup,
+                               W, cs)
+        if out is None:
+            _check_multi_autograd(name, robot, q, sup, W, dq, dev)
+            out = dict(args=(q, sup, W, cs), err=err)
+        out['err'] = max(out['err'], err)
+        _phase(f'B5 chain_multi_score_grad vs plain, {name}', t0, B=B, S=S,
+               C=C, D=q.shape[1], max_abs_err=err)
     return out
 
 
@@ -318,18 +420,71 @@ def _sweeps(checker, robot, gt, dev, kernel_plain, tag):
           f'{_rel_err(pq[:1])} grad {_rel_err(pq[1:])}', flush=True)
 
 
-def _trajopt(checker, robot, gt, dev, tag, **options):
+def _multi_sweeps(checker, robot, gt, dev, kernel_plain, tag):
+    """The multi-class sweep with a class-mixed gradient, as an optimizer
+    of a weighted sum of class scores takes it: the backward of the
+    kernel's autograd Function returns einsum(g, dq) of the same launch.
+    Then the kernel against its plain twin in float64 at the fitted
+    supports (W = the per-class nodes), as in _sweeps."""
+    t0 = time.perf_counter()
+    p = checker.perceptron
+    C = p.num_class
+    q = robot.rand_configs(B_BENCH, torch.Generator().manual_seed(3), dev)
+    mix = _class_weights(B_BENCH, C, dev, seed=4)
+    qg = q.clone().requires_grad_(True)
+    s_q = checker.collision_score(qg)
+    dq, = torch.autograd.grad((s_q * mix).sum(), qg)
+    s_q = s_q.detach()
+    torch.cuda.synchronize()
+    if s_q.shape != (B_BENCH, C) or not bool(torch.isfinite(s_q).all()):
+        raise AssertionError(f'{tag} collision_score: bad shape or '
+                             'non-finite')
+    # the same proxy from link points (the plain [B, S] @ [S, C] route)
+    s_p = checker.collision_score(q_link_pos=robot.fkine(q))
+    _check_close(f'{tag} collision_score q vs q_link_pos', s_q, s_p, 1e-3)
+    _phase(f'{tag} collision_score sweeps', t0, configs=B_BENCH, classes=C,
+           supports=p.support_transformed.shape[0],
+           gt_agreement_per_class=[round(float(a), 4) for a in (
+               (s_q > 0) == gt(q)).float().mean(0)])
+    W = (p.rbf_nodes * p.valid_mask.to(p.rbf_nodes.dtype)[:, None]
+         / p.rbf_kernel.epsilon)
+    sup = p.support_transformed
+    with torch.no_grad():
+        ref_q, ref_dq = kernel_plain(q.double(), sup.double(), W.double())
+        twin_q, twin_dq = kernel_plain(q, sup, W)
+    ref_g = torch.einsum('bc,cbj->bj', mix.double(), ref_dq)
+    twin_g = torch.einsum('bc,cbj->bj', mix, twin_dq).double()
+    out_q = (s_q - checker.safety_bias).double()
+    _check_close(f'{tag} collision_score(q) vs plain twin', out_q, ref_q,
+                 1e-4)
+    _check_close(f'{tag} collision_score(q) class-mixed dq vs plain twin',
+                 dq.double(), ref_g, 1e-3)
+    pq = [(out_q, ref_q), (dq.double(), ref_g)]
+    tw = [(twin_q.double(), ref_q), (twin_g, ref_g)]
+    print(f'{tag} sweeps vs the plain twin in float64 at S = {sup.shape[0]},'
+          f' C = {C}: max_abs_err score {_max_err(pq[:1])} grad '
+          f'{_max_err(pq[1:])}; the float32 plain twin itself score '
+          f'{_max_err(tw[:1])} grad {_max_err(tw[1:])}; max |score| '
+          f'{float(ref_q.abs().max())}, max |grad| '
+          f'{float(ref_g.abs().max())}', flush=True)
+
+
+def _trajopt(checker, robot, gt, dev, tag, dist_est=None, **options):
+    """Adam trajectory optimization on N_PROBLEMS problems, each path
+    checked against the ground truth gt (bool [B]) at 10 points per
+    segment. dist_est defaults to the checker's unbiased score."""
     from diffco_tpu_torch import optim
     from diffco_tpu_torch.utils import dense_path
+    if dist_est is None:
+        def dist_est(pp):
+            return checker.collision_score(pp, bias=0).reshape(-1)
     t0 = time.perf_counter()
     results = []
     for i, (start, target) in enumerate(_problems(robot, gt, dev,
                                                   N_PROBLEMS)):
         opts = dict(TRAJ_OPTIONS, seed=i,
                     safety_margin=-checker.safety_bias, **options)
-        rec = optim.adam_traj_optimize(
-            robot, lambda pp: checker.collision_score(pp, bias=0)
-            .reshape(-1), start, target, opts)
+        rec = optim.adam_traj_optimize(robot, dist_est, start, target, opts)
         sol = torch.as_tensor(rec['solution'], device=dev)
         hits = int(gt(dense_path(sol, 10)).sum())
         results.append((rec['success'], hits == 0, rec['cost'], rec['time'],
@@ -395,6 +550,62 @@ def urdf_journey(dev):
              dense_sub=URDF_TRAJ_DENSE_SUB)
 
 
+def _per_shape_gt(robot, names):
+    """Ground truth [B, len(names)]: one capsule-chain check per shape."""
+    import diffco_tpu_torch as dc
+    shapes = _shapes()
+    cap = dc.CapsuleChainCollision(robot, link_radius=LINK_RADIUS)
+    fns = [cap.checker_fn(dc.ShapeEnv({k: shapes[k]})) for k in names]
+    return lambda q: torch.stack([f(q) for f in fns], dim=1)
+
+
+def multi_journey(robot, dev):
+    """The PandaFK multi-class path: a MultiDiffCo over the box and the
+    sphere (one class each); trajectory optimization on the max over
+    classes of the unbiased score, with the ground truth 'any class'."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.ops import fk_score
+    gt = _per_shape_gt(robot, ('box1', 'sphere1'))
+    checker = dc.ForwardKinematicsDiffCo(
+        robot=robot, environment=_scene(), gt_check_func=gt,
+        perceptron_class=dc.MultiDiffCo, seed=0, device=dev)
+    _fit(checker, FIT_SAMPLES, 'PandaFK multi-class')
+    spec = fk_score.robot_spec(robot)
+    _multi_sweeps(checker, robot, gt, dev,
+                  lambda q, s, W: fk_score._dh_multi_score_grad_plain(
+                      q, s, W, spec), 'PandaFK multi-class')
+    _trajopt(checker, robot, lambda q: gt(q).any(-1), dev,
+             'PandaFK multi-class',
+             dist_est=lambda pp: checker.collision_score(pp, bias=0)
+             .amax(-1))
+
+
+def urdf_multi_journey(dev):
+    """The FrankaPanda multi-class path at the quick start's width
+    (24-sphere links, ACM, the 4-shape scene): five classes, the robot's
+    self-collision and each shape, from robot.collision_signed_dist; fit
+    on 3000 samples, verify and the sweeps. Its trajopt batches would sit
+    below the kernels' gate, so it runs none."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.ops import fk_score
+    robot = dc.FrankaPanda(load_gripper=True, setup_acm=True,
+                           link_spheres=24, device=dev)
+    env = dc.ShapeEnv(_shapes())
+
+    def gt(q):
+        env_sd, self_sd = robot.collision_signed_dist(q, env)
+        return torch.cat([self_sd[:, None] > 0, env_sd > 0], dim=1)
+
+    checker = dc.ForwardKinematicsDiffCo(
+        robot=robot, environment=env, gt_check_func=gt,
+        perceptron_class=dc.MultiDiffCo, seed=0, device=dev)
+    _fit(checker, URDF_FIT_SAMPLES, 'FrankaPanda multi-class')
+    cs = fk_score.robot_chain_statics(robot)
+    _multi_sweeps(checker, robot, gt, dev,
+                  lambda q, s, W: fk_score._chain_multi_score_grad_plain(
+                      q, s, W, cs), 'FrankaPanda multi-class')
+
+
 def _time_ms(fn, warmup, iters):
     for _ in range(warmup):
         fn()
@@ -408,12 +619,12 @@ def _time_ms(fn, warmup, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def kernel_table(b2, b1, b3, launches):
+def kernel_table(b2, b1, b3, b4, b5, launches):
     """Time each kernel and its plain twin at the checked shapes; the bound
     counts each input read once and each output written once, and
-    ``score_ops`` for the score block, plus per configuration ``dh_ops``
-    (B1) or ``chain_ops`` (B3) for the FK and its backward
-    (diffco_tpu_torch/ops/bounds.py)."""
+    ``score_ops`` for the score block (with C weight columns for B4, B5),
+    plus per configuration ``dh_ops`` (B1, B4) or ``chain_ops`` (B3, B5)
+    for the FK and its backward (diffco_tpu_torch/ops/bounds.py)."""
     from diffco_tpu_torch.ops import fk_score, fused_score
     x, sup, w = b2['args']
     B, F = x.shape
@@ -432,9 +643,23 @@ def kernel_table(b2, b1, b3, launches):
     bound3, by3 = bound(fk_score_bytes(B3, S3, F3, D),
                         score_ops(B3, S3, F3)
                         + chain_ops(fk_score._c_chain_spec(cs)) * B3)
+    q4, sup4, W4, spec4 = b4['args']
+    B4, J4 = q4.shape
+    S4, F4 = sup4.shape
+    C4 = W4.shape[1]
+    bound4, by4 = bound(fk_score_bytes(B4, S4, F4, J4, C4),
+                        score_ops(B4, S4, F4, C4)
+                        + dh_ops(J4, len(spec4[1]), C4) * B4)
+    q5, sup5, W5, cs5 = b5['args']
+    B5, D5 = q5.shape
+    S5, F5 = sup5.shape
+    C5 = W5.shape[1]
+    bound5, by5 = bound(fk_score_bytes(B5, S5, F5, D5, C5),
+                        score_ops(B5, S5, F5, C5)
+                        + chain_ops(fk_score._c_chain_spec(cs5), C5) * B5)
 
-    def row(name, source, replaces, shape, check, fn, plain, b, by):
-        return dict(name=name, route='cuda', source=source,
+    def row(name, source, replaces, shape, check, fn, plain, b, by, **extra):
+        return dict(name=name, route='cuda', source=source, **extra,
                     replaces=replaces, shape=shape,
                     launches=sum(n[name] for n in launches.values()),
                     launches_by_path={k: n[name]
@@ -459,19 +684,36 @@ def kernel_table(b2, b1, b3, launches):
             lambda: fk_score.chain_score_grad(q3, sup3, w3, cs),
             lambda: fk_score._chain_score_grad_plain(q3, sup3, w3, cs),
             bound3, by3),
+        row('dh_multi_score_grad', 'diffco_tpu_torch/csrc/dh_multi_score.cu',
+            'diffco_tpu/ops/fk_score.py:255', [B4, S4, J4, C4], b4,
+            lambda: fk_score.dh_multi_score_grad(q4, sup4, W4, spec4),
+            lambda: fk_score._dh_multi_score_grad_plain(q4, sup4, W4, spec4),
+            bound4, by4, ms_at_C5=_time_ms(
+                lambda: fk_score.dh_multi_score_grad(*b4['args_c5']), 5, 50)),
+        row('chain_multi_score_grad',
+            'diffco_tpu_torch/csrc/chain_multi_score.cu',
+            'diffco_tpu/ops/fk_score.py:405', [B5, S5, D5, C5], b5,
+            lambda: fk_score.chain_multi_score_grad(q5, sup5, W5, cs5),
+            lambda: fk_score._chain_multi_score_grad_plain(q5, sup5, W5,
+                                                           cs5),
+            bound5, by5),
     ]
 
 
+_FK_KERNELS = ('dh_score_grad', 'chain_score_grad', 'dh_multi_score_grad',
+               'chain_multi_score_grad')
+
+
 def _read_launches(fused_score, fk_score):
-    return {'poly_score_grad': fused_score.poly_score_grad_launches,
-            'dh_score_grad': fk_score.dh_score_grad_launches,
-            'chain_score_grad': fk_score.chain_score_grad_launches}
+    out = {'poly_score_grad': fused_score.poly_score_grad_launches}
+    out.update({k: getattr(fk_score, f'{k}_launches') for k in _FK_KERNELS})
+    return out
 
 
 def _zero_launches(fused_score, fk_score):
     fused_score.poly_score_grad_launches = 0
-    fk_score.dh_score_grad_launches = 0
-    fk_score.chain_score_grad_launches = 0
+    for k in _FK_KERNELS:
+        setattr(fk_score, f'{k}_launches', 0)
 
 
 def main():
@@ -504,26 +746,33 @@ def main():
     b2 = check_poly_kernel(robot, dev)
     b1 = check_dh_kernel(robot, dev)
     b3 = check_chain_kernel(dev)
+    b4 = check_dh_multi_kernel(robot, dev)
+    b5 = check_chain_multi_kernel(dev)
 
     # count only each main path's own launches
     launches = {}
-    _zero_launches(fused_score, fk_score)
-    journey(robot, dev)
-    launches['PandaFK'] = _read_launches(fused_score, fk_score)
-    _zero_launches(fused_score, fk_score)
-    urdf_journey(dev)
-    launches['FrankaPanda'] = _read_launches(fused_score, fk_score)
+    for path, run in (('PandaFK', lambda: journey(robot, dev)),
+                      ('FrankaPanda', lambda: urdf_journey(dev)),
+                      ('PandaFK multi-class', lambda: multi_journey(robot,
+                                                                    dev)),
+                      ('FrankaPanda multi-class',
+                       lambda: urdf_multi_journey(dev))):
+        _zero_launches(fused_score, fk_score)
+        run()
+        launches[path] = _read_launches(fused_score, fk_score)
     print(f'launches on the main paths: {launches}', flush=True)
     for path, k in (('PandaFK', 'poly_score_grad'),
                     ('PandaFK', 'dh_score_grad'),
                     ('FrankaPanda', 'poly_score_grad'),
-                    ('FrankaPanda', 'chain_score_grad')):
+                    ('FrankaPanda', 'chain_score_grad'),
+                    ('PandaFK multi-class', 'dh_multi_score_grad'),
+                    ('FrankaPanda multi-class', 'chain_multi_score_grad')):
         if launches[path][k] <= 0:
             raise AssertionError(f'{k} was never launched on the {path} '
                                  'path')
 
     t0 = time.perf_counter()
-    rows = kernel_table(b2, b1, b3, launches)
+    rows = kernel_table(b2, b1, b3, b4, b5, launches)
     _phase('kernel timing', t0)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.perf_counter() - t_start:.1f}s', flush=True)

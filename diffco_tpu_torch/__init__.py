@@ -5,7 +5,9 @@ on PyTorch tensors, with hand-written CUDA kernels (``csrc/``) on the
 hot paths. It holds the ``PandaFK`` DH robot and the URDF robots
 (``URDFRobot``, ``FrankaPanda`` and the other convenience robots) with
 their analytic FK derivatives, a ``ShapeEnv`` scene with the
-``CapsuleChainCollision`` or sphere-model ground truth,
+``CapsuleChainCollision`` or sphere-model ground truth, the proxies
+(``DiffCo``, the multi-class ``MultiDiffCo``, the distance-regressing
+``DiffCoBeta`` and the vector-gain ``MultiDimDiffCo``),
 ``ForwardKinematicsDiffCo`` (fit, verify, collision_score) and Adam
 trajectory optimization.
 
@@ -23,7 +25,8 @@ from .robots.capsule_chain import CapsuleChainCollision
 from .robots.urdf import (URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot,
                           TrifingerEdu, parse_urdf, robot_description_folder)
 from .envs import ShapeEnv
-from .perceptron import Perceptron, DiffCo
+from .perceptron import (Perceptron, DiffCo, DiffCoBeta, MultiDiffCo,
+                         MultiDimDiffCo)
 from .checkers import CollisionChecker, RBFDiffCo, ForwardKinematicsDiffCo
 from .convert import load_reference_state
 
@@ -32,6 +35,7 @@ __all__ = [
     'DHChainRobot', 'PandaFK', 'CapsuleChainCollision', 'URDFRobot',
     'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu', 'parse_urdf',
     'robot_description_folder', 'ShapeEnv',
-    'Perceptron', 'DiffCo', 'CollisionChecker', 'RBFDiffCo',
+    'Perceptron', 'DiffCo', 'DiffCoBeta', 'MultiDiffCo', 'MultiDimDiffCo',
+    'CollisionChecker', 'RBFDiffCo',
     'ForwardKinematicsDiffCo', 'load_reference_state',
 ]

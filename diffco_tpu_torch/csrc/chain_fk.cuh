@@ -50,6 +50,22 @@ struct ChainSpec {
 static_assert(sizeof(ChainSpec) <= 4096,
               "ChainSpec must fit the 4 KB kernel-parameter space");
 
+// The indices the kernel follows must stay in range and the moving-parent
+// walk must end: mparent[m] < m, and every dof and frame id in bounds.
+inline bool spec_ok(const ChainSpec& sp) {
+  if (sp.M < 1 || sp.M > kMaxM || sp.D < 1 || sp.D > kMaxD || sp.P < 1 ||
+      sp.P > kMaxCP)
+    return false;
+  for (int m = 0; m < sp.M; ++m) {
+    if (sp.mparent[m] < -1 || sp.mparent[m] >= m) return false;
+    if (sp.dof[m] < 0 || sp.dof[m] >= sp.D) return false;
+    if (sp.jtype[m] != kRevolute && sp.jtype[m] != kPrismatic) return false;
+  }
+  for (int k = 0; k < sp.P; ++k)
+    if (sp.pframe[k] < -1 || sp.pframe[k] >= sp.M) return false;
+  return true;
+}
+
 // FK of one configuration. qb holds the configuration's D values (read
 // only when live). Writes each moving joint's world frame to fr[m]
 // (rotation row-major in [0..8], translation in [9..11]), its world axis

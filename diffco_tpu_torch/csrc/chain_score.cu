@@ -86,22 +86,6 @@ chain_score_grad_kernel(const float* __restrict__ q,
   }
 }
 
-// The indices the kernel follows must stay in range and the moving-parent
-// walk must end: mparent[m] < m, and every dof and frame id in bounds.
-bool spec_ok(const ChainSpec& sp) {
-  if (sp.M < 1 || sp.M > kMaxM || sp.D < 1 || sp.D > kMaxD || sp.P < 1 ||
-      sp.P > kMaxCP)
-    return false;
-  for (int m = 0; m < sp.M; ++m) {
-    if (sp.mparent[m] < -1 || sp.mparent[m] >= m) return false;
-    if (sp.dof[m] < 0 || sp.dof[m] >= sp.D) return false;
-    if (sp.jtype[m] != kRevolute && sp.jtype[m] != kPrismatic) return false;
-  }
-  for (int k = 0; k < sp.P; ++k)
-    if (sp.pframe[k] < -1 || sp.pframe[k] >= sp.M) return false;
-  return true;
-}
-
 }  // namespace
 }  // namespace diffco
 

@@ -35,6 +35,7 @@ MAX_F = 64   # poly_score.cu: F padded to a multiple of 8, at most 64
 MAX_M = 16   # chain_fk.cuh kMaxM (moving joints)
 MAX_D = 16   # chain_fk.cuh kMaxD (dofs)
 MAX_CP = 21  # chain_fk.cuh kMaxCP (control points)
+MAX_C = 8    # score_block.cuh kMaxC (classes of the multi-class kernels)
 
 
 class DHSpec(ctypes.Structure):
@@ -139,6 +140,14 @@ def _bind(libs):
     fn.restype = cint
     fn = libs['chain_score'].chain_score_grad
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
+                   ctypes.POINTER(ChainSpec), ptr]
+    fn.restype = cint
+    fn = libs['dh_multi_score'].dh_multi_score_grad
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
+                   ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
+    fn = libs['chain_multi_score'].chain_multi_score_grad
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
                    ctypes.POINTER(ChainSpec), ptr]
     fn.restype = cint
 

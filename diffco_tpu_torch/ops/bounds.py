@@ -8,7 +8,7 @@ operations are counted in the TPU kernels' expanded form
 ``||x||^2 + ||s||^2 - 2 x.s``; FK and backward operations are counted
 from the hand-written CUDA code (``csrc/dh_chain.cuh``,
 ``csrc/chain_fk.cuh``) or, for the kernels not ported yet, from the ported
-kernels they extend. ``chip_smoke.py`` computes B1-B3's bounds with these
+kernels they extend. ``chip_smoke.py`` computes B1-B5's bounds with these
 functions from each run's inputs;
 
     python3 -m diffco_tpu_torch.ops.bounds

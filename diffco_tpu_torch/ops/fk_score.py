@@ -1,15 +1,20 @@
 """Chain FK + polyharmonic score + configuration gradient (PyTorch
 counterpart of ``diffco_tpu/ops/fk_score.py``, DH and general-chain
-branches).
+branches, one weight column or C of them).
 
 The trajopt inner-loop primitive is ``score(fkine(q))`` with its gradient
 in ``q``. At batch >= ``_FK_FUSED_MIN_BATCH`` it runs FK, score and the
-configuration gradient in one pass: ``dh_score_grad`` for a DH robot (the
-hand-written CUDA kernel ``csrc/dh_score.cu``) and ``chain_score_grad``
-for a URDF robot (``csrc/chain_score.cu``), each with a plain twin
-(``_dh_score_grad_plain``, ``_chain_score_grad_plain``) that a CPU tensor
-runs. Below the gate, and for other robots, it is FK +
-``polyharmonic_score``.
+configuration gradient in one pass, through a hand-written CUDA kernel:
+
+- ``dh_score_grad`` (``csrc/dh_score.cu``) and ``chain_score_grad``
+  (``csrc/chain_score.cu``) for a DH or a URDF robot, weights w [S];
+- ``dh_multi_score_grad`` (``csrc/dh_multi_score.cu``) and
+  ``chain_multi_score_grad`` (``csrc/chain_multi_score.cu``) for the
+  multi-class proxy, weight columns W [S, C] -> score [B, C] and
+  dq [C, B, D].
+
+Each has a plain twin (``_<name>_plain``) that a CPU tensor runs. Below
+the gate, and for other robots, it is FK + the plain score route.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import numpy as np
 import torch
 
 from . import _native
-from .fused_score import _poly_score_grad_plain, polyharmonic_score
+from .fused_score import (_poly_score_grad_plain, _poly_score_xla,
+                          polyharmonic_score)
+from ..device import fp32_matmul
 from ..robots.analytic import DHChainRobot
 from ..robots.fk_jvp import (_FIXED, _IDENT9, _ZERO3, ChainStatics,
                              DHStatics, chain_vjp, dh_chain, dh_vjp,
@@ -36,6 +43,8 @@ _FK_FUSED_MIN_BATCH = 4096
 # launches of each CUDA kernel (not of the plain twins), for run accounting
 dh_score_grad_launches = 0
 chain_score_grad_launches = 0
+dh_multi_score_grad_launches = 0
+chain_multi_score_grad_launches = 0
 
 
 def robot_spec(robot) -> Tuple:
@@ -99,39 +108,86 @@ def _dh_score_grad_plain(q, s, w, spec):
     return score, dh_vjp(st, axes, pts, dx)
 
 
+def _launch(name, lib, q, s, w, c, D, P):
+    """Check the inputs of a one-pass FK kernel, allocate its outputs and
+    launch it, counting the launch in ``<name>_launches``: weights w [S]
+    give (score [B], dq [B, D]), weight columns W [S, C] give
+    (score [B, C], dq [C, B, D])."""
+    _native.check_cuda_inputs(name, q, s, w)
+    B, S = q.shape[0], s.shape[0]
+    multi = w.dim() == 2
+    if (q.dim() != 2 or q.shape[1] != D or s.shape[1] != 3 * P
+            or w.dim() not in (1, 2) or w.shape[0] != S
+            or ('multi' in name) != multi):
+        raise ValueError(f'{name}: shapes q {tuple(q.shape)}, '
+                         f's {tuple(s.shape)}, w {tuple(w.shape)} do not '
+                         f'fit {D} configuration columns, {P} points')
+    C = w.shape[1] if multi else 1
+    if not 1 <= C <= _native.MAX_C:
+        raise ValueError(f'{name}: {C} classes, the kernel takes 1 to '
+                         f'{_native.MAX_C}')
+    score = q.new_empty((B, C) if multi else (B,))
+    dq = q.new_empty((C, B, D) if multi else (B, D))
+    if B == 0:
+        return score, dq
+    fn = getattr(_native.build()[lib], name)
+    rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
+            dq.data_ptr(), B, S, *((C,) if multi else ()), ctypes.byref(c),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _native.raise_on_error(name, rc)
+    globals()[f'{name}_launches'] += 1
+    return score, dq
+
+
 def dh_score_grad(q, s, w, spec):
     """Score and configuration gradient in one pass: q [B, J] ->
     (score [B], dq [B, J]). A CUDA tensor launches ``csrc/dh_score.cu``
     (or raises); a CPU tensor runs the plain twin."""
-    global dh_score_grad_launches
     if q.device.type == 'cpu':
         return _dh_score_grad_plain(q, s, w, spec)
-    _native.check_cuda_inputs('dh_score_grad', q, s, w)
     c = _c_spec(spec)
-    B, J = q.shape
-    S = s.shape[0]
-    if J != c.J or s.shape[1] != 3 * c.P or w.shape != (S,):
-        raise ValueError(f'dh_score_grad: shapes q {tuple(q.shape)}, '
-                         f's {tuple(s.shape)}, w {tuple(w.shape)} do not '
-                         f'fit J = {c.J}, P = {c.P}')
-    score = torch.empty(B, dtype=q.dtype, device=q.device)
-    dq = torch.empty_like(q)
-    if B == 0:
-        return score, dq
-    lib = _native.build()['dh_score']
-    rc = lib.dh_score_grad(
-        q.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
-        dq.data_ptr(), B, S, ctypes.byref(c),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _native.raise_on_error('dh_score_grad', rc)
-    dh_score_grad_launches += 1
-    return score, dq
+    return _launch('dh_score_grad', 'dh_score', q, s, w, c, c.J, c.P)
+
+
+def _per_class(x, s, W, vjp):
+    """The plain score block per weight column of W [S, C], each class's
+    point gradient pulled back by ``vjp``: (score [B, C], dq [C, B, D])."""
+    scores, dqs = [], []
+    for c in range(W.shape[1]):
+        score, dx = _poly_score_grad_plain(x, s, W[:, c].contiguous())
+        scores.append(score)
+        dqs.append(vjp(dx))
+    return torch.stack(scores, 1), torch.stack(dqs, 0)
+
+
+def _dh_multi_score_grad_plain(q, s, W, spec):
+    """Plain PyTorch twin of ``csrc/dh_multi_score.cu``: the port's FK
+    once, then per class the score block of ``_poly_score_grad_plain``
+    and the suffix-sum backward. q [B, J], W [S, C] ->
+    (score [B, C], dq [C, B, J])."""
+    st = _statics(spec)
+    axes, pts = dh_chain(st, q)
+    x = torch.stack([c for p in pts for c in p], dim=-1)       # [B, 3P]
+    return _per_class(x, s, W, lambda dx: dh_vjp(st, axes, pts, dx))
+
+
+def dh_multi_score_grad(q, s, W, spec):
+    """All class scores and their configuration gradients in one pass:
+    q [B, J], W [S, C] -> (score [B, C], dq [C, B, J]). A CUDA tensor
+    launches ``csrc/dh_multi_score.cu`` (or raises); a CPU tensor runs the
+    plain twin."""
+    if q.device.type == 'cpu':
+        return _dh_multi_score_grad_plain(q, s, W, spec)
+    c = _c_spec(spec)
+    return _launch('dh_multi_score_grad', 'dh_multi_score', q, s, W, c,
+                   c.J, c.P)
 
 
 class _FKPolyScore(torch.autograd.Function):
-    """score [B, 1] whose VJP is ``g * dq`` from the same pass of
-    ``score_grad`` (``dh_score_grad`` or ``chain_score_grad``). Supports
-    and weights get zero cotangents; forward mode raises."""
+    """score [B, 1] (weights w [S]) or [B, C] (weight columns W [S, C])
+    whose VJP comes from the dq of the same pass of ``score_grad``:
+    ``g * dq``, or ``einsum('bc,cbj->bj', g, dq)`` over the classes.
+    Supports and weights get zero cotangents; forward mode raises."""
 
     @staticmethod
     def forward(ctx, q, s, w, score_grad, spec):
@@ -139,14 +195,14 @@ class _FKPolyScore(torch.autograd.Function):
                                w.contiguous(), spec)
         ctx.save_for_backward(dq)
         ctx.shapes = (s.shape, w.shape)
-        return score[:, None]
+        return score[:, None] if score.dim() == 1 else score
 
     @staticmethod
     def backward(ctx, g):
         dq, = ctx.saved_tensors
         s_shape, w_shape = ctx.shapes
-        return (g * dq, g.new_zeros(s_shape), g.new_zeros(w_shape), None,
-                None)
+        g_q = g * dq if dq.dim() == 2 else torch.einsum('bc,cbj->bj', g, dq)
+        return g_q, g.new_zeros(s_shape), g.new_zeros(w_shape), None, None
 
     @staticmethod
     def jvp(ctx, *tangents):
@@ -163,6 +219,12 @@ def dh_polyharmonic_score(q, supports, weights, spec):
     and weights get zero cotangents and forward mode raises. Callers that
     need more stay below ``_FK_FUSED_MIN_BATCH``."""
     return _FKPolyScore.apply(q, supports, weights, dh_score_grad, spec)
+
+
+def dh_polyharmonic_multi_score(q, supports, W, spec):
+    """Per-class polyharmonic DiffCo scores through DH-chain FK, [B, C],
+    with the differentiation contract of ``dh_polyharmonic_score``."""
+    return _FKPolyScore.apply(q, supports, W, dh_multi_score_grad, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -245,29 +307,31 @@ def chain_score_grad(q, s, w, cs: ChainStatics):
     """Score and configuration gradient in one pass: q [B, D] ->
     (score [B], dq [B, D]). A CUDA tensor launches ``csrc/chain_score.cu``
     (or raises); a CPU tensor runs the plain twin."""
-    global chain_score_grad_launches
     if q.device.type == 'cpu':
         return _chain_score_grad_plain(q, s, w, cs)
-    _native.check_cuda_inputs('chain_score_grad', q, s, w)
     c = _c_chain_spec(cs)
-    B, D = q.shape
-    S = s.shape[0]
-    if D != c.D or s.shape[1] != 3 * c.P or w.shape != (S,):
-        raise ValueError(f'chain_score_grad: shapes q {tuple(q.shape)}, '
-                         f's {tuple(s.shape)}, w {tuple(w.shape)} do not '
-                         f'fit D = {c.D}, P = {c.P}')
-    score = torch.empty(B, dtype=q.dtype, device=q.device)
-    dq = torch.empty_like(q)
-    if B == 0:
-        return score, dq
-    lib = _native.build()['chain_score']
-    rc = lib.chain_score_grad(
-        q.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
-        dq.data_ptr(), B, S, ctypes.byref(c),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _native.raise_on_error('chain_score_grad', rc)
-    chain_score_grad_launches += 1
-    return score, dq
+    return _launch('chain_score_grad', 'chain_score', q, s, w, c, c.D, c.P)
+
+
+def _chain_multi_score_grad_plain(q, s, W, cs: ChainStatics):
+    """Plain PyTorch twin of ``csrc/chain_multi_score.cu``: ``eval_chain``
+    once, then per class the score block and the moving-ancestor backward.
+    q [B, D], W [S, C] -> (score [B, C], dq [C, B, D])."""
+    joints, pts = eval_chain(cs, q)
+    return _per_class(stack_points(pts, flat=True), s, W,
+                      lambda dx: chain_vjp(cs, joints, pts, dx))
+
+
+def chain_multi_score_grad(q, s, W, cs: ChainStatics):
+    """The URDF-chain form of ``dh_multi_score_grad``: q [B, D], W [S, C]
+    -> (score [B, C], dq [C, B, D]). A CUDA tensor launches
+    ``csrc/chain_multi_score.cu`` (or raises); a CPU tensor runs the plain
+    twin."""
+    if q.device.type == 'cpu':
+        return _chain_multi_score_grad_plain(q, s, W, cs)
+    c = _c_chain_spec(cs)
+    return _launch('chain_multi_score_grad', 'chain_multi_score', q, s, W,
+                   c, c.D, c.P)
 
 
 def chain_polyharmonic_score(q, supports, weights, cs: ChainStatics):
@@ -277,6 +341,11 @@ def chain_polyharmonic_score(q, supports, weights, cs: ChainStatics):
     return _FKPolyScore.apply(q, supports, weights, chain_score_grad, cs)
 
 
+def chain_polyharmonic_multi_score(q, supports, W, cs: ChainStatics):
+    """URDF-chain counterpart of ``dh_polyharmonic_multi_score``, [B, C]."""
+    return _FKPolyScore.apply(q, supports, W, chain_multi_score_grad, cs)
+
+
 def dh_score_grad_available(robot, batch: int) -> bool:
     return isinstance(robot, DHChainRobot) and batch >= _FK_FUSED_MIN_BATCH
 
@@ -284,6 +353,14 @@ def dh_score_grad_available(robot, batch: int) -> bool:
 def chain_score_grad_available(robot, batch: int) -> bool:
     return (isinstance(robot, URDFRobot) and batch >= _FK_FUSED_MIN_BATCH
             and robot._fkine_sel is not None)
+
+
+def _dh_spec(robot):
+    spec = getattr(robot, '_dh_spec_cache', None)
+    if spec is None:
+        spec = robot_spec(robot)
+        robot._dh_spec_cache = spec
+    return spec
 
 
 def fk_polyharmonic_score_auto(q, robot, supports, weights, valid_mask=None,
@@ -296,11 +373,7 @@ def fk_polyharmonic_score_auto(q, robot, supports, weights, valid_mask=None,
     if epsilon != 1.0:
         w = w / epsilon
     if dh_score_grad_available(robot, q.shape[0]):
-        spec = getattr(robot, '_dh_spec_cache', None)
-        if spec is None:
-            spec = robot_spec(robot)
-            robot._dh_spec_cache = spec
-        return dh_polyharmonic_score(q, supports, w, spec)
+        return dh_polyharmonic_score(q, supports, w, _dh_spec(robot))
     if chain_score_grad_available(robot, q.shape[0]):
         return chain_polyharmonic_score(q, supports, w,
                                         robot_chain_statics(robot))
@@ -309,3 +382,23 @@ def fk_polyharmonic_score_auto(q, robot, supports, weights, valid_mask=None,
     else:
         pts = robot.fkine(q) if hasattr(robot, 'fkine') else robot(q)
     return polyharmonic_score(pts.reshape(q.shape[0], -1), supports, w)
+
+
+def fk_polyharmonic_multi_score_auto(q, robot, supports, W, valid_mask=None,
+                                     epsilon: float = 1.0):
+    """Multi-class ``fk_polyharmonic_score_auto``: ``scores(fkine(q))``
+    [B, C] for weight columns W [S, C], through kernel B4 (DH) or B5 (URDF
+    chain) at batch >= ``_FK_FUSED_MIN_BATCH``, else FK + the plain
+    ``[B, S] @ [S, C]`` route, twice-differentiable in every argument."""
+    if valid_mask is not None:
+        W = W * valid_mask.to(W.dtype)[:, None]
+    if epsilon != 1.0:
+        W = W / epsilon
+    if dh_score_grad_available(robot, q.shape[0]):
+        return dh_polyharmonic_multi_score(q, supports, W, _dh_spec(robot))
+    if chain_score_grad_available(robot, q.shape[0]):
+        return chain_polyharmonic_multi_score(q, supports, W,
+                                              robot_chain_statics(robot))
+    pts = robot.fkine(q).reshape(q.shape[0], -1)
+    with fp32_matmul():
+        return _poly_score_xla(pts, supports, W)

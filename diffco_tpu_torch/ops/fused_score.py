@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import _native
+from ..device import fp32_matmul
 
 # the JAX package's batch gate (fused_score.py:57-59), kept as the contract
 _FUSED_MIN_BATCH = 16384
@@ -108,14 +109,15 @@ def polyharmonic_score_fused(x, s, w):
 
 def _poly_score_xla(x, s, w, valid_mask=None):
     """score = ||x - s|| @ w [B, 1] via the expanded-square distance
-    product (the JAX package's fp32 XLA route)."""
+    product (the JAX package's fp32 XLA route); weight columns W [S, C]
+    give [B, C]."""
     x2 = torch.sum(x * x, dim=1, keepdim=True)
     s2 = torch.sum(s * s, dim=1, keepdim=True)
     xs = x @ s.T
     r = torch.sqrt(torch.clamp(x2 + s2.T - 2.0 * xs, min=0.0) + 1e-12)
     if valid_mask is not None:
         r = r * valid_mask[None, :]
-    return r @ w.reshape(-1, 1)
+    return r @ (w.reshape(-1, 1) if w.dim() == 1 else w)
 
 
 def polyharmonic_score(x, supports, weights, valid_mask=None,
@@ -133,3 +135,19 @@ def polyharmonic_score(x, supports, weights, valid_mask=None,
     if x.shape[0] >= _FUSED_MIN_BATCH:
         return polyharmonic_score_fused(x, supports, w)
     return _poly_score_xla(x, supports, w)
+
+
+def rq_score(x, supports, weights, gamma: float = 10.0, p: int = 2,
+             valid_mask=None):
+    """Rational-quadratic perceptron score [B, 1] (``score_original`` of an
+    RQ-kernel DiffCo). Plain PyTorch: the JAX package has no kernel for it
+    either (the RQ kernel serves the Gram build, where the full matrix is
+    needed anyway)."""
+    w = weights.reshape(-1)
+    if valid_mask is not None:
+        w = w * valid_mask.to(w.dtype)
+    x2 = torch.sum(x * x, dim=1, keepdim=True)
+    s2 = torch.sum(supports * supports, dim=1, keepdim=True)
+    with fp32_matmul():
+        d2 = torch.clamp(x2 + s2.T - 2.0 * (x @ supports.T), min=0.0)
+        return ((1.0 + (gamma / p) * d2) ** (-p)) @ w.reshape(-1, 1)

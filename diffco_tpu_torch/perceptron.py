@@ -1,13 +1,19 @@
-"""Kernel perceptrons, the learned collision proxy (PyTorch counterpart of
-``diffco_tpu/perceptron.py``: ``perceptron_train_loop``,
-``masked_rbf_solve``, ``extract_supports``, ``Perceptron``, ``DiffCo``).
+"""Kernel perceptrons, the learned collision proxies (PyTorch counterpart of
+``diffco_tpu/perceptron.py``: the greedy trainers, ``masked_rbf_solve``,
+``extract_supports``, ``Perceptron``, ``DiffCo``, ``DiffCoBeta``,
+``MultiDiffCo`` and ``MultiDimDiffCo``).
 
-The greedy min-margin trainer runs over a precomputed Gram matrix as a
-Python loop of tensor ops that stay on the device. A finished state is a
-fixed point of the loop body (its update is zero), so the loop reads the
-``done`` flag back only every ``_DONE_CHECK_EVERY`` iterations and
-records on the device the iteration at which it first held: the result
-equals that of a loop that stops at once.
+The greedy min-margin trainers run as a Python loop of tensor ops that
+stay on the device, over a precomputed Gram matrix or, past
+``lazy_gram_threshold`` rows, over only the Gram rows each step needs
+(the lazy-row trainers, O(N) memory; the same update sequence). A
+finished state is a fixed point of the loop body (its update is zero), so
+the loop reads its ``done`` flag back only every ``_DONE_CHECK_EVERY``
+iterations and records on the device the iteration at which it first
+held: the result equals that of a loop that stops at once. The scalar and
+the multi-class trainers are one loop over label columns [N, C] (C = 1
+for a scalar perceptron): each class takes its own greedy step per
+iteration, and the loop is done when every class is.
 
 Support sets are fixed-shape padded arrays with a validity mask, as in
 the JAX package.
@@ -20,10 +26,96 @@ import numpy as np
 import torch
 
 from .device import fp32_matmul
-from .kernels import KernelFunc, RQKernel, Polyharmonic
+from .kernels import KernelFunc, MultiDimRQKernel, MultiQuadratic, \
+    Polyharmonic, RQKernel
 
 # iterations between host reads of the train loop's done flag
 _DONE_CHECK_EVERY = 64
+
+
+def _greedy_loop(step, gains, hyp, max_iteration: int):
+    """Run ``step(gains, hyp) -> (gains, hyp, done)`` until ``done`` holds
+    everywhere or ``max_iteration`` steps ran. Returns (gains, hyp,
+    iterations), the iterations a 0-d tensor: those of a loop that stops
+    right after done first holds."""
+    # max_iteration until done first holds at iteration i, then i + 1.
+    # Kept as a 1-element tensor so that the loop does not wait for the
+    # device, except at the reads every _DONE_CHECK_EVERY iterations
+    it = torch.full((1,), max_iteration, device=gains.device)
+    for i in range(max_iteration):
+        gains, hyp, done = step(gains, hyp)
+        it = torch.where(done.all() & (it == max_iteration), i + 1, it)
+        if (i + 1) % _DONE_CHECK_EVERY == 0 and bool(it < max_iteration):
+            break
+    return gains, hyp, it.reshape(())
+
+
+def _class_picks(gains, hyp, y, target, diagK, valid):
+    """Each class column's greedy choice: gains, hyp, y, target [N, C] ->
+    (idx [C], delta [C], done [C]). A class takes a min-margin gain update
+    if some margin is <= 0, else removes the support whose removal
+    increases its own margin; it is done when neither applies (delta 0)."""
+    cols = torch.arange(y.shape[1], device=y.device)
+    inf = torch.tensor(float('inf'), dtype=y.dtype, device=y.device)
+    margin = torch.where(valid[:, None], y * hyp, inf)
+    min_i = torch.argmin(margin, dim=0)
+    take_update = margin[min_i, cols] <= 0
+    delta_update = (target[min_i, cols] - hyp[min_i, cols]) / diagK[min_i]
+    nz = gains != 0
+    modified = y * (hyp - gains * diagK[:, None]) * nz * valid[:, None]
+    max_i = torch.argmax(modified, dim=0)
+    removable = (modified[max_i, cols] > 0) & (torch.sum(nz, dim=0) > 1)
+    take_remove = ~take_update & removable
+    done = ~take_update & ~removable
+    idx = torch.where(take_update, min_i, max_i)
+    delta = torch.where(take_update, delta_update,
+                        torch.where(take_remove, -gains[max_i, cols],
+                                    torch.zeros_like(delta_update)))
+    return idx, delta, done
+
+
+def _train_columns(rows, diagK, y, beta: float, max_iteration: int,
+                   init_gains=None, init_hypothesis=None, valid_mask=None):
+    """Greedy training of every label column of y [N, C] over one Gram:
+    ``rows(idx [C])`` returns the Gram rows [C, N] a step needs (gathered
+    from K, or computed lazily). Each iteration folds either update into
+    one scatter-add + axpy per class::
+
+        gains[idx_c, c] += delta_c;  hyp[:, c] += delta_c * K[idx_c]
+    """
+    N, C = y.shape
+    dt, dev = diagK.dtype, diagK.device
+    y = y.to(dt)
+    target = torch.where(y > 0, torch.full_like(y, beta),
+                         torch.full_like(y, -1.0))
+    valid = (torch.ones(N, dtype=torch.bool, device=dev) if valid_mask is None
+             else valid_mask.reshape(-1).to(torch.bool))
+    gains = (torch.zeros(N, C, dtype=dt, device=dev) if init_gains is None
+             else init_gains.reshape(N, C).clone())
+    hyp = (torch.zeros(N, C, dtype=dt, device=dev) if init_hypothesis is None
+           else init_hypothesis.reshape(N, C).clone())
+    cols = torch.arange(C, device=dev)
+
+    def step(gains, hyp):
+        idx, delta, done = _class_picks(gains, hyp, y, target, diagK, valid)
+        gains = gains.index_put((idx, cols), delta, accumulate=True)
+        return gains, hyp + rows(idx).T * delta, done
+
+    return _greedy_loop(step, gains, hyp, max_iteration)
+
+
+def _row_diag(kernel_func, Xt):
+    """k(x_i, x_i) for every row of Xt without the Gram: [N], or [N, C]
+    for a vector-valued kernel."""
+    return torch.func.vmap(lambda r: kernel_func(r[None], r[None])[0, 0])(Xt)
+
+
+def _lazy_rows(kernel_func, Xt):
+    return lambda idx: kernel_func(Xt[idx], Xt)
+
+
+def _column(a):
+    return None if a is None else a.reshape(-1, 1)
 
 
 def perceptron_train_loop(K, y, beta: float, max_iteration: int,
@@ -41,46 +133,127 @@ def perceptron_train_loop(K, y, beta: float, max_iteration: int,
     ``valid_mask`` (bool [N]) marks real rows. Returns
     (gains, hypothesis, iterations) with iterations a 0-d tensor.
     """
+    gains, hyp, it = _train_columns(
+        lambda idx: K[idx], torch.diagonal(K), y.reshape(-1, 1), beta,
+        max_iteration, _column(init_gains), _column(init_hypothesis),
+        valid_mask)
+    return gains[:, 0], hyp[:, 0], it
+
+
+def perceptron_train_loop_lazy(Xt, y, kernel_func, beta: float,
+                               max_iteration: int, init_gains=None,
+                               init_hypothesis=None, valid_mask=None):
+    """``perceptron_train_loop`` with lazy kernel rows, O(N) memory: the
+    [N, N] Gram is never built; each iteration computes the one row it
+    needs, ``k(x_idx, X)``, as a [1, F] x [F, N] product."""
     N = y.shape[0]
-    dt, dev = K.dtype, K.device
+    Xt = Xt.reshape(N, -1)
+    gains, hyp, it = _train_columns(
+        _lazy_rows(kernel_func, Xt), _row_diag(kernel_func, Xt),
+        y.reshape(-1, 1), beta, max_iteration, _column(init_gains),
+        _column(init_hypothesis), valid_mask)
+    return gains[:, 0], hyp[:, 0], it
+
+
+def _check_classes(y, num_class: int):
+    if y.dim() != 2 or y.shape[1] != num_class:
+        raise ValueError(f'labels must be [N, {num_class}], got '
+                         f'{tuple(y.shape)}')
+
+
+def multiclass_train_loop(K, y, beta: float, max_iteration: int,
+                          num_class: int, init_gains=None,
+                          init_hypothesis=None, valid_mask=None):
+    """Per-class greedy updates over one shared Gram K [N, N]; labels,
+    gains and hypothesis are [N, num_class], and every class advances one
+    step per iteration. Returns (gains, hypothesis, iterations)."""
+    _check_classes(y, num_class)
+    return _train_columns(lambda idx: K[idx], torch.diagonal(K), y, beta,
+                          max_iteration, init_gains, init_hypothesis,
+                          valid_mask)
+
+
+def multiclass_train_loop_lazy(Xt, y, kernel_func, beta: float,
+                               max_iteration: int, num_class: int,
+                               init_gains=None, init_hypothesis=None,
+                               valid_mask=None):
+    """Lazy-row ``multiclass_train_loop``, O(N * C) memory: each iteration
+    computes exactly the num_class Gram rows it needs as one [C, F] x
+    [F, N] product."""
+    _check_classes(y, num_class)
+    Xt = Xt.reshape(y.shape[0], -1)
+    return _train_columns(_lazy_rows(kernel_func, Xt),
+                          _row_diag(kernel_func, Xt), y, beta, max_iteration,
+                          init_gains, init_hypothesis, valid_mask)
+
+
+def _train_vector_gains(rows, diagK, y, beta: float, max_iteration: int,
+                        init_gains=None, init_hypothesis=None,
+                        valid_mask=None):
+    """Vector-gain greedy training (``MultiDimDiffCo``): gains [N, C],
+    hypothesis h_i = sum_j K[i, j] . g_j [N]; ``rows(idx [1])`` returns
+    the vector Gram row [1, N, C]. The min-margin update uses the rank-1
+    pseudo-inverse of the diagonal kernel vector,
+    delta = (target - h_i) * K_ii / ||K_ii||^2."""
+    N, C = diagK.shape
+    dt, dev = diagK.dtype, diagK.device
     y = y.reshape(-1).to(dt)
-    diagK = torch.diagonal(K)
-    # target = beta for y = +1, -1 for y = -1
-    target = torch.where(y > 0, torch.tensor(beta, dtype=dt, device=dev),
-                         torch.tensor(-1.0, dtype=dt, device=dev))
+    target = torch.where(y > 0, torch.full_like(y, beta),
+                         torch.full_like(y, -1.0))
     valid = (torch.ones(N, dtype=torch.bool, device=dev) if valid_mask is None
              else valid_mask.reshape(-1).to(torch.bool))
-    gains = (torch.zeros(N, dtype=dt, device=dev) if init_gains is None
+    gains = (torch.zeros(N, C, dtype=dt, device=dev) if init_gains is None
              else init_gains.clone())
     hyp = (torch.zeros(N, dtype=dt, device=dev) if init_hypothesis is None
            else init_hypothesis.clone())
     inf = torch.tensor(float('inf'), dtype=dt, device=dev)
-    zero = torch.zeros((), dtype=dt, device=dev)
-    # iteration count of a loop that stops right after done: max_iteration
-    # until done first holds at iteration i, then i + 1. Indices are kept
-    # as 1-element tensors: indexing with them does not wait for the device
-    it = torch.full((1,), max_iteration, device=dev)
-    for i in range(max_iteration):
+
+    def step(gains, hyp):
         margin = torch.where(valid, y * hyp, inf)
         min_i = torch.argmin(margin).reshape(1)
         take_update = margin[min_i] <= 0
-        delta_update = (target[min_i] - hyp[min_i]) / diagK[min_i]
-        # removal step: support whose removal *increases* its own margin
-        nz = gains != 0
-        modified = y * (hyp - gains * diagK) * nz * valid
+        k_ii = diagK[min_i]                                   # [1, C]
+        inv_k = k_ii / torch.clamp(torch.sum(k_ii ** 2), min=1e-12)
+        delta_vec = (target[min_i] - hyp[min_i])[:, None] * inv_k
+        delta_h = torch.sum(diagK * gains, dim=-1)
+        nonzero = torch.any(gains != 0, dim=-1)
+        modified = y * (hyp - delta_h) * nonzero * valid
         max_i = torch.argmax(modified).reshape(1)
-        removable = (modified[max_i] > 0) & (torch.sum(nz) > 1)
+        removable = (modified[max_i] > 0) & (torch.sum(nonzero) > 1)
         take_remove = ~take_update & removable
         done = ~take_update & ~removable
         idx = torch.where(take_update, min_i, max_i)
-        delta = torch.where(take_update, delta_update,
-                            torch.where(take_remove, -gains[max_i], zero))
+        delta = torch.where(take_update[:, None], delta_vec,
+                            torch.where(take_remove[:, None], -gains[max_i],
+                                        torch.zeros_like(delta_vec)))
         gains = gains.index_add(0, idx, delta)
-        hyp = hyp + delta * K[idx][0]
-        it = torch.where(done & (it == max_iteration), i + 1, it)
-        if (i + 1) % _DONE_CHECK_EVERY == 0 and bool(it < max_iteration):
-            break
-    return gains, hyp, it.reshape(())
+        return gains, hyp + rows(idx)[0] @ delta[0], done
+
+    return _greedy_loop(step, gains, hyp, max_iteration)
+
+
+def multidim_train_loop(K, y, beta: float, max_iteration: int,
+                        init_gains=None, init_hypothesis=None,
+                        valid_mask=None):
+    """Vector-gain greedy training over the [N, N, C] vector-valued Gram
+    tensor. Returns (gains [N, C], hypothesis [N], iterations)."""
+    N = K.shape[0]
+    ar = torch.arange(N, device=K.device)
+    return _train_vector_gains(lambda idx: K[idx], K[ar, ar], y, beta,
+                               max_iteration, init_gains, init_hypothesis,
+                               valid_mask)
+
+
+def multidim_train_loop_lazy(Xt, y, kernel_func, beta: float,
+                             max_iteration: int, init_gains=None,
+                             init_hypothesis=None, valid_mask=None):
+    """Lazy-row ``multidim_train_loop``, O(N * C) memory: Xt [N, M, d]
+    per-control-point features; each iteration computes the one vector
+    Gram row it needs, ``k(x_idx, X)`` [N, C]."""
+    return _train_vector_gains(_lazy_rows(kernel_func, Xt),
+                               _row_diag(kernel_func, Xt), y, beta,
+                               max_iteration, init_gains, init_hypothesis,
+                               valid_mask)
 
 
 def masked_rbf_solve(kmat, y, valid_mask, reg: float = 0.0):
@@ -111,17 +284,106 @@ def extract_supports(gains, S: int):
     return idx, valid, num_valid
 
 
+def _no_update(update):
+    if update:
+        raise NotImplementedError(
+            'warm-start update=True is not ported yet '
+            '(ROADMAP A7, warm-start update)')
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            'mesh= (multi-device training) is not ported yet '
+            '(ROADMAP A15, torch.distributed)')
+
+
 class Perceptron:
-    """Base class."""
+    """Base class: the padded support state shared by every proxy."""
+
+    # support sets are padded to a multiple of this many rows
+    _pad_multiple = 128
 
     def __init__(self):
         self.support_points = None
+
+    def _pad_size(self, count: int) -> int:
+        if self.max_num_supports is not None:
+            return self.max_num_supports
+        # next multiple >= count, never below a previous pad size
+        size = max(self._pad_multiple,
+                   int(np.ceil(count / self._pad_multiple))
+                   * self._pad_multiple)
+        prev = (0 if self.support_points is None
+                else self.support_points.shape[0])
+        return max(size, prev)
+
+    @property
+    def valid_supports(self):
+        return self.num_valid
+
+    def _select_supports(self, X, Xt, gains, hyp, y, dist, K):
+        """Compact to the fixed-size padded support set. ``K`` is None
+        after lazy-row training: the support Gram is then recomputed from
+        the kept rows. Support rows are counted, not nonzero gains, so
+        that [N, C] gains do not inflate the pad size."""
+        count = int(torch.sum(gains != 0) if gains.dim() == 1
+                    else torch.sum(torch.any(gains != 0, dim=-1)))
+        S = self._pad_size(max(count, 2))
+        idx, valid, num_valid = extract_supports(gains, S)
+        vf = valid.to(Xt.dtype)
+
+        def take(a):
+            return a[idx] * vf.reshape((S,) + (1,) * (a.dim() - 1)).to(
+                a.dtype)
+
+        self.support_points = take(X)
+        self.support_transformed = take(Xt)
+        self.gains = take(gains)
+        self.hypothesis = take(hyp)
+        self.y = take(y.to(Xt.dtype))
+        self.distance = take(dist) if dist is not None else None
+        if K is None:
+            with fp32_matmul():
+                km = self.kernel_func(self.support_transformed,
+                                      self.support_transformed)
+        else:
+            km = K[idx][:, idx]
+        pair = vf[:, None] * vf[None, :]
+        self.kernel_matrix = km * pair.reshape(pair.shape
+                                               + (1,) * (km.dim() - 2))
+        self.valid_mask = valid
+        self.num_valid = int(num_valid)
+        self.rbf_nodes = torch.zeros(S, dtype=Xt.dtype, device=Xt.device)
+        if count > S:
+            # top-S truncation breaks hypothesis == K @ gains; recompute it
+            # over the kept supports
+            with fp32_matmul():
+                self.hypothesis = (
+                    torch.einsum('ijc,jc->i', self.kernel_matrix, self.gains)
+                    if self.kernel_matrix.dim() == 3
+                    else self.kernel_matrix @ self.gains)
+
+    def _target_values(self, target):
+        if target == 'hypo':
+            return self.hypothesis
+        if 'dist' in target:
+            return self.distance
+        return self.y
 
     def score(self, point):
         raise NotImplementedError
 
     def is_collision(self, point):
         return self.score(point) > 0
+
+    def line_predict(self, start, target, res=50):
+        """Whether any of ``res`` evenly spaced points of the straight
+        segment start -> target scores as a collision."""
+        ts = torch.linspace(0.0, 1.0, res, dtype=start.dtype,
+                            device=start.device)
+        pts = start[None] + ts[:, None] * (target - start)[None]
+        return bool(torch.any(self.score(pts) > 0))
 
     def __call__(self, *args, **kwargs):
         return self.predict(*args, **kwargs)
@@ -137,153 +399,146 @@ class DiffCo(Perceptron):
                  max_batch_size=None, max_num_supports: Optional[int] = None,
                  mesh=None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                'mesh= (multi-device training) is not ported yet '
-                '(ROADMAP A15, torch.distributed)')
+        _no_mesh(mesh)
         self.kernel_func = (RQKernel(gamma) if kernel_func == 'rq'
                             else kernel_func)
         self.beta = float(beta)
         self.transform = transform
         self.max_num_supports = max_num_supports  # None -> auto pad
-        # rows above which the JAX package switches to its lazy-row trainer
+        # rows above which train() switches to the lazy-row trainer
         self.lazy_gram_threshold = 16384
 
         self.support_points = None       # [S, dof]
         self.support_transformed = None  # [S, F]
-        self.gains = None                # [S]
-        self.hypothesis = None           # [S]
-        self.y = None                    # [S]
+        self.gains = None                # [S] ([S, C] multi-class)
+        self.hypothesis = None           # [S] ([S, C])
+        self.y = None                    # [S] ([S, C])
         self.distance = None             # [S] or None
         self.kernel_matrix = None        # [S, S]
-        self.rbf_nodes = None            # [S]
+        self.rbf_nodes = None            # [S] ([S, C])
         self.valid_mask = None           # bool [S]
         self.num_valid = 0
         self.rbf_kernel = None
         self.train_iterations = None
 
-    # -- helpers ----------------------------------------------------------
-
     def _apply_transform(self, X):
         Xt = X if self.transform is None else self.transform(X)
         return Xt.reshape(Xt.shape[0], -1)
-
-    def _pad_size(self, count: int) -> int:
-        if self.max_num_supports is not None:
-            return self.max_num_supports
-        # next multiple of 128 >= count, never below a previous pad size
-        size = max(128, int(np.ceil(count / 128.0)) * 128)
-        prev = (0 if self.support_points is None
-                else self.support_points.shape[0])
-        return max(size, prev)
-
-    @property
-    def valid_supports(self):
-        return self.num_valid
 
     # -- training ---------------------------------------------------------
 
     def train(self, X, y, update=False, exist_mask=None, max_iteration=1000,
               method='original', distance=None, verbose=False):
-        """Cold-start training over the dense Gram of the transformed X."""
+        """Cold-start training: over the dense Gram of the transformed X
+        up to ``lazy_gram_threshold`` rows, over lazy Gram rows past it."""
         del method, exist_mask
-        if update:
-            raise NotImplementedError(
-                'warm-start update=True is not ported yet '
-                '(ROADMAP A7, warm-start update)')
-        y = y.reshape(-1)
+        _no_update(update)
+        self._train(X, y.reshape(-1), max_iteration,
+                    distance.reshape(-1) if distance is not None else None,
+                    verbose)
+
+    def _train(self, X, y, max_iteration, distance, verbose):
+        """Train on labels y [N] or [N, C] and select the supports."""
         N = X.shape[0]
-        if N > self.lazy_gram_threshold:
-            raise NotImplementedError(
-                f'{N} rows need the lazy-row trainer, not ported yet '
-                '(ROADMAP A5, lazy trainer)')
         Xt = self._apply_transform(X)
+        yc = y.reshape(N, -1).to(Xt.dtype)
+        K = None
         with fp32_matmul():
-            K = self.kernel_func(Xt, Xt)
-        gains, hyp, it = perceptron_train_loop(K, y, self.beta,
-                                               int(max_iteration))
+            if N > self.lazy_gram_threshold:
+                rows = _lazy_rows(self.kernel_func, Xt)
+                diagK = _row_diag(self.kernel_func, Xt)
+            else:
+                K = self.kernel_func(Xt, Xt)
+                rows, diagK = (lambda idx: K[idx]), torch.diagonal(K)
+            gains, hyp, it = _train_columns(rows, diagK, yc, self.beta,
+                                            int(max_iteration))
+        gains, hyp = gains.reshape(y.shape), hyp.reshape(y.shape)
         self.train_iterations = int(it)
         if verbose:
             acc = float(torch.mean(((hyp > 0) == (y > 0)).float()))
-            print(f'DiffCo training ended at iteration {self.train_iterations}'
-                  f', ACC {acc:.4f}')
-        dist = distance.reshape(-1) if distance is not None else None
-        self._select_supports(X, Xt, gains, hyp, y, dist, K)
-
-    def _select_supports(self, X, Xt, gains, hyp, y, dist, K):
-        """Compact to the fixed-size padded support set."""
-        count = int(torch.sum(gains != 0))
-        S = self._pad_size(max(count, 2))
-        idx, valid, num_valid = extract_supports(gains, S)
-        vf = valid.to(Xt.dtype)
-
-        def take(a):
-            return a[idx] * vf.reshape((S,) + (1,) * (a.dim() - 1)).to(
-                a.dtype)
-
-        self.support_points = take(X)
-        self.support_transformed = take(Xt)
-        self.gains = take(gains)
-        self.hypothesis = take(hyp)
-        self.y = take(y.to(Xt.dtype))
-        self.distance = take(dist) if dist is not None else None
-        km = K[idx][:, idx]
-        self.kernel_matrix = km * vf[:, None] * vf[None, :]
-        self.valid_mask = valid
-        self.num_valid = int(num_valid)
-        self.rbf_nodes = torch.zeros(S, dtype=Xt.dtype, device=Xt.device)
-        if count > S:
-            # top-S truncation breaks hypothesis == K @ gains; recompute it
-            # over the kept supports
-            self.hypothesis = self.kernel_matrix @ self.gains
+            print(f'{type(self).__name__} training ended at iteration '
+                  f'{self.train_iterations}, ACC {acc:.4f}')
+        self._select_supports(X, Xt, gains, hyp, y, distance, K)
 
     # -- smooth surrogate -------------------------------------------------
 
     def fit_poly(self, kernel_func: Optional[KernelFunc] = None,
                  target='hypo', reg: float = 0.0):
         """Fit the smooth RBF surrogate over the supports."""
+        if target != 'hypo' and 'dist' not in target and \
+                'label' not in target:
+            raise ValueError(f'unknown target {target}')
         self.rbf_kernel = (Polyharmonic(k=1, epsilon=1)
                            if kernel_func is None else kernel_func)
-        if target == 'hypo':
-            yv = self.hypothesis
-        elif 'dist' in target:
-            yv = self.distance
-        elif 'label' in target:
-            yv = self.y
-        else:
-            raise ValueError(f'unknown target {target}')
         with fp32_matmul():
             kmat = self.rbf_kernel(self.support_transformed,
                                    self.support_transformed)
-            self.rbf_nodes = masked_rbf_solve(kmat, yv, self.valid_mask,
-                                              reg=reg)
+            self.rbf_nodes = masked_rbf_solve(
+                kmat, self._target_values(target), self.valid_mask, reg=reg)
+
+    def fit_full_poly(self, epsilon=1, k=2, lmbd=0, target='hypo'):
+        """Polyharmonic + linear-tail interpolation over the valid
+        supports: solves [[Phi, X, 1], [X^T, 0, 0], [1^T, 0, 0]] nodes =
+        [y, 0, 0]. [S, C] targets (``MultiDiffCo``) give [S + F + 1, C]
+        nodes."""
+        self.poly_kernel = Polyharmonic(k=k, epsilon=epsilon)
+        X = self.support_transformed
+        S, F = X.shape
+        m = self.valid_mask.to(X.dtype)
+        with fp32_matmul():
+            phi = self.poly_kernel(X, X) * m[:, None] * m[None, :]
+        phi = phi + torch.diag(lmbd * m + (1.0 - m))
+        Xm = X * m[:, None]
+        ones = m.reshape(-1, 1)
+        L = torch.cat([torch.cat([phi, Xm, ones], 1),
+                       torch.cat([Xm.T, X.new_zeros(F, F + 1)], 1),
+                       torch.cat([ones.T, X.new_zeros(1, F + 1)], 1)], 0)
+        # regularize the (singular-prone) tail block minimally
+        L = L + 1e-8 * torch.eye(L.shape[0], dtype=X.dtype, device=X.device)
+        yv = self._target_values(target)
+        b = torch.cat([yv * m.reshape((S,) + (1,) * (yv.dim() - 1)),
+                       X.new_zeros((F + 1,) + yv.shape[1:])], 0)
+        with fp32_matmul():
+            self.poly_nodes = torch.linalg.solve(L, b)
 
     # -- inference --------------------------------------------------------
+
+    def _fk_robot(self):
+        """The robot whose ``fkine`` is this perceptron's transform, or
+        None (the one-pass FK + score routes need it)."""
+        robot = getattr(self.transform, '__self__', None)
+        if robot is not None and getattr(robot, 'fkine', None) == \
+                self.transform:
+            return robot
+        return None
+
+    def _kernel_matvec(self, kernel_func, pt, nodes):
+        with fp32_matmul():
+            kv = kernel_func(pt, self.support_transformed)
+            kv = kv * self.valid_mask.to(kv.dtype)[None, :]
+            return kv @ nodes
 
     def poly_score(self, point=None, transformed_point=None):
         """Smooth surrogate score [B, 1].
 
         Differentiation contract: gradients w.r.t. the QUERY only. At
         batch >= ops.fk_score._FK_FUSED_MIN_BATCH (configurations of a DH
-        robot) or >= ops.fused_score._FUSED_MIN_BATCH (points) the score
-        runs through one-pass autograd Functions that treat the trained
-        state as constants (zero cotangents, no forward mode); below the
-        gates the route is differentiable in every argument."""
+        or URDF robot) or >= ops.fused_score._FUSED_MIN_BATCH (points) the
+        score runs through one-pass autograd Functions that treat the
+        trained state as constants (zero cotangents, no forward mode);
+        below the gates the route is differentiable in every argument."""
         is_poly1 = (isinstance(self.rbf_kernel, Polyharmonic)
                     and self.rbf_kernel.k == 1)
         if transformed_point is None:
             point = torch.atleast_2d(point)
-            if is_poly1:
-                # FK-transformed checker: FK + score + configuration
-                # gradient in one pass per batch at large batch
-                robot = getattr(self.transform, '__self__', None)
-                if (robot is not None
-                        and getattr(robot, 'fkine', None) == self.transform):
-                    from .ops.fk_score import fk_polyharmonic_score_auto
-                    return fk_polyharmonic_score_auto(
-                        point, robot, self.support_transformed,
-                        self.rbf_nodes, self.valid_mask,
-                        epsilon=self.rbf_kernel.epsilon)
+            robot = self._fk_robot() if is_poly1 else None
+            if robot is not None:
+                # FK + score + configuration gradient in one pass per
+                # batch at large batch
+                from .ops.fk_score import fk_polyharmonic_score_auto
+                return fk_polyharmonic_score_auto(
+                    point, robot, self.support_transformed, self.rbf_nodes,
+                    self.valid_mask, epsilon=self.rbf_kernel.epsilon)
             pt = self._apply_transform(point)
         else:
             pt = transformed_point.reshape(transformed_point.shape[0], -1)
@@ -292,17 +547,246 @@ class DiffCo(Perceptron):
             return polyharmonic_score(pt, self.support_transformed,
                                       self.rbf_nodes, self.valid_mask,
                                       epsilon=self.rbf_kernel.epsilon)
-        kv = self.rbf_kernel(pt, self.support_transformed)
-        kv = kv * self.valid_mask.to(kv.dtype)[None, :]
-        return kv @ self.rbf_nodes.reshape(-1, 1)
+        return self._kernel_matvec(self.rbf_kernel, pt,
+                                   self.rbf_nodes.reshape(-1, 1))
+
+    def full_poly_score(self, point):
+        """[B, 1] for DiffCo; [B, C] for MultiDiffCo."""
+        pt = self._apply_transform(torch.atleast_2d(point))
+        m = self.valid_mask.to(pt.dtype)
+        nodes = (self.poly_nodes.reshape(-1, 1) if self.poly_nodes.dim() == 1
+                 else self.poly_nodes)
+        with fp32_matmul():
+            phi = self.poly_kernel(pt, self.support_transformed) * m[None, :]
+            phi_x = torch.cat([phi, pt, pt.new_ones(pt.shape[0], 1)], 1)
+            return phi_x @ nodes
 
     def score_original(self, point):
         """Raw perceptron score k(phi(q), supports) @ gains."""
-        point = torch.atleast_2d(point)
-        pt = self._apply_transform(point)
-        kv = self.kernel_func(pt, self.support_transformed)
-        kv = kv * self.valid_mask.to(kv.dtype)[None, :]
-        return kv @ self.gains
+        pt = self._apply_transform(torch.atleast_2d(point))
+        return self._kernel_matvec(self.kernel_func, pt, self.gains)
+
+    def score(self, point):
+        return self.score_original(point)
+
+    def predict(self, point):
+        return (self.score(point) > 0) * 2 - 1
+
+
+class DiffCoBeta(DiffCo):
+    """Distance-regressing variant: the perceptron picks the support set,
+    then a regularized RBF solve regresses the signed distance."""
+
+    def __init__(self, kernel_func='rq', rbf_kernel=None, gamma=1, beta=1,
+                 transform=None, max_num_supports=None, mesh=None):
+        super().__init__(kernel_func=kernel_func, gamma=gamma, beta=beta,
+                         transform=transform,
+                         max_num_supports=max_num_supports, mesh=mesh)
+        self.rbf_kernel = (Polyharmonic(k=1, epsilon=1)
+                           if rbf_kernel is None else rbf_kernel)
+
+    def train(self, X, d, max_iteration=1000, n_left_out_points=100,
+              dtol=1e-4, keep_all=False, verbose=False):
+        """Train labels (d >= 0) on X[:-n], then regress the distances d
+        over the valid supports + the n left-out points X[-n:]."""
+        del dtol, keep_all
+        d = d.reshape(-1)
+        # clamp so small datasets keep at least 2 perceptron training rows
+        n = int(min(n_left_out_points, max(X.shape[0] - 2, 0)))
+        if n == 0:
+            raise ValueError(
+                f'DiffCoBeta.train needs > 2 samples, got {X.shape[0]}')
+        X_head, d_head = X[:-n], d[:-n]
+        labels = (d_head >= 0).to(d.dtype) * 2.0 - 1.0
+        super().train(X_head, labels, max_iteration=max_iteration,
+                      distance=d_head, verbose=verbose)
+        nv = self.num_valid
+        self.train_distance(torch.cat([self.support_points[:nv], X[-n:]]),
+                            torch.cat([self.distance[:nv], d[-n:]]))
+
+    def train_distance(self, X, d):
+        """Solve (K + 0.1 I) alpha = d over the regression set."""
+        Xt = self._apply_transform(X)
+        n = X.shape[0]
+        S = self._pad_size(n)
+
+        def pad(a):
+            return torch.cat([a, a.new_zeros((S - n,) + a.shape[1:])])
+
+        self.support_points = pad(X)
+        self.support_transformed = pad(Xt)
+        self.distance = pad(d)
+        self.valid_mask = torch.arange(S, device=X.device) < n
+        self.num_valid = int(n)
+        with fp32_matmul():
+            self.kernel_matrix = self.rbf_kernel(self.support_transformed,
+                                                 self.support_transformed)
+            self.gains = masked_rbf_solve(self.kernel_matrix, self.distance,
+                                          self.valid_mask, reg=0.1)
+        self.rbf_nodes = self.gains
+        self.hypothesis = pad(self.rbf_score(
+            self.support_points[:n]).reshape(-1))
+        self.y = torch.sign(self.distance)
+
+    def rbf_score(self, point):
+        pt = self._apply_transform(torch.atleast_2d(point))
+        return self._kernel_matvec(self.rbf_kernel, pt,
+                                   self.rbf_nodes.reshape(-1, 1))
+
+
+class MultiDiffCo(DiffCo):
+    """Multi-class perceptron: per-class gains [S, C] over one shared
+    support set (one class per obstacle class, labels [N, C])."""
+
+    def __init__(self, kernel_func='rq', gamma=1, beta=1, transform=None,
+                 max_num_supports=None, mesh=None):
+        super().__init__(kernel_func=kernel_func, gamma=gamma, beta=beta,
+                         transform=transform,
+                         max_num_supports=max_num_supports, mesh=mesh)
+        self.num_class = None
+
+    def train(self, X, y, update=False, exist_mask=None, max_iteration=1000,
+              method='original', distance=None, verbose=False):
+        del method, exist_mask
+        _no_update(update)
+        if y.dim() != 2:
+            raise ValueError('MultiDiffCo expects labels [N, num_class]')
+        self.num_class = y.shape[1]
+        self._train(X, y, max_iteration, distance, verbose)
+
+    def fit_poly(self, kernel_func=None, target='hypo', reg: float = 0.0):
+        """Per-class masked solve over the shared supports: class c solves
+        only over the supports with a nonzero class-c gain (the others'
+        rows and columns become identity, their nodes 0)."""
+        self.rbf_kernel = (MultiQuadratic(1) if kernel_func is None
+                           else kernel_func)
+        yv = self._target_values(target)
+        with fp32_matmul():
+            kmat = self.rbf_kernel(self.support_transformed,
+                                   self.support_transformed)
+            self.rbf_nodes = torch.stack([masked_rbf_solve(
+                kmat, yv[:, c], (self.gains[:, c] != 0) & self.valid_mask,
+                reg=reg) for c in range(self.num_class)], dim=1)  # [S, C]
+
+    def poly_score(self, point=None, transformed_point=None):
+        """[B, C] per-class surrogate scores. Same differentiation contract
+        as ``DiffCo.poly_score``: at batch >=
+        ``ops.fk_score._FK_FUSED_MIN_BATCH`` an FK-transformed DH or URDF
+        checker scores all classes in one pass (kernel B4 or B5: q
+        gradients only, forward mode raises); below the gate the route is
+        twice-differentiable."""
+        is_poly1 = (isinstance(self.rbf_kernel, Polyharmonic)
+                    and self.rbf_kernel.k == 1)
+        if transformed_point is None:
+            point = torch.atleast_2d(point)
+            robot = self._fk_robot() if is_poly1 else None
+            if robot is not None:
+                from .ops.fk_score import fk_polyharmonic_multi_score_auto
+                return fk_polyharmonic_multi_score_auto(
+                    point, robot, self.support_transformed, self.rbf_nodes,
+                    self.valid_mask, epsilon=self.rbf_kernel.epsilon)
+            pt = self._apply_transform(point)
+        else:
+            pt = transformed_point.reshape(transformed_point.shape[0], -1)
+        return self._kernel_matvec(self.rbf_kernel, pt, self.rbf_nodes)
+
+    rbf_score = poly_score
+
+
+class MultiDimDiffCo(Perceptron):
+    """Vector-gain perceptron: the kernel returns one value per control
+    point and each support carries a gain per control point. The Gram is
+    [N, N, C], C times an ordinary one, so past ``lazy_gram_threshold``
+    rows (4096) ``train`` takes the lazy-row trainer."""
+
+    _pad_multiple = 64
+
+    def __init__(self, kernel_func=None, gamma=1, beta=1, transform=None,
+                 max_batch_size=None, max_num_supports=None, mesh=None):
+        super().__init__()
+        _no_mesh(mesh)
+        self.kernel_func = (MultiDimRQKernel(gamma) if kernel_func is None
+                            or kernel_func == 'multi_dim_rq'
+                            else kernel_func)
+        self.beta = float(beta)
+        self.transform = transform
+        self.max_num_supports = max_num_supports
+        self.lazy_gram_threshold = 4096
+        self.support_transformed = None  # [S, M, d]
+        self.gains = None                # [S, C]
+        self.hypothesis = None           # [S]
+        self.y = None
+        self.distance = None
+        self.kernel_matrix = None        # [S, S, C]
+        self.rbf_nodes = None
+        self.valid_mask = None
+        self.num_valid = 0
+        self.rbf_kernel = None
+        self.train_iterations = None
+
+    def _apply_transform(self, X):
+        """Keeps the per-control-point structure: [N, M, d]."""
+        if self.transform is None:
+            return X[:, :, None] if X.dim() == 2 else X
+        return self.transform(X)
+
+    def train(self, X, y, update=False, exist_mask=None, max_iteration=1000,
+              method='original', distance=None, verbose=False):
+        del method, exist_mask
+        _no_update(update)
+        y = y.reshape(-1)
+        Xt = self._apply_transform(X)                 # [N, M, d]
+        K = None
+        with fp32_matmul():
+            if X.shape[0] > self.lazy_gram_threshold:
+                gains, hyp, it = multidim_train_loop_lazy(
+                    Xt, y, self.kernel_func, self.beta, int(max_iteration))
+            else:
+                K = self.kernel_func(Xt, Xt)
+                gains, hyp, it = multidim_train_loop(K, y, self.beta,
+                                                     int(max_iteration))
+        self.train_iterations = int(it)
+        if verbose:
+            acc = float(torch.mean(((hyp > 0) == (y > 0)).float()))
+            print(f'MultiDimDiffCo ended at iteration '
+                  f'{self.train_iterations}, ACC {acc:.4f}')
+        self._select_supports(
+            X, Xt, gains, hyp, y,
+            distance.reshape(-1) if distance is not None else None, K)
+        self.rbf_nodes = torch.zeros_like(self.gains)
+
+    def fit_poly(self, kernel_func=None, target='hypo'):
+        """Least-squares fit over the flattened vector kernel [S, S * C]
+        (the minimum-norm solution, singular values below 1e-6 of the
+        largest cut, as the JAX package's ``lstsq(rcond=1e-6)``)."""
+        self.rbf_kernel = (MultiDimRQKernel(1.0) if kernel_func is None
+                           else kernel_func)
+        yv = self._target_values(target)
+        m = self.valid_mask.to(yv.dtype)
+        with fp32_matmul():
+            kmat = self.rbf_kernel(self.support_transformed,
+                                   self.support_transformed)  # [S, S, C]
+            S = kmat.shape[0]
+            kflat = (kmat * m[:, None, None] * m[None, :, None]).reshape(S, -1)
+            sol = torch.linalg.pinv(kflat, rtol=1e-6) @ (yv * m)[:, None]
+        self.rbf_nodes = sol.reshape(S, -1) * m[:, None]
+
+    def _vector_kernel(self, kernel_func, point, transformed_point=None):
+        """k(phi(q), supports) [B, S, C] with padded supports masked."""
+        pt = (self._apply_transform(torch.atleast_2d(point))
+              if transformed_point is None else transformed_point)
+        kv = kernel_func(pt, self.support_transformed)
+        return kv * self.valid_mask.to(kv.dtype)[None, :, None]
+
+    def poly_score(self, point=None, transformed_point=None):
+        kv = self._vector_kernel(self.rbf_kernel, point, transformed_point)
+        with fp32_matmul():
+            return kv.reshape(kv.shape[0], -1) @ self.rbf_nodes.reshape(-1, 1)
+
+    def score_original(self, point):
+        kv = self._vector_kernel(self.kernel_func, point)
+        with fp32_matmul():
+            return torch.einsum('bsc,sc->b', kv, self.gains)
 
     def score(self, point):
         return self.score_original(point)

@@ -22,6 +22,14 @@ CHAIN_CASES = [('panda_simple.urdf', 37, 5),
                ('panda_simple.urdf', 65536 + 37, 512),
                ('trifinger_simple.urdf', 4096 + 5, 128),
                ('lift_rig.urdf', 4096 + 5, 128)]
+# B4: ragged B, one weight column, one class tile, three (the last padded)
+DH_MULTI_CASES = [(37, 5, 1), (300, 130, 2), (65536 + 37, 512, 2),
+                  (65536 + 37, 512, 5)]
+# B5 on the three robots; FrankaPanda's multi-class proxy has S = 1024
+CHAIN_MULTI_CASES = [('panda_simple.urdf', 37, 5, 3),
+                     ('panda_simple.urdf', 65536 + 37, 1024, 5),
+                     ('trifinger_simple.urdf', 4096 + 5, 128, 2),
+                     ('lift_rig.urdf', 4096 + 5, 128, 2)]
 
 
 @pytest.fixture
@@ -145,3 +153,77 @@ def test_chain_kernel_rejects_what_it_cannot_take(cuda, tmp_path):
         fk_score.chain_score_grad(qr, sr.contiguous(),
                                   torch.zeros(8, device=cuda),
                                   fk_score.robot_chain_statics(rope))
+
+
+def _weights(S, C, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(S, C, generator=g) * 0.05).to(dev)
+
+
+@pytest.mark.parametrize('B,S,C', DH_MULTI_CASES)
+def test_dh_multi_score_kernel_matches_plain(cuda, B, S, C):
+    robot, q, sup, _ = _inputs(B, S, cuda, seed=5)
+    W = _weights(S, C, cuda, seed=C)
+    spec = fk_score.robot_spec(robot)
+    before = fk_score.dh_multi_score_grad_launches
+    score, dq = fk_score.dh_multi_score_grad(q, sup, W, spec)
+    torch.cuda.synchronize()
+    assert fk_score.dh_multi_score_grad_launches == before + 1
+    assert score.shape == (B, C) and dq.shape == (C, B, 7)
+    ref, ref_dq = fk_score._dh_multi_score_grad_plain(q, sup, W, spec)
+    _close(score, ref, 1e-4)
+    _close(dq, ref_dq, 1e-3)
+
+
+@pytest.mark.parametrize('name,B,S,C', CHAIN_MULTI_CASES)
+def test_chain_multi_score_kernel_matches_plain(cuda, name, B, S, C):
+    robot, q, sup, _ = _chain_inputs(name, B, S, cuda, seed=6)
+    W = _weights(S, C, cuda, seed=C)
+    cs = fk_score.robot_chain_statics(robot)
+    before = fk_score.chain_multi_score_grad_launches
+    score, dq = fk_score.chain_multi_score_grad(q, sup, W, cs)
+    torch.cuda.synchronize()
+    assert fk_score.chain_multi_score_grad_launches == before + 1
+    ref, ref_dq = fk_score._chain_multi_score_grad_plain(q, sup, W, cs)
+    _close(score, ref, 1e-4)
+    _close(dq, ref_dq, 1e-3)
+
+
+@pytest.mark.parametrize('kind', ['dh', 'chain'])
+def test_multi_auto_router_gradient_is_kernel_dq(cuda, kind):
+    """A class mix g [B, C] through fk_polyharmonic_multi_score_auto gives
+    einsum('bc,cbj->bj', g, dq) of the kernel's dq."""
+    if kind == 'dh':
+        robot, q, sup, _ = _inputs(65536, 512, cuda, seed=7)
+        kernel, spec = fk_score.dh_multi_score_grad, fk_score.robot_spec(robot)
+    else:
+        robot, q, sup, _ = _chain_inputs('panda_simple.urdf', 65536, 512,
+                                         cuda, seed=7)
+        kernel = fk_score.chain_multi_score_grad
+        spec = fk_score.robot_chain_statics(robot)
+    W = _weights(512, 3, cuda, seed=8)
+    mix = _weights(65536, 3, cuda, seed=9)
+    qg = q.clone().requires_grad_(True)
+    out = fk_score.fk_polyharmonic_multi_score_auto(qg, robot, sup, W)
+    g, = torch.autograd.grad((out * mix).sum(), qg)
+    _, dq = kernel(q, sup, W, spec)
+    _close(g, torch.einsum('bc,cbj->bj', mix, dq), 1e-6)
+
+
+def test_multi_kernels_reject_what_they_cannot_take(cuda):
+    robot, q, sup, _ = _inputs(64, 16, cuda)
+    spec = fk_score.robot_spec(robot)
+    with pytest.raises(ValueError, match='1 to 8'):
+        fk_score.dh_multi_score_grad(q, sup, _weights(16, 9, cuda, 0), spec)
+    with pytest.raises(ValueError):
+        fk_score.dh_multi_score_grad(q, sup, _weights(16, 2, cuda, 0).double(),
+                                     spec)
+    with pytest.raises(ValueError):
+        fk_score.dh_multi_score_grad(q, sup, _weights(15, 2, cuda, 0), spec)
+    with pytest.raises(ValueError):      # one weight column is B1's input
+        fk_score.dh_multi_score_grad(q, sup, _weights(16, 1, cuda, 0)[:, 0],
+                                     spec)
+    robot, q, sup, _ = _chain_inputs('lift_rig.urdf', 64, 16, cuda)
+    cs = fk_score.robot_chain_statics(robot)
+    with pytest.raises(ValueError, match='1 to 8'):
+        fk_score.chain_multi_score_grad(q, sup, _weights(16, 9, cuda, 0), cs)

@@ -1,6 +1,6 @@
-"""The port stands alone: importing diffco_tpu_torch and scoring on the
-CPU (a DH robot and a URDF robot) loads neither JAX nor the JAX
-package."""
+"""The port stands alone: importing diffco_tpu_torch, scoring on the CPU
+(a DH robot and a URDF robot, one class and two) and training a small
+MultiDiffCo load neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -27,6 +27,18 @@ q = robot.rand_configs(8, g)
 sup = robot.fkine(robot.rand_configs(16, g)).reshape(16, -1)
 s = fk_score.fk_polyharmonic_score_auto(q, robot, sup, w)
 assert s.shape == (8, 1) and bool(torch.isfinite(s).all())
+W = torch.randn(16, 2, generator=g)
+s, dq = fk_score.chain_multi_score_grad(q, sup, W,
+                                        fk_score.robot_chain_statics(robot))
+assert s.shape == (8, 2) and dq.shape == (2, 8, 7)
+X = torch.rand(60, 6, generator=g) * 2 - 1
+y = torch.stack([X[:, 0] > 0.2, X[:, 1] < -0.3], 1).float() * 2 - 1
+p = dc.MultiDiffCo(kernel_func=dc.kernels.RQKernel(10.0))
+p.train(X, y, max_iteration=180)
+p.fit_poly(target='label')
+s = p.poly_score(X[:8])
+assert p.num_class == 2 and s.shape == (8, 2)
+assert bool(torch.isfinite(s).all()) and p.score(X[:8]).shape == (8, 2)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'diffco_tpu'
              or m.startswith('diffco_tpu.'))
