@@ -18,7 +18,16 @@ user calls:
   classes -> ground-truth check (any class);
 - FrankaPanda multi-class at the quick start's width: five classes
   (self-collision and each of the 4 shapes) -> fit -> verify -> the
-  [B, 5] sweeps.
+  [B, 5] sweeps;
+- the roofline path at bench.py's primitive shape (PandaFK, B = 65536,
+  S = 512): ``diffco_tpu_torch.scripts.roofline_fk_score.run`` (B1's
+  bench step and kernel, the B7 ablation ladder, the B1 block-size sweep)
+  and ``diffco_tpu_torch.scripts.ab_dual_tile.run`` (B1 against the B6
+  dual-row variants), each result printed as a JSON line.
+
+Before the paths it holds B6 (every variant) against the B1 kernel and
+B1's plain twin, and each B7 mode against its plain twin, at
+B = 65536 + 37, S = 512.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after, which shows that its sweeps went through its kernels. Then
@@ -40,8 +49,8 @@ import time
 import numpy as np
 import torch
 
-from diffco_tpu_torch.ops.bounds import (bound, chain_ops, dh_ops,
-                                         fk_score_bytes, score_ops)
+from diffco_tpu_torch.ops.bounds import (ablation_work, bound, chain_ops,
+                                         dh_ops, fk_score_bytes, score_ops)
 
 # the main path's shapes (bench.py's primitive: B = 65536, S = 512)
 B_BENCH = 65536
@@ -68,6 +77,11 @@ LINK_RADIUS = 0.15
 N_PROBLEMS = 4
 TRAJ_OPTIONS = {'N_WAYPOINTS': 20, 'NUM_RE_TRIALS': 8, 'MAXITER': 300,
                 'max_speed': 2.0, 'dense_sub': 4, 'history': False}
+# B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
+# without dq, 1e-3 with it; 1e-2 for mv_bf16_full, where kernel and twin
+# may round one r or 1/r to neighbouring bf16 values (2^-8 of a term)
+ABLATION_TOL = {'fk_only': 1e-4, 'mxu': 1e-4, 'mxu_rsqrt': 1e-4,
+                'fwd': 1e-4, 'mv_f32_full': 1e-3, 'mv_bf16_full': 1e-2}
 
 
 def _phase(name, t0, **info):
@@ -76,14 +90,20 @@ def _phase(name, t0, **info):
 
 
 def _ptxas_report(log):
-    """'kernel<FP>: registers/spill stores/stack frame' per compiled kernel
-    instance, from nvcc's ``-Xptxas -v`` output."""
+    """'kernel<template args>: registers/spill stores/stack frame' per
+    compiled kernel instance, from nvcc's ``-Xptxas -v`` output (an
+    ablation kernel's mode by name)."""
+    from diffco_tpu_torch.scripts.roofline_fk_score import MODES
+    mode_names = {str(v): k for k, v in MODES.items()}
     out, kernel, spill, stack = [], None, None, None
     for ln in log.splitlines():
-        m = re.search(r'((?:poly|dh|chain)(?:_multi)?_score_grad_kernel)'
-                      r'ILi(\d+)E', ln)
+        m = re.search(r'((?:poly|dh|chain)(?:_multi|_dual)?_score_grad_kernel'
+                      r'|dh_ablation_kernel)I((?:L[ib]\d+E)+)E', ln)
         if 'Compiling entry function' in ln and m:
-            kernel = f'{m.group(1)}<{m.group(2)}>'
+            args = re.findall(r'L[ib](\d+)E', m.group(2))
+            if m.group(1) == 'dh_ablation_kernel':
+                args = [mode_names[a] for a in args]
+            kernel = f'{m.group(1)}<{",".join(args)}>'
         m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores',
                       ln)
         if m:
@@ -292,6 +312,69 @@ def check_chain_multi_kernel(dev):
         _phase(f'B5 chain_multi_score_grad vs plain, {name}', t0, B=B, S=S,
                C=C, D=q.shape[1], max_abs_err=err)
     return out
+
+
+def check_roofline_kernels(robot, dev):
+    """B6 in every variant against the B1 kernel and B1's fp32 plain twin,
+    and each B7 mode against its plain twin, at B = 65536 + 37, S = 512
+    (tolerances as in tests/test_torch_cuda.py)."""
+    from diffco_tpu_torch.ops import fk_score
+    from diffco_tpu_torch.scripts import ab_dual_tile as ab
+    from diffco_tpu_torch.scripts import roofline_fk_score as rf
+    t0 = time.perf_counter()
+    q, sup, w = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=30)
+    spec = fk_score.robot_spec(robot)
+    b1 = fk_score.dh_score_grad(q, sup, w, spec)
+    twin = fk_score._dh_score_grad_plain(q, sup, w, spec)
+    dual = {}
+    for name, (threads, pipelined) in ab.VARIANTS.items():
+        score, dq = ab.dh_dual_score_grad(q, sup, w, spec, threads, pipelined)
+        torch.cuda.synchronize()
+        for what, (ref, ref_dq) in (('B1 kernel', b1), ('plain twin', twin)):
+            _check_close(f'{name} score vs {what}', score, ref, 1e-4)
+            _check_close(f'{name} dq vs {what}', dq, ref_dq, 1e-3)
+        dual[name] = _max_err([(score, twin[0]), (dq, twin[1])])
+    _phase('B6 dh_dual_score_grad vs B1 and plain', t0, B=B_RAGGED,
+           S=S_BENCH, max_abs_err=dual)
+    t0 = time.perf_counter()
+    modes = {}
+    for mode in rf.MODES:
+        out = rf.dh_ablation(q, sup, w, spec, mode)
+        ref = rf._dh_ablation_plain(q, sup, w, spec, mode)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = ABLATION_TOL[mode] * float(ref.abs().max())
+        if not err <= tol:
+            raise AssertionError(f'dh_ablation {mode}: kernel and plain twin '
+                                 f'disagree by {err} > {tol}')
+        modes[mode] = err
+    _phase('B7 dh_ablation vs plain', t0, B=B_RAGGED, S=S_BENCH,
+           max_abs_err=modes)
+    return dict(args=(q, sup, w, spec), dual_err=dual, mode_err=modes)
+
+
+def roofline_path(dev):
+    """The roofline entry points at their own shape; each result printed
+    as one JSON line."""
+    from diffco_tpu_torch.scripts import ab_dual_tile as ab
+    from diffco_tpu_torch.scripts import roofline_fk_score as rf
+    t0 = time.perf_counter()
+    roof = rf.run(dev)
+    _phase('roofline path: roofline_fk_score', t0,
+           full_kernel_ms=roof['full_kernel_ms'],
+           bench_step_ms=roof['bench_step_ms'])
+    print(json.dumps({'roofline': roof}), flush=True)
+    for key in ('bench_step_ms', 'full_kernel_ms', 'mv_f32_full_ms'):
+        if not (roof[key] or 0) > 0:
+            raise AssertionError(f'roofline {key}: {roof[key]} '
+                                 f'(raw {roof["raw_ms"]})')
+    t0 = time.perf_counter()
+    dual = ab.run(dev)
+    _phase('roofline path: ab_dual_tile', t0, prod_ms=dual['prod_ms'])
+    print(json.dumps({'dual_tile_ab': dual}), flush=True)
+    for name, v in dual['variants'].items():
+        if not v['rel_grad_err_vs_prod'] < 1e-3:
+            raise AssertionError(f'{name} against the B1 kernel: {v}')
 
 
 def _scene():
@@ -619,13 +702,17 @@ def _time_ms(fn, warmup, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def kernel_table(b2, b1, b3, b4, b5, launches):
+def kernel_table(b2, b1, b3, b4, b5, b67, launches):
     """Time each kernel and its plain twin at the checked shapes; the bound
     counts each input read once and each output written once, and
     ``score_ops`` for the score block (with C weight columns for B4, B5),
-    plus per configuration ``dh_ops`` (B1, B4) or ``chain_ops`` (B3, B5)
-    for the FK and its backward (diffco_tpu_torch/ops/bounds.py)."""
+    plus per configuration ``dh_ops`` (B1, B4, B6) or ``chain_ops`` (B3,
+    B5) for the FK and its backward, or a B7 mode's ``ablation_work``
+    (diffco_tpu_torch/ops/bounds.py). B6 and B7 have one row per variant
+    and mode."""
     from diffco_tpu_torch.ops import fk_score, fused_score
+    from diffco_tpu_torch.scripts import ab_dual_tile as ab
+    from diffco_tpu_torch.scripts import roofline_fk_score as rf
     x, sup, w = b2['args']
     B, F = x.shape
     S = sup.shape[0]
@@ -668,6 +755,30 @@ def kernel_table(b2, b1, b3, b4, b5, launches):
                     plain_ms=_time_ms(plain, 1, 3), bound_ms=b, bound_by=by,
                     library_ms=None)
 
+    q6, sup6, w6, spec6 = b67['args']
+    B6, J6 = q6.shape
+    S6, F6 = sup6.shape
+    P6 = len(spec6[1])
+    bound6, by6 = bound(fk_score_bytes(B6, S6, F6, J6),
+                        score_ops(B6, S6, F6) + dh_ops(J6, P6) * B6)
+    dual_rows = [
+        row(f'dh_dual_score_grad:{name}',
+            'diffco_tpu_torch/csrc/dh_dual_score.cu',
+            'scripts/ab_dual_tile.py:160', [B6, S6, J6],
+            dict(err=b67['dual_err'][name]),
+            lambda t=threads, p=pipe: ab.dh_dual_score_grad(
+                q6, sup6, w6, spec6, t, p),
+            lambda: fk_score._dh_score_grad_plain(q6, sup6, w6, spec6),
+            bound6, by6)
+        for name, (threads, pipe) in ab.VARIANTS.items()]
+    mode_rows = [
+        row(f'dh_ablation:{mode}', 'diffco_tpu_torch/csrc/dh_ablation.cu',
+            'scripts/roofline_fk_score.py:73', [B6, S6, J6],
+            dict(err=b67['mode_err'][mode]),
+            lambda m=mode: rf.dh_ablation(q6, sup6, w6, spec6, m),
+            lambda m=mode: rf._dh_ablation_plain(q6, sup6, w6, spec6, m),
+            *bound(*ablation_work(mode, B6, S6, F6, J6, P6)))
+        for mode in rf.MODES]
     return [
         row('poly_score_grad', 'diffco_tpu_torch/csrc/poly_score.cu',
             'diffco_tpu/ops/fused_score.py:138', [B, S, F], b2,
@@ -697,23 +808,42 @@ def kernel_table(b2, b1, b3, b4, b5, launches):
             lambda: fk_score._chain_multi_score_grad_plain(q5, sup5, W5,
                                                            cs5),
             bound5, by5),
-    ]
+    ] + dual_rows + mode_rows
 
 
 _FK_KERNELS = ('dh_score_grad', 'chain_score_grad', 'dh_multi_score_grad',
                'chain_multi_score_grad')
 
 
-def _read_launches(fused_score, fk_score):
+def _read_launches():
+    """Every launch counter: one per wrapper, and per B6 variant and B7
+    mode as '<wrapper>:<variant or mode>'."""
+    from diffco_tpu_torch.ops import fk_score, fused_score
+    from diffco_tpu_torch.scripts import ab_dual_tile as ab
+    from diffco_tpu_torch.scripts import roofline_fk_score as rf
     out = {'poly_score_grad': fused_score.poly_score_grad_launches}
     out.update({k: getattr(fk_score, f'{k}_launches') for k in _FK_KERNELS})
+    out['dh_dual_score_grad'] = ab.dh_dual_score_grad_launches
+    out.update({f'dh_dual_score_grad:{k}': n for k, n in
+                ab.dh_dual_score_grad_launches_by_variant.items()})
+    out['dh_ablation'] = rf.dh_ablation_launches
+    out.update({f'dh_ablation:{k}': n
+                for k, n in rf.dh_ablation_launches_by_mode.items()})
     return out
 
 
-def _zero_launches(fused_score, fk_score):
+def _zero_launches():
+    from diffco_tpu_torch.ops import fk_score, fused_score
+    from diffco_tpu_torch.scripts import ab_dual_tile as ab
+    from diffco_tpu_torch.scripts import roofline_fk_score as rf
     fused_score.poly_score_grad_launches = 0
     for k in _FK_KERNELS:
         setattr(fk_score, f'{k}_launches', 0)
+    ab.dh_dual_score_grad_launches = 0
+    ab.dh_dual_score_grad_launches_by_variant.update(
+        dict.fromkeys(ab.VARIANTS, 0))
+    rf.dh_ablation_launches = 0
+    rf.dh_ablation_launches_by_mode.update(dict.fromkeys(rf.MODES, 0))
 
 
 def main():
@@ -721,7 +851,7 @@ def main():
         print('chip_smoke: no CUDA card available', file=sys.stderr)
         return 1
     import diffco_tpu_torch as dc
-    from diffco_tpu_torch.ops import _native, fk_score, fused_score
+    from diffco_tpu_torch.ops import _native
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -748,6 +878,7 @@ def main():
     b3 = check_chain_kernel(dev)
     b4 = check_dh_multi_kernel(robot, dev)
     b5 = check_chain_multi_kernel(dev)
+    b67 = check_roofline_kernels(robot, dev)
 
     # count only each main path's own launches
     launches = {}
@@ -756,23 +887,30 @@ def main():
                       ('PandaFK multi-class', lambda: multi_journey(robot,
                                                                     dev)),
                       ('FrankaPanda multi-class',
-                       lambda: urdf_multi_journey(dev))):
-        _zero_launches(fused_score, fk_score)
+                       lambda: urdf_multi_journey(dev)),
+                      ('roofline', lambda: roofline_path(dev))):
+        _zero_launches()
         run()
-        launches[path] = _read_launches(fused_score, fk_score)
+        launches[path] = _read_launches()
     print(f'launches on the main paths: {launches}', flush=True)
     for path, k in (('PandaFK', 'poly_score_grad'),
                     ('PandaFK', 'dh_score_grad'),
                     ('FrankaPanda', 'poly_score_grad'),
                     ('FrankaPanda', 'chain_score_grad'),
                     ('PandaFK multi-class', 'dh_multi_score_grad'),
-                    ('FrankaPanda multi-class', 'chain_multi_score_grad')):
+                    ('FrankaPanda multi-class', 'chain_multi_score_grad'),
+                    ('roofline', 'dh_score_grad'),
+                    ('roofline', 'dh_dual_score_grad'),
+                    ('roofline', 'dh_ablation'),
+                    *(('roofline', k) for k in launches['roofline']
+                      if k.startswith(('dh_dual_score_grad:',
+                                       'dh_ablation:')))):
         if launches[path][k] <= 0:
             raise AssertionError(f'{k} was never launched on the {path} '
                                  'path')
 
     t0 = time.perf_counter()
-    rows = kernel_table(b2, b1, b3, b4, b5, launches)
+    rows = kernel_table(b2, b1, b3, b4, b5, b67, launches)
     _phase('kernel timing', t0)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.perf_counter() - t_start:.1f}s', flush=True)

@@ -18,7 +18,8 @@
 // backward add ~850 operations per configuration; the bytes in and out
 // are ~4 MB. So the CUDA cores (67 TFLOP/s fp32), not HBM, set the floor.
 //
-// Design: one thread per configuration (128 per block). FK runs in
+// Design: one thread per configuration (kThreads = 128 per block; the
+// roofline path's block-size sweep also builds 64, 256 and 512). FK runs in
 // registers (the SoA compose of the TPU kernel); the 3P point components,
 // zero-padded to FP, feed the same register-resident score block as
 // poly_score.cu with supports staged through shared memory. The joint
@@ -34,8 +35,8 @@
 namespace diffco {
 namespace {
 
-template <int FP>
-__global__ void __launch_bounds__(kThreads)
+template <int FP, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 dh_score_grad_kernel(const float* __restrict__ q, const float* __restrict__ s,
                      const float* __restrict__ w, float* __restrict__ score,
                      float* __restrict__ dq, int B, int S,
@@ -43,7 +44,7 @@ dh_score_grad_kernel(const float* __restrict__ q, const float* __restrict__ s,
   constexpr int KP = FP / 3 < kMaxP ? FP / 3 : kMaxP;
   __shared__ __align__(16) float s_sh[kChunk * FP];
   __shared__ float w_sh[kChunk];
-  const int b = blockIdx.x * kThreads + threadIdx.x;
+  const int b = blockIdx.x * THREADS + threadIdx.x;
   const bool live = b < B;   // the ragged end of B is masked here
   const int J = sp.J;
   float qr[kMaxJ];
@@ -83,10 +84,10 @@ dh_score_grad_kernel(const float* __restrict__ q, const float* __restrict__ s,
 }  // namespace
 }  // namespace diffco
 
-#define DIFFCO_DH_CASE(FPV)                                              \
-  case FPV:                                                              \
-    diffco::dh_score_grad_kernel<FPV><<<grid, diffco::kThreads, 0, st>>>( \
-        q, s, w, score, dq, B, S, sp);                                   \
+#define DIFFCO_DH_CASE(FPV)                                          \
+  case FPV:                                                          \
+    diffco::dh_score_grad_kernel<FPV, diffco::kThreads>              \
+        <<<grid, diffco::kThreads, 0, st>>>(q, s, w, score, dq, B, S, sp); \
     break;
 
 // Returns the cudaError_t of the launch (0 on success). `spec` is a host
@@ -108,6 +109,37 @@ extern "C" int dh_score_grad(const float* q, const float* s, const float* w,
     DIFFCO_DH_CASE(32)
     DIFFCO_DH_CASE(40)
     DIFFCO_DH_CASE(48)
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define DIFFCO_DH_THREADS_CASE(T)                                       \
+  case T:                                                               \
+    diffco::dh_score_grad_kernel<24, T>                                 \
+        <<<(B + T - 1) / T, T, 0, st>>>(q, s, w, score, dq, B, S, sp);  \
+    break;
+
+// The block-size sweep of the roofline path
+// (diffco_tpu_torch/scripts/roofline_fk_score.py; the reference sweeps the
+// TPU batch tile): the FP = 24 kernel at `threads` = 64, 128, 256 or 512
+// per block. Production launches go through dh_score_grad above.
+extern "C" int dh_score_grad_threads(const float* q, const float* s,
+                                     const float* w, float* score, float* dq,
+                                     int B, int S, int threads,
+                                     const diffco::DHSpec* spec,
+                                     void* stream) {
+  const diffco::DHSpec sp = *spec;
+  if (B <= 0 || S < 0 || sp.J < 1 || sp.J > diffco::kMaxJ ||
+      (3 * sp.P + 7) / 8 * 8 != 24)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (threads) {
+    DIFFCO_DH_THREADS_CASE(64)
+    DIFFCO_DH_THREADS_CASE(128)
+    DIFFCO_DH_THREADS_CASE(256)
+    DIFFCO_DH_THREADS_CASE(512)
     default:
       return cudaErrorInvalidValue;
   }

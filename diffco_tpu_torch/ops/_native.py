@@ -150,6 +150,20 @@ def _bind(libs):
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
                    ctypes.POINTER(ChainSpec), ptr]
     fn.restype = cint
+    # the roofline path (diffco_tpu_torch/scripts): B1 at other block
+    # sizes, the B7 ablations and the B6 dual-row kernel
+    fn = libs['dh_score'].dh_score_grad_threads
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
+                   ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
+    fn = libs['dh_ablation'].dh_ablation
+    fn.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint,
+                   ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
+    fn = libs['dh_dual_score'].dh_dual_score_grad
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint, cint,
+                   ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
 
 
 def check_cuda_inputs(name, *tensors):

@@ -8,8 +8,8 @@ operations are counted in the TPU kernels' expanded form
 ``||x||^2 + ||s||^2 - 2 x.s``; FK and backward operations are counted
 from the hand-written CUDA code (``csrc/dh_chain.cuh``,
 ``csrc/chain_fk.cuh``) or, for the kernels not ported yet, from the ported
-kernels they extend. ``chip_smoke.py`` computes B1-B5's bounds with these
-functions from each run's inputs;
+kernels they extend. ``chip_smoke.py`` computes every kernel's bound with
+these functions from each run's inputs;
 
     python3 -m diffco_tpu_torch.ops.bounds
 
@@ -78,6 +78,32 @@ def fk_score_bytes(B, S, F, D, C=1):
     return 4 * (B * D + S * F + S * C + B * C + C * B * D)
 
 
+def ablation_work(mode, B, S, F, J, P):
+    """(bytes, operations) of a B7 mode (``csrc/dh_ablation.cu``; one
+    float out per configuration). FK once is 66J + 18P per configuration;
+    ``fk_only`` adds 3P to sum the points; ``mxu`` per pair 2F (the dot) +
+    1 (its sum); ``mxu_rsqrt`` and ``fwd`` per pair the expanded-square
+    distance, clamp, floor, rsqrt and r (2F + 7, as ``score_ops``) + 2
+    (r + 1/r and its sum, or w r and its sum), per row 2F and per support
+    2F; ``mv_f32_full`` / ``mv_bf16_full`` B1's work (``score_ops`` +
+    ``dh_ops``) + J to sum dq into the output."""
+    fk = 66 * J + 18 * P
+    q_out = 4 * (B * J + B)
+    if mode == 'fk_only':
+        return q_out, B * (fk + 3 * P)
+    if mode == 'mxu':
+        return q_out + 4 * S * F, B * fk + B * S * (2 * F + 1)
+    sweep = B * fk + B * S * (2 * F + 9) + B * 2 * F + S * 2 * F
+    if mode == 'mxu_rsqrt':
+        return q_out + 4 * S * F, sweep
+    if mode == 'fwd':
+        return q_out + 4 * (S * F + S), sweep
+    if mode in ('mv_f32_full', 'mv_bf16_full'):
+        return (q_out + 4 * (S * F + S),
+                score_ops(B, S, F) + B * (dh_ops(J, P) + J))
+    raise ValueError(f'ablation_work: unknown mode {mode!r}')
+
+
 def table():
     """Bounds of B1-B7 at the shapes PERF.md states: B = 65536, S = 512;
     PandaFK (J = 7, P = 7, F = 21) for the DH kernels, FrankaPanda's
@@ -110,21 +136,14 @@ def table():
     put('B5', fk_score_bytes(B, S, 24, 7, C=2),
         score_ops(B, S, 24, C=2) + B * chain_ops(panda, C=2),
         dict(B=B, S=S, D=7, F=24, C=2))
+    # B6: B1's function in every variant (two rows per thread)
     put('B6', fk_score_bytes(B, S, F, J),
         score_ops(B, S, F) + B * dh_ops(J, P), dict(B=B, S=S, J=J, F=F))
-    # B7: the ablations of scripts/roofline_fk_score.py::make_ablations,
-    # each writing one float per configuration
-    fk = 66 * J + 18 * P
-    q_out = 4 * (B * J + B)
-    put('B7 fk_only', q_out, B * (fk + 3 * P), dict(B=B, J=J, P=P))
-    put('B7 mxu', q_out + 4 * S * F, B * fk + B * S * (2 * F + 1),
-        dict(B=B, S=S, J=J, F=F))
-    put('B7 mxu_rsqrt', q_out + 4 * S * F,
-        B * fk + B * S * (2 * F + 9) + B * 2 * F + S * 2 * F,
-        dict(B=B, S=S, J=J, F=F))
-    put('B7 fwd', q_out + 4 * (S * F + S),
-        B * fk + B * S * (2 * F + 9) + B * 2 * F + S * 2 * F,
-        dict(B=B, S=S, J=J, F=F))
+    # B7: the ablation modes, each writing one float per configuration
+    for mode in ('fk_only', 'mxu', 'mxu_rsqrt', 'fwd', 'mv_f32_full',
+                 'mv_bf16_full'):
+        put(f'B7 {mode}', *ablation_work(mode, B, S, F, J, P),
+            dict(B=B, S=S, J=J, P=P, F=F))
     return rows
 
 

@@ -10,6 +10,8 @@ import torch
 from diffco_tpu_torch import robot_data
 from diffco_tpu_torch.ops import fk_score, fused_score
 from diffco_tpu_torch.robots import PandaFK, URDFRobot
+from diffco_tpu_torch.scripts import ab_dual_tile as ab
+from diffco_tpu_torch.scripts import roofline_fk_score as rf
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -30,6 +32,14 @@ CHAIN_MULTI_CASES = [('panda_simple.urdf', 37, 5, 3),
                      ('panda_simple.urdf', 65536 + 37, 1024, 5),
                      ('trifinger_simple.urdf', 4096 + 5, 128, 2),
                      ('lift_rig.urdf', 4096 + 5, 128, 2)]
+
+# B6 and B7 at a ragged small shape and the roofline path's shape
+ROOFLINE_SHAPES = [(300, 130), (65536 + 37, 512)]
+# B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
+# without dq, 1e-3 with it; 1e-2 for mv_bf16_full, where kernel and twin
+# may round one r or 1/r to neighbouring bf16 values (2^-8 of a term)
+ABLATION_TOL = {'fk_only': 1e-4, 'mxu': 1e-4, 'mxu_rsqrt': 1e-4,
+                'fwd': 1e-4, 'mv_f32_full': 1e-3, 'mv_bf16_full': 1e-2}
 
 
 @pytest.fixture
@@ -227,3 +237,74 @@ def test_multi_kernels_reject_what_they_cannot_take(cuda):
     cs = fk_score.robot_chain_statics(robot)
     with pytest.raises(ValueError, match='1 to 8'):
         fk_score.chain_multi_score_grad(q, sup, _weights(16, 9, cuda, 0), cs)
+
+
+@pytest.mark.parametrize('B,S', ROOFLINE_SHAPES)
+@pytest.mark.parametrize('mode', list(rf.MODES))
+def test_ablation_kernel_matches_plain(cuda, mode, B, S):
+    robot, q, sup, w = _inputs(B, S, cuda, seed=10)
+    spec = fk_score.robot_spec(robot)
+    before = rf.dh_ablation_launches
+    out = rf.dh_ablation(q, sup, w, spec, mode)
+    torch.cuda.synchronize()
+    assert rf.dh_ablation_launches == before + 1
+    ref = rf._dh_ablation_plain(q, sup, w, spec, mode)
+    assert out.shape == (B,) and bool(torch.isfinite(out).all())
+    err = float((out - ref).abs().max())
+    assert err <= ABLATION_TOL[mode] * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize('B,S', ROOFLINE_SHAPES)
+@pytest.mark.parametrize('variant', list(ab.VARIANTS))
+def test_dual_kernel_matches_plain_and_b1(cuda, variant, B, S):
+    robot, q, sup, w = _inputs(B, S, cuda, seed=11)
+    spec = fk_score.robot_spec(robot)
+    threads, pipelined = ab.VARIANTS[variant]
+    before = ab.dh_dual_score_grad_launches
+    score, dq = ab.dh_dual_score_grad(q, sup, w, spec, threads, pipelined)
+    torch.cuda.synchronize()
+    assert ab.dh_dual_score_grad_launches == before + 1
+    for ref, ref_dq in (fk_score._dh_score_grad_plain(q, sup, w, spec),
+                        fk_score.dh_score_grad(q, sup, w, spec)):
+        _close(score, ref, 1e-4)
+        _close(dq, ref_dq, 1e-3)
+
+
+@pytest.mark.parametrize('threads', rf.SWEEP_THREADS)
+def test_b1_block_size_sweep_matches_plain(cuda, threads):
+    robot, q, sup, w = _inputs(65536 + 37, 512, cuda, seed=12)
+    spec = fk_score.robot_spec(robot)
+    score, dq = rf.dh_score_grad_threads(q, sup, w, spec, threads)
+    torch.cuda.synchronize()
+    ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
+    _close(score, ref, 1e-4)
+    _close(dq, ref_dq, 1e-3)
+
+
+def test_roofline_kernels_reject_what_they_cannot_take(cuda):
+    robot, q, sup, w = _inputs(64, 16, cuda)
+    spec = fk_score.robot_spec(robot)
+    with pytest.raises(ValueError):
+        rf.dh_ablation(q.double(), sup, w, spec, 'fwd')
+    with pytest.raises(ValueError, match='threads'):
+        rf.dh_score_grad_threads(q, sup, w, spec, 96)
+    with pytest.raises(ValueError, match='threads'):
+        ab.dh_dual_score_grad(q, sup, w, spec, threads=256)
+    # four points pad to 16 components: the kernels are built for 24
+    four = (spec[0], spec[1][:4], spec[2])
+    with pytest.raises(ValueError, match='built for 24'):
+        ab.dh_dual_score_grad(q, sup[:, :12].contiguous(), w, four)
+    with pytest.raises(ValueError, match='built for 24'):
+        rf.dh_ablation(q, sup[:, :12].contiguous(), w, four, 'mxu')
+
+
+def test_roofline_entry_points_on_the_card(cuda, monkeypatch):
+    monkeypatch.setattr(rf, 'N_SHORT', 2)
+    monkeypatch.setattr(rf, 'N_LONG', 6)
+    monkeypatch.setattr(rf, 'REPS', 2)
+    res = rf.run('cuda', batch=4096, supports=128)
+    assert res['raw_ms']['full_kernel']['long_ms'] > 0
+    assert list(res['ladder']) == list(rf.LADDER)
+    res = ab.run('cuda', batch=4096, supports=128)
+    for v in res['variants'].values():
+        assert v['rel_grad_err_vs_prod'] < 1e-3

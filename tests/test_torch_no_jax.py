@@ -1,6 +1,7 @@
 """The port stands alone: importing diffco_tpu_torch, scoring on the CPU
-(a DH robot and a URDF robot, one class and two) and training a small
-MultiDiffCo load neither JAX nor the JAX package."""
+(a DH robot and a URDF robot, one class and two), training a small
+MultiDiffCo and running the roofline path's twins (every B7 mode, B6) load
+neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -39,6 +40,15 @@ p.fit_poly(target='label')
 s = p.poly_score(X[:8])
 assert p.num_class == 2 and s.shape == (8, 2)
 assert bool(torch.isfinite(s).all()) and p.score(X[:8]).shape == (8, 2)
+from diffco_tpu_torch.scripts import ab_dual_tile, roofline_fk_score as rf
+robot, sup, w = rf.flagship_score_setup(16, device='cpu')
+q = robot.rand_configs(8, g, 'cpu')
+spec = fk_score.robot_spec(robot)
+for mode in rf.MODES:
+    out = rf.dh_ablation(q, sup, w, spec, mode)
+    assert out.shape == (8,) and bool(torch.isfinite(out).all())
+s, dq = ab_dual_tile.dh_dual_score_grad(q, sup, w, spec)
+assert s.shape == (8,) and dq.shape == (8, 7)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'diffco_tpu'
              or m.startswith('diffco_tpu.'))
