@@ -7,21 +7,26 @@
 // the same one thread per configuration, the same DH chain
 // (dh_chain.cuh), the same supports staged through shared memory in
 // chunks of kChunk, the same per-pair distance (score_block.cuh). Each
-// mode writes one float per configuration, which depends on all the work
-// the mode claims, so that nvcc removes none of it:
+// mode is a prefix of the next, and writes one float per configuration,
+// which depends on all the work the mode claims, so that nvcc removes
+// none of it:
 //
 //   kFkOnly      sum over the points' components x + y + z   (FK)
-//   kDot         sum_j s_j . x                               (+ per-pair dot)
-//   kDistRsqrt   sum_j (r_j + 1 / r_j), d2 by B1's direct
-//                difference, max(d2, 0) + 1e-12, one rsqrt   (+ distance sweep)
+//   kDist        sum_j d2_j, d2 by B1's direct difference,
+//                max(d2, 0) + 1e-12                          (+ per-pair distance)
+//   kDistRsqrt   sum_j (r_j + 1 / r_j), one rsqrt per pair   (+ rsqrt)
 //   kFwd         sum_j w_j r_j, compensated as B1            (+ weighted score)
 //   kFullF32Mv   B1's score + sum_i dq_i                     (B1 in full)
 //   kFullBf16Mv  kFullF32Mv with r, 1/r, w and s w rounded to bf16 before
 //                the score / rowsum / su products, fp32 sums: the
 //                reference's make_mv_full(mv_f32=False)
 //
-// The reference's bf16 distance dot is a TPU matrix-unit choice; the port
-// keeps fp32 there, as its B1 does. Only the kFull modes run the second FK
+// The reference's second rung is sum_j s_j . x, the matrix-unit dot its
+// distance is made of; B1 here takes the direct difference and never forms
+// that dot, so kDist is B1's own distance stage (the same function up to
+// S ||x||^2 + sum_j ||s_j||^2 - 2 (reference)). The reference's bf16
+// distance dot is a TPU matrix-unit choice; the port keeps fp32 there, as
+// its B1 does. Only the kFull modes run the second FK
 // and the backward, as B1 does; the others need one FK.
 //
 // What bounds it on this card: as B1, the fp32 CUDA cores for every mode
@@ -41,7 +46,7 @@ constexpr int kAblFP = 24;
 
 enum AblationMode : int {
   kFkOnly = 0,
-  kDot = 1,
+  kDist = 1,
   kDistRsqrt = 2,
   kFwd = 3,
   kFullF32Mv = 4,
@@ -130,14 +135,10 @@ dh_ablation_kernel(const float* __restrict__ q, const float* __restrict__ s,
         score_grad_accumulate<FP>(x, s_sh, w_sh, n, sc, scc, rs, su);
       } else {
         for (int j = 0; j < n; ++j) {
-          const float* sj = s_sh + j * FP;
-          if constexpr (MODE == kDot) {
-            float d = 0.f;
-#pragma unroll
-            for (int f = 0; f < FP; ++f) d = fmaf(sj[f], x[f], d);
-            acc += d;
+          const float d2 = pair_d2<FP>(x, s_sh + j * FP);
+          if constexpr (MODE == kDist) {
+            acc += d2;
           } else {
-            const float d2 = pair_d2<FP>(x, sj);
             const float rinv = rsqrtf(d2);
             const float r = d2 * rinv;
             if constexpr (MODE == kDistRsqrt) {
@@ -195,7 +196,7 @@ extern "C" int dh_ablation(const float* q, const float* s, const float* w,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     DIFFCO_ABL_CASE(kFkOnly)
-    DIFFCO_ABL_CASE(kDot)
+    DIFFCO_ABL_CASE(kDist)
     DIFFCO_ABL_CASE(kDistRsqrt)
     DIFFCO_ABL_CASE(kFwd)
     DIFFCO_ABL_CASE(kFullF32Mv)

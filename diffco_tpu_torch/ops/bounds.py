@@ -81,19 +81,23 @@ def fk_score_bytes(B, S, F, D, C=1):
 def ablation_work(mode, B, S, F, J, P):
     """(bytes, operations) of a B7 mode (``csrc/dh_ablation.cu``; one
     float out per configuration). FK once is 66J + 18P per configuration;
-    ``fk_only`` adds 3P to sum the points; ``mxu`` per pair 2F (the dot) +
-    1 (its sum); ``mxu_rsqrt`` and ``fwd`` per pair the expanded-square
-    distance, clamp, floor, rsqrt and r (2F + 7, as ``score_ops``) + 2
-    (r + 1/r and its sum, or w r and its sum), per row 2F and per support
-    2F; ``mv_f32_full`` / ``mv_bf16_full`` B1's work (``score_ops`` +
+    ``fk_only`` adds 3P to sum the points. The rungs after it count B1's
+    per-pair work, by the definition of a rung (a sum over pairs of d2 or
+    of w r could be had with fewer operations, but the rung measures the
+    stage of B1 that computes it per pair): ``mxu`` per pair the
+    expanded-square distance, clamp and floor (2F + 5, as ``score_ops``)
+    + 1 (its sum); ``mxu_rsqrt`` and ``fwd`` that + rsqrt and r + 2 (r +
+    1/r and its sum, or w r and its sum); each per row 2F and per support
+    2F. ``mv_f32_full`` / ``mv_bf16_full`` B1's work (``score_ops`` +
     ``dh_ops``) + J to sum dq into the output."""
     fk = 66 * J + 18 * P
     q_out = 4 * (B * J + B)
     if mode == 'fk_only':
         return q_out, B * (fk + 3 * P)
+    rows = B * fk + B * 2 * F + S * 2 * F
     if mode == 'mxu':
-        return q_out + 4 * S * F, B * fk + B * S * (2 * F + 1)
-    sweep = B * fk + B * S * (2 * F + 9) + B * 2 * F + S * 2 * F
+        return q_out + 4 * S * F, rows + B * S * (2 * F + 6)
+    sweep = rows + B * S * (2 * F + 9)
     if mode == 'mxu_rsqrt':
         return q_out + 4 * S * F, sweep
     if mode == 'fwd':

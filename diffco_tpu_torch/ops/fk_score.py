@@ -108,11 +108,14 @@ def _dh_score_grad_plain(q, s, w, spec):
     return score, dh_vjp(st, axes, pts, dx)
 
 
-def _launch(name, lib, q, s, w, c, D, P):
+def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
+            dq=True):
     """Check the inputs of a one-pass FK kernel, allocate its outputs and
-    launch it, counting the launch in ``<name>_launches``: weights w [S]
-    give (score [B], dq [B, D]), weight columns W [S, C] give
-    (score [B, C], dq [C, B, D])."""
+    launch the C function ``entry`` (default ``name``) of ``lib``, with
+    ``ints`` after B and S, counting the launch in ``<name>_launches`` of
+    the namespace ``counts`` (default this module's): weights w [S] give
+    (score [B], dq [B, D]), weight columns W [S, C] give
+    (score [B, C], dq [C, B, D]); ``dq=False`` gives score [B] alone."""
     _native.check_cuda_inputs(name, q, s, w)
     B, S = q.shape[0], s.shape[0]
     multi = w.dim() == 2
@@ -126,17 +129,18 @@ def _launch(name, lib, q, s, w, c, D, P):
     if not 1 <= C <= _native.MAX_C:
         raise ValueError(f'{name}: {C} classes, the kernel takes 1 to '
                          f'{_native.MAX_C}')
-    score = q.new_empty((B, C) if multi else (B,))
-    dq = q.new_empty((C, B, D) if multi else (B, D))
-    if B == 0:
-        return score, dq
-    fn = getattr(_native.build()[lib], name)
-    rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
-            dq.data_ptr(), B, S, *((C,) if multi else ()), ctypes.byref(c),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _native.raise_on_error(name, rc)
-    globals()[f'{name}_launches'] += 1
-    return score, dq
+    outs = [q.new_empty((B, C) if multi else (B,))]
+    if dq:
+        outs.append(q.new_empty((C, B, D) if multi else (B, D)))
+    if B > 0:
+        fn = getattr(_native.build()[lib], entry or name)
+        rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
+                *(t.data_ptr() for t in outs), B, S,
+                *((C,) if multi else ()), *ints, ctypes.byref(c),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _native.raise_on_error(name, rc)
+        (globals() if counts is None else counts)[f'{name}_launches'] += 1
+    return tuple(outs) if dq else outs[0]
 
 
 def dh_score_grad(q, s, w, spec):

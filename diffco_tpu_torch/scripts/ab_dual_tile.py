@@ -24,13 +24,12 @@ as a rehearsal.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 
 import torch
 
 from ..device import resolve_device
-from ..ops import _native, fk_score
+from ..ops import fk_score
 from . import roofline_fk_score as rf
 
 # name -> (threads per block, pipelined)
@@ -48,29 +47,22 @@ def dh_dual_score_grad(q, s, w, spec, threads=128, pipelined=True):
     configurations per thread, ``threads`` (64 or 128) per block. A CUDA
     tensor launches ``csrc/dh_dual_score.cu`` (or raises); a CPU tensor
     runs B1's plain twin, ``fk_score._dh_score_grad_plain``."""
-    global dh_dual_score_grad_launches
     name = f"dual_{'pipe' if pipelined else 'seq'}_{threads}"
     if name not in VARIANTS:
         raise ValueError(f'dh_dual_score_grad: {threads} threads, built for '
                          f'{sorted({t for t, _ in VARIANTS.values()})}')
     if q.device.type == 'cpu':
         return fk_score._dh_score_grad_plain(q, s, w, spec)
-    c = rf.check_dh_inputs('dh_dual_score_grad', q, s, w, spec)
-    score, dq = q.new_empty(q.shape[0]), torch.empty_like(q)
-    if q.shape[0] == 0:
-        return score, dq
-    rc = _native.build()['dh_dual_score'].dh_dual_score_grad(
-        q.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
-        dq.data_ptr(), q.shape[0], s.shape[0], threads, int(pipelined),
-        ctypes.byref(c), torch.cuda.current_stream(q.device).cuda_stream)
-    _native.raise_on_error('dh_dual_score_grad', rc)
-    dh_dual_score_grad_launches += 1
-    dh_dual_score_grad_launches_by_variant[name] += 1
-    return score, dq
+    c = rf.fp24_spec('dh_dual_score_grad', spec)
+    out = fk_score._launch('dh_dual_score_grad', 'dh_dual_score', q, s, w, c,
+                           c.J, c.P, threads, int(pipelined),
+                           counts=globals())
+    if q.shape[0]:   # launched, and counted in dh_dual_score_grad_launches
+        dh_dual_score_grad_launches_by_variant[name] += 1
+    return out
 
 
-def run(device='cuda', batch=rf.B, supports=rf.S, n_short=None,
-        n_long=None, reps=None):
+def run(device='cuda', batch=rf.B, supports=rf.S):
     """The A/B result dict (module docstring) at ``batch`` x
     ``supports``; the step counts as ``roofline_fk_score.per_step_ms``."""
     dev = resolve_device(device)
@@ -80,8 +72,7 @@ def run(device='cuda', batch=rf.B, supports=rf.S, n_short=None,
     out = dict(B=batch, S=supports, device=str(dev))
 
     def timed(score_grad):
-        return rf.per_step_ms(lambda x: x - 1e-4 * score_grad(x)[1], q,
-                              n_short, n_long, reps)
+        return rf.per_step_ms(lambda x: x - 1e-4 * score_grad(x)[1], q)
 
     qc = q[:N_CHECK]
     sc0, dq0 = fk_score.dh_score_grad(qc, sup, w, spec)

@@ -11,9 +11,10 @@ configurations, weights N(0, 0.05^2)) it times
   q through autograd (kernel B1 at this batch), then ``q - 1e-4 g``;
 - ``full_kernel``: ``fk_score.dh_score_grad`` (B1) alone;
 - the ablation ladder of kernel B7 (``csrc/dh_ablation.cu``, through
-  ``dh_ablation``): ``fk_only`` -> ``mxu`` (+ the per-pair dot) ->
-  ``mxu_rsqrt`` (+ the distance and rsqrt sweep) -> ``fwd`` (+ the
-  weighted score) -> ``mv_f32_full`` (B1 in full, one output), and
+  ``dh_ablation``), each rung a prefix of B1: ``fk_only`` -> ``mxu`` (+ the
+  per-pair squared distance, by B1's direct difference) -> ``mxu_rsqrt``
+  (+ the rsqrt) -> ``fwd`` (+ the weighted score) -> ``mv_f32_full`` (B1
+  in full, one output), and
   ``mv_bf16_full`` (the same with its score / rowsum / su operands rounded
   to bf16, the reference's A/B);
 - B1 at 64 / 128 / 256 / 512 threads per block (``tile_sweep_full_ms``;
@@ -36,7 +37,6 @@ rehearsal.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import subprocess
@@ -45,8 +45,8 @@ from pathlib import Path
 
 import torch
 
-from ..device import fp32_matmul, resolve_device
-from ..ops import _native, bounds, fk_score
+from ..device import resolve_device
+from ..ops import bounds, fk_score
 from ..ops.fused_score import _PLAIN_ROWS, _poly_score_grad_plain
 from ..robots.analytic import PandaFK
 from ..robots.fk_jvp import dh_chain, dh_vjp
@@ -59,7 +59,9 @@ SWEEP_THREADS = (64, 128, 256, 512)
 OUT_DIR = Path(__file__).resolve().parents[2] / 'build' / 'diffco_tpu_torch'
 
 # the reference's ablation names, in ladder order, -> csrc/dh_ablation.cu's
-# AblationMode
+# AblationMode. ``mxu`` is the reference's sum_j s_j . x, the dot that its
+# distance is made of; the port's rung is B1's own distance, sum_j d2_j by
+# direct difference, which is S ||x||^2 + sum_j ||s_j||^2 - 2 sum_j s_j . x
 MODES = {'fk_only': 0, 'mxu': 1, 'mxu_rsqrt': 2, 'fwd': 3,
          'mv_f32_full': 4, 'mv_bf16_full': 5}
 LADDER = ('fk_only', 'mxu', 'mxu_rsqrt', 'fwd', 'mv_f32_full')
@@ -83,17 +85,11 @@ def flagship_score_setup(n_supports=S, seed=0, device='cuda'):
     return robot, sup.reshape(n_supports, -1).contiguous(), w
 
 
-def check_dh_inputs(name, q, s, w, spec):
-    """Raise unless q [B, J], s [S, 3P], w [S] fit a B6/B7 kernel: float32,
-    contiguous, on one CUDA device, P points padding to FP_BUILT. Returns
-    the kernel's DHSpec argument."""
-    _native.check_cuda_inputs(name, q, s, w)
+def fp24_spec(name, spec):
+    """The kernel's DHSpec argument for a spec whose P points pad to the
+    FP_BUILT components that the B6 and B7 kernels are built for; raises
+    otherwise."""
     c = fk_score._c_spec(spec)
-    if (q.dim() != 2 or q.shape[1] != c.J or s.dim() != 2
-            or s.shape[1] != 3 * c.P or w.shape != (s.shape[0],)):
-        raise ValueError(f'{name}: shapes q {tuple(q.shape)}, s '
-                         f'{tuple(s.shape)}, w {tuple(w.shape)} do not fit '
-                         f'{c.J} joints, {c.P} points')
     if (3 * c.P + 7) // 8 * 8 != FP_BUILT:
         raise ValueError(f'{name}: built for {FP_BUILT} padded point '
                          f'components (6 to 8 points), got {c.P} points')
@@ -141,12 +137,11 @@ def _dh_ablation_plain(q, s, w, spec, mode):
         return acc
     out = []
     for x_c in torch.split(x, _PLAIN_ROWS):
-        if mode == 'mxu':
-            with fp32_matmul():
-                out.append((x_c @ s.T).sum(1))
-            continue
         d2 = torch.sum((x_c[:, None, :] - s[None, :, :]) ** 2, dim=-1)
         d2 = torch.clamp(d2, min=0.0) + 1e-12
+        if mode == 'mxu':
+            out.append(d2.sum(1))
+            continue
         rinv = torch.rsqrt(d2)
         r = d2 * rinv
         out.append((r + rinv).sum(1) if mode == 'mxu_rsqrt' else r @ w)
@@ -158,23 +153,16 @@ def dh_ablation(q, s, w, spec, mode):
     ``MODES``), q [B, J] -> out [B]. A CUDA tensor launches
     ``csrc/dh_ablation.cu`` (or raises); a CPU tensor runs the plain
     twin."""
-    global dh_ablation_launches
     if mode not in MODES:
         raise ValueError(f'dh_ablation: mode {mode!r}, not one of '
                          f'{list(MODES)}')
     if q.device.type == 'cpu':
         return _dh_ablation_plain(q, s, w, spec, mode)
-    c = check_dh_inputs('dh_ablation', q, s, w, spec)
-    out = q.new_empty(q.shape[0])
-    if q.shape[0] == 0:
-        return out
-    rc = _native.build()['dh_ablation'].dh_ablation(
-        q.data_ptr(), s.data_ptr(), w.data_ptr(), out.data_ptr(),
-        q.shape[0], s.shape[0], MODES[mode], ctypes.byref(c),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _native.raise_on_error('dh_ablation', rc)
-    dh_ablation_launches += 1
-    dh_ablation_launches_by_mode[mode] += 1
+    c = fp24_spec('dh_ablation', spec)
+    out = fk_score._launch('dh_ablation', 'dh_ablation', q, s, w, c, c.J,
+                           c.P, MODES[mode], counts=globals(), dq=False)
+    if q.shape[0]:          # launched, and counted in dh_ablation_launches
+        dh_ablation_launches_by_mode[mode] += 1
     return out
 
 
@@ -188,17 +176,9 @@ def dh_score_grad_threads(q, s, w, spec, threads):
     if threads not in SWEEP_THREADS:
         raise ValueError(f'dh_score_grad_threads: {threads} threads, built '
                          f'for {SWEEP_THREADS}')
-    c = check_dh_inputs('dh_score_grad_threads', q, s, w, spec)
-    score, dq = q.new_empty(q.shape[0]), torch.empty_like(q)
-    if q.shape[0] == 0:
-        return score, dq
-    rc = _native.build()['dh_score'].dh_score_grad_threads(
-        q.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
-        dq.data_ptr(), q.shape[0], s.shape[0], threads, ctypes.byref(c),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _native.raise_on_error('dh_score_grad_threads', rc)
-    fk_score.dh_score_grad_launches += 1
-    return score, dq
+    c = fp24_spec('dh_score_grad_threads', spec)
+    return fk_score._launch('dh_score_grad', 'dh_score', q, s, w, c, c.J,
+                            c.P, threads, entry='dh_score_grad_threads')
 
 
 def _elapsed_ms(fn, dev):
@@ -215,28 +195,25 @@ def _elapsed_ms(fn, dev):
     return e0.elapsed_time(e1)
 
 
-def per_step_ms(step, q, n_short=None, n_long=None, reps=None):
-    """Scan differencing: ``step`` maps q to the next q. Returns (ms per
-    step, or None when the difference is at or below zero; the raw
-    minimum times of the two chains in ms). The counts default to
-    ``N_SHORT``, ``N_LONG`` and ``REPS``."""
-    n_short = N_SHORT if n_short is None else n_short
-    n_long = N_LONG if n_long is None else n_long
-    reps = REPS if reps is None else reps
+def per_step_ms(step, q):
+    """Scan differencing: ``step`` maps q to the next q; chains of
+    ``N_SHORT`` and ``N_LONG`` steps, the minimum of ``REPS`` runs each.
+    Returns (ms per step, or None when the difference is at or below
+    zero; the raw minimum times of the two chains in ms)."""
     def chain(n):
         x = q
         for _ in range(n):
             x = step(x)
         return x
 
-    chain(n_short)                       # warm-up
+    chain(N_SHORT)                       # warm-up
     if q.device.type == 'cuda':
         torch.cuda.synchronize(q.device)
     t_short = t_long = math.inf
-    for _ in range(reps):
-        t_short = min(t_short, _elapsed_ms(lambda: chain(n_short), q.device))
-        t_long = min(t_long, _elapsed_ms(lambda: chain(n_long), q.device))
-    per = (t_long - t_short) / (n_long - n_short)
+    for _ in range(REPS):
+        t_short = min(t_short, _elapsed_ms(lambda: chain(N_SHORT), q.device))
+        t_long = min(t_long, _elapsed_ms(lambda: chain(N_LONG), q.device))
+    per = (t_long - t_short) / (N_LONG - N_SHORT)
     return (per if per > 0 else None), dict(short_ms=t_short, long_ms=t_long)
 
 
@@ -258,26 +235,22 @@ def write_result(res, out):
     out.write_text(json.dumps(res, indent=1))
 
 
-def run(device='cuda', batch=B, supports=S, n_short=None, n_long=None,
-        reps=None):
+def run(device='cuda', batch=B, supports=S):
     """The roofline result dict (module docstring) at ``batch`` x
     ``supports``; the step counts as ``per_step_ms``."""
-    n_short = N_SHORT if n_short is None else n_short
-    n_long = N_LONG if n_long is None else n_long
-    reps = REPS if reps is None else reps
     dev = resolve_device(device)
     robot, sup, w = flagship_score_setup(supports, device=dev)
     spec = fk_score.robot_spec(robot)
     q = robot.rand_configs(batch, torch.Generator().manual_seed(1), dev)
     res = dict(B=batch, S=supports, device=str(dev),
-               method=f'scan differencing ({n_short} vs {n_long} steps, '
-                      f'min of {reps}), '
+               method=f'scan differencing ({N_SHORT} vs {N_LONG} steps, '
+                      f'min of {REPS}), '
                       + ('CUDA events' if dev.type == 'cuda'
                          else 'host clock'))
     raw = {}
 
     def timed(key, step):
-        ms, raw[key] = per_step_ms(step, q, n_short, n_long, reps)
+        ms, raw[key] = per_step_ms(step, q)
         return ms
 
     def bench_step(qq):

@@ -36,10 +36,12 @@ CHAIN_MULTI_CASES = [('panda_simple.urdf', 37, 5, 3),
 # B6 and B7 at a ragged small shape and the roofline path's shape
 ROOFLINE_SHAPES = [(300, 130), (65536 + 37, 512)]
 # B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
-# without dq, 1e-3 with it; 1e-2 for mv_bf16_full, where kernel and twin
-# may round one r or 1/r to neighbouring bf16 values (2^-8 of a term)
+# without dq, 1e-3 with it. In mv_bf16_full kernel and twin may round an r
+# or 1/r to neighbouring bf16 values (2^-8 of a term; about a third of the
+# tolerance at the large shape on the H100); leaving the rounding out
+# moves it by about 3 times the tolerance, which the test asserts
 ABLATION_TOL = {'fk_only': 1e-4, 'mxu': 1e-4, 'mxu_rsqrt': 1e-4,
-                'fwd': 1e-4, 'mv_f32_full': 1e-3, 'mv_bf16_full': 1e-2}
+                'fwd': 1e-4, 'mv_f32_full': 1e-3, 'mv_bf16_full': 1e-3}
 
 
 @pytest.fixture
@@ -251,7 +253,11 @@ def test_ablation_kernel_matches_plain(cuda, mode, B, S):
     ref = rf._dh_ablation_plain(q, sup, w, spec, mode)
     assert out.shape == (B,) and bool(torch.isfinite(out).all())
     err = float((out - ref).abs().max())
-    assert err <= ABLATION_TOL[mode] * float(ref.abs().max()), err
+    tol = ABLATION_TOL[mode] * float(ref.abs().max())
+    assert err <= tol, err
+    if mode == 'mv_bf16_full':    # the tolerance would catch no rounding
+        f32 = rf._dh_ablation_plain(q, sup, w, spec, 'mv_f32_full')
+        assert float((out - f32).abs().max()) > tol
 
 
 @pytest.mark.parametrize('B,S', ROOFLINE_SHAPES)

@@ -80,7 +80,16 @@ def interpret(monkeypatch, ref):
     monkeypatch.setenv('DIFFCO_PALLAS_INTERPRET', '1')
 
 
+def _jax_points(q):
+    """The JAX package's FK points of q, [B, 21] in float64."""
+    return np.asarray(JPanda().fkine(jnp.asarray(q)), np.float64).reshape(
+        q.shape[0], -1)
+
+
 def _tpu_kernel(ref, mode, q, sup, w):
+    """The interpreted TPU kernel's output. Its ``mxu`` is sum_j s_j . x;
+    the port's rung is B1's sum_j d2_j, so that output is mapped through
+    sum_j ||x - s_j||^2 = S ||x||^2 + sum_j ||s_j||^2 - 2 sum_j s_j . x."""
     robot = JPanda()
     if mode.startswith('mv_'):
         kern, n_joints, f_pad = ref.make_mv_full(robot, mode == 'mv_f32_full')
@@ -89,7 +98,11 @@ def _tpu_kernel(ref, mode, q, sup, w):
         kern = kernels[mode]
     out = ref._ablation_call(kern, n_joints, f_pad, TB, jnp.asarray(q),
                              jnp.asarray(sup), jnp.asarray(w))
-    return np.asarray(out)[0, :B]
+    out = np.asarray(out, np.float64)[0, :B]
+    if mode == 'mxu':
+        x, s = _jax_points(q), sup.astype(np.float64)
+        out = S * (x * x).sum(1) + (s * s).sum() - 2 * out + S * 1e-12
+    return out
 
 
 def _fp32_math(mode, q, sup, w):
@@ -101,15 +114,13 @@ def _fp32_math(mode, q, sup, w):
             jfk.robot_spec(JPanda()), use_bf16=False)
         return np.asarray(score, np.float64) + np.asarray(dq, np.float64)[
             :, ::-1].sum(1)
-    x = np.asarray(JPanda().fkine(jnp.asarray(q)), np.float64).reshape(B, -1)
+    x = _jax_points(q)
     s = sup.astype(np.float64)
     if mode == 'fk_only':
         return x.sum(1)
-    sx = x @ s.T
+    d2 = ((x[:, None, :] - s[None]) ** 2).sum(-1) + 1e-12
     if mode == 'mxu':
-        return sx.sum(1)
-    d2 = np.maximum((x * x).sum(1)[:, None] + (s * s).sum(1)[None] - 2 * sx,
-                    0.0) + 1e-12
+        return d2.sum(1)
     r = np.sqrt(d2)
     return (r + 1 / r).sum(1) if mode == 'mxu_rsqrt' else r @ w
 
