@@ -2,9 +2,10 @@
 
 Builds the hand-written kernels from csrc/, holds each against its plain
 PyTorch twin at the main paths' shapes (B3 and B5 on three URDF robots: a
-serial arm, a branching tree and a prismatic + mimic rig; B4 with two
-and five classes), then drives four paths through the entry points a
-user calls:
+serial arm, a branching tree and a prismatic + mimic rig, B5 with five
+and eight classes; B4 with two and five classes; B1 and B4 also at their
+FP = 16 and 8 instances, on Baxter's arm with 4 and 2 control points),
+then drives five paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -51,6 +52,7 @@ import torch
 
 from diffco_tpu_torch.ops.bounds import (ablation_work, bound, chain_ops,
                                          dh_ops, fk_score_bytes, score_ops)
+from diffco_tpu_torch.robots.analytic import baxter_arm
 
 # the main path's shapes (bench.py's primitive: B = 65536, S = 512)
 B_BENCH = 65536
@@ -59,6 +61,11 @@ S_BENCH = 512
 B_CHAIN_SMALL = 4096 + 5          # B3 and B5 on the tree and the mimic rig
 S_CHAIN_SMALL = 128
 S_URDF_MULTI = 1024              # FrankaPanda's 5-class proxy: 973 supports
+# B1 and B4 at their FP = 16 and FP = 8 instances (the kernels dispatch on
+# 3P padded to a multiple of 8): Baxter's arm with 4 and 2 control points,
+# at B_CHAIN_SMALL, S_CHAIN_SMALL; no DH robot of the repo reaches FP >= 32
+BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
+                8: (False, False, True, False, False, False, True)}
 FIT_SAMPLES = 5000               # ForwardKinematicsDiffCo.fit's default
 URDF_FIT_SAMPLES = 3000          # the README quick start's
 # The URDF trajopt departs from the README's options in two places. 83 %
@@ -179,7 +186,23 @@ def check_dh_kernel(robot, dev):
     _check_close('autograd through fk_polyharmonic_score_auto', g, dq, 1e-6)
     _phase('B1 dh_score_grad vs plain', t0, B=B_RAGGED, S=S_BENCH,
            J=q.shape[1], max_abs_err=err)
-    return dict(args=(q, sup, w, spec), err=err)
+    out = dict(args=(q, sup, w, spec), err=err)
+    for fp, mask in BAXTER_MASKS.items():
+        t0 = time.perf_counter()
+        arm = baxter_arm(mask)
+        q, sup, w = _inputs(arm, B_CHAIN_SMALL, S_CHAIN_SMALL, dev, seed=fp)
+        spec = fk_score.robot_spec(arm)
+        score, dq = fk_score.dh_score_grad(q, sup, w, spec)
+        ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
+        torch.cuda.synchronize()
+        _check_close(f'dh_score_grad score (FP = {fp})', score, ref, 1e-4)
+        _check_close(f'dh_score_grad dq (FP = {fp})', dq, ref_dq, 1e-3)
+        err = _max_err([(score, ref), (dq, ref_dq)])
+        out['err'] = max(out['err'], err)
+        _phase(f'B1 dh_score_grad vs plain, Baxter arm, FP = {fp}', t0,
+               B=B_CHAIN_SMALL, S=S_CHAIN_SMALL, F=sup.shape[1],
+               max_abs_err=err)
+    return out
 
 
 def check_chain_kernel(dev):
@@ -259,7 +282,9 @@ def _check_multi_autograd(tag, robot, q, sup, W, dq, dev):
 def check_dh_multi_kernel(robot, dev):
     """B4 against its plain twin on PandaFK at B = 65536 + 37, S = 512, for
     C = 2 (one class tile) and C = 5 (three), and the class-mixed autograd
-    through fk_polyharmonic_multi_score_auto against its dq."""
+    through fk_polyharmonic_multi_score_auto against its dq; then its
+    FP = 16 and FP = 8 instances on Baxter's arm at B = 4096 + 5,
+    S = 128, with C = 2 and C = 5."""
     from diffco_tpu_torch.ops import fk_score
     spec = fk_score.robot_spec(robot)
     out = None
@@ -279,41 +304,72 @@ def check_dh_multi_kernel(robot, dev):
         else:             # timed beside it: three class tiles
             out['args_c5'] = (q, sup, W, spec)
         out['err'] = max(out['err'], err)
+    for (fp, mask), C in zip(BAXTER_MASKS.items(), (2, 5)):
+        t0 = time.perf_counter()
+        arm = baxter_arm(mask)
+        q, sup, _ = _inputs(arm, B_CHAIN_SMALL, S_CHAIN_SMALL, dev,
+                            seed=40 + fp)
+        W = _class_weights(S_CHAIN_SMALL, C, dev, seed=fp)
+        err, _ = _check_multi(f'dh_multi_score_grad FP = {fp}, C={C}',
+                              fk_score.dh_multi_score_grad,
+                              fk_score._dh_multi_score_grad_plain, q, sup, W,
+                              fk_score.robot_spec(arm))
+        out['err'] = max(out['err'], err)
+        _phase(f'B4 dh_multi_score_grad vs plain, Baxter arm, FP = {fp}, '
+               f'C={C}', t0, B=B_CHAIN_SMALL, S=S_CHAIN_SMALL,
+               F=sup.shape[1], max_abs_err=err)
     return out
 
 
 def check_chain_multi_kernel(dev):
     """B5 against its plain twin: FrankaPanda at B = 65536 + 37, S = 1024,
-    C = 5 (the multi-class quick start's shape), with the class-mixed
-    autograd check; the trifinger tree and the prismatic + mimic lift rig
-    at B = 4096 + 5, S = 128, C = 2, so that every joint type runs on the
-    card."""
+    C = 5 (the multi-class quick start's shape: one pass over the
+    supports) with the class-mixed autograd check, C = 8 (two passes) and
+    C = 2 (the narrow instance); the trifinger tree and the prismatic +
+    mimic lift rig at B = 4096 + 5, S = 128, C = 2, so that every joint
+    type runs on the card. Prints the launch plan at FrankaPanda's shape
+    as the card's occupancy calculator gives it, and fails below 16 warps
+    per SM."""
     import diffco_tpu_torch as dc
     from diffco_tpu_torch import robot_data
-    from diffco_tpu_torch.ops import fk_score
+    from diffco_tpu_torch.ops import _native, fk_score
     robot_data.ensure_default_assets()
-    cases = [('FrankaPanda', dc.FrankaPanda(load_gripper=True, device=dev),
-              B_RAGGED, S_URDF_MULTI, 5)]
+    panda = dc.FrankaPanda(load_gripper=True, device=dev)
+    cases = [('FrankaPanda', panda, B_RAGGED, S_URDF_MULTI, 5),
+             ('FrankaPanda', panda, B_RAGGED, S_URDF_MULTI, 8)]
     for name in ('trifinger_simple.urdf', 'lift_rig.urdf'):
         cases.append((name, dc.URDFRobot(
             f'{robot_data.data_dir}/{name}', device=dev, setup_acm=False),
             B_CHAIN_SMALL, S_CHAIN_SMALL, 2))
+    cases.append(('FrankaPanda', panda, B_RAGGED, S_URDF_MULTI, 2))
     out = None
     for seed, (name, robot, B, S, C) in enumerate(cases, start=20):
         t0 = time.perf_counter()
         q, sup, _ = _inputs(robot, B, S, dev, seed=seed)
         W = _class_weights(S, C, dev, seed=seed)
         cs = fk_score.robot_chain_statics(robot)
-        err, dq = _check_multi(f'chain_multi_score_grad ({name})',
+        err, dq = _check_multi(f'chain_multi_score_grad ({name}, C={C})',
                                fk_score.chain_multi_score_grad,
                                fk_score._chain_multi_score_grad_plain, q, sup,
                                W, cs)
         if out is None:
             _check_multi_autograd(name, robot, q, sup, W, dq, dev)
             out = dict(args=(q, sup, W, cs), err=err)
+        elif name == 'FrankaPanda':   # timed beside it
+            out[f'args_c{C}'] = (q, sup, W, cs)
         out['err'] = max(out['err'], err)
-        _phase(f'B5 chain_multi_score_grad vs plain, {name}', t0, B=B, S=S,
-               C=C, D=q.shape[1], max_abs_err=err)
+        _phase(f'B5 chain_multi_score_grad vs plain, {name}, C={C}', t0, B=B,
+               S=S, C=C, D=q.shape[1], max_abs_err=err)
+    c = fk_score._c_chain_spec(out['args'][3])
+    for C in (5, 8):
+        card = _native.chain_multi_plan_on_card(c.P, C)
+        print(f'B5 launch plan, FrankaPanda (P = {c.P}), C = {C}: {card}; '
+              f'{_native.MULTI_THREADS} threads and {_native.MULTI_ROWS} '
+              'configurations per block', flush=True)
+        if card['warps_per_sm'] < 16:
+            raise AssertionError(f'B5 keeps {card["warps_per_sm"]} warps '
+                                 'per SM, below 16')
+        out[f'plan_c{C}'] = card
     return out
 
 
@@ -835,7 +891,10 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             lambda: fk_score.chain_multi_score_grad(q5, sup5, W5, cs5),
             lambda: fk_score._chain_multi_score_grad_plain(q5, sup5, W5,
                                                            cs5),
-            bound5, by5),
+            bound5, by5, **{f'ms_at_C{C}': _time_ms(
+                lambda C=C: fk_score.chain_multi_score_grad(
+                    *b5[f'args_c{C}']), 5, 50) for C in (2, 8)},
+            warps_per_sm=b5['plan_c5']['warps_per_sm']),
     ] + dual_rows + mode_rows
 
 

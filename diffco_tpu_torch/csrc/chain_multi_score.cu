@@ -19,28 +19,42 @@
 // plus 2F + 4 per class, ~320 operations; the FK and backward add
 // ops/bounds.py::chain_ops(c, C) per configuration; bytes in and out are
 // a few MB at B = 65536. So the CUDA cores (67 TFLOP/s fp32), not HBM, set
-// the floor.
+// the floor, and nearly all of it is the per-class gradient sums.
 //
-// Design: one thread per configuration (128 per block), as
-// chain_score.cu, with the classes in tiles of kClassTile = 2 per pass
-// over the supports, as dh_multi_score.cu: a pass shares each pair's
-// distance and rsqrt between its two classes and keeps two FP-vectors su_c
-// in registers; C = 5 takes three passes (the last with a zero weight
-// column). The moving frames' axes and origins, written once by the FK
-// into per-thread local memory, serve every pass's backward; nothing is
-// recomputed. W arrives as a device pointer (row-major [S, C]): the folded
-// ChainSpec already takes 1628 B of the 4 KB kernel-parameter space. One
+// Design: the score block of multi_score_block.cuh, as the TPU kernel
+// does it (one rinv per pair, every class's [s w | w] sums in one product
+// against it): a block of 128 configurations and 256 threads computes
+// each pair's distance and rsqrt once for all the classes of a pass
+// (phase A, two threads per configuration), then the class sums as an
+// fp32 register-tiled product of the chunk's rinv tile with the class
+// table [s_j w_jc | w_jc] (phase B). A pass takes Cg = floor(128 /
+// (FP + 1)) classes (5 at FrankaPanda's FP = 24), so C = 5 reads each
+// support once; only C > Cg takes more passes. A launch whose classes
+// fit in the table's first 64 columns (C <= 2 at FP = 24) takes the
+// kernel's narrow instance, whose product is half as wide. The FK runs
+// once per configuration up front, for the points (shared memory), and
+// again in the epilogue, once per thread that takes one of the
+// configuration's classes, for the moving frames' axes and origins
+// (indexed by data, so per-thread local memory, written and read there).
+// Recomputing them keeps the kernel within the 128 registers and ~64 KB
+// of shared memory per thread and block at which two blocks (16 warps)
+// stay resident per SM. W arrives as a device pointer (row-major [S, C]):
+// the folded ChainSpec already takes 1628 B of the 4 KB kernel-parameter
+// space. One
 // build serves every chain with M <= 16 moving joints, D <= 16 dofs,
 // P <= 21 points and every C <= kMaxC = 8; the wrapper raises beyond.
 #include <cuda_runtime.h>
 
 #include "chain_fk.cuh"
+#include "multi_score_block.cuh"
+
+extern __shared__ __align__(16) float diffco_multi_smem[];
 
 namespace diffco {
 namespace {
 
-template <int FP>
-__global__ void __launch_bounds__(kThreads)
+template <int FP, bool kNarrow>
+__global__ void __launch_bounds__(kMultiThreads, 2)
 chain_multi_score_grad_kernel(const float* __restrict__ q,
                               const float* __restrict__ s,
                               const float* __restrict__ W,
@@ -48,43 +62,50 @@ chain_multi_score_grad_kernel(const float* __restrict__ q,
                               float* __restrict__ dq, int B, int S, int C,
                               const __grid_constant__ ChainSpec sp) {
   constexpr int KP = FP / 3 < kMaxCP ? FP / 3 : kMaxCP;
-  constexpr int CT = kClassTile;
-  __shared__ __align__(16) float s_sh[kChunk * FP];
-  __shared__ float w_sh[kChunk * CT];
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = b < B;   // the ragged end of B is masked here
-  const float* qb = q + static_cast<size_t>(live ? b : 0) * sp.D;
-  float x[FP];
-#pragma unroll
-  for (int f = 0; f < FP; ++f) x[f] = 0.f;
-  float fr[kMaxM][12], zo[kMaxM][6];
-  chain_fk<KP>(qb, live, sp, fr, zo, x);
+  using L = MultiSmem<FP>;
+  constexpr int CG = kNarrow ? L::kCgNarrow : L::kCg;
+  float* smem = diffco_multi_smem;
+  const int tid = threadIdx.x;
   const int F = 3 * sp.P;
-  for (int k0 = 0; k0 < C; k0 += CT) {
-    float sc[CT], scc[CT], rs[CT], su[CT * FP];
+  float fr[kMaxM][12], zo[kMaxM][6];
+  if (tid < kMultiRows) {   // the rows' points
+    const int b = blockIdx.x * kMultiRows + tid;
+    const bool live = b < B;   // the ragged end of B is masked here
+    float x[FP];
 #pragma unroll
-    for (int k = 0; k < CT; ++k) {
-      sc[k] = 0.f;
-      scc[k] = 0.f;
-      rs[k] = 0.f;
-    }
+    for (int f = 0; f < FP; ++f) x[f] = 0.f;
+    chain_fk<KP>(q + static_cast<size_t>(live ? b : 0) * sp.D, live, sp, fr,
+                 zo, x);
 #pragma unroll
-    for (int f = 0; f < CT * FP; ++f) su[f] = 0.f;
-    for (int c0 = 0; c0 < S; c0 += kChunk) {
-      const int n = min(kChunk, S - c0);
-      __syncthreads();
-      stage_supports<FP, CT>(s, W, c0, n, F, s_sh, w_sh, C, k0);
-      __syncthreads();
-      score_grad_accumulate_multi<FP, CT>(x, s_sh, w_sh, n, sc, scc, rs, su);
-    }
+    for (int f = 0; f < FP; ++f) smem[L::kX + tid * FP + f] = x[f];
+  }
+  multi_zero_padding<FP>(smem, F);
+  float acc[8][8];
+  for (int k0 = 0; k0 < C; k0 += CG) {
+    multi_score_pass<FP, kNarrow>(s, W, S, F, C, k0, smem, acc);
+    const int cg = min(CG, C - k0);
+    // per half of the rows: a thread per (row, class) runs the row's FK
+    // again for its frames, then the backward of each of its classes
+    for (int h = 0; h < kMultiRows / kTileRows; ++h) {
+      multi_put_tile(acc, h, smem + L::kTile);
+      const int rt = tid % kTileRows, quarter = tid / kTileRows;
+      if (quarter >= cg) continue;
+      const int row = h * kTileRows + rt;
+      const int b = blockIdx.x * kMultiRows + row;
+      const bool live = b < B;
+      float x[FP];
 #pragma unroll
-    for (int k = 0; k < CT; ++k) {
-      if (k0 + k < C) {
+      for (int f = 0; f < FP; ++f) x[f] = 0.f;
+      chain_fk<KP>(q + static_cast<size_t>(live ? b : 0) * sp.D, live, sp,
+                   fr, zo, x);
+      for (int c = quarter; c < cg; c += kMultiThreads / kTileRows) {
+        const float* t = smem + L::kTile + rt * kTileStride + c * (FP + 1);
         float dqr[kMaxD];
-        chain_backward<KP>(sp, zo, x, rs[k], su + k * FP, dqr);
+        chain_backward<KP>(sp, zo, x, t[FP], t, dqr);
         if (live) {
-          score[static_cast<size_t>(b) * C + k0 + k] = sc[k] + scc[k];
-          float* dqb = dq + (static_cast<size_t>(k0 + k) * B + b) * sp.D;
+          score[static_cast<size_t>(b) * C + k0 + c] =
+              multi_class_score<FP>(smem, row, c);
+          float* dqb = dq + (static_cast<size_t>(k0 + c) * B + b) * sp.D;
           for (int d = 0; d < sp.D; ++d) dqb[d] = dqr[d];
         }
       }
@@ -92,15 +113,78 @@ chain_multi_score_grad_kernel(const float* __restrict__ q,
   }
 }
 
+template <int FP, bool kNarrow>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(chain_multi_score_grad_kernel<FP, kNarrow>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              MultiSmem<FP>::kBytes);
+}
+
+template <int FP, bool kNarrow>
+int launch_as(const float* q, const float* s, const float* W, float* score,
+              float* dq, int B, int S, int C, const ChainSpec& sp,
+              cudaStream_t st) {
+  const cudaError_t e = allow_smem<FP, kNarrow>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((B + kMultiRows - 1) / kMultiRows);
+  chain_multi_score_grad_kernel<FP, kNarrow>
+      <<<grid, kMultiThreads, MultiSmem<FP>::kBytes, st>>>(
+          q, s, W, score, dq, B, S, C, sp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int FP>
+int launch(const float* q, const float* s, const float* W, float* score,
+           float* dq, int B, int S, int C, const ChainSpec& sp,
+           cudaStream_t st) {
+  // the narrow instance when all C classes fit in one narrow pass
+  if constexpr (MultiSmem<FP>::kCgNarrow > 0)
+    if (C <= MultiSmem<FP>::kCgNarrow)
+      return launch_as<FP, true>(q, s, W, score, dq, B, S, C, sp, st);
+  return launch_as<FP, false>(q, s, W, score, dq, B, S, C, sp, st);
+}
+
+// out = {classes per pass, passes for C, dynamic shared bytes per block,
+// blocks resident per SM by the runtime's occupancy calculator}
+template <int FP, bool kNarrow>
+int plan_as(int C, int* out) {
+  using L = MultiSmem<FP>;
+  constexpr int CG = kNarrow ? L::kCgNarrow : L::kCg;
+  cudaError_t e = allow_smem<FP, kNarrow>();
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, chain_multi_score_grad_kernel<FP, kNarrow>, kMultiThreads,
+        L::kBytes);
+  out[0] = CG;
+  out[1] = (C + CG - 1) / CG;
+  out[2] = L::kBytes;
+  out[3] = blocks;
+  return static_cast<int>(e);
+}
+
+template <int FP>
+int plan(int C, int* out) {
+  if constexpr (MultiSmem<FP>::kCgNarrow > 0)
+    if (C <= MultiSmem<FP>::kCgNarrow) return plan_as<FP, true>(C, out);
+  return plan_as<FP, false>(C, out);
+}
+
 }  // namespace
 }  // namespace diffco
 
-#define DIFFCO_CHAIN_MULTI_CASE(FPV)                                     \
-  case FPV:                                                              \
-    diffco::chain_multi_score_grad_kernel<FPV>                           \
-        <<<grid, diffco::kThreads, 0, st>>>(q, s, W, score, dq, B, S, C, \
-                                            sp);                         \
-    break;
+#define DIFFCO_FP_SWITCH(FPV, CALL) \
+  switch (FPV) {                    \
+    case 8: return CALL(8);         \
+    case 16: return CALL(16);       \
+    case 24: return CALL(24);       \
+    case 32: return CALL(32);       \
+    case 40: return CALL(40);       \
+    case 48: return CALL(48);       \
+    case 56: return CALL(56);       \
+    case 64: return CALL(64);       \
+    default: return cudaErrorInvalidValue; \
+  }
 
 // Returns the cudaError_t of the launch (0 on success). `spec` is a host
 // pointer, copied into the kernel's arguments; W is a device pointer.
@@ -114,19 +198,19 @@ extern "C" int chain_multi_score_grad(const float* q, const float* s,
   if (B <= 0 || S < 0 || C < 1 || C > diffco::kMaxC ||
       !diffco::spec_ok(sp))
     return cudaErrorInvalidValue;
-  const dim3 grid((B + diffco::kThreads - 1) / diffco::kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((3 * sp.P + 7) / 8 * 8) {
-    DIFFCO_CHAIN_MULTI_CASE(8)
-    DIFFCO_CHAIN_MULTI_CASE(16)
-    DIFFCO_CHAIN_MULTI_CASE(24)
-    DIFFCO_CHAIN_MULTI_CASE(32)
-    DIFFCO_CHAIN_MULTI_CASE(40)
-    DIFFCO_CHAIN_MULTI_CASE(48)
-    DIFFCO_CHAIN_MULTI_CASE(56)
-    DIFFCO_CHAIN_MULTI_CASE(64)
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+#define DIFFCO_LAUNCH(FPV) \
+  diffco::launch<FPV>(q, s, W, score, dq, B, S, C, sp, st)
+  DIFFCO_FP_SWITCH((3 * sp.P + 7) / 8 * 8, DIFFCO_LAUNCH)
+#undef DIFFCO_LAUNCH
+}
+
+// The launch plan of a chain with P control points and C classes (see
+// plan<FP>); returns the cudaError_t of the occupancy query.
+extern "C" int chain_multi_score_plan(int P, int C, int* out) {
+  if (P < 1 || P > diffco::kMaxCP || C < 1 || C > diffco::kMaxC)
+    return cudaErrorInvalidValue;
+#define DIFFCO_PLAN(FPV) diffco::plan<FPV>(C, out)
+  DIFFCO_FP_SWITCH((3 * P + 7) / 8 * 8, DIFFCO_PLAN)
+#undef DIFFCO_PLAN
 }

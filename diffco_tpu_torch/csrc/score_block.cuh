@@ -1,6 +1,7 @@
-// Polyharmonic DiffCo score block shared by the five hand-written kernels
-// (poly_score.cu, dh_score.cu, chain_score.cu, dh_multi_score.cu,
-// chain_multi_score.cu).
+// Polyharmonic DiffCo score block shared by the one-row-per-thread
+// kernels (poly_score.cu, dh_score.cu, chain_score.cu, dh_multi_score.cu;
+// chain_multi_score.cu takes only its TwoSum, through
+// multi_score_block.cuh).
 //
 // For one query x (FP components, zero-padded past F) against a chunk of
 // supports s_j with weights w_jc (CT weight columns; CT = 1 for a scalar

@@ -3,8 +3,9 @@ counterpart of ``diffco_tpu/ops/fk_score.py``, DH and general-chain
 branches, one weight column or C of them).
 
 The trajopt inner-loop primitive is ``score(fkine(q))`` with its gradient
-in ``q``. At batch >= ``_FK_FUSED_MIN_BATCH`` it runs FK, score and the
-configuration gradient in one pass, through a hand-written CUDA kernel:
+in ``q``. For a float32 CUDA tensor at batch >= ``_FK_FUSED_MIN_BATCH``
+it runs FK, score and the configuration gradient in one pass, through a
+hand-written CUDA kernel:
 
 - ``dh_score_grad`` (``csrc/dh_score.cu``) and ``chain_score_grad``
   (``csrc/chain_score.cu``) for a DH or a URDF robot, weights w [S];
@@ -14,7 +15,8 @@ configuration gradient in one pass, through a hand-written CUDA kernel:
   dq [C, B, D].
 
 Each has a plain twin (``_<name>_plain``) that a CPU tensor runs. Below
-the gate, and for other robots, it is FK + the plain score route.
+the gate, on the CPU, in float64 and for other robots, it is FK + the
+plain score route.
 """
 from __future__ import annotations
 
@@ -212,16 +214,17 @@ class _FKPolyScore(torch.autograd.Function):
     def jvp(ctx, *tangents):
         raise RuntimeError(
             'the one-pass FK score has no forward-mode derivative (the JAX '
-            'twin is a custom_vjp); keep the batch below '
-            f'{_FK_FUSED_MIN_BATCH} for forward mode')
+            'twin is a custom_vjp); for forward mode keep the batch below '
+            f'{_FK_FUSED_MIN_BATCH} or pass a float64 tensor')
 
 
 def dh_polyharmonic_score(q, supports, weights, spec):
     """Polyharmonic DiffCo score through DH-chain FK, [B, 1].
 
     DIFFERENTIATION CONTRACT: differentiable w.r.t. ``q`` only; supports
-    and weights get zero cotangents and forward mode raises. Callers that
-    need more stay below ``_FK_FUSED_MIN_BATCH``."""
+    and weights get zero cotangents and forward mode raises. The router
+    takes it only for a float32 CUDA batch at ``_FK_FUSED_MIN_BATCH``;
+    callers that need more stay below the gate or pass float64."""
     return _FKPolyScore.apply(q, supports, weights, dh_score_grad, spec)
 
 
@@ -350,12 +353,22 @@ def chain_polyharmonic_multi_score(q, supports, W, cs: ChainStatics):
     return _FKPolyScore.apply(q, supports, W, chain_multi_score_grad, cs)
 
 
-def dh_score_grad_available(robot, batch: int) -> bool:
-    return isinstance(robot, DHChainRobot) and batch >= _FK_FUSED_MIN_BATCH
+def _one_pass(q) -> bool:
+    """The one-pass Functions serve float32 CUDA tensors at batch >= the
+    gate, as the JAX package takes its custom_vjp routes only on its
+    accelerator (fk_score.py:704-714). Everything else (the CPU, float64)
+    stays on the plain route, differentiable in every argument and in
+    forward mode."""
+    return (q.is_cuda and q.dtype == torch.float32
+            and q.shape[0] >= _FK_FUSED_MIN_BATCH)
 
 
-def chain_score_grad_available(robot, batch: int) -> bool:
-    return (isinstance(robot, URDFRobot) and batch >= _FK_FUSED_MIN_BATCH
+def dh_score_grad_available(robot, q) -> bool:
+    return isinstance(robot, DHChainRobot) and _one_pass(q)
+
+
+def chain_score_grad_available(robot, q) -> bool:
+    return (isinstance(robot, URDFRobot) and _one_pass(q)
             and robot._fkine_sel is not None)
 
 
@@ -370,15 +383,16 @@ def _dh_spec(robot):
 def fk_polyharmonic_score_auto(q, robot, supports, weights, valid_mask=None,
                                epsilon: float = 1.0):
     """Route ``score(fkine(q))`` [B, 1] through the one-pass route of a DH
-    or URDF robot when available, else FK + ``polyharmonic_score``."""
+    or URDF robot when available (a float32 CUDA batch at the gate), else
+    FK + ``polyharmonic_score``."""
     w = weights.reshape(-1)
     if valid_mask is not None:
         w = w * valid_mask.to(w.dtype)
     if epsilon != 1.0:
         w = w / epsilon
-    if dh_score_grad_available(robot, q.shape[0]):
+    if dh_score_grad_available(robot, q):
         return dh_polyharmonic_score(q, supports, w, _dh_spec(robot))
-    if chain_score_grad_available(robot, q.shape[0]):
+    if chain_score_grad_available(robot, q):
         return chain_polyharmonic_score(q, supports, w,
                                         robot_chain_statics(robot))
     if isinstance(robot, DHChainRobot):
@@ -392,15 +406,16 @@ def fk_polyharmonic_multi_score_auto(q, robot, supports, W, valid_mask=None,
                                      epsilon: float = 1.0):
     """Multi-class ``fk_polyharmonic_score_auto``: ``scores(fkine(q))``
     [B, C] for weight columns W [S, C], through kernel B4 (DH) or B5 (URDF
-    chain) at batch >= ``_FK_FUSED_MIN_BATCH``, else FK + the plain
-    ``[B, S] @ [S, C]`` route, twice-differentiable in every argument."""
+    chain) for a float32 CUDA batch >= ``_FK_FUSED_MIN_BATCH``, else FK +
+    the plain ``[B, S] @ [S, C]`` route, twice-differentiable in every
+    argument."""
     if valid_mask is not None:
         W = W * valid_mask.to(W.dtype)[:, None]
     if epsilon != 1.0:
         W = W / epsilon
-    if dh_score_grad_available(robot, q.shape[0]):
+    if dh_score_grad_available(robot, q):
         return dh_polyharmonic_multi_score(q, supports, W, _dh_spec(robot))
-    if chain_score_grad_available(robot, q.shape[0]):
+    if chain_score_grad_available(robot, q):
         return chain_polyharmonic_multi_score(q, supports, W,
                                               robot_chain_statics(robot))
     pts = robot.fkine(q).reshape(q.shape[0], -1)

@@ -2,14 +2,15 @@
 ``diffco_tpu/ops/fused_score.py``).
 
 The serving hot path is ``score(x) = sum_j w_j ||x - s_j||`` with its
-query gradient ``dx = x * sum_j w_j / r_j - sum_j s_j w_j / r_j``. At
-batch >= ``_FUSED_MIN_BATCH`` it runs through ``poly_score_grad``, one
-pass that computes score and dx together (the hand-written CUDA kernel
-``csrc/poly_score.cu`` for a CUDA tensor, its plain twin
-``_poly_score_grad_plain`` for a CPU tensor); the autograd Function saves
-dx so the backward is a broadcast multiply. Below the gate the plain
-expanded-square formulation ``_poly_score_xla`` runs, which stays
-differentiable to every order in every argument.
+query gradient ``dx = x * sum_j w_j / r_j - sum_j s_j w_j / r_j``. A
+float32 CUDA batch >= ``_FUSED_MIN_BATCH`` runs through
+``poly_score_grad``, one pass that computes score and dx together (the
+hand-written CUDA kernel ``csrc/poly_score.cu`` for a CUDA tensor, its
+plain twin ``_poly_score_grad_plain`` for a CPU tensor); the autograd
+Function saves dx so the backward is a broadcast multiply. Everywhere
+else (below the gate, on the CPU, in float64, as the JAX package off its
+accelerator) the plain expanded-square formulation ``_poly_score_xla``
+runs, which stays differentiable to every order in every argument.
 """
 from __future__ import annotations
 
@@ -99,8 +100,8 @@ class _PolyScoreFused(torch.autograd.Function):
     def jvp(ctx, *tangents):
         raise RuntimeError(
             'polyharmonic_score_fused has no forward-mode derivative (the '
-            'JAX twin is a custom_vjp); keep the batch below '
-            f'{_FUSED_MIN_BATCH} for forward mode')
+            'JAX twin is a custom_vjp); for forward mode keep the batch '
+            f'below {_FUSED_MIN_BATCH} or pass a float64 tensor')
 
 
 def polyharmonic_score_fused(x, s, w):
@@ -125,14 +126,15 @@ def polyharmonic_score(x, supports, weights, valid_mask=None,
     """score(x) = sum_j w_j ||x - s_j|| / epsilon  [B, 1].
 
     x: [B, F]; supports: [S, F]; weights: [S]. ``valid_mask`` folds into
-    the weights. Batches >= ``_FUSED_MIN_BATCH`` take the one-pass route
-    (the CUDA kernel on the card), smaller ones the plain route."""
+    the weights. Float32 CUDA batches >= ``_FUSED_MIN_BATCH`` take the
+    one-pass route (the CUDA kernel), everything else the plain route."""
     w = weights.reshape(-1)
     if valid_mask is not None:
         w = w * valid_mask.to(w.dtype)
     if epsilon != 1.0:
         w = w / epsilon
-    if x.shape[0] >= _FUSED_MIN_BATCH:
+    if (x.is_cuda and x.dtype == torch.float32
+            and x.shape[0] >= _FUSED_MIN_BATCH):
         return polyharmonic_score_fused(x, supports, w)
     return _poly_score_xla(x, supports, w)
 

@@ -521,12 +521,14 @@ class DiffCo(Perceptron):
     def poly_score(self, point=None, transformed_point=None):
         """Smooth surrogate score [B, 1].
 
-        Differentiation contract: gradients w.r.t. the QUERY only. At
-        batch >= ops.fk_score._FK_FUSED_MIN_BATCH (configurations of a DH
-        or URDF robot) or >= ops.fused_score._FUSED_MIN_BATCH (points) the
-        score runs through one-pass autograd Functions that treat the
-        trained state as constants (zero cotangents, no forward mode);
-        below the gates the route is differentiable in every argument."""
+        Differentiation contract: gradients w.r.t. the QUERY only. For a
+        float32 CUDA batch >= ops.fk_score._FK_FUSED_MIN_BATCH
+        (configurations of a DH or URDF robot) or >=
+        ops.fused_score._FUSED_MIN_BATCH (points) the score runs through
+        one-pass autograd Functions that treat the trained state as
+        constants (zero cotangents, no forward mode); below the gates, on
+        the CPU and in float64 the route is differentiable in every
+        argument."""
         is_poly1 = (isinstance(self.rbf_kernel, Polyharmonic)
                     and self.rbf_kernel.k == 1)
         if transformed_point is None:
@@ -670,11 +672,11 @@ class MultiDiffCo(DiffCo):
 
     def poly_score(self, point=None, transformed_point=None):
         """[B, C] per-class surrogate scores. Same differentiation contract
-        as ``DiffCo.poly_score``: at batch >=
+        as ``DiffCo.poly_score``: for a float32 CUDA batch >=
         ``ops.fk_score._FK_FUSED_MIN_BATCH`` an FK-transformed DH or URDF
         checker scores all classes in one pass (kernel B4 or B5: q
-        gradients only, forward mode raises); below the gate the route is
-        twice-differentiable."""
+        gradients only, forward mode raises); below the gate, on the CPU
+        and in float64 the route is twice-differentiable."""
         is_poly1 = (isinstance(self.rbf_kernel, Polyharmonic)
                     and self.rbf_kernel.k == 1)
         if transformed_point is None:

@@ -1,6 +1,7 @@
 """Analytic (closed-form) robot models, batched and differentiable
 (PyTorch counterpart of ``diffco_tpu/robots/analytic.py``: ``Model``,
-``DHParameters``, ``DHChainRobot`` and ``PandaFK``).
+``DHParameters``, ``DHChainRobot``, ``PandaFK`` and Baxter's arm as a
+``DHChainRobot``).
 
 Robots are device-agnostic: their DH constants are Python floats, so
 ``fkine`` runs wherever ``q`` lies. ``limits`` is a CPU tensor that callers
@@ -141,6 +142,33 @@ class DHChainRobot(Model):
 
     def wrap(self, q):
         return wrap2pi(q)
+
+
+# Baxter's arm, copied from the JAX package's robots/analytic.py
+# (_BAXTER_LIMITS, _BAXTER_L, _baxter_dh)
+_BAXTER_LIMITS = [[-1.70167993878, 1.70167993878],
+                  [-2.147, 1.047],
+                  [-3.05417993878, 3.05417993878],
+                  [-0.05, 2.618],
+                  [-3.059, 3.059],
+                  [-1.57079632679, 2.094],
+                  [-3.059, 3.059]]
+_BAXTER_L = np.array([270.35, 69, 364.35, 69, 374.29, 10, 387.35]) / 1000
+
+
+def baxter_arm(fk_mask: Sequence[bool] = (True, False, True, False, True,
+                                          False, True)) -> DHChainRobot:
+    """Baxter's 7-DOF arm as a DHChainRobot. The default mask is the
+    reference's BaxterLeftArmFK (4 control points, F = 12); a mask with
+    fewer points gives the smaller component counts the DH kernels are
+    built for."""
+    L = _BAXTER_L
+    dh = DHParameters(
+        a=[L[1], 0, L[3], 0, L[5], 0, 0],
+        alpha=[-PI / 2, PI / 2, -PI / 2, PI / 2, -PI / 2, PI / 2, 0],
+        d=[L[0], 0, L[2], 0, L[4], 0, L[6]],
+        theta=[0, PI / 2, 0, 0, 0, 0, 0])
+    return DHChainRobot(dh, _BAXTER_LIMITS, fk_mask=list(fk_mask))
 
 
 _PANDA_LIMITS = [[-2.8973, 2.8973],

@@ -1,0 +1,188 @@
+"""Instruction counts per (configuration, support) pair of a compiled
+one-pass FK kernel, read from its SASS.
+
+    python3 -m diffco_tpu_torch.scripts.sass_counts \\
+        [--source diffco_tpu_torch/csrc/chain_multi_score.cu] [--fp 24] \\
+        [--out PATH]
+
+Compiles the source with the flags of ``ops/_native.py`` into a cubin
+(``nvcc -cubin``, so it needs the CUDA toolkit but no card), disassembles
+it with ``cuobjdump -sass`` and takes the kernel instance for ``--fp``
+components (B5's full-width one, not the narrow one). Every backward
+branch closes a loop; for each innermost loop it prints the opcode
+counts of its body. Two kinds of loop carry the per-pair work:
+
+- a loop with MUFU.RSQ runs one pair per rsqrt, so its counts per pair
+  are the body's divided by its MUFU.RSQ count (every kernel's support
+  loop, and phase A of ``csrc/multi_score_block.cuh``);
+- with ``--product-cols N`` the loop without MUFU.RSQ and the most FFMAs
+  is a register-tiled product in which each thread does N FFMAs per
+  support, ``ops/_native.py``'s ``MULTI_THREADS`` threads for
+  ``MULTI_ROWS`` rows (phase B: 64 FFMAs per support, 256 threads for 128
+  rows), so its counts per pair are the body's x (threads / rows) /
+  (FFMAs / N).
+
+The per-pair sum covers one pass over the supports; a kernel that walks
+them once per class tile (``csrc/chain_multi_score.cu`` before the
+multi-class block: three passes at C = 5) pays it once per pass. Work
+outside those loops (staging, the class table, FK, backward) is not in
+the sum; the whole function's counts are printed beside it. Pass
+``--product-cols 0`` for a kernel without a product loop. The result
+goes to ``--out`` (default ``build/diffco_tpu_torch/sass_counts.json``)
+and is printed as JSON with the toolkit's version.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+from pathlib import Path
+
+from ..ops import _native
+
+KEYS = ('LDS', 'FFMA', 'FADD', 'FMUL', 'MUFU.RSQ', 'STS', 'total')
+
+
+def _tool(name):
+    return str(Path(_native._nvcc()).with_name(name))
+
+
+def _opcode(text):
+    """'LDS.128' for '@P0 LDS.128 R4, [R2+0x10] ;' (the predicate dropped,
+    MUFU kept with its function, other modifiers dropped)."""
+    words = text.replace('{', ' ').split()
+    if words and words[0].startswith('@'):
+        words = words[1:]
+    if not words:
+        return None
+    op = words[0].rstrip(';')
+    base = op.split('.')[0]
+    return op if base == 'MUFU' else base
+
+
+def parse_functions(sass):
+    """{mangled name: [(address, opcode, branch target or None)]} from
+    cuobjdump -sass (targets as addresses or as labels)."""
+    funcs, cur, labels, pending = {}, None, {}, []
+    for ln in sass.splitlines():
+        m = re.search(r'Function : (\S+)', ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            labels, pending = {}, []
+            continue
+        m = re.match(r'\s*(\.L_x_\d+):', ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(.*?);', ln)
+        if m and cur is not None:
+            addr, text = int(m.group(1), 16), m.group(2)
+            for lb in pending:
+                labels[lb] = addr
+            pending = []
+            op = _opcode(text)
+            if not op:
+                continue
+            t = re.search(r'BRA\s+(?:`\(?(\.L_x_\d+)\)?|(0x[0-9a-f]+))',
+                          text)
+            target = None
+            if op == 'BRA' and t:
+                target = (labels.get(t.group(1), addr) if t.group(1)
+                          else int(t.group(2), 16))
+            cur.append((addr, op, target))
+    return funcs
+
+
+def innermost_loops(instrs):
+    """[(start, end)] address ranges closed by a backward BRA and holding
+    no other such range."""
+    loops = [(t, a) for a, _, t in instrs if t is not None and t < a]
+    return [(a, b) for a, b in loops
+            if not any(a <= c and d <= b and (c, d) != (a, b)
+                       for c, d in loops)]
+
+
+def counts(instrs, lo=None, hi=None):
+    out = dict.fromkeys(KEYS, 0)
+    for addr, op, _ in instrs:
+        if (lo is None or addr >= lo) and (hi is None or addr <= hi):
+            out['total'] += 1
+            if op in out:
+                out[op] += 1
+    return out
+
+
+def run(source, fp, product_cols=None):
+    src = Path(source).resolve()
+    rows, threads = _native.MULTI_ROWS, _native.MULTI_THREADS
+    _native._BUILD.mkdir(parents=True, exist_ok=True)
+    cubin = _native._BUILD / f'{src.stem}-{fp}-sass.cubin'
+    flags = [f for f in _native._NVCC_FLAGS
+             if f not in ('-shared', '-Xcompiler', '-fPIC')]
+    ptxas = subprocess.run([_native._nvcc(), *flags, '-cubin', '-o',
+                            str(cubin), str(src)], capture_output=True,
+                           text=True, check=True)
+    sass = subprocess.run([_tool('cuobjdump'), '-sass', str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    version = subprocess.run([_native._nvcc(), '--version'],
+                             capture_output=True, text=True).stdout
+    funcs = parse_functions(sass)
+    # B5's full-width instance (Lb0E), not its narrow one (Lb1E)
+    name = next((n for n in funcs if '_score_grad_kernel' in n
+                 and f'ILi{fp}E' in n and 'Lb1E' not in n), None)
+    if name is None:
+        raise RuntimeError(f'no kernel instance for FP = {fp} in {src}: '
+                           f'{sorted(funcs)}')
+    instrs = funcs[name]
+    loops = [dict(start=hex(lo), end=hex(hi), body=counts(instrs, lo, hi))
+             for lo, hi in innermost_loops(instrs)]
+    # the support loop: most rsqrts (an unrolled body, not its remainder)
+    rsq = [lp for lp in loops if lp['body']['MUFU.RSQ']]
+    chosen = []
+    if rsq:
+        lp = max(rsq, key=lambda lp: lp['body']['MUFU.RSQ'])
+        lp['role'] = 'pairs, one per MUFU.RSQ'
+        chosen.append((lp, 1.0 / lp['body']['MUFU.RSQ']))
+    prod = [lp for lp in loops if not lp['body']['MUFU.RSQ']
+            and product_cols and lp['body']['FFMA'] >= product_cols]
+    if prod:
+        lp = max(prod, key=lambda lp: lp['body']['FFMA'])
+        per_iter = lp['body']['FFMA'] / product_cols
+        lp['role'] = (f'product, {per_iter:g} supports per iteration, '
+                      f'{threads} threads for {rows} rows')
+        chosen.append((lp, threads / rows / per_iter))
+    per_pair = dict.fromkeys(KEYS, 0.0)
+    for lp, scale in chosen:
+        for k in KEYS:
+            per_pair[k] += lp['body'][k] * scale
+    log = ptxas.stderr + ptxas.stdout
+    regs = re.search(rf"entry function '{re.escape(name)}'.*?"
+                     r'(\d+) bytes stack frame, (\d+) bytes spill stores.*?'
+                     r'Used (\d+) registers', log, re.S)
+    return dict(source=src.name, kernel=name, fp=fp,
+                toolkit=version.strip().splitlines()[-1] if version else None,
+                ptxas=(dict(stack_bytes=int(regs.group(1)),
+                            spill_bytes=int(regs.group(2)),
+                            registers=int(regs.group(3))) if regs else None),
+                function=counts(instrs), loops=loops,
+                per_pair_per_pass=per_pair)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--source', action='append',
+                    help='a kernel source (repeatable; default B5)')
+    ap.add_argument('--fp', type=int, default=24)
+    ap.add_argument('--product-cols', type=int, default=64)
+    ap.add_argument('--out', default=str(_native._BUILD / 'sass_counts.json'))
+    args = ap.parse_args(argv)
+    sources = args.source or [str(_native._CSRC / 'chain_multi_score.cu')]
+    res = [run(s, args.fp, args.product_cols) for s in sources]
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(res, indent=1))
+    print(json.dumps({'sass_counts': res}))
+
+
+if __name__ == '__main__':
+    main()

@@ -83,35 +83,67 @@ def test_plain_twin_matches_pallas_and_xla(name):
 
 @pytest.mark.parametrize('B', [32, 4096])
 def test_auto_router_matches_jax(B):
-    """B = 32 takes FK + polyharmonic_score, B = 4096 the one-pass chain
-    Function; both match the JAX package (on the CPU its router takes the
-    XLA route)."""
+    """On the CPU both batches take FK + polyharmonic_score, as the JAX
+    router takes its XLA route off the TPU: values, query gradients, the
+    support and weight cotangents and the forward-mode derivative match
+    the JAX package's, at the gate as below it; no kernel is counted."""
     jr, tr = _robots('panda_simple.urdf')
     q, sup, w = _inputs(tr, B=B, S=48, seed=B)
     mask = np.arange(48) < 40
     qt = torch.from_numpy(q).requires_grad_(True)
     st = torch.from_numpy(sup).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
     before = tfk.chain_score_grad_launches
     out = tfk.fk_polyharmonic_score_auto(
-        qt, tr, st, torch.from_numpy(w), torch.from_numpy(mask),
-        epsilon=1.5)
-    g, gs = torch.autograd.grad(out.sum(), (qt, st))
-    assert tfk.chain_score_grad_launches == before   # CPU: the plain twin
+        qt, tr, st, wt, torch.from_numpy(mask), epsilon=1.5)
+    g, gs, gw = torch.autograd.grad(out.sum(), (qt, st, wt))
+    assert tfk.chain_score_grad_launches == before
+    assert not tfk.chain_score_grad_available(tr, qt)
 
-    def jf(qq):
+    def jf(qq, ss, ww):
         return jfk.fk_polyharmonic_score_auto(
-            qq, jr, jnp.asarray(sup), jnp.asarray(w), jnp.asarray(mask),
-            epsilon=1.5)
-    ref = np.asarray(jf(jnp.asarray(q)))
-    ref_g = np.asarray(jax.grad(lambda qq: jf(qq).sum())(jnp.asarray(q)))
+            qq, jr, ss, ww, jnp.asarray(mask), epsilon=1.5)
+    jargs = tuple(map(jnp.asarray, (q, sup, w)))
+    ref = np.asarray(jf(*jargs))
+    ref_g, ref_gs, ref_gw = jax.grad(lambda *a: jf(*a).sum(),
+                                     argnums=(0, 1, 2))(*jargs)
     assert out.shape == (B, 1)
-    assert tfk.chain_score_grad_available(tr, B) == (
-        B >= tfk._FK_FUSED_MIN_BATCH)
     np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-4,
                                atol=1e-4)
-    np.testing.assert_allclose(g.numpy(), ref_g, rtol=1e-3, atol=1e-3)
-    # supports: zero cotangents above the gate, real ones below it
-    assert bool(gs.any()) == (B < tfk._FK_FUSED_MIN_BATCH)
+    np.testing.assert_allclose(g.numpy(), np.asarray(ref_g), rtol=1e-3,
+                               atol=1e-3)
+    for got, want in ((gs, ref_gs), (gw, ref_gw)):
+        assert bool(got.any())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(want).max()))
+    v = np.random.default_rng(B + 1).normal(size=q.shape).astype(np.float32)
+    import torch.autograd.forward_ad as fwAD
+    with fwAD.dual_level():
+        qd = fwAD.make_dual(torch.from_numpy(q), torch.from_numpy(v))
+        tan = fwAD.unpack_dual(tfk.fk_polyharmonic_score_auto(
+            qd, tr, torch.from_numpy(sup), torch.from_numpy(w),
+            torch.from_numpy(mask), epsilon=1.5)).tangent
+    ref_tan = jax.jvp(lambda qq: jf(qq, *jargs[1:]), (jargs[0],),
+                      (jnp.asarray(v),))[1]
+    np.testing.assert_allclose(tan.numpy(), np.asarray(ref_tan), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_chain_function_gives_state_zero_cotangents():
+    """The one-pass Function itself (the route of a float32 CUDA batch at
+    the gate) treats supports and weights as constants, and its q
+    gradient is the twin's dq."""
+    _, tr = _robots('lift_rig.urdf')
+    q, sup, w = _inputs(tr, B=8, S=16, seed=4)
+    cs = tfk.robot_chain_statics(tr)
+    qt, st, wt = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, sup, w))
+    out = tfk.chain_polyharmonic_score(qt, st, wt, cs)
+    g, gs, gw = torch.autograd.grad(out.sum(), (qt, st, wt))
+    assert not gs.any() and not gw.any()
+    _, dq = tfk._chain_score_grad_plain(*map(torch.from_numpy, (q, sup, w)),
+                                        cs)
+    assert torch.equal(g, dq)
 
 
 def test_chain_function_jvp_raises():

@@ -8,8 +8,9 @@ import pytest
 import torch
 
 from diffco_tpu_torch import robot_data
-from diffco_tpu_torch.ops import fk_score, fused_score
+from diffco_tpu_torch.ops import _native, fk_score, fused_score
 from diffco_tpu_torch.robots import PandaFK, URDFRobot
+from diffco_tpu_torch.robots.analytic import baxter_arm
 from diffco_tpu_torch.scripts import ab_dual_tile as ab
 from diffco_tpu_torch.scripts import roofline_fk_score as rf
 
@@ -27,11 +28,24 @@ CHAIN_CASES = [('panda_simple.urdf', 37, 5),
 # B4: ragged B, one weight column, one class tile, three (the last padded)
 DH_MULTI_CASES = [(37, 5, 1), (300, 130, 2), (65536 + 37, 512, 2),
                   (65536 + 37, 512, 5)]
-# B5 on the three robots; FrankaPanda's multi-class proxy has S = 1024
+# B1 and B4 at their FP = 16 and FP = 8 instances: Baxter's arm with 4 and
+# 2 control points (PandaFK's 7 take FP = 24)
+BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
+                8: (False, False, True, False, False, False, True)}
+# B5 on the three robots (FP = 24, 32 and 16: one pass up to 5, 3 and 7
+# classes); FrankaPanda's multi-class proxy has S = 1024 and C = 5. C = 1,
+# 2, 5 and 8 (8 at FP = 24 takes a second pass), ragged B, S off the
+# 32-support chunk, and no supports at all
 CHAIN_MULTI_CASES = [('panda_simple.urdf', 37, 5, 3),
+                     ('panda_simple.urdf', 300, 130, 1),
                      ('panda_simple.urdf', 65536 + 37, 1024, 5),
+                     ('panda_simple.urdf', 65536 + 37, 1024, 8),
+                     ('panda_simple.urdf', 4096 + 5, 0, 2),
                      ('trifinger_simple.urdf', 4096 + 5, 128, 2),
-                     ('lift_rig.urdf', 4096 + 5, 128, 2)]
+                     ('trifinger_simple.urdf', 4096 + 5, 100, 8),
+                     ('lift_rig.urdf', 4096 + 5, 128, 2),
+                     ('lift_rig.urdf', 300, 37, 8),
+                     ('lift_rig.urdf', 64, 0, 5)]
 
 # B6 and B7 at a ragged small shape and the roofline path's shape
 ROOFLINE_SHAPES = [(300, 130), (65536 + 37, 512)]
@@ -91,6 +105,28 @@ def test_dh_score_kernel_matches_plain(cuda, B, S):
     _close(dq, ref_dq, 1e-3)
 
 
+@pytest.mark.parametrize('fp', list(BAXTER_MASKS))
+def test_dh_kernels_at_fewer_points(cuda, fp):
+    """B1 and B4 (C = 2 and 5) at FP = 16 and 8 against their twins."""
+    robot = baxter_arm(BAXTER_MASKS[fp])
+    g = torch.Generator().manual_seed(fp)
+    q = robot.rand_configs(4096 + 5, g, cuda)
+    sup = robot.fkine(robot.rand_configs(128, g, cuda), flat=True)
+    assert (sup.shape[1] + 7) // 8 * 8 == fp
+    w = (torch.randn(128, generator=g) * 0.05).to(cuda)
+    spec = fk_score.robot_spec(robot)
+    score, dq = fk_score.dh_score_grad(q, sup, w, spec)
+    ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
+    _close(score, ref, 1e-4)
+    _close(dq, ref_dq, 1e-3)
+    for C in (2, 5):
+        W = (torch.randn(128, C, generator=g) * 0.05).to(cuda)
+        score, dq = fk_score.dh_multi_score_grad(q, sup, W, spec)
+        ref, ref_dq = fk_score._dh_multi_score_grad_plain(q, sup, W, spec)
+        _close(score, ref, 1e-4)
+        _close(dq, ref_dq, 1e-3)
+
+
 def test_auto_router_gradient_is_kernel_dq(cuda):
     robot, q, sup, w = _inputs(65536, 512, cuda, seed=2)
     qg = q.clone().requires_grad_(True)
@@ -98,6 +134,27 @@ def test_auto_router_gradient_is_kernel_dq(cuda):
     g, = torch.autograd.grad(out.sum(), qg)
     _, dq = fk_score.dh_score_grad(q, sup, w, fk_score.robot_spec(robot))
     _close(g, dq, 1e-6)
+
+
+def test_float64_batches_take_the_plain_route(cuda):
+    """At the gates a float64 CUDA batch takes the plain route, as the
+    reference does off the TPU: no kernel launch, real support
+    cotangents, the float32 kernel's values."""
+    robot, q, sup, w = _inputs(4096, 64, cuda, seed=13)
+    before = (fk_score.dh_score_grad_launches,
+              fused_score.poly_score_grad_launches)
+    st = sup.double().requires_grad_(True)
+    out = fk_score.fk_polyharmonic_score_auto(q.double(), robot, st,
+                                              w.double())
+    gs, = torch.autograd.grad(out.sum(), st)
+    x = robot.fkine(q, flat=True).repeat(4, 1).double()
+    out_x = fused_score.polyharmonic_score(x, sup.double(), w.double())
+    assert (fk_score.dh_score_grad_launches,
+            fused_score.poly_score_grad_launches) == before
+    assert bool(gs.any())
+    ref, _ = fk_score.dh_score_grad(q, sup, w, fk_score.robot_spec(robot))
+    _close(out[:, 0].detach().float(), ref, 1e-4)
+    _close(out_x[:4096, 0].float(), ref, 1e-4)
 
 
 def test_kernels_reject_what_they_cannot_take(cuda):
@@ -118,7 +175,9 @@ def _chain_inputs(name, B, S, dev, seed=0):
                       device=dev, setup_acm=False, link_spheres=2)
     g = torch.Generator().manual_seed(seed)
     q = robot.rand_configs(B, g, dev)
-    sup = robot.fkine(robot.rand_configs(S, g, dev)).reshape(S, -1)
+    # FK of S configurations; an empty support set keeps its width F
+    sup = (robot.fkine(robot.rand_configs(S, g, dev)).flatten(1) if S
+           else q.new_zeros(0, robot.fkine(q[:1]).numel()))
     w = (torch.randn(S, generator=g) * 0.05).to(dev)
     return robot, q, sup.contiguous(), w
 
@@ -196,9 +255,23 @@ def test_chain_multi_score_kernel_matches_plain(cuda, name, B, S, C):
     score, dq = fk_score.chain_multi_score_grad(q, sup, W, cs)
     torch.cuda.synchronize()
     assert fk_score.chain_multi_score_grad_launches == before + 1
+    assert score.shape == (B, C) and dq.shape == (C, B, q.shape[1])
     ref, ref_dq = fk_score._chain_multi_score_grad_plain(q, sup, W, cs)
     _close(score, ref, 1e-4)
     _close(dq, ref_dq, 1e-3)
+
+
+def test_chain_multi_plan_matches_the_card(cuda):
+    """B5's launch plan as the built kernel and the occupancy calculator
+    give it equals ops/_native.py::multi_plan's, and keeps 16 warps per SM
+    for every control-point count and class count the C entry takes."""
+    for P in range(1, _native.MAX_CP + 1):
+        for C in range(1, _native.MAX_C + 1):
+            card = _native.chain_multi_plan_on_card(P, C)
+            plan = _native.multi_plan(P, C)
+            for key in ('classes_per_pass', 'passes', 'smem_bytes'):
+                assert card[key] == plan[key], (P, C, key)
+            assert card['warps_per_sm'] >= 16, (P, C, card)
 
 
 @pytest.mark.parametrize('kind', ['dh', 'chain'])

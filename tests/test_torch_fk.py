@@ -27,6 +27,8 @@ def _robots(name):
     """(jax robot, torch robot) pair."""
     if name == 'panda':
         return janalytic.PandaFK(), tanalytic.PandaFK()
+    if name == 'baxter':
+        return janalytic.BaxterLeftArmFK(), tanalytic.baxter_arm()
     # a based 7-joint DH chain with every frame a control point
     a, alpha = [0.1, 0, 0.2, 0, 0.05, 0, 0], [0.5, -1.2, 0.3, 1.0, -0.4, 0.9, 0]
     d, th = [0.3, 0.1, 0, 0.25, 0, 0.1, 0.05], [0.2, 0, 0, -0.3, 0, 0, 0.1]
@@ -53,7 +55,7 @@ def _loss_t(p):
     return torch.sum(torch.sin(p) * torch.cos(0.7 * p))
 
 
-@pytest.mark.parametrize('name', ['panda', 'based_chain'])
+@pytest.mark.parametrize('name', ['panda', 'baxter', 'based_chain'])
 def test_fk_points_match(name):
     jr, tr = _robots(name)
     q = _q(64)

@@ -73,28 +73,47 @@ def test_robot_spec_rejects_decreasing_frames():
 
 @pytest.mark.parametrize('B', [32, 4096])
 def test_auto_router_matches_jax(B):
-    """B = 32 takes FK + polyharmonic_score, B = 4096 the one-pass DH
-    Function; both match the JAX package (on the CPU its router takes
-    the XLA route)."""
+    """On the CPU both batches take FK + polyharmonic_score, as the JAX
+    router takes its XLA route off the TPU: values, query gradients, the
+    support and weight cotangents and the forward-mode derivative match
+    the JAX package's, at the gate as below it."""
     q, sup, w = _inputs(B=B, S=48, seed=B)
     mask = np.arange(48) < 40
     qt = torch.from_numpy(q).requires_grad_(True)
     st = torch.from_numpy(sup).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    assert not tfk.dh_score_grad_available(TPanda(), qt)
     out = tfk.fk_polyharmonic_score_auto(
-        qt, TPanda(), st, torch.from_numpy(w), torch.from_numpy(mask),
-        epsilon=1.5)
-    g, gs = torch.autograd.grad(out.sum(), (qt, st))
-    jf = lambda qq: jfk.fk_polyharmonic_score_auto(
-        qq, JPanda(), jnp.asarray(sup), jnp.asarray(w), jnp.asarray(mask),
-        epsilon=1.5)
-    ref = np.asarray(jf(jnp.asarray(q)))
-    ref_g = np.asarray(jax.grad(lambda qq: jf(qq).sum())(jnp.asarray(q)))
+        qt, TPanda(), st, wt, torch.from_numpy(mask), epsilon=1.5)
+    g, gs, gw = torch.autograd.grad(out.sum(), (qt, st, wt))
+
+    def jf(qq, ss, ww):
+        return jfk.fk_polyharmonic_score_auto(
+            qq, JPanda(), ss, ww, jnp.asarray(mask), epsilon=1.5)
+    jargs = tuple(map(jnp.asarray, (q, sup, w)))
+    ref = np.asarray(jf(*jargs))
+    ref_g, ref_gs, ref_gw = jax.grad(lambda *a: jf(*a).sum(),
+                                     argnums=(0, 1, 2))(*jargs)
     assert out.shape == (B, 1)
     np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-4,
                                atol=1e-4)
-    np.testing.assert_allclose(g.numpy(), ref_g, rtol=1e-3, atol=1e-3)
-    # supports: zero cotangents above the gate, real ones below it
-    assert bool(gs.any()) == (B < tfk._FK_FUSED_MIN_BATCH)
+    np.testing.assert_allclose(g.numpy(), np.asarray(ref_g), rtol=1e-3,
+                               atol=1e-3)
+    for got, want in ((gs, ref_gs), (gw, ref_gw)):
+        assert bool(got.any())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(want).max()))
+    v = np.random.default_rng(B + 1).normal(size=q.shape).astype(np.float32)
+    import torch.autograd.forward_ad as fwAD
+    with fwAD.dual_level():
+        qd = fwAD.make_dual(torch.from_numpy(q), torch.from_numpy(v))
+        tan = fwAD.unpack_dual(tfk.fk_polyharmonic_score_auto(
+            qd, TPanda(), torch.from_numpy(sup), torch.from_numpy(w),
+            torch.from_numpy(mask), epsilon=1.5)).tangent
+    ref_tan = jax.jvp(lambda qq: jf(qq, *jargs[1:]), (jargs[0],),
+                      (jnp.asarray(v),))[1]
+    np.testing.assert_allclose(tan.numpy(), np.asarray(ref_tan), rtol=1e-3,
+                               atol=1e-3)
 
 
 def test_dh_function_jvp_raises():
@@ -106,6 +125,22 @@ def test_dh_function_jvp_raises():
             qd = fwAD.make_dual(torch.from_numpy(q), torch.ones(8, 7))
             tfk.dh_polyharmonic_score(qd, torch.from_numpy(sup),
                                       torch.from_numpy(w), spec)
+
+
+def test_dh_function_gives_state_zero_cotangents():
+    """The one-pass Function itself (the route of a float32 CUDA batch at
+    the gate) treats supports and weights as constants, and its q
+    gradient is the twin's dq."""
+    q, sup, w = _inputs(B=8, S=16, seed=4)
+    spec = tfk.robot_spec(TPanda())
+    qt, st, wt = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, sup, w))
+    out = tfk.dh_polyharmonic_score(qt, st, wt, spec)
+    g, gs, gw = torch.autograd.grad(out.sum(), (qt, st, wt))
+    assert not gs.any() and not gw.any()
+    _, dq = tfk._dh_score_grad_plain(*map(torch.from_numpy, (q, sup, w)),
+                                     spec)
+    assert torch.equal(g, dq)
 
 
 def test_kernel_spec_struct():

@@ -56,10 +56,12 @@ def test_xla_route_matches():
 
 
 def test_router_agrees_across_gate():
-    """polyharmonic_score at B = 16384 (one-pass Function) and below the
-    gate (plain route) give the same values and query gradients; above
-    the gate supports and weights get zero cotangents and forward mode
-    raises."""
+    """polyharmonic_score at B = 16384 and below the gate gives the same
+    values and query gradients. On the CPU both take the plain route, as
+    the JAX router takes its XLA route off the TPU: at the gate the
+    support and weight cotangents and the forward-mode derivative match
+    JAX's. The one-pass Function itself gives supports and weights zero
+    cotangents, and its forward mode raises."""
     B = tfs._FUSED_MIN_BATCH
     x, s, w = _inputs(B=B, S=32, seed=2)
     mask = torch.from_numpy(np.arange(32) < 30)
@@ -69,7 +71,6 @@ def test_router_agrees_across_gate():
     above = tfs.polyharmonic_score(xt, st, wt, mask, epsilon=2.0)
     gx, gs, gw = torch.autograd.grad(above.sum(), (xt, st, wt))
     assert above.shape == (B, 1)
-    assert not gs.any() and not gw.any()
     half = B // 2   # two batches under the gate cover the same rows
     below = [tfs.polyharmonic_score(xt[i:i + half], st, wt, mask,
                                     epsilon=2.0) for i in (0, half)]
@@ -80,18 +81,42 @@ def test_router_agrees_across_gate():
     np.testing.assert_allclose(gx.numpy(), gx_b.numpy(), rtol=1e-3,
                                atol=1e-3)
     assert gs_b.abs().sum() > 0   # the plain route differentiates supports
-    # and matches the JAX router (XLA route off-TPU)
-    ref = jfs.polyharmonic_score(jnp.asarray(x), jnp.asarray(s),
-                                 jnp.asarray(w), jnp.asarray(mask.numpy()),
-                                 epsilon=2.0)
-    np.testing.assert_allclose(above.detach().numpy(), np.asarray(ref),
-                               rtol=1e-4, atol=1e-4)
+    # and matches the JAX router (XLA route off-TPU), cotangents included
+
+    def jf(xx, ss, ww):
+        return jfs.polyharmonic_score(xx, ss, ww, jnp.asarray(mask.numpy()),
+                                      epsilon=2.0)
+    jargs = tuple(map(jnp.asarray, (x, s, w)))
+    np.testing.assert_allclose(above.detach().numpy(),
+                               np.asarray(jf(*jargs)), rtol=1e-4, atol=1e-4)
+    refs = jax.grad(lambda *a: jf(*a).sum(), argnums=(0, 1, 2))(*jargs)
+    for got, want in zip((gx, gs, gw), refs):
+        assert bool(got.any())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(want).max()))
+    v = np.random.default_rng(3).normal(size=x.shape).astype(np.float32)
     import torch.autograd.forward_ad as fwAD
+    with fwAD.dual_level():
+        xd = fwAD.make_dual(torch.from_numpy(x), torch.from_numpy(v))
+        tan = fwAD.unpack_dual(tfs.polyharmonic_score(
+            xd, torch.from_numpy(s), torch.from_numpy(w), mask,
+            epsilon=2.0)).tangent
+    ref_tan = jax.jvp(lambda xx: jf(xx, *jargs[1:]), (jargs[0],),
+                      (jnp.asarray(v),))[1]
+    np.testing.assert_allclose(tan.numpy(), np.asarray(ref_tan), rtol=1e-3,
+                               atol=1e-3)
+    # the one-pass Function (the route of a float32 CUDA batch)
+    fused = tfs.polyharmonic_score_fused(xt[:64], st, wt)
+    gx_f, gs_f, gw_f = torch.autograd.grad(fused.sum(), (xt, st, wt))
+    assert not gs_f.any() and not gw_f.any()
+    _, dx = tfs._poly_score_grad_plain(xt[:64].detach(), st.detach(),
+                                       wt.detach())
+    assert torch.equal(gx_f[:64], dx)
     with pytest.raises(RuntimeError, match='forward-mode'):
         with fwAD.dual_level():
-            xd = fwAD.make_dual(torch.from_numpy(x), torch.ones(B, 21))
-            tfs.polyharmonic_score(xd, torch.from_numpy(s),
-                                   torch.from_numpy(w))
+            xd = fwAD.make_dual(torch.from_numpy(x[:64]), torch.ones(64, 21))
+            tfs.polyharmonic_score_fused(xd, torch.from_numpy(s),
+                                         torch.from_numpy(w))
 
 
 def test_below_gate_twice_differentiable():

@@ -1,9 +1,10 @@
 """Port parity: the multi-class FK + score + gradient twins (kernels B4
 and B5's plain versions) against the JAX package's Pallas kernels
 (Pallas interpreter, fp32 inputs), the autograd route's class-mixed VJP
-against JAX's value_and_grad, and the router's contracts (zero
-cotangents for supports and W, no forward mode above the gate, twice
-differentiable below it)."""
+against JAX's value_and_grad, and the contracts: the one-pass Functions
+give zero cotangents for supports and W and no forward mode; the router
+on the CPU keeps the plain route, differentiable in every argument, to
+any order."""
 import os
 
 import numpy as np
@@ -16,6 +17,7 @@ from diffco_tpu.ops import fk_score as jfk
 from diffco_tpu.robots import PandaFK as JPandaFK
 from diffco_tpu.robots import urdf as jurdf
 from diffco_tpu_torch import robot_data
+from diffco_tpu_torch.ops import _native
 from diffco_tpu_torch.ops import fk_score as tfk
 from diffco_tpu_torch.robots import PandaFK
 from diffco_tpu_torch.robots import urdf as turdf
@@ -91,10 +93,10 @@ def _robot_pair(kind):
 @pytest.mark.parametrize('kind', ['dh', 'chain'])
 @pytest.mark.parametrize('B', [64, 4096])
 def test_auto_router_class_mixed_vjp(kind, B):
-    """B = 4096 takes the one-pass Function (the twin on the CPU), B = 64
-    FK + the plain [B, S] @ [S, C] route; both give JAX's values and its
-    class-mixed gradient (on the CPU the JAX router takes the XLA route).
-    Supports and W get zero cotangents at the gate and real ones below."""
+    """On the CPU both batches take FK + the plain [B, S] @ [S, C] route,
+    as the JAX router takes its XLA route off the TPU: JAX's values, its
+    class-mixed gradient in q, its cotangents of the supports and W, and
+    its forward-mode derivative, at the gate as below it."""
     jr, tr = _robot_pair(kind)
     q, sup, W, mix = _inputs(tr, B=B, S=48, C=3, seed=B)
     mask = np.arange(48) < 40
@@ -106,17 +108,56 @@ def test_auto_router_class_mixed_vjp(kind, B):
     g, gs, gW = torch.autograd.grad((out * torch.from_numpy(mix)).sum(),
                                     (qt, st, Wt))
 
-    def total(qq):
-        s = jfk.fk_polyharmonic_multi_score_auto(
-            qq, jr, jnp.asarray(sup), jnp.asarray(W), jnp.asarray(mask),
-            epsilon=1.5)
+    def scores(qq, ss, WW):
+        return jfk.fk_polyharmonic_multi_score_auto(
+            qq, jr, ss, WW, jnp.asarray(mask), epsilon=1.5)
+
+    def total(qq, ss, WW):
+        s = scores(qq, ss, WW)
         return (s * jnp.asarray(mix)).sum(), s
-    (_, ref), ref_g = jax.value_and_grad(total, has_aux=True)(jnp.asarray(q))
+    jargs = tuple(map(jnp.asarray, (q, sup, W)))
+    (_, ref), (ref_g, ref_gs, ref_gW) = jax.value_and_grad(
+        total, argnums=(0, 1, 2), has_aux=True)(*jargs)
     assert out.shape == (B, 3)
     _close(out, ref, 1e-4)
     _close(g, ref_g, 1e-3)
-    fused = B >= tfk._FK_FUSED_MIN_BATCH
-    assert bool(gs.any()) == (not fused) and bool(gW.any()) == (not fused)
+    for got, want in ((gs, ref_gs), (gW, ref_gW)):
+        assert bool(got.any())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(want).max()))
+    v = np.random.default_rng(B + 1).normal(size=q.shape).astype(np.float32)
+    import torch.autograd.forward_ad as fwAD
+    with fwAD.dual_level():
+        qd = fwAD.make_dual(torch.from_numpy(q), torch.from_numpy(v))
+        tan = fwAD.unpack_dual(tfk.fk_polyharmonic_multi_score_auto(
+            qd, tr, torch.from_numpy(sup), torch.from_numpy(W),
+            torch.from_numpy(mask), epsilon=1.5)).tangent
+    ref_tan = jax.jvp(lambda qq: scores(qq, *jargs[1:]), (jargs[0],),
+                      (jnp.asarray(v),))[1]
+    _close(tan, ref_tan, 1e-3)
+
+
+@pytest.mark.parametrize('kind', ['dh', 'chain'])
+def test_multi_function_gives_state_zero_cotangents(kind):
+    """The one-pass Function itself (the route of a float32 CUDA batch at
+    the gate) treats supports and W as constants, and its q gradient is
+    the class mix of the twin's dq."""
+    _, tr = _robot_pair(kind)
+    q, sup, W, mix = _inputs(tr, B=8, S=16, C=2, seed=2)
+    fn, twin, spec = (
+        (tfk.dh_polyharmonic_multi_score, tfk._dh_multi_score_grad_plain,
+         tfk.robot_spec(tr)) if kind == 'dh' else
+        (tfk.chain_polyharmonic_multi_score,
+         tfk._chain_multi_score_grad_plain, tfk.robot_chain_statics(tr)))
+    qt, st, Wt = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, sup, W))
+    out = fn(qt, st, Wt, spec)
+    g, gs, gW = torch.autograd.grad((out * torch.from_numpy(mix)).sum(),
+                                    (qt, st, Wt))
+    assert not gs.any() and not gW.any()
+    _, dq = twin(*map(torch.from_numpy, (q, sup, W)), spec)
+    torch.testing.assert_close(
+        g, torch.einsum('bc,cbj->bj', torch.from_numpy(mix), dq))
 
 
 @pytest.mark.parametrize('kind', ['dh', 'chain'])
@@ -174,3 +215,34 @@ def test_wrappers_use_twins_on_cpu_without_counting():
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     assert (tfk.dh_multi_score_grad_launches,
             tfk.chain_multi_score_grad_launches) == before
+
+
+def test_chain_multi_plan_fits_the_card():
+    """Every (control points, classes) that B5's C entry takes stays within
+    227 KB of shared memory per block and keeps 16 warps resident per SM;
+    a pass takes floor(128 / (FP + 1)) classes (at most 8), so
+    FrankaPanda's C = 5 at FP = 24 reads each support once and C = 8 twice;
+    C <= floor(64 / (FP + 1)) takes the narrow instance (C <= 2 there).
+    The card's own occupancy calculator checks the same numbers
+    (tests/test_torch_cuda.py)."""
+    for P in range(1, _native.MAX_CP + 1):
+        for C in range(1, _native.MAX_C + 1):
+            plan = _native.multi_plan(P, C)
+            cg = plan['classes_per_pass']
+            assert 1 <= cg <= _native.MAX_C
+            assert cg * (plan['fp'] + 1) <= _native.MULTI_COLS
+            assert plan['passes'] == -(-C // cg)
+            assert plan['smem_bytes'] <= _native.BLOCK_SHARED_MAX
+            assert plan['warps_per_sm'] >= 16, (P, C, plan)
+    assert _native.multi_plan(8, 5)['passes'] == 1
+    assert _native.multi_plan(8, 8)['passes'] == 2
+    assert [_native.multi_plan(8, C)['classes_per_pass']
+            for C in (1, 2, 3)] == [2, 2, 5]
+
+
+def test_ab_kernel_ablations_find_their_text():
+    """Each named ablation of scripts/ab_kernel.py edits text that B5's
+    sources hold exactly once, so it takes out the part it names."""
+    from diffco_tpu_torch.scripts import ab_kernel
+    for name, (fname, text, _) in ab_kernel.ABLATIONS.items():
+        assert (_native._CSRC / fname).read_text().count(text) == 1, name

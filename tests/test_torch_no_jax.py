@@ -1,7 +1,8 @@
 """The port stands alone: importing diffco_tpu_torch, scoring on the CPU
 (a DH robot and a URDF robot, one class and two), training a small
-MultiDiffCo and running the roofline path's twins (every B7 mode, B6) load
-neither JAX nor the JAX package."""
+MultiDiffCo, running the roofline path's twins (every B7 mode, B6) and
+importing the kernel-reading scripts load neither JAX nor the JAX
+package."""
 import os
 import subprocess
 import sys
@@ -41,6 +42,7 @@ s = p.poly_score(X[:8])
 assert p.num_class == 2 and s.shape == (8, 2)
 assert bool(torch.isfinite(s).all()) and p.score(X[:8]).shape == (8, 2)
 from diffco_tpu_torch.scripts import ab_dual_tile, roofline_fk_score as rf
+from diffco_tpu_torch.scripts import ab_kernel, sass_counts
 robot, sup, w = rf.flagship_score_setup(16, device='cpu')
 q = robot.rand_configs(8, g, 'cpu')
 spec = fk_score.robot_spec(robot)
