@@ -66,6 +66,12 @@ S_URDF_MULTI = 1024              # FrankaPanda's 5-class proxy: 973 supports
 # at B_CHAIN_SMALL, S_CHAIN_SMALL; no DH robot of the repo reaches FP >= 32
 BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
                 8: (False, False, True, False, False, False, True)}
+# B4 on PandaFK (FP = 24): C <= 2 takes the block's register instance, 3-5
+# one full pass, 8 two; on Baxter's arm each instance at FP = 16 and 8
+# (register, narrow, full: C <= 2, 3, more at FP = 16; <= 5, <= 7, 8 at
+# FP = 8)
+DH_MULTI_CLASSES = (1, 2, 3, 5, 8)
+BAXTER_MULTI_CASES = ((16, 2), (16, 3), (16, 5), (8, 5), (8, 6), (8, 8))
 FIT_SAMPLES = 5000               # ForwardKinematicsDiffCo.fit's default
 URDF_FIT_SAMPLES = 3000          # the README quick start's
 # The URDF trajopt departs from the README's options in two places. 83 %
@@ -123,6 +129,21 @@ def _ptxas_report(log):
             out.append(f'{kernel}: {m.group(1)} regs/{spill} B spilled/'
                        f'{stack} B stack')
     return out
+
+
+def _check_multi_ptxas(regs):
+    """Every instance of the multi-class block's kernels (B4, B5) within
+    the launch bound's 128 registers and unspilled, or fail."""
+    n = 0
+    for line in regs:
+        m = re.match(r'(?:dh|chain)_multi_score_grad_kernel<[^>]*>: (\d+) '
+                     r'regs/(\d+) B spilled', line)
+        if m:
+            n += 1
+            if int(m.group(1)) > 128 or int(m.group(2)) != 0:
+                raise AssertionError(f'ptxas: {line}')
+    if n == 0:
+        raise AssertionError('ptxas: no multi-class kernel instance found')
 
 
 def _max_err(pairs):
@@ -279,16 +300,40 @@ def _check_multi_autograd(tag, robot, q, sup, W, dq, dev):
                  f'({tag})', g, torch.einsum('bc,cbj->bj', mix, dq), 1e-6)
 
 
+def _plan_line(tag, card, P, C):
+    """Print a multi-class launch plan as the card gives it; fail unless
+    it is ops/_native.py::multi_plan's (instance, classes per pass,
+    passes, shared bytes) and keeps 16 warps per SM."""
+    from diffco_tpu_torch.ops import _native
+    mirror = _native.multi_plan(P, C)
+    print(f'{tag} launch plan (P = {P}), C = {C}: {card}; '
+          f'{_native.MULTI_THREADS} threads and {_native.MULTI_ROWS} '
+          'configurations per block', flush=True)
+    for key in ('instance', 'classes_per_pass', 'passes', 'smem_bytes'):
+        if card[key] != mirror[key]:
+            raise AssertionError(f'{tag} plan at P = {P}, C = {C}: {key} '
+                                 f'{card[key]} on the card, {mirror[key]} '
+                                 'in ops/_native.py::multi_plan')
+    if card['warps_per_sm'] < 16:
+        raise AssertionError(f'{tag} keeps {card["warps_per_sm"]} warps '
+                             'per SM, below 16')
+    return card
+
+
 def check_dh_multi_kernel(robot, dev):
-    """B4 against its plain twin on PandaFK at B = 65536 + 37, S = 512, for
-    C = 2 (one class tile) and C = 5 (three), and the class-mixed autograd
-    through fk_polyharmonic_multi_score_auto against its dq; then its
-    FP = 16 and FP = 8 instances on Baxter's arm at B = 4096 + 5,
-    S = 128, with C = 2 and C = 5."""
-    from diffco_tpu_torch.ops import fk_score
+    """B4 against its plain twin on PandaFK at B = 65536 + 37, S = 512,
+    for C = 1, 2, 3, 5, 8 (at FP = 24: the register instance, one full
+    pass, two), and the class-mixed autograd through
+    fk_polyharmonic_multi_score_auto against its dq; then its FP = 16 and
+    FP = 8 instances on Baxter's arm at B = 4096 + 5, S = 128, each in the
+    register, narrow and full instance. Every case prints the instance
+    and launch plan that dh_multi_score_plan gives (and fails below 16
+    warps per SM or off the CPU mirror)."""
+    from diffco_tpu_torch.ops import _native, fk_score
     spec = fk_score.robot_spec(robot)
-    out = None
-    for C in (2, 5):
+    P = len(spec[1])
+    out = dict(err=0.0)
+    for C in DH_MULTI_CLASSES:
         t0 = time.perf_counter()
         q, sup, _ = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=10 + C)
         W = _class_weights(S_BENCH, C, dev, seed=C)
@@ -297,27 +342,32 @@ def check_dh_multi_kernel(robot, dev):
                                fk_score._dh_multi_score_grad_plain, q, sup,
                                W, spec)
         _check_multi_autograd(f'PandaFK, C={C}', robot, q, sup, W, dq, dev)
+        plan = _plan_line('B4', _native.dh_multi_plan_on_card(P, C), P, C)
         _phase(f'B4 dh_multi_score_grad vs plain, C={C}', t0, B=B_RAGGED,
-               S=S_BENCH, J=q.shape[1], max_abs_err=err)
-        if out is None:   # the PandaFK multi-class path's C
-            out = dict(args=(q, sup, W, spec), err=err)
-        else:             # timed beside it: three class tiles
-            out['args_c5'] = (q, sup, W, spec)
+               S=S_BENCH, J=q.shape[1], max_abs_err=err,
+               instance=plan['instance'], plan=plan)
+        out[f'args_c{C}'] = (q, sup, W, spec)
+        out[f'plan_c{C}'] = plan
         out['err'] = max(out['err'], err)
-    for (fp, mask), C in zip(BAXTER_MASKS.items(), (2, 5)):
+    out['args'] = out['args_c2']   # the PandaFK multi-class path's C
+    for fp, C in BAXTER_MULTI_CASES:
         t0 = time.perf_counter()
-        arm = baxter_arm(mask)
+        arm = baxter_arm(BAXTER_MASKS[fp])
         q, sup, _ = _inputs(arm, B_CHAIN_SMALL, S_CHAIN_SMALL, dev,
                             seed=40 + fp)
-        W = _class_weights(S_CHAIN_SMALL, C, dev, seed=fp)
+        W = _class_weights(S_CHAIN_SMALL, C, dev, seed=fp + C)
+        arm_spec = fk_score.robot_spec(arm)
         err, _ = _check_multi(f'dh_multi_score_grad FP = {fp}, C={C}',
                               fk_score.dh_multi_score_grad,
                               fk_score._dh_multi_score_grad_plain, q, sup, W,
-                              fk_score.robot_spec(arm))
+                              arm_spec)
+        Pa = len(arm_spec[1])
+        plan = _plan_line('B4', _native.dh_multi_plan_on_card(Pa, C), Pa, C)
         out['err'] = max(out['err'], err)
         _phase(f'B4 dh_multi_score_grad vs plain, Baxter arm, FP = {fp}, '
                f'C={C}', t0, B=B_CHAIN_SMALL, S=S_CHAIN_SMALL,
-               F=sup.shape[1], max_abs_err=err)
+               F=sup.shape[1], max_abs_err=err, instance=plan['instance'],
+               plan=plan)
     return out
 
 
@@ -325,11 +375,11 @@ def check_chain_multi_kernel(dev):
     """B5 against its plain twin: FrankaPanda at B = 65536 + 37, S = 1024,
     C = 5 (the multi-class quick start's shape: one pass over the
     supports) with the class-mixed autograd check, C = 8 (two passes) and
-    C = 2 (the narrow instance); the trifinger tree and the prismatic +
+    C = 2 and 1 (the register instance); the trifinger tree and the prismatic +
     mimic lift rig at B = 4096 + 5, S = 128, C = 2, so that every joint
     type runs on the card. Prints the launch plan at FrankaPanda's shape
     as the card's occupancy calculator gives it, and fails below 16 warps
-    per SM."""
+    per SM or off the CPU mirror."""
     import diffco_tpu_torch as dc
     from diffco_tpu_torch import robot_data
     from diffco_tpu_torch.ops import _native, fk_score
@@ -341,7 +391,8 @@ def check_chain_multi_kernel(dev):
         cases.append((name, dc.URDFRobot(
             f'{robot_data.data_dir}/{name}', device=dev, setup_acm=False),
             B_CHAIN_SMALL, S_CHAIN_SMALL, 2))
-    cases.append(('FrankaPanda', panda, B_RAGGED, S_URDF_MULTI, 2))
+    cases += [('FrankaPanda', panda, B_RAGGED, S_URDF_MULTI, C)
+              for C in (2, 1)]
     out = None
     for seed, (name, robot, B, S, C) in enumerate(cases, start=20):
         t0 = time.perf_counter()
@@ -361,15 +412,10 @@ def check_chain_multi_kernel(dev):
         _phase(f'B5 chain_multi_score_grad vs plain, {name}, C={C}', t0, B=B,
                S=S, C=C, D=q.shape[1], max_abs_err=err)
     c = fk_score._c_chain_spec(out['args'][3])
-    for C in (5, 8):
-        card = _native.chain_multi_plan_on_card(c.P, C)
-        print(f'B5 launch plan, FrankaPanda (P = {c.P}), C = {C}: {card}; '
-              f'{_native.MULTI_THREADS} threads and {_native.MULTI_ROWS} '
-              'configurations per block', flush=True)
-        if card['warps_per_sm'] < 16:
-            raise AssertionError(f'B5 keeps {card["warps_per_sm"]} warps '
-                                 'per SM, below 16')
-        out[f'plan_c{C}'] = card
+    for C in (1, 2, 5, 8):
+        out[f'plan_c{C}'] = _plan_line(
+            'B5, FrankaPanda', _native.chain_multi_plan_on_card(c.P, C),
+            c.P, C)
     return out
 
 
@@ -815,9 +861,12 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
     B4, J4 = q4.shape
     S4, F4 = sup4.shape
     C4 = W4.shape[1]
-    bound4, by4 = bound(fk_score_bytes(B4, S4, F4, J4, C4),
-                        score_ops(B4, S4, F4, C4)
-                        + dh_ops(J4, len(spec4[1]), C4) * B4)
+
+    def bound_b4(C):
+        return bound(fk_score_bytes(B4, S4, F4, J4, C),
+                     score_ops(B4, S4, F4, C)
+                     + dh_ops(J4, len(spec4[1]), C) * B4)
+    bound4, by4 = bound_b4(C4)
     q5, sup5, W5, cs5 = b5['args']
     B5, D5 = q5.shape
     S5, F5 = sup5.shape
@@ -883,8 +932,14 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             'diffco_tpu/ops/fk_score.py:255', [B4, S4, J4, C4], b4,
             lambda: fk_score.dh_multi_score_grad(q4, sup4, W4, spec4),
             lambda: fk_score._dh_multi_score_grad_plain(q4, sup4, W4, spec4),
-            bound4, by4, ms_at_C5=_time_ms(
-                lambda: fk_score.dh_multi_score_grad(*b4['args_c5']), 5, 50)),
+            bound4, by4, **{f'ms_at_C{C}': _time_ms(
+                lambda C=C: fk_score.dh_multi_score_grad(
+                    *b4[f'args_c{C}']), 5, 50)
+                for C in DH_MULTI_CLASSES if C != C4},
+            **{f'bound_ms_at_C{C}': bound_b4(C)[0]
+               for C in DH_MULTI_CLASSES},
+            plans={C: b4[f'plan_c{C}'] for C in DH_MULTI_CLASSES},
+            warps_per_sm=b4[f'plan_c{C4}']['warps_per_sm']),
         row('chain_multi_score_grad',
             'diffco_tpu_torch/csrc/chain_multi_score.cu',
             'diffco_tpu/ops/fk_score.py:405', [B5, S5, D5, C5], b5,
@@ -893,7 +948,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
                                                            cs5),
             bound5, by5, **{f'ms_at_C{C}': _time_ms(
                 lambda C=C: fk_score.chain_multi_score_grad(
-                    *b5[f'args_c{C}']), 5, 50) for C in (2, 8)},
+                    *b5[f'args_c{C}']), 5, 50) for C in (1, 2, 8)},
+            plans={C: b5[f'plan_c{C}'] for C in (1, 2, 5, 8)},
             warps_per_sm=b5['plan_c5']['warps_per_sm']),
     ] + dual_rows + mode_rows
 
@@ -958,6 +1014,7 @@ def main():
     _phase('build', t0, nvcc_seconds=round(_native.build_seconds, 2),
            kernels=len(regs))
     print('ptxas: ' + '; '.join(regs), flush=True)
+    _check_multi_ptxas(regs)
 
     robot = dc.PandaFK()
     b2 = check_poly_kernel(robot, dev)

@@ -29,20 +29,20 @@
 // fp32 register-tiled product of the chunk's rinv tile with the class
 // table [s_j w_jc | w_jc] (phase B). A pass takes Cg = floor(128 /
 // (FP + 1)) classes (5 at FrankaPanda's FP = 24), so C = 5 reads each
-// support once; only C > Cg takes more passes. A launch whose classes
-// fit in the table's first 64 columns (C <= 2 at FP = 24) takes the
-// kernel's narrow instance, whose product is half as wide. The FK runs
-// once per configuration up front, for the points (shared memory), and
-// again in the epilogue, once per thread that takes one of the
-// configuration's classes, for the moving frames' axes and origins
-// (indexed by data, so per-thread local memory, written and read there).
-// Recomputing them keeps the kernel within the 128 registers and ~64 KB
-// of shared memory per thread and block at which two blocks (16 warps)
-// stay resident per SM. W arrives as a device pointer (row-major [S, C]):
-// the folded ChainSpec already takes 1628 B of the 4 KB kernel-parameter
-// space. One
-// build serves every chain with M <= 16 moving joints, D <= 16 dofs,
-// P <= 21 points and every C <= kMaxC = 8; the wrapper raises beyond.
+// support once; only C > Cg takes more passes. The launch rule
+// (multi_dispatch) sends C <= 2 at FP = 24 to the block's register
+// instance, which sums each class in registers during phase A and has no
+// product. The FK runs once per configuration up front, for the points
+// (shared memory), and again in the epilogue, once per thread that takes
+// one of the configuration's classes, for the moving frames' axes and
+// origins (indexed by data, so per-thread local memory, written and read
+// there). Recomputing them keeps the kernel within the 128 registers and
+// ~64 KB of shared memory per thread and block at which two blocks (16
+// warps) stay resident per SM. W arrives as a device pointer (row-major
+// [S, C]): the folded ChainSpec already takes 1628 B of the 4 KB
+// kernel-parameter space. One build serves every chain with M <= 16
+// moving joints, D <= 16 dofs, P <= 21 points and every C <= kMaxC = 8;
+// the wrapper raises beyond.
 #include <cuda_runtime.h>
 
 #include "chain_fk.cuh"
@@ -53,7 +53,44 @@ extern __shared__ __align__(16) float diffco_multi_smem[];
 namespace diffco {
 namespace {
 
-template <int FP, bool kNarrow>
+// The epilogue of a pass for block rows row0 .. row0 + nrows - 1, whose
+// sums lie at tile[(row - row0) * stride + c (FP + 1) + f] (su_c, then
+// rowsum_c at f = FP): a thread per (row, class slot) runs the row's FK
+// again for its frames, then the backward of each of its classes, and
+// writes their scores and dq.
+template <int FP>
+__device__ __forceinline__ void chain_multi_epilogue(
+    const float* __restrict__ q, float* __restrict__ score,
+    float* __restrict__ dq, int B, int C, int k0, int cg, const ChainSpec& sp,
+    const float* smem, const float* tile, int stride, int row0, int nrows,
+    float (&fr)[kMaxM][12], float (&zo)[kMaxM][6]) {
+  constexpr int KP = FP / 3 < kMaxCP ? FP / 3 : kMaxCP;
+  const int per = kMultiThreads / nrows;
+  const int rt = threadIdx.x % nrows, slot = threadIdx.x / nrows;
+  if (slot >= cg) return;
+  const int row = row0 + rt;
+  const int b = blockIdx.x * kMultiRows + row;
+  const bool live = b < B;
+  float x[FP];
+#pragma unroll
+  for (int f = 0; f < FP; ++f) x[f] = 0.f;
+  chain_fk<KP>(q + static_cast<size_t>(live ? b : 0) * sp.D, live, sp, fr,
+               zo, x);
+  for (int c = slot; c < cg; c += per) {
+    const float* t = tile + rt * stride + c * (FP + 1);
+    float dqr[kMaxD];
+    chain_backward<KP>(sp, zo, x, t[FP], t, dqr);
+    if (live) {
+      score[static_cast<size_t>(b) * C + k0 + c] =
+          multi_class_score<FP>(smem, row, c);
+      float* dqb = dq + (static_cast<size_t>(k0 + c) * B + b) * sp.D;
+      for (int d = 0; d < sp.D; ++d) dqb[d] = dqr[d];
+    }
+  }
+}
+
+// kInst: kInstReg (NC = C classes), kInstNarrow or kInstFull (NC = 0)
+template <int FP, int kInst, int NC>
 __global__ void __launch_bounds__(kMultiThreads, 2)
 chain_multi_score_grad_kernel(const float* __restrict__ q,
                               const float* __restrict__ s,
@@ -63,7 +100,7 @@ chain_multi_score_grad_kernel(const float* __restrict__ q,
                               const __grid_constant__ ChainSpec sp) {
   constexpr int KP = FP / 3 < kMaxCP ? FP / 3 : kMaxCP;
   using L = MultiSmem<FP>;
-  constexpr int CG = kNarrow ? L::kCgNarrow : L::kCg;
+  constexpr int CG = multi_pass_classes<FP, kInst, NC>();
   float* smem = diffco_multi_smem;
   const int tid = threadIdx.x;
   const int F = 3 * sp.P;
@@ -80,94 +117,36 @@ chain_multi_score_grad_kernel(const float* __restrict__ q,
     for (int f = 0; f < FP; ++f) smem[L::kX + tid * FP + f] = x[f];
   }
   multi_zero_padding<FP>(smem, F);
-  float acc[8][8];
   for (int k0 = 0; k0 < C; k0 += CG) {
-    multi_score_pass<FP, kNarrow>(s, W, S, F, C, k0, smem, acc);
     const int cg = min(CG, C - k0);
-    // per half of the rows: a thread per (row, class) runs the row's FK
-    // again for its frames, then the backward of each of its classes
-    for (int h = 0; h < kMultiRows / kTileRows; ++h) {
-      multi_put_tile(acc, h, smem + L::kTile);
-      const int rt = tid % kTileRows, quarter = tid / kTileRows;
-      if (quarter >= cg) continue;
-      const int row = h * kTileRows + rt;
-      const int b = blockIdx.x * kMultiRows + row;
-      const bool live = b < B;
-      float x[FP];
-#pragma unroll
-      for (int f = 0; f < FP; ++f) x[f] = 0.f;
-      chain_fk<KP>(q + static_cast<size_t>(live ? b : 0) * sp.D, live, sp,
-                   fr, zo, x);
-      for (int c = quarter; c < cg; c += kMultiThreads / kTileRows) {
-        const float* t = smem + L::kTile + rt * kTileStride + c * (FP + 1);
-        float dqr[kMaxD];
-        chain_backward<KP>(sp, zo, x, t[FP], t, dqr);
-        if (live) {
-          score[static_cast<size_t>(b) * C + k0 + c] =
-              multi_class_score<FP>(smem, row, c);
-          float* dqb = dq + (static_cast<size_t>(k0 + c) * B + b) * sp.D;
-          for (int d = 0; d < sp.D; ++d) dqb[d] = dqr[d];
-        }
+    if constexpr (kInst == kInstReg) {
+      multi_reg_pass<FP, NC>(s, W, S, F, C, smem);
+      chain_multi_epilogue<FP>(q, score, dq, B, C, k0, cg, sp, smem,
+                               smem + L::kTile, multi_reg_stride<FP, NC>(),
+                               0, kMultiRows, fr, zo);
+    } else {
+      float acc[8][8];
+      multi_score_pass<FP, kInst == kInstNarrow>(s, W, S, F, C, k0, smem,
+                                                 acc);
+      for (int h = 0; h < kMultiRows / kTileRows; ++h) {
+        multi_put_tile(acc, h, smem + L::kTile);
+        chain_multi_epilogue<FP>(q, score, dq, B, C, k0, cg, sp, smem,
+                                 smem + L::kTile, kTileStride,
+                                 h * kTileRows, kTileRows, fr, zo);
       }
     }
   }
 }
 
-template <int FP, bool kNarrow>
-cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(chain_multi_score_grad_kernel<FP, kNarrow>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              MultiSmem<FP>::kBytes);
-}
+// ---- launch code (the CPU replay test compiles the file up to here)
 
-template <int FP, bool kNarrow>
-int launch_as(const float* q, const float* s, const float* W, float* score,
-              float* dq, int B, int S, int C, const ChainSpec& sp,
-              cudaStream_t st) {
-  const cudaError_t e = allow_smem<FP, kNarrow>();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((B + kMultiRows - 1) / kMultiRows);
-  chain_multi_score_grad_kernel<FP, kNarrow>
-      <<<grid, kMultiThreads, MultiSmem<FP>::kBytes, st>>>(
-          q, s, W, score, dq, B, S, C, sp);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// the kernel's instance for each block instance (multi_launch)
 template <int FP>
-int launch(const float* q, const float* s, const float* W, float* score,
-           float* dq, int B, int S, int C, const ChainSpec& sp,
-           cudaStream_t st) {
-  // the narrow instance when all C classes fit in one narrow pass
-  if constexpr (MultiSmem<FP>::kCgNarrow > 0)
-    if (C <= MultiSmem<FP>::kCgNarrow)
-      return launch_as<FP, true>(q, s, W, score, dq, B, S, C, sp, st);
-  return launch_as<FP, false>(q, s, W, score, dq, B, S, C, sp, st);
-}
-
-// out = {classes per pass, passes for C, dynamic shared bytes per block,
-// blocks resident per SM by the runtime's occupancy calculator}
-template <int FP, bool kNarrow>
-int plan_as(int C, int* out) {
-  using L = MultiSmem<FP>;
-  constexpr int CG = kNarrow ? L::kCgNarrow : L::kCg;
-  cudaError_t e = allow_smem<FP, kNarrow>();
-  int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, chain_multi_score_grad_kernel<FP, kNarrow>, kMultiThreads,
-        L::kBytes);
-  out[0] = CG;
-  out[1] = (C + CG - 1) / CG;
-  out[2] = L::kBytes;
-  out[3] = blocks;
-  return static_cast<int>(e);
-}
-
-template <int FP>
-int plan(int C, int* out) {
-  if constexpr (MultiSmem<FP>::kCgNarrow > 0)
-    if (C <= MultiSmem<FP>::kCgNarrow) return plan_as<FP, true>(C, out);
-  return plan_as<FP, false>(C, out);
+auto kernel_of() {
+  return [](auto inst, auto nc) {
+    constexpr int I = decltype(inst)::value, N = decltype(nc)::value;
+    return chain_multi_score_grad_kernel<FP, I, N>;
+  };
 }
 
 }  // namespace
@@ -199,18 +178,20 @@ extern "C" int chain_multi_score_grad(const float* q, const float* s,
       !diffco::spec_ok(sp))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DIFFCO_LAUNCH(FPV) \
-  diffco::launch<FPV>(q, s, W, score, dq, B, S, C, sp, st)
+#define DIFFCO_LAUNCH(FPV)                                              \
+  diffco::multi_launch<FPV>(B, C, st, diffco::kernel_of<FPV>(), q, s, W, \
+                            score, dq, B, S, C, sp)
   DIFFCO_FP_SWITCH((3 * sp.P + 7) / 8 * 8, DIFFCO_LAUNCH)
 #undef DIFFCO_LAUNCH
 }
 
 // The launch plan of a chain with P control points and C classes (see
-// plan<FP>); returns the cudaError_t of the occupancy query.
+// multi_launch_plan); returns the cudaError_t of the occupancy query.
 extern "C" int chain_multi_score_plan(int P, int C, int* out) {
   if (P < 1 || P > diffco::kMaxCP || C < 1 || C > diffco::kMaxC)
     return cudaErrorInvalidValue;
-#define DIFFCO_PLAN(FPV) diffco::plan<FPV>(C, out)
+#define DIFFCO_PLAN(FPV) \
+  diffco::multi_launch_plan<FPV>(C, out, diffco::kernel_of<FPV>())
   DIFFCO_FP_SWITCH((3 * P + 7) / 8 * 8, DIFFCO_PLAN)
 #undef DIFFCO_PLAN
 }

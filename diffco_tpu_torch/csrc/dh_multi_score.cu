@@ -21,30 +21,70 @@
 // configuration (ops/bounds.py::dh_ops); the bytes in and out are ~5 MB.
 // So the CUDA cores (67 TFLOP/s fp32), not HBM, set the floor.
 //
-// Design: one thread per configuration (128 per block), as dh_score.cu.
-// The classes go in tiles of kClassTile = 2 per pass over the supports:
-// a pass keeps the FP point components, two FP-vectors su_c and the
-// compensated score and rowsum of its two classes in registers, and
-// shares each pair's distance and rsqrt between them (the TPU kernel's
-// sharing, for two classes). C = 2 takes one pass; C = 5 takes three,
-// the last with a zero weight column, and recomputes the distances in
-// each. Keeping all C su vectors instead would need 8 x 24 floats at
-// kMaxC, which the 255-register limit does not hold without spilling;
-// tiles keep the register footprint that of two B1 loops, whatever C is.
-// FK is recomputed after each pass to get the joint axes for the
-// backward (a few hundred operations), as in dh_score.cu. W arrives as a
-// device pointer (row-major [S, C]), the chain constants by value in the
-// DHSpec kernel argument: one build serves every DH robot with J <= 8,
-// P <= 16 and every C <= kMaxC = 8.
+// Design: the score block of multi_score_block.cuh, as B5 uses it: a
+// block of 128 configurations and 256 threads (two blocks, 16 warps, per
+// SM), supports staged with cp.async in double-buffered chunks of 32, each
+// pair's distance and rsqrt computed once for every class of a pass. The
+// launch rule (multi_dispatch) picks one of three instances by C: at
+// PandaFK's FP = 24, C <= 2 takes the register instance (each class's
+// sums in registers during phase A), C <= 5 one full pass (phase B's
+// product), C = 8 two. The FK runs once per configuration up front, for
+// the points (shared memory), and again in the epilogue, once per thread
+// that takes one of the configuration's classes, for the joint axes and
+// origins: the DH frames are compile-time indices, so they stay in
+// registers, and the points are read back from shared memory. W arrives
+// as a device pointer (row-major [S, C]), the chain constants by value in
+// the DHSpec kernel argument: one build serves every DH robot with
+// J <= 8, P <= 16 and every C <= kMaxC = 8.
 #include <cuda_runtime.h>
 
 #include "dh_chain.cuh"
+#include "multi_score_block.cuh"
+
+extern __shared__ __align__(16) float diffco_multi_smem[];
 
 namespace diffco {
 namespace {
 
+// The epilogue of a pass for block rows row0 .. row0 + nrows - 1, whose
+// sums lie at tile[(row - row0) * stride + c (FP + 1) + f] (su_c, then
+// rowsum_c at f = FP): a thread per (row, class slot) runs the row's FK
+// again for its axes and origins, then the backward of each of its
+// classes, and writes their scores and dq.
 template <int FP>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void dh_multi_epilogue(
+    const float* __restrict__ q, float* __restrict__ score,
+    float* __restrict__ dq, int B, int C, int k0, int cg, const DHSpec& sp,
+    const float* smem, const float* tile, int stride, int row0, int nrows) {
+  constexpr int KP = FP / 3 < kMaxP ? FP / 3 : kMaxP;
+  const int per = kMultiThreads / nrows;
+  const int rt = threadIdx.x % nrows, slot = threadIdx.x / nrows;
+  if (slot >= cg) return;
+  const int row = row0 + rt;
+  const int b = blockIdx.x * kMultiRows + row;
+  if (b >= B) return;   // the ragged end of B is masked here
+  const int J = sp.J;
+  float qr[kMaxJ];
+#pragma unroll
+  for (int j = 0; j < kMaxJ; ++j)
+    qr[j] = j < J ? q[static_cast<size_t>(b) * J + j] : 0.f;
+  float xd[FP], az[3 * kMaxJ], ao[3 * kMaxJ];  // xd dead: x is in kX
+  dh_chain<KP>(qr, sp, xd, az, ao);
+  const float* x = smem + MultiSmem<FP>::kX + row * FP;
+  for (int c = slot; c < cg; c += per) {
+    const float* t = tile + rt * stride + c * (FP + 1);
+    score[static_cast<size_t>(b) * C + k0 + c] =
+        multi_class_score<FP>(smem, row, c);
+    // dq straight from the backward: with half the product's
+    // accumulator still live here, a dq array of its own spilled
+    dh_backward<KP>(sp, x, az, ao, t[FP], t,
+                    dq + (static_cast<size_t>(k0 + c) * B + b) * J);
+  }
+}
+
+// kInst: kInstReg (NC = C classes), kInstNarrow or kInstFull (NC = 0)
+template <int FP, int kInst, int NC>
+__global__ void __launch_bounds__(kMultiThreads, 2)
 dh_multi_score_grad_kernel(const float* __restrict__ q,
                            const float* __restrict__ s,
                            const float* __restrict__ W,
@@ -52,68 +92,72 @@ dh_multi_score_grad_kernel(const float* __restrict__ q,
                            int B, int S, int C,
                            const __grid_constant__ DHSpec sp) {
   constexpr int KP = FP / 3 < kMaxP ? FP / 3 : kMaxP;
-  constexpr int CT = kClassTile;
-  __shared__ __align__(16) float s_sh[kChunk * FP];
-  __shared__ float w_sh[kChunk * CT];
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = b < B;   // the ragged end of B is masked here
-  const int J = sp.J;
-  float qr[kMaxJ];
-#pragma unroll
-  for (int j = 0; j < kMaxJ; ++j)
-    qr[j] = (live && j < J) ? q[static_cast<size_t>(b) * J + j] : 0.f;
-  float x[FP];
-#pragma unroll
-  for (int f = 0; f < FP; ++f) x[f] = 0.f;
-  {
-    float az[3 * kMaxJ], ao[3 * kMaxJ];  // dead here: recomputed below
-    dh_chain<KP>(qr, sp, x, az, ao);
-  }
+  using L = MultiSmem<FP>;
+  constexpr int CG = multi_pass_classes<FP, kInst, NC>();
+  float* smem = diffco_multi_smem;
+  const int tid = threadIdx.x;
   const int F = 3 * sp.P;
-  for (int k0 = 0; k0 < C; k0 += CT) {
-    float sc[CT], scc[CT], rs[CT], su[CT * FP];
+  if (tid < kMultiRows) {   // the rows' points
+    const int b = blockIdx.x * kMultiRows + tid;
+    const bool live = b < B;
+    float qr[kMaxJ];
 #pragma unroll
-    for (int k = 0; k < CT; ++k) {
-      sc[k] = 0.f;
-      scc[k] = 0.f;
-      rs[k] = 0.f;
-    }
+    for (int j = 0; j < kMaxJ; ++j)
+      qr[j] = (live && j < sp.J) ? q[static_cast<size_t>(b) * sp.J + j]
+                                 : 0.f;
+    float x[FP], az[3 * kMaxJ], ao[3 * kMaxJ];  // az, ao dead here
 #pragma unroll
-    for (int f = 0; f < CT * FP; ++f) su[f] = 0.f;
-    for (int c0 = 0; c0 < S; c0 += kChunk) {
-      const int n = min(kChunk, S - c0);
-      __syncthreads();
-      stage_supports<FP, CT>(s, W, c0, n, F, s_sh, w_sh, C, k0);
-      __syncthreads();
-      score_grad_accumulate_multi<FP, CT>(x, s_sh, w_sh, n, sc, scc, rs, su);
-    }
-    float az[3 * kMaxJ], ao[3 * kMaxJ], dqr[kMaxJ];
+    for (int f = 0; f < FP; ++f) x[f] = 0.f;
     dh_chain<KP>(qr, sp, x, az, ao);
 #pragma unroll
-    for (int k = 0; k < CT; ++k) {
-      if (k0 + k < C) {
-        dh_backward<KP>(sp, x, az, ao, rs[k], su + k * FP, dqr);
-        if (live) {
-          score[static_cast<size_t>(b) * C + k0 + k] = sc[k] + scc[k];
-          float* dqb = dq + (static_cast<size_t>(k0 + k) * B + b) * J;
-#pragma unroll
-          for (int j = 0; j < kMaxJ; ++j)
-            if (j < J) dqb[j] = dqr[j];
-        }
+    for (int f = 0; f < FP; ++f) smem[L::kX + tid * FP + f] = x[f];
+  }
+  multi_zero_padding<FP>(smem, F);
+  for (int k0 = 0; k0 < C; k0 += CG) {
+    const int cg = min(CG, C - k0);
+    if constexpr (kInst == kInstReg) {
+      multi_reg_pass<FP, NC>(s, W, S, F, C, smem);
+      dh_multi_epilogue<FP>(q, score, dq, B, C, k0, cg, sp, smem,
+                            smem + L::kTile, multi_reg_stride<FP, NC>(), 0,
+                            kMultiRows);
+    } else {
+      float acc[8][8];
+      multi_score_pass<FP, kInst == kInstNarrow>(s, W, S, F, C, k0, smem,
+                                                 acc);
+      for (int h = 0; h < kMultiRows / kTileRows; ++h) {
+        multi_put_tile(acc, h, smem + L::kTile);
+        dh_multi_epilogue<FP>(q, score, dq, B, C, k0, cg, sp, smem,
+                              smem + L::kTile, kTileStride, h * kTileRows,
+                              kTileRows);
       }
     }
   }
 }
 
+// ---- launch code (the CPU replay test compiles the file up to here)
+
+// the kernel's instance for each block instance (multi_launch)
+template <int FP>
+auto kernel_of() {
+  return [](auto inst, auto nc) {
+    constexpr int I = decltype(inst)::value, N = decltype(nc)::value;
+    return dh_multi_score_grad_kernel<FP, I, N>;
+  };
+}
+
 }  // namespace
 }  // namespace diffco
 
-#define DIFFCO_DH_MULTI_CASE(FPV)                                        \
-  case FPV:                                                              \
-    diffco::dh_multi_score_grad_kernel<FPV>                              \
-        <<<grid, diffco::kThreads, 0, st>>>(q, s, W, score, dq, B, S, C, \
-                                            sp);                         \
-    break;
+#define DIFFCO_FP_SWITCH(FPV, CALL) \
+  switch (FPV) {                    \
+    case 8: return CALL(8);         \
+    case 16: return CALL(16);       \
+    case 24: return CALL(24);       \
+    case 32: return CALL(32);       \
+    case 40: return CALL(40);       \
+    case 48: return CALL(48);       \
+    default: return cudaErrorInvalidValue; \
+  }
 
 // Returns the cudaError_t of the launch (0 on success). `spec` is a host
 // pointer, copied into the kernel's arguments; W is a device pointer.
@@ -126,17 +170,21 @@ extern "C" int dh_multi_score_grad(const float* q, const float* s,
   if (B <= 0 || S < 0 || C < 1 || C > diffco::kMaxC || sp.J < 1 ||
       sp.J > diffco::kMaxJ || sp.P < 1 || sp.P > diffco::kMaxP)
     return cudaErrorInvalidValue;
-  const dim3 grid((B + diffco::kThreads - 1) / diffco::kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((3 * sp.P + 7) / 8 * 8) {
-    DIFFCO_DH_MULTI_CASE(8)
-    DIFFCO_DH_MULTI_CASE(16)
-    DIFFCO_DH_MULTI_CASE(24)
-    DIFFCO_DH_MULTI_CASE(32)
-    DIFFCO_DH_MULTI_CASE(40)
-    DIFFCO_DH_MULTI_CASE(48)
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+#define DIFFCO_LAUNCH(FPV)                                              \
+  diffco::multi_launch<FPV>(B, C, st, diffco::kernel_of<FPV>(), q, s, W, \
+                            score, dq, B, S, C, sp)
+  DIFFCO_FP_SWITCH((3 * sp.P + 7) / 8 * 8, DIFFCO_LAUNCH)
+#undef DIFFCO_LAUNCH
+}
+
+// The launch plan of a DH robot with P control points and C classes (see
+// multi_launch_plan); returns the cudaError_t of the occupancy query.
+extern "C" int dh_multi_score_plan(int P, int C, int* out) {
+  if (P < 1 || P > diffco::kMaxP || C < 1 || C > diffco::kMaxC)
+    return cudaErrorInvalidValue;
+#define DIFFCO_PLAN(FPV) \
+  diffco::multi_launch_plan<FPV>(C, out, diffco::kernel_of<FPV>())
+  DIFFCO_FP_SWITCH((3 * P + 7) / 8 * 8, DIFFCO_PLAN)
+#undef DIFFCO_PLAN
 }

@@ -38,11 +38,15 @@ MAX_CP = 21  # chain_fk.cuh kMaxCP (control points)
 MAX_C = 8    # score_block.cuh kMaxC (classes of the multi-class kernels)
 
 # csrc/multi_score_block.cuh's block (kMultiRows, kMultiThreads,
-# kMultiChunk, kMultiCols) and the H100's per-SM limits, mirrored so that
-# the CPU tests can hold every instance's launch plan to the card. A
-# change to MultiSmem's layout is made here too; on the card
-# test_chain_multi_plan_matches_the_card holds this copy to the kernel.
+# kMultiChunk, kMultiCols, the register instance's kRegCols, kRegMaxFP) and the
+# H100's per-SM limits, mirrored so that the CPU tests can hold every
+# instance's launch plan to the card. A change to MultiSmem's layout or to
+# the launch rule (multi_dispatch) is made here too; on the card
+# test_chain_multi_plan_matches_the_card and
+# test_dh_multi_plan_matches_the_card hold this copy to both kernels.
 MULTI_ROWS, MULTI_THREADS, MULTI_CHUNK, MULTI_COLS = 128, 256, 32, 128
+MULTI_REG_COLS, MULTI_REG_MAX_FP = 50, 24
+MULTI_INSTANCES = ('register', 'narrow', 'full')   # kInstReg, ... order
 MULTI_MIN_BLOCKS = 2           # __launch_bounds__(256, 2): <= 128 registers
 SM_SHARED_BYTES = 233472       # 228 KB per SM
 BLOCK_SHARED_MAX = 232448      # 227 KB per block
@@ -51,26 +55,30 @@ SM_MAX_THREADS = 2048
 
 
 def multi_plan(P: int, C: int) -> dict:
-    """The launch plan of csrc/chain_multi_score.cu for P control points
-    and C classes (``chain_multi_score_plan`` on the card): classes per
-    pass, passes, dynamic shared bytes per block, and the blocks and warps
-    per SM that the register bound and shared memory allow."""
+    """The launch plan of the multi-class block (csrc/multi_score_block.cuh)
+    for P control points and C classes, as ``chain_multi_score_plan`` and
+    ``dh_multi_score_plan`` give it on the card: the instance the launch
+    rule picks, its classes per pass (the register instance is built for
+    each C up to its capacity, which is reported), passes, dynamic shared
+    bytes per block, and the blocks and warps per SM that the register
+    bound and shared memory allow."""
     fp = (3 * P + 7) // 8 * 8
-    cg = min(MULTI_COLS // (fp + 1), MAX_C)
-    narrow = min(MULTI_COLS // 2 // (fp + 1), MAX_C)  # C <= it: one pass
+    full = min(MULTI_COLS // (fp + 1), MAX_C)
+    narrow = min(MULTI_COLS // 2 // (fp + 1), MAX_C)
+    reg = min(MULTI_REG_COLS // (fp + 1), MAX_C) * (fp <= MULTI_REG_MAX_FP)
     K, R = MULTI_CHUNK, MULTI_ROWS
     # points, partial scores, supports, weights, then the accumulator's
     # half-tile [64][129] over the class table and Rinv
-    floats = (R * fp + MULTI_THREADS * cg * 2 + 2 * K * fp
+    floats = (R * fp + MULTI_THREADS * full * 2 + 2 * K * fp
               + 2 * K * 2 * MAX_C + 64 * (MULTI_COLS + 1))
-    if C <= narrow:
-        cg = narrow
+    instance, cg = next((name, n) for name, n in zip(
+        MULTI_INSTANCES, (reg, narrow, full)) if C <= n or name == 'full')
     smem = 4 * floats
     blocks = min(MULTI_MIN_BLOCKS,
                  SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED),
                  SM_MAX_THREADS // MULTI_THREADS)
-    return dict(fp=fp, classes_per_pass=cg, passes=-(-C // cg),
-                smem_bytes=smem, blocks_per_sm=blocks,
+    return dict(fp=fp, instance=instance, classes_per_pass=cg,
+                passes=-(-C // cg), smem_bytes=smem, blocks_per_sm=blocks,
                 warps_per_sm=blocks * MULTI_THREADS // 32)
 
 
@@ -186,9 +194,10 @@ def _bind(libs):
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
                    ctypes.POINTER(ChainSpec), ptr]
     fn.restype = cint
-    fn = libs['chain_multi_score'].chain_multi_score_plan
-    fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
-    fn.restype = cint
+    for lib in ('dh_multi_score', 'chain_multi_score'):
+        fn = getattr(libs[lib], f'{lib}_plan')
+        fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
+        fn.restype = cint
     # the roofline path (diffco_tpu_torch/scripts): B1 at other block
     # sizes, the B7 ablations and the B6 dual-row kernel
     fn = libs['dh_score'].dh_score_grad_threads
@@ -205,16 +214,25 @@ def _bind(libs):
     fn.restype = cint
 
 
-def chain_multi_plan_on_card(P: int, C: int) -> dict:
-    """``multi_plan``'s numbers as the built kernel and the card's
-    occupancy calculator give them (needs the card)."""
-    out = (ctypes.c_int * 4)()
-    raise_on_error('chain_multi_score_plan',
-                   build()['chain_multi_score'].chain_multi_score_plan(
-                       P, C, out))
-    return dict(classes_per_pass=out[0], passes=out[1], smem_bytes=out[2],
-                blocks_per_sm=out[3],
+def _multi_plan_on_card(lib: str, P: int, C: int) -> dict:
+    out = (ctypes.c_int * 5)()
+    entry = f'{lib}_plan'
+    raise_on_error(entry, getattr(build()[lib], entry)(P, C, out))
+    return dict(instance=MULTI_INSTANCES[out[4]], classes_per_pass=out[0],
+                passes=out[1], smem_bytes=out[2], blocks_per_sm=out[3],
                 warps_per_sm=out[3] * MULTI_THREADS // 32)
+
+
+def chain_multi_plan_on_card(P: int, C: int) -> dict:
+    """``multi_plan``'s numbers as B5's build and the card's occupancy
+    calculator give them (needs the card)."""
+    return _multi_plan_on_card('chain_multi_score', P, C)
+
+
+def dh_multi_plan_on_card(P: int, C: int) -> dict:
+    """``multi_plan``'s numbers as B4's build and the card's occupancy
+    calculator give them (needs the card)."""
+    return _multi_plan_on_card('dh_multi_score', P, C)
 
 
 def check_cuda_inputs(name, *tensors):

@@ -1,28 +1,35 @@
-"""A/B of kernel B5 (``csrc/chain_multi_score.cu``) against other builds
-of the same C entry, on one card in one process.
+"""A/B of the multi-class kernels B5 (``csrc/chain_multi_score.cu``) and
+B4 (``csrc/dh_multi_score.cu``) against other builds of the same C entry,
+on one card in one process.
 
-    python3 -m diffco_tpu_torch.scripts.ab_kernel --source OTHER.cu \
-        [--classes 5 8] [--out PATH]
-    python3 -m diffco_tpu_torch.scripts.ab_kernel --ablate noA noB ...
+    python3 -m diffco_tpu_torch.scripts.ab_kernel [--kernel chain|dh] \
+        --source OTHER.cu [--classes 5 8] [--out PATH]
+    python3 -m diffco_tpu_torch.scripts.ab_kernel [--kernel chain|dh] \
+        --ablate noA noB ...
 
-``--source OTHER.cu`` is any source that defines ``chain_multi_score_grad``
-with the production signature, for example the file as an earlier commit
-had it (``git archive`` into an ignored directory); it is held against
-the plain twin (score 1e-4, dq 1e-3, as chip_smoke.py) before it is
-timed. ``--ablate`` builds copies of ``csrc/`` with one part of the
-kernel taken out (``ABLATIONS``: phase A, phase B, the class table, the
-compensated score, the epilogue), which attributes the production
-kernel's time to its parts; their results are wrong by design and are
-not checked. Every build uses the flags of ``ops/_native.py`` and is
-launched as the production wrapper launches, outputs allocated per call.
+``--source OTHER.cu`` is any source that defines the kernel's C entry
+(``chain_multi_score_grad`` or ``dh_multi_score_grad``) with the
+production signature, for example the file as an earlier commit had it
+(``git archive`` into an ignored directory); it is held against the plain
+twin (score 1e-4, dq 1e-3, as chip_smoke.py) before it is timed.
+``--ablate`` builds copies of ``csrc/`` with one part of the kernel taken
+out (``ABLATIONS``: phase A, phase B, the class table, the compensated
+score, the register instance's class sums, the epilogue), which
+attributes the production kernel's time to its parts; their results are
+wrong by design and are not checked. Every build uses the flags of
+``ops/_native.py`` and is launched as the production wrapper launches,
+outputs allocated per call.
 
-The shape is the FrankaPanda multi-class path's (B = 65573, S = 1024
-supports that are FK points of random configurations, weights
-N(0, 0.05^2), seeds fixed). Each build is timed against the production
-kernel in turns (production, other, other, production; CUDA events, 50
-launches after 5 warm-ups each). The result goes to ``--out`` (default
-``build/diffco_tpu_torch/ab_kernel.json``) and is printed as JSON with
-the card's name and power limit.
+Shapes (seeds fixed; supports are FK points of random configurations,
+weights N(0, 0.05^2)): ``chain`` is the FrankaPanda multi-class path's
+(B = 65573, S = 1024, C = 5 and 8 by default), ``dh`` chip_smoke's B4
+row on PandaFK (B = 65573, S = 512, C = 1, 2, 3, 5 and 8). Each build is
+timed against the production kernel in turns (production, other, other,
+production; CUDA events, 50 launches after 5 warm-ups each), and each C
+records the production launch plan (``_native.*_multi_plan_on_card``).
+The result goes to ``--out`` (default
+``build/diffco_tpu_torch/ab_kernel-<kernel>.json``) and is printed as
+JSON with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -37,57 +44,91 @@ from pathlib import Path
 import torch
 
 from ..ops import _native, fk_score
+from ..robots import PandaFK
 from ..robots.urdf import FrankaPanda
 from .roofline_fk_score import card_info, write_result
 
-B, S = 65536 + 37, 1024
-_MSB, _KER = 'multi_score_block.cuh', 'chain_multi_score.cu'
-# name -> (file, text, replacement): each takes one part of the kernel out
+B = 65536 + 37
+# kernel -> its source, C entry, supports and default classes
+KERNELS = {
+    'chain': dict(source='chain_multi_score.cu',
+                  entry='chain_multi_score_grad', S=1024, classes=(5, 8)),
+    'dh': dict(source='dh_multi_score.cu', entry='dh_multi_score_grad',
+               S=512, classes=(1, 2, 3, 5, 8)),
+}
+_MSB = 'multi_score_block.cuh'
+# name -> [(file, text, replacement)]: each takes one part of the kernel
+# out (file None: the kernel's own source); parts of the product
+# instances and of the register instance alike
 ABLATIONS = {
-    'noA': (_MSB, 'for (int jj = 0; jj < KH; ++jj) {',
-            'for (int jj = 0; jj < 0; ++jj) {'),
-    'noB': (_MSB, 'for (int k = 0; k < K; ++k) {',
-            'for (int k = 0; k < 0; ++k) {'),
-    'noZ': (_MSB, 'for (int i = 0; i < K * kMultiCols / kMultiThreads; ++i) {',
-            'for (int i = 0; i < 0; ++i) {'),
-    'noTwoSum': (_MSB,
-                 'two_sum_add(wb[j * kWStride + k0 + c] * r, sc[c], comp[c]);',
-                 'sc[c] = fmaf(wb[j * kWStride + k0 + c], r, sc[c]);'),
-    'noEpilogue': (_KER, 'if (quarter >= cg) continue;', 'continue;'),
+    'noA': [(_MSB, 'for (int jj = 0; jj < KH; ++jj) {',
+             'for (int jj = 0; jj < 0; ++jj) {'),
+            (_MSB, 'for (int i = 0; i < KH; ++i) {',
+             'for (int i = 0; i < 0; ++i) {')],
+    'noB': [(_MSB, 'for (int k = 0; k < K; ++k) {',
+             'for (int k = 0; k < 0; ++k) {')],
+    'noZ': [(_MSB,
+             'for (int i = 0; i < K * kMultiCols / kMultiThreads; ++i) {',
+             'for (int i = 0; i < 0; ++i) {')],
+    'noTwoSum': [(_MSB,
+                  'two_sum_add(wb[j * kWStride + k0 + c] * r, sc[c], '
+                  'comp[c]);',
+                  'sc[c] = fmaf(wb[j * kWStride + k0 + c], r, sc[c]);'),
+                 (_MSB, 'two_sum_add(w * r, sc[c], comp[c]);',
+                  'sc[c] = fmaf(w, r, sc[c]);')],
+    'noSums': [(_MSB, 'for (int g = 0; g < FP / 4; ++g) {',
+                'for (int g = 0; g < 0; ++g) {')],
+    'noEpilogue': [(None, 'if (slot >= cg) return;', 'return;')],
 }
 
 
-def _build(source):
-    src = Path(source).resolve()
-    h = hashlib.sha256()   # the source and every header beside it
-    for p in sorted(src.parent.glob('*.cu*')):
-        h.update(p.name.encode() + p.read_bytes())
-    tag = h.hexdigest()[:12]
-    out = _native._BUILD / f'ab-{src.stem}-{tag}.so'
-    if not out.exists():
-        _native._BUILD.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_native._nvcc(), *_native._NVCC_FLAGS, '-o',
-                        str(out), str(src)], check=True,
-                       capture_output=True, text=True)
-    fn = ctypes.CDLL(str(out)).chain_multi_score_grad
-    fn.argtypes = _native.build()['chain_multi_score'] \
-        .chain_multi_score_grad.argtypes
-    fn.restype = ctypes.c_int
-    return fn
+def _build_all(sources, entry):
+    """{source: its C entry}, each source built into a library with the
+    production flags (one nvcc per source not yet built, all started
+    together)."""
+    outs, procs = {}, []
+    _native._BUILD.mkdir(parents=True, exist_ok=True)
+    for source in sources:
+        src = Path(source).resolve()
+        h = hashlib.sha256()   # the source and every header beside it
+        for p in sorted(src.parent.glob('*.cu*')):
+            h.update(p.name.encode() + p.read_bytes())
+        out = outs[source] = (_native._BUILD /
+                              f'ab-{src.stem}-{h.hexdigest()[:12]}.so')
+        if not out.exists():
+            procs.append((src, subprocess.Popen(
+                [_native._nvcc(), *_native._NVCC_FLAGS, '-o', str(out),
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    for src, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed for {src}:\n{log}')
+    argtypes = getattr(_native.build()[entry.replace('_grad', '')],
+                       entry).argtypes
+    fns = {}
+    for source, out in outs.items():
+        fn = fns[source] = getattr(ctypes.CDLL(str(out)), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fns
 
 
-def _ablated(name):
+def _ablated(name, kernel):
     """csrc/ copied to the build directory with ABLATIONS[name] applied;
-    the path of its chain_multi_score.cu."""
-    fname, text, repl = ABLATIONS[name]
-    d = _native._BUILD / f'ablate-{name}'
+    the path of the kernel's source there."""
+    source = KERNELS[kernel]['source']
+    d = _native._BUILD / f'ablate-{kernel}-{name}'
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_native._CSRC, d)
-    body = (d / fname).read_text()
-    if text not in body:
-        raise RuntimeError(f'ablation {name}: {text!r} not in {fname}')
-    (d / fname).write_text(body.replace(text, repl))
-    return d / _KER
+    for fname, text, repl in ABLATIONS[name]:
+        path = d / (fname or source)
+        body = path.read_text()
+        if body.count(text) != 1:
+            raise RuntimeError(f'ablation {name}: {text!r} not once in '
+                               f'{path.name}')
+        path.write_text(body.replace(text, repl))
+    return d / source
 
 
 def _time_ms(fn, warmup=5, iters=50):
@@ -102,33 +143,55 @@ def _time_ms(fn, warmup=5, iters=50):
     return e0.elapsed_time(e1) / iters
 
 
-def run(builds, classes=(5, 8)):
+def _setup(kernel, dev, g):
+    """(spec for the wrappers, its ctypes struct, q, supports, production
+    wrapper, plain twin, plan-on-card) at the kernel's shape."""
+    S = KERNELS[kernel]['S']
+    if kernel == 'chain':
+        robot = FrankaPanda(load_gripper=True, device=dev)
+        spec = fk_score.robot_chain_statics(robot)
+        return (spec, fk_score._c_chain_spec(spec),
+                robot.rand_configs(B, g, dev),
+                robot.fkine(robot.rand_configs(S, g, dev)).reshape(S, -1),
+                fk_score.chain_multi_score_grad,
+                fk_score._chain_multi_score_grad_plain,
+                _native.chain_multi_plan_on_card)
+    robot = PandaFK()
+    spec = fk_score.robot_spec(robot)
+    return (spec, fk_score._c_spec(spec), robot.rand_configs(B, g, dev),
+            robot.fkine(robot.rand_configs(S, g, dev), flat=True),
+            fk_score.dh_multi_score_grad,
+            fk_score._dh_multi_score_grad_plain,
+            _native.dh_multi_plan_on_card)
+
+
+def run(builds, classes=None, kernel='chain'):
     """{name: (source, check)} timed against production (module
     docstring)."""
     dev = torch.device('cuda')
-    fns = {name: (_build(src), check) for name, (src, check) in
+    entry = KERNELS[kernel]['entry']
+    classes = classes or KERNELS[kernel]['classes']
+    libs = _build_all([src for src, _ in builds.values()], entry)
+    fns = {name: (libs[src], check) for name, (src, check) in
            builds.items()}
-    robot = FrankaPanda(load_gripper=True, device=dev)
-    cs = fk_score.robot_chain_statics(robot)
-    c = fk_score._c_chain_spec(cs)
     g = torch.Generator().manual_seed(0)
-    q = robot.rand_configs(B, g, dev)
-    sup = robot.fkine(robot.rand_configs(S, g, dev)).reshape(S, -1)
-    res = dict(shape=dict(B=B, S=S, P=c.P, D=c.D), classes={})
+    spec, c, q, sup, wrapper, plain, plan = _setup(kernel, dev, g)
+    S, D = sup.shape[0], q.shape[1]
+    res = dict(kernel=kernel, shape=dict(B=B, S=S, P=c.P, D=D), classes={})
     for C in classes:
         W = (torch.randn(S, C, generator=g) * 0.05).to(dev)
         args = (q, sup.contiguous(), W)
-        ref, ref_dq = fk_score._chain_multi_score_grad_plain(*args, cs)
+        ref, ref_dq = plain(*args, spec)
 
         def prod():
-            return fk_score.chain_multi_score_grad(*args, cs)
+            return wrapper(*args, spec)
 
-        out = res['classes'][C] = {}
+        out = res['classes'][C] = {'plan': plan(c.P, C)}
         for name, (fn, check) in fns.items():
             def alt(fn=fn):   # as the wrapper: allocate, launch, check
                 score = q.new_empty((B, C))
-                dq = q.new_empty((C, B, c.D))
-                _native.raise_on_error(f'chain_multi_score_grad ({name})', fn(
+                dq = q.new_empty((C, B, D))
+                _native.raise_on_error(f'{entry} ({name})', fn(
                     *(t.data_ptr() for t in (*args, score, dq)), B, S, C,
                     ctypes.byref(c),
                     torch.cuda.current_stream(dev).cuda_stream))
@@ -153,19 +216,22 @@ def run(builds, classes=(5, 8)):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--kernel', choices=KERNELS, default='chain')
     ap.add_argument('--source', action='append', default=[],
                     help='another build of the C entry (repeatable)')
     ap.add_argument('--ablate', nargs='+', default=[], choices=ABLATIONS)
-    ap.add_argument('--classes', type=int, nargs='+', default=[5, 8])
-    ap.add_argument('--out', default=str(_native._BUILD / 'ab_kernel.json'))
+    ap.add_argument('--classes', type=int, nargs='+', default=None)
+    ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)
     builds = {src: (src, True) for src in args.source}
-    builds.update({name: (_ablated(name), False) for name in args.ablate})
+    builds.update({name: (_ablated(name, args.kernel), False)
+                   for name in args.ablate})
     if not builds:
         ap.error('give --source or --ablate')
-    res = run(builds, args.classes)
+    res = run(builds, args.classes, args.kernel)
     res.update(card_info(torch.device('cuda')))
-    write_result(res, args.out)
+    write_result(res, args.out or
+                 _native._BUILD / f'ab_kernel-{args.kernel}.json')
     print(json.dumps({'ab_kernel': res}), flush=True)
 
 

@@ -8,9 +8,9 @@ one-pass FK kernel, read from its SASS.
 Compiles the source with the flags of ``ops/_native.py`` into a cubin
 (``nvcc -cubin``, so it needs the CUDA toolkit but no card), disassembles
 it with ``cuobjdump -sass`` and takes the kernel instance for ``--fp``
-components (B5's full-width one, not the narrow one). Every backward
-branch closes a loop; for each innermost loop it prints the opcode
-counts of its body. Two kinds of loop carry the per-pair work:
+components (of B4 or B5, the multi-class block's full one). Every
+backward branch closes a loop; for each innermost loop it prints the
+opcode counts of its body. Two kinds of loop carry the per-pair work:
 
 - a loop with MUFU.RSQ runs one pair per rsqrt, so its counts per pair
   are the body's divided by its MUFU.RSQ count (every kernel's support
@@ -128,9 +128,12 @@ def run(source, fp, product_cols=None):
     version = subprocess.run([_native._nvcc(), '--version'],
                              capture_output=True, text=True).stdout
     funcs = parse_functions(sass)
-    # B5's full-width instance (Lb0E), not its narrow one (Lb1E)
-    name = next((n for n in funcs if '_score_grad_kernel' in n
-                 and f'ILi{fp}E' in n and 'Lb1E' not in n), None)
+    # a multi-class kernel's full instance, <FP, kInstFull, 0>
+    # (csrc/multi_score_block.cuh), else the one instance for FP
+    names = [n for n in funcs if '_score_grad_kernel' in n
+             and f'ILi{fp}E' in n]
+    name = next((n for n in names if f'ILi{fp}ELi2ELi0EE' in n),
+                names[0] if names else None)
     if name is None:
         raise RuntimeError(f'no kernel instance for FP = {fp} in {src}: '
                            f'{sorted(funcs)}')

@@ -25,21 +25,26 @@ CHAIN_CASES = [('panda_simple.urdf', 37, 5),
                ('panda_simple.urdf', 65536 + 37, 512),
                ('trifinger_simple.urdf', 4096 + 5, 128),
                ('lift_rig.urdf', 4096 + 5, 128)]
-# B4: ragged B, one weight column, one class tile, three (the last padded)
-DH_MULTI_CASES = [(37, 5, 1), (300, 130, 2), (65536 + 37, 512, 2),
-                  (65536 + 37, 512, 5)]
+# B4 on PandaFK (FP = 24): ragged B, S off the 32-support chunk; C = 1 and
+# 2 take the block's register instance, 3 and 5 one full pass, 8 two
+DH_MULTI_CASES = [(37, 5, 1), (300, 130, 2), (65536 + 37, 512, 1),
+                  (65536 + 37, 512, 2), (65536 + 37, 512, 3),
+                  (65536 + 37, 512, 5), (65536 + 37, 512, 8)]
 # B1 and B4 at their FP = 16 and FP = 8 instances: Baxter's arm with 4 and
-# 2 control points (PandaFK's 7 take FP = 24)
+# 2 control points (PandaFK's 7 take FP = 24); B4 in each instance there
+# (register, narrow, full)
 BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
                 8: (False, False, True, False, False, False, True)}
+BAXTER_MULTI_CLASSES = {16: (2, 3, 5), 8: (5, 6, 8)}
 # B5 on the three robots (FP = 24, 32 and 16: one pass up to 5, 3 and 7
 # classes); FrankaPanda's multi-class proxy has S = 1024 and C = 5. C = 1,
-# 2, 5 and 8 (8 at FP = 24 takes a second pass), ragged B, S off the
-# 32-support chunk, and no supports at all
+# 2, 5 and 8 (8 at FP = 24 takes a second pass; C <= 2 there the register
+# instance), ragged B, S off the 32-support chunk, and no supports at all
 CHAIN_MULTI_CASES = [('panda_simple.urdf', 37, 5, 3),
                      ('panda_simple.urdf', 300, 130, 1),
                      ('panda_simple.urdf', 65536 + 37, 1024, 5),
                      ('panda_simple.urdf', 65536 + 37, 1024, 8),
+                     ('panda_simple.urdf', 65536 + 37, 1024, 2),
                      ('panda_simple.urdf', 4096 + 5, 0, 2),
                      ('trifinger_simple.urdf', 4096 + 5, 128, 2),
                      ('trifinger_simple.urdf', 4096 + 5, 100, 8),
@@ -107,7 +112,8 @@ def test_dh_score_kernel_matches_plain(cuda, B, S):
 
 @pytest.mark.parametrize('fp', list(BAXTER_MASKS))
 def test_dh_kernels_at_fewer_points(cuda, fp):
-    """B1 and B4 (C = 2 and 5) at FP = 16 and 8 against their twins."""
+    """B1 and B4 (each instance of the block) at FP = 16 and 8 against
+    their twins."""
     robot = baxter_arm(BAXTER_MASKS[fp])
     g = torch.Generator().manual_seed(fp)
     q = robot.rand_configs(4096 + 5, g, cuda)
@@ -119,7 +125,7 @@ def test_dh_kernels_at_fewer_points(cuda, fp):
     ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
     _close(score, ref, 1e-4)
     _close(dq, ref_dq, 1e-3)
-    for C in (2, 5):
+    for C in BAXTER_MULTI_CLASSES[fp]:
         W = (torch.randn(128, C, generator=g) * 0.05).to(cuda)
         score, dq = fk_score.dh_multi_score_grad(q, sup, W, spec)
         ref, ref_dq = fk_score._dh_multi_score_grad_plain(q, sup, W, spec)
@@ -261,17 +267,30 @@ def test_chain_multi_score_kernel_matches_plain(cuda, name, B, S, C):
     _close(dq, ref_dq, 1e-3)
 
 
-def test_chain_multi_plan_matches_the_card(cuda):
-    """B5's launch plan as the built kernel and the occupancy calculator
-    give it equals ops/_native.py::multi_plan's, and keeps 16 warps per SM
-    for every control-point count and class count the C entry takes."""
-    for P in range(1, _native.MAX_CP + 1):
+def _plans_match_the_card(on_card, max_p):
+    for P in range(1, max_p + 1):
         for C in range(1, _native.MAX_C + 1):
-            card = _native.chain_multi_plan_on_card(P, C)
+            card = on_card(P, C)
             plan = _native.multi_plan(P, C)
-            for key in ('classes_per_pass', 'passes', 'smem_bytes'):
+            for key in ('instance', 'classes_per_pass', 'passes',
+                        'smem_bytes'):
                 assert card[key] == plan[key], (P, C, key)
             assert card['warps_per_sm'] >= 16, (P, C, card)
+
+
+def test_chain_multi_plan_matches_the_card(cuda):
+    """B5's launch plan as the built kernel and the occupancy calculator
+    give it (the instance its launch rule picks, classes per pass, passes,
+    shared bytes) equals ops/_native.py::multi_plan's, and keeps 16 warps
+    per SM for every control-point count and class count the C entry
+    takes."""
+    _plans_match_the_card(_native.chain_multi_plan_on_card, _native.MAX_CP)
+
+
+def test_dh_multi_plan_matches_the_card(cuda):
+    """B4's launch plan, as B5's: the same block, the same mirror, for
+    every DH control-point count (P <= 16) and class count."""
+    _plans_match_the_card(_native.dh_multi_plan_on_card, _native.MAX_P)
 
 
 @pytest.mark.parametrize('kind', ['dh', 'chain'])

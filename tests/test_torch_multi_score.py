@@ -218,13 +218,14 @@ def test_wrappers_use_twins_on_cpu_without_counting():
 
 
 def test_chain_multi_plan_fits_the_card():
-    """Every (control points, classes) that B5's C entry takes stays within
-    227 KB of shared memory per block and keeps 16 warps resident per SM;
-    a pass takes floor(128 / (FP + 1)) classes (at most 8), so
-    FrankaPanda's C = 5 at FP = 24 reads each support once and C = 8 twice;
-    C <= floor(64 / (FP + 1)) takes the narrow instance (C <= 2 there).
-    The card's own occupancy calculator checks the same numbers
-    (tests/test_torch_cuda.py)."""
+    """Every (control points, classes) that B5's C entry takes (B4's are
+    a subset) stays within 227 KB of shared memory per block and keeps 16
+    warps resident per SM; a full pass takes floor(128 / (FP + 1)) classes
+    (at most 8), so FrankaPanda's C = 5 at FP = 24 reads each support once
+    and C = 8 twice; C <= floor(50 / (FP + 1)) takes the register instance
+    (C <= 2 there, C <= 5 at FP = 8, none past FP = 48), else
+    C <= floor(64 / (FP + 1)) the narrow one. The card's own occupancy
+    calculator checks the same numbers (tests/test_torch_cuda.py)."""
     for P in range(1, _native.MAX_CP + 1):
         for C in range(1, _native.MAX_C + 1):
             plan = _native.multi_plan(P, C)
@@ -238,11 +239,24 @@ def test_chain_multi_plan_fits_the_card():
     assert _native.multi_plan(8, 8)['passes'] == 2
     assert [_native.multi_plan(8, C)['classes_per_pass']
             for C in (1, 2, 3)] == [2, 2, 5]
+    assert [_native.multi_plan(8, C)['instance'] for C in (1, 2, 3, 8)] == [
+        'register', 'register', 'full', 'full']
+    assert [_native.multi_plan(2, C)['instance'] for C in (5, 6, 8)] == [
+        'register', 'narrow', 'full']
+    assert {_native.multi_plan(P, 1)['instance']
+            for P in range(19, _native.MAX_CP + 1)} == {'full'}
 
 
 def test_ab_kernel_ablations_find_their_text():
-    """Each named ablation of scripts/ab_kernel.py edits text that B5's
-    sources hold exactly once, so it takes out the part it names."""
+    """Each edit of each named ablation of scripts/ab_kernel.py is to text
+    that its file holds exactly once (the shared block's, or the own
+    source of each kernel, B5 and B4), so it takes out the part it
+    names."""
     from diffco_tpu_torch.scripts import ab_kernel
-    for name, (fname, text, _) in ab_kernel.ABLATIONS.items():
-        assert (_native._CSRC / fname).read_text().count(text) == 1, name
+    for name, edits in ab_kernel.ABLATIONS.items():
+        for fname, text, _ in edits:
+            files = ([fname] if fname else
+                     [k['source'] for k in ab_kernel.KERNELS.values()])
+            for f in files:
+                assert (_native._CSRC / f).read_text().count(text) == 1, (
+                    name, f)
