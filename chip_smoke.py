@@ -4,7 +4,9 @@ Builds the hand-written kernels from csrc/, holds each against its plain
 PyTorch twin at the main paths' shapes (B3 and B5 on three URDF robots: a
 serial arm, a branching tree and a prismatic + mimic rig, B5 with five
 and eight classes; B4 with two and five classes; B1 and B4 also at their
-FP = 16 and 8 instances, on Baxter's arm with 4 and 2 control points),
+FP = 16 and 8 instances, on Baxter's arm with 4 and 2 control points, B1
+at FP = 32, 40 and 48 on PandaFK's chain with more points, and B1 with
+configurations whose points sit on a support or 1e-3 and 1e-2 from one),
 then drives five paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
@@ -30,6 +32,10 @@ Before the paths it holds B6 (every variant) against the B1 kernel and
 B1's plain twin, B1 at each block size of the sweep against the twin,
 and each B7 mode against its plain twin, at B = 65536 + 37, S = 512.
 
+On the PandaFK path's fitted sweep it also prints the share of pairs that
+B1's near-pair guard recomputes, and B1's error there, for several
+thresholds (its measurement build).
+
 Each path runs with the launch counters set to 0 just before it and read
 just after, which shows that its sweeps went through its kernels. Then
 it times each kernel and its plain twin with CUDA events.
@@ -51,7 +57,8 @@ import numpy as np
 import torch
 
 from diffco_tpu_torch.ops.bounds import (ablation_work, bound, chain_ops,
-                                         dh_ops, fk_score_bytes, score_ops)
+                                         dh_ops, dh_tc_bound, dh_tc_times,
+                                         fk_score_bytes, score_ops)
 from diffco_tpu_torch.robots.analytic import baxter_arm
 
 # the main path's shapes (bench.py's primitive: B = 65536, S = 512)
@@ -66,6 +73,13 @@ S_URDF_MULTI = 1024              # FrankaPanda's 5-class proxy: 973 supports
 # at B_CHAIN_SMALL, S_CHAIN_SMALL; no DH robot of the repo reaches FP >= 32
 BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
                 8: (False, False, True, False, False, False, True)}
+# B1 at FP = 32, 40 and 48 (no DH robot of the catalogue reaches them):
+# PandaFK's chain with 10, 13 and 16 control points
+WIDE_POINTS = (10, 13, 16)
+# the near-pair guard's thresholds measured on the fitted PandaFK sweep
+# (csrc/tc_score_block.cuh; ops/_native.py::TC_GUARD, its kTcGuard, is
+# the production one)
+GUARD_KAPPAS = (0.0, 1 / 1024, 1 / 256, 1 / 64, 1 / 16, 1 / 4)
 # B4 on PandaFK (FP = 24): C <= 2 takes the block's register instance, 3-5
 # one full pass, 8 two; on Baxter's arm each instance at FP = 16 and 8
 # (register, narrow, full: C <= 2, 3, more at FP = 16; <= 5, <= 7, 8 at
@@ -114,7 +128,8 @@ def _ptxas_report(log):
     out, kernel, spill, stack = [], None, None, None
     for ln in log.splitlines():
         m = re.search(r'((?:poly|dh|chain)(?:_multi|_dual)?_score_grad_kernel'
-                      r'|dh_ablation_kernel)I((?:L[ib]\d+E)+)E', ln)
+                      r'|dh_ablation_kernel|dh_score_tc_kernel)'
+                      r'I((?:L[ib]\d+E)+)E', ln)
         if 'Compiling entry function' in ln and m:
             args = re.findall(r'L[ib](\d+)E', m.group(2))
             if m.group(1) == 'dh_ablation_kernel':
@@ -144,6 +159,21 @@ def _check_multi_ptxas(regs):
                 raise AssertionError(f'ptxas: {line}')
     if n == 0:
         raise AssertionError('ptxas: no multi-class kernel instance found')
+
+
+def _check_tc_ptxas(regs):
+    """B1's production instances (dh_score_tc_kernel<FP, 0>, FP = 8-48)
+    within the launch bound's 128 registers and unspilled, or fail."""
+    fps = set()
+    for line in regs:
+        m = re.match(r'dh_score_tc_kernel<(\d+),0>: (\d+) regs/(\d+) B '
+                     r'spilled', line)
+        if m:
+            fps.add(int(m.group(1)))
+            if int(m.group(2)) > 128 or int(m.group(3)) != 0:
+                raise AssertionError(f'ptxas: {line}')
+    if fps != {8, 16, 24, 32, 40, 48}:
+        raise AssertionError(f'ptxas: B1 instances found for FP {fps}')
 
 
 def _max_err(pairs):
@@ -188,41 +218,87 @@ def check_poly_kernel(robot, dev):
     return dict(args=(x, sup, w), err=err)
 
 
+def _near_supports(robot, q, sup, seed):
+    """Supports 0-11 moved onto the FK points of configurations 0-11:
+    0-3 exactly, 4-7 at 1e-3 and 8-11 at 1e-2 (random directions in point
+    space). Returns the new supports."""
+    g = torch.Generator().manual_seed(seed)
+    x = robot.fkine(q[:12], flat=True)
+    d = torch.randn(x.shape, generator=g).to(x.device)
+    d = d / d.norm(dim=1, keepdim=True)
+    off = torch.tensor([0.0] * 4 + [1e-3] * 4 + [1e-2] * 4, device=x.device)
+    sup = sup.clone()
+    sup[:12] = x + off[:, None] * d
+    return sup.contiguous()
+
+
+def _check_near(tag, score, dq, ref, ref_dq):
+    """Score at 1e-4 on every row; dq at 1e-3 on all but rows 0-3, whose
+    points sit on a support: there dq is divided by a distance of ~1e-7
+    (ill-conditioned in kernel and twin alike) and has to be finite."""
+    _check_close(f'{tag} score', score, ref, 1e-4)
+    _check_close(f'{tag} dq', dq[4:], ref_dq[4:], 1e-3)
+    if not bool(torch.isfinite(dq[:4]).all()):
+        raise AssertionError(f'{tag}: non-finite dq on a support')
+
+
 def check_dh_kernel(robot, dev):
-    """B1 against its plain twin at the same shape, and autograd through
-    fk_polyharmonic_score_auto (bench.py's primitive) against its dq."""
-    from diffco_tpu_torch.ops import fk_score
+    """B1 against its plain twin at the same shape, with configurations 0-11
+    on or near a support (_near_supports), and autograd through
+    fk_polyharmonic_score_auto (bench.py's primitive) against its dq; then
+    at FP = 16 and 8 (Baxter's arm) and 32, 40 and 48 (PandaFK's chain
+    with more points). Prints B1's launch plan as the card gives it (fails
+    unless it is ops/_native.py::dh_tc_plan's and keeps 16 warps per
+    SM)."""
+    from diffco_tpu_torch.ops import _native, fk_score
+    from diffco_tpu_torch.robots.analytic import panda_with_points
     t0 = time.perf_counter()
     q, sup, w = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=2)
+    sup = _near_supports(robot, q, sup, seed=2)
     spec = fk_score.robot_spec(robot)
     score, dq = fk_score.dh_score_grad(q, sup, w, spec)
     ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
     torch.cuda.synchronize()
-    _check_close('dh_score_grad score', score, ref, 1e-4)
-    _check_close('dh_score_grad dq', dq, ref_dq, 1e-3)
-    err = _max_err([(score, ref), (dq, ref_dq)])
+    _check_near('dh_score_grad', score, dq, ref, ref_dq)
+    err = _max_err([(score, ref), (dq[4:], ref_dq[4:])])
     qg = q.clone().requires_grad_(True)
     out = fk_score.fk_polyharmonic_score_auto(qg, robot, sup, w)
     g, = torch.autograd.grad(out.sum(), qg)
     _check_close('autograd through fk_polyharmonic_score_auto', g, dq, 1e-6)
     _phase('B1 dh_score_grad vs plain', t0, B=B_RAGGED, S=S_BENCH,
-           J=q.shape[1], max_abs_err=err)
-    out = dict(args=(q, sup, w, spec), err=err)
-    for fp, mask in BAXTER_MASKS.items():
+           J=q.shape[1], max_abs_err=err,
+           near_support_rows='0-3 on, 4-7 at 1e-3, 8-11 at 1e-2')
+    card = _native.dh_score_plan_on_card(len(spec[1]))
+    mirror = _native.dh_tc_plan(len(spec[1]))
+    print(f'B1 launch plan (P = {len(spec[1])}): {card}', flush=True)
+    if card != mirror or card['warps_per_sm'] < 16:
+        raise AssertionError(f'B1 plan {card} on the card, {mirror} in '
+                             'ops/_native.py::dh_tc_plan (16 warps per SM '
+                             'at least)')
+    out = dict(args=(q, sup, w, spec), err=err, plan=card)
+    arms = [(f'Baxter arm, FP = {fp}', baxter_arm(mask), fp)
+            for fp, mask in BAXTER_MASKS.items()]
+    arms += [(f'PandaFK chain with {P} points, FP = {(3 * P + 7) // 8 * 8}',
+              panda_with_points(P), P) for P in WIDE_POINTS]
+    for tag, arm, seed in arms:
         t0 = time.perf_counter()
-        arm = baxter_arm(mask)
-        q, sup, w = _inputs(arm, B_CHAIN_SMALL, S_CHAIN_SMALL, dev, seed=fp)
+        q, sup, w = _inputs(arm, B_CHAIN_SMALL, S_CHAIN_SMALL, dev, seed=seed)
+        sup = _near_supports(arm, q, sup, seed=seed)
         spec = fk_score.robot_spec(arm)
         score, dq = fk_score.dh_score_grad(q, sup, w, spec)
         ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
         torch.cuda.synchronize()
-        _check_close(f'dh_score_grad score (FP = {fp})', score, ref, 1e-4)
-        _check_close(f'dh_score_grad dq (FP = {fp})', dq, ref_dq, 1e-3)
-        err = _max_err([(score, ref), (dq, ref_dq)])
+        _check_near(f'dh_score_grad ({tag})', score, dq, ref, ref_dq)
+        card = _native.dh_score_plan_on_card(len(spec[1]))
+        if (card != _native.dh_tc_plan(len(spec[1]))
+                or card['warps_per_sm'] < 16):
+            raise AssertionError(f'B1 plan at P = {len(spec[1])}: {card}')
+        err = _max_err([(score, ref), (dq[4:], ref_dq[4:])])
         out['err'] = max(out['err'], err)
-        _phase(f'B1 dh_score_grad vs plain, Baxter arm, FP = {fp}', t0,
-               B=B_CHAIN_SMALL, S=S_CHAIN_SMALL, F=sup.shape[1],
-               max_abs_err=err)
+        _phase(f'B1 dh_score_grad vs plain, {tag}', t0, B=B_CHAIN_SMALL,
+               S=S_CHAIN_SMALL, F=sup.shape[1], max_abs_err=err,
+               warps_per_sm=card['warps_per_sm'],
+               smem_bytes=card['smem_bytes'])
     return out
 
 
@@ -628,6 +704,37 @@ def _sweeps(checker, robot, gt, dev, kernel_plain, tag):
           f'{float(ref_dq.abs().max())}, max sum_j |w_j| r_j {cond}; '
           f'max_rel_err (to max |score|, max |dq|) from q score '
           f'{_rel_err(pq[:1])} grad {_rel_err(pq[1:])}', flush=True)
+    return dict(q=q, sup=sup, w=w, ref_q=ref_q, ref_dq=ref_dq)
+
+
+def _guard_share(robot, fitted, tag):
+    """B1's near-pair guard on the fitted sweep: for each threshold of
+    GUARD_KAPPAS (the production one marked), the share of (configuration,
+    support) pairs it recomputes and the kernel's error against the
+    float64 twin there, from the kernel's measurement build. Fails unless
+    the production threshold's scores and dq are within the sweep's
+    tolerances (1e-4, 1e-3)."""
+    from diffco_tpu_torch.ops import _native, fk_score
+    spec = fk_score.robot_spec(robot)
+    q, sup, w = fitted['q'], fitted['sup'], fitted['w']
+    pairs = q.shape[0] * sup.shape[0]
+    rows = []
+    for kappa in GUARD_KAPPAS:
+        score, dq, n = fk_score.dh_score_guard_pairs(q, sup, w, spec, kappa)
+        torch.cuda.synchronize()
+        e = [(score.double(), fitted['ref_q']),
+             (dq.double(), fitted['ref_dq'])]
+        rows.append(dict(kappa=kappa, share=n / pairs, pairs=n,
+                         score_err=_max_err(e[:1]), dq_err=_max_err(e[1:])))
+        if kappa == _native.TC_GUARD:
+            _check_close(f'{tag} B1 at the production guard, score', *e[0],
+                         1e-4)
+            _check_close(f'{tag} B1 at the production guard, dq', *e[1],
+                         1e-3)
+    print(f'{tag} B1 near-pair guard on the fitted sweep ({pairs} pairs, '
+          f'production kappa = {_native.TC_GUARD}): {json.dumps(rows)}',
+          flush=True)
+    return rows
 
 
 def _multi_sweeps(checker, robot, gt, dev, kernel_plain, tag):
@@ -723,9 +830,11 @@ def journey(robot, dev):
                                          device=dev)
     _fit(checker, FIT_SAMPLES, 'PandaFK')
     spec = fk_score.robot_spec(robot)
-    _sweeps(checker, robot, gt, dev,
-            lambda q, s, w: fk_score._dh_score_grad_plain(q, s, w, spec),
-            'PandaFK')
+    fitted = _sweeps(checker, robot, gt, dev,
+                     lambda q, s, w: fk_score._dh_score_grad_plain(q, s, w,
+                                                                   spec),
+                     'PandaFK')
+    _guard_share(robot, fitted, 'PandaFK')
     _trajopt(checker, robot, gt, dev, 'PandaFK')
 
 
@@ -835,7 +944,9 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
     ``score_ops`` for the score block (with C weight columns for B4, B5),
     plus per configuration ``dh_ops`` (B1, B4, B6) or ``chain_ops`` (B3,
     B5) for the FK and its backward, or a B7 mode's ``ablation_work``
-    (diffco_tpu_torch/ops/bounds.py). B6 and B7 have one row per variant
+    (diffco_tpu_torch/ops/bounds.py). B1 runs its products on the tensor
+    cores: its ``bound_ms`` is ``dh_tc_bound``, with the fp32 bound
+    beside it (``bound_fp32_ms``). B6 and B7 have one row per variant
     and mode."""
     from diffco_tpu_torch.ops import fk_score, fused_score
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
@@ -848,9 +959,10 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
     q, sup1, w1, spec = b1['args']
     B1, J = q.shape
     S1, F1 = sup1.shape
-    bound1, by1 = bound(fk_score_bytes(B1, S1, F1, J),
-                        score_ops(B1, S1, F1)
-                        + dh_ops(J, len(spec[1])) * B1)
+    bound1, by1 = dh_tc_bound(B1, S1, F1, J, len(spec[1]))
+    bound1_fp32, by1_fp32 = bound(fk_score_bytes(B1, S1, F1, J),
+                                  score_ops(B1, S1, F1)
+                                  + dh_ops(J, len(spec[1])) * B1)
     q3, sup3, w3, cs = b3['args']
     B3, D = q3.shape
     S3, F3 = sup3.shape
@@ -922,7 +1034,9 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             dict(err=max(b1['err'], b67['sweep_err'])),
             lambda: fk_score.dh_score_grad(q, sup1, w1, spec),
             lambda: fk_score._dh_score_grad_plain(q, sup1, w1, spec),
-            bound1, by1),
+            bound1, by1, bound_fp32_ms=bound1_fp32, bound_fp32_by=by1_fp32,
+            bound_times_ms=dh_tc_times(B1, S1, F1, J, len(spec[1])),
+            plan=b1['plan'], warps_per_sm=b1['plan']['warps_per_sm']),
         row('chain_score_grad', 'diffco_tpu_torch/csrc/chain_score.cu',
             'diffco_tpu/ops/fk_score.py:587', [B3, S3, D], b3,
             lambda: fk_score.chain_score_grad(q3, sup3, w3, cs),
@@ -1015,6 +1129,7 @@ def main():
            kernels=len(regs))
     print('ptxas: ' + '; '.join(regs), flush=True)
     _check_multi_ptxas(regs)
+    _check_tc_ptxas(regs)
 
     robot = dc.PandaFK()
     b2 = check_poly_kernel(robot, dev)

@@ -7,34 +7,47 @@
 // primitive, and the verify/collision_score sweeps at batch >= 4096.
 //
 // Per configuration q [J]: DH FK to P control points (x = 3P components),
-// score = sum_j w_j ||x - s_j|| with the shared score block, then the
-// suffix-sum geometric-Jacobian backward to dq [J]. Only q, the supports
-// and weights are read and only score [B] and dq [B, J] are written.
+// score = sum_j w_j ||x - s_j||, then the suffix-sum geometric-Jacobian
+// backward to dq [J]. Only q, the supports and weights are read and only
+// score [B] and dq [B, J] are written.
 //
 // What bounds it on this card: arithmetic. At the main path's shape
 // (B = 65536, S = 512, P = 7 so F = 21) the score block's function needs
-// about B*S*(4F + 11) fp32 operations, rsqrt included (~3.2 GFLOP; the
-// direct difference and compensated score here cost 5F + 14); FK and its
-// backward add ~850 operations per configuration; the bytes in and out
-// are ~4 MB. So the CUDA cores (67 TFLOP/s fp32), not HBM, set the floor.
+// about B*S*(4F + 11) operations, rsqrt included (~3.2 GFLOP); FK and
+// its backward add ~850 per configuration; the bytes in and out are
+// ~4 MB. Of the per-pair work, ~4F operations are the two matrix
+// products that the TPU kernel runs on its MXU (the cross term x . s and
+// the [s w | w] sums); the rest (distance from the products, rsqrt, the
+// compensated score) is ~15 operations per pair.
 //
-// Design: one thread per configuration (kThreads = 128 per block; the
-// roofline path's block-size sweep also builds 64, 256 and 512). FK runs in
-// registers (the SoA compose of the TPU kernel); the 3P point components,
-// zero-padded to FP, feed the same register-resident score block as
-// poly_score.cu with supports staged through shared memory. The joint
-// axes/origins are not kept across the support loop: FK is recomputed
-// after it (a few hundred operations against ~57k for the loop), which
-// keeps the loop's register footprint that of the point-space kernel.
-// The DH constants and point specs arrive by value in a DHSpec kernel
-// argument, so one build serves every DH robot with J <= 8, P <= 16.
+// Design (production, dh_score_tc_kernel): the score block of
+// tc_score_block.cuh, with both products on the tensor cores in 3xTF32
+// (mma.sync m16n8k8), 128 configurations and 256 threads per block, two
+// blocks (16 warps) per SM. One thread per configuration runs the FK
+// first, into the block's shared rows: the points for the block, the
+// joint axes and origins for the backward, which the same thread runs
+// after the supports from the row's sums in shared memory. The DH
+// constants and point specs arrive by value in a DHSpec kernel argument,
+// so one build serves every DH robot with J <= 8, P <= 16.
+//
+// The first design, one thread per configuration on the CUDA cores with
+// supports staged through shared memory in chunks of 128
+// (dh_score_grad_kernel, score_block.cuh), stays for the roofline path's
+// block-size sweep (dh_score_grad_threads): that sweep ports the
+// reference's tile sweep, and the B6 and B7 kernels are measured against
+// that design.
 #include <cuda_runtime.h>
 
 #include "dh_chain.cuh"
+#include "tc_score_block.cuh"
+
+extern __shared__ __align__(16) float diffco_tc_smem[];
 
 namespace diffco {
 namespace {
 
+// The first design, one configuration per thread on the CUDA cores
+// (roofline path only: dh_score_grad_threads).
 template <int FP, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 dh_score_grad_kernel(const float* __restrict__ q, const float* __restrict__ s,
@@ -81,14 +94,126 @@ dh_score_grad_kernel(const float* __restrict__ q, const float* __restrict__ s,
   }
 }
 
+// The kernel's dynamic shared memory: the block's (TcSmem<FP>), then each
+// row's joint axes and origins (az, ao: 3 kMaxJ floats each) at an odd
+// stride.
+template <int FP>
+struct DhSmem {
+  static constexpr int kAxesStride = 6 * kMaxJ + 1;
+  static constexpr int kAxes = TcSmem<FP>::kFloats;
+  static constexpr int kBytes = 4 * (kAxes + kTcRows * kAxesStride);
+};
+
+// B1 on the tensor-core score block (file comment). kMeasure: a
+// measurement build that counts the near-pair guard's recomputations
+// into *guard_pairs, with kappa as its threshold.
+template <int FP, bool kMeasure>
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSM)
+dh_score_tc_kernel(const float* __restrict__ q, const float* __restrict__ s,
+                   const float* __restrict__ w, float* __restrict__ score,
+                   float* __restrict__ dq, int B, int S,
+                   const __grid_constant__ DHSpec sp, float kappa,
+                   unsigned long long* guard_pairs) {
+  using L = TcSmem<FP>;
+  constexpr int KP = FP / 3 < kMaxP ? FP / 3 : kMaxP;
+  float* smem = diffco_tc_smem;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x * kTcRows + tid;
+  const bool live = b < B;   // the ragged end of B is masked here
+  const int J = sp.J, F = 3 * sp.P;
+  if (S > 0) tc_stage<FP>(s, w, 0, S, F, smem, 0);
+  // FK into the row's points (zeros past F) and its joint axes and
+  // origins, all in shared memory, which the backward reads after the
+  // supports
+  float* xrow = smem + L::kX + tid * L::kXS;
+  float* axes = smem + DhSmem<FP>::kAxes + tid * DhSmem<FP>::kAxesStride;
+  if (tid < kTcRows) {
+    float qr[kMaxJ];
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j)
+      qr[j] = (live && j < J) ? q[static_cast<size_t>(b) * J + j] : 0.f;
+#pragma unroll
+    for (int f = 0; f < FP; ++f) xrow[f] = 0.f;
+    dh_chain<KP>(qr, sp, xrow, axes, axes + 3 * kMaxJ);
+  }
+  tc_score_block<FP, kMeasure>(s, w, S, F, smem, kappa, guard_pairs);
+  if (tid < kTcRows) {  // the epilogue: the backward
+    float dqr[kMaxJ];
+#pragma unroll
+    for (int f = 0; f < FP; ++f) xrow[f] += smem[L::kCen + f];  // x~ + c
+    const float* su = tc_row_sums<FP>(smem, tid, F);
+    dh_backward<KP>(sp, xrow, axes, axes + 3 * kMaxJ, su[F], su, dqr);
+    if (live) {
+      score[b] = smem[L::kScore + tid];
+#pragma unroll
+      for (int j = 0; j < kMaxJ; ++j)
+        if (j < J) dq[static_cast<size_t>(b) * J + j] = dqr[j];
+    }
+  }
+}
+
 }  // namespace
 }  // namespace diffco
 
-#define DIFFCO_DH_CASE(FPV)                                          \
-  case FPV:                                                          \
-    diffco::dh_score_grad_kernel<FPV, diffco::kThreads>              \
-        <<<grid, diffco::kThreads, 0, st>>>(q, s, w, score, dq, B, S, sp); \
-    break;
+// ---- launch code (the CPU replay test compiles the file up to here)
+
+namespace diffco {
+namespace {
+
+// Launches B1's production kernel over B configurations on `st`; the
+// cudaError_t, 0 on success.
+template <int FP, bool kMeasure>
+int tc_launch(const float* q, const float* s, const float* w, float* score,
+              float* dq, int B, int S, const DHSpec& sp, float kappa,
+              unsigned long long* guard_pairs, cudaStream_t st) {
+  const auto kernel = dh_score_tc_kernel<FP, kMeasure>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DhSmem<FP>::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<(B + kTcRows - 1) / kTcRows, kTcThreads, DhSmem<FP>::kBytes,
+           st>>>(q, s, w, score, dq, B, S, sp, kappa, guard_pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = {dynamic shared bytes per block, blocks resident per SM by the
+// runtime's occupancy calculator, threads per block, configurations per
+// block}; the cudaError_t of the query.
+template <int FP>
+int tc_plan(int* out) {
+  const auto kernel = dh_score_tc_kernel<FP, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DhSmem<FP>::kBytes);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kTcThreads, DhSmem<FP>::kBytes);
+  out[0] = DhSmem<FP>::kBytes;
+  out[1] = blocks;
+  out[2] = kTcThreads;
+  out[3] = kTcRows;
+  return static_cast<int>(e);
+}
+
+}  // namespace
+}  // namespace diffco
+
+#define DIFFCO_FP_SWITCH(FPV, CALL) \
+  switch (FPV) {                    \
+    case 8: return CALL(8);         \
+    case 16: return CALL(16);       \
+    case 24: return CALL(24);       \
+    case 32: return CALL(32);       \
+    case 40: return CALL(40);       \
+    case 48: return CALL(48);       \
+    default: return cudaErrorInvalidValue; \
+  }
+
+static bool dh_spec_ok(const diffco::DHSpec& sp) {
+  return sp.J >= 1 && sp.J <= diffco::kMaxJ && sp.P >= 1 &&
+         sp.P <= diffco::kMaxP;
+}
 
 // Returns the cudaError_t of the launch (0 on success). `spec` is a host
 // pointer, copied into the kernel's arguments. Launches on `stream` and
@@ -97,22 +222,40 @@ extern "C" int dh_score_grad(const float* q, const float* s, const float* w,
                              float* score, float* dq, int B, int S,
                              const diffco::DHSpec* spec, void* stream) {
   const diffco::DHSpec sp = *spec;
-  if (B <= 0 || S < 0 || sp.J < 1 || sp.J > diffco::kMaxJ || sp.P < 1 ||
-      sp.P > diffco::kMaxP)
-    return cudaErrorInvalidValue;
-  const dim3 grid((B + diffco::kThreads - 1) / diffco::kThreads);
+  if (B <= 0 || S < 0 || !dh_spec_ok(sp)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((3 * sp.P + 7) / 8 * 8) {
-    DIFFCO_DH_CASE(8)
-    DIFFCO_DH_CASE(16)
-    DIFFCO_DH_CASE(24)
-    DIFFCO_DH_CASE(32)
-    DIFFCO_DH_CASE(40)
-    DIFFCO_DH_CASE(48)
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+#define DIFFCO_LAUNCH(FPV)                                                 \
+  diffco::tc_launch<FPV, false>(q, s, w, score, dq, B, S, sp,              \
+                                diffco::kTcGuard, nullptr, st)
+  DIFFCO_FP_SWITCH((3 * sp.P + 7) / 8 * 8, DIFFCO_LAUNCH)
+#undef DIFFCO_LAUNCH
+}
+
+// dh_score_grad's kernel in its measurement build: the near-pair guard at
+// threshold `kappa`, its recomputations added to the device counter
+// *guard_pairs (a measurement entry; production launches go through
+// dh_score_grad).
+extern "C" int dh_score_grad_guard(const float* q, const float* s,
+                                   const float* w, float* score, float* dq,
+                                   int B, int S, float kappa,
+                                   unsigned long long* guard_pairs,
+                                   const diffco::DHSpec* spec, void* stream) {
+  const diffco::DHSpec sp = *spec;
+  if (B <= 0 || S < 0 || !dh_spec_ok(sp)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DIFFCO_LAUNCH(FPV)                                                 \
+  diffco::tc_launch<FPV, true>(q, s, w, score, dq, B, S, sp, kappa,        \
+                               guard_pairs, st)
+  DIFFCO_FP_SWITCH((3 * sp.P + 7) / 8 * 8, DIFFCO_LAUNCH)
+#undef DIFFCO_LAUNCH
+}
+
+// dh_score_grad's launch plan for P control points (tc_plan).
+extern "C" int dh_score_plan(int P, int* out) {
+  if (P < 1 || P > diffco::kMaxP) return cudaErrorInvalidValue;
+#define DIFFCO_PLAN(FPV) diffco::tc_plan<FPV>(out)
+  DIFFCO_FP_SWITCH((3 * P + 7) / 8 * 8, DIFFCO_PLAN)
+#undef DIFFCO_PLAN
 }
 
 #define DIFFCO_DH_THREADS_CASE(T)                                       \

@@ -56,6 +56,7 @@
 
 #include <type_traits>
 
+#include "cp_async.cuh"
 #include "score_block.cuh"
 
 namespace diffco {
@@ -164,31 +165,6 @@ int multi_dispatch(int C, Fn&& fn) {
     return fn(std::integral_constant<int, kInstFull>{},
               std::integral_constant<int, 0>{});
   }
-}
-
-// One float from global to shared memory, asynchronously (cp.async, 4
-// bytes: the rows of s [S, F] and W [S, C] have no 16-byte alignment);
-// zeros when !valid.
-DIFFCO_HD void cp_async_f32(float* dst, const float* src, bool valid) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-#else
-  *dst = valid ? *src : 0.f;
-#endif
-}
-
-DIFFCO_HD void cp_async_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-
-DIFFCO_HD void cp_async_wait_all() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-#endif
 }
 
 #ifdef __CUDACC__

@@ -1,0 +1,530 @@
+// Tensor-core polyharmonic score block: the score of a block of query
+// rows against all supports, with both matrix products of the TPU
+// kernel on Hopper's tensor cores (dh_score.cu, B1; written to carry over
+// to the point-space and URDF-chain kernels).
+//
+// Replaces, inside B1, the score block of
+// diffco_tpu/ops/fk_score.py::_make_dh_score_kernel: the cross term
+// s . x^T (fk_score.py:115-118) and the [s w | w]^T . rinv product that
+// yields su and rowsum (:129-132), both MXU products there.
+//
+// A block holds kTcRows = 128 query rows x [FP] (zero-padded past F) and
+// kTcThreads = 256 threads, 8 warps of 16 rows. Supports and weights
+// stream through shared memory in chunks of kTcChunk = 32, copied with
+// cp.async into a double buffer while the last chunk computes, then
+// centred and split into fragment order by all threads. Everything
+// is translated by one centre c, the mean of the block's rows: d2 and
+// x rowsum - su do not change under a common translation, and the
+// centred norms stay near d2, which keeps the expanded distance accurate.
+// Per (row i, support j), with x~ = x - c, s~ = s - c:
+//
+//   product 1 (tensor cores):  dot_ij = x~_i . s~_j
+//   d2 = |x~_i|^2 + |s~_j|^2 - 2 dot_ij + 1e-12
+//        near-pair guard: where d2 < kTcGuard (|x~_i|^2 + |s~_j|^2), d2
+//        is recomputed by direct difference from the raw chunk and c in
+//        shared memory (+ 1e-12); so d2 >= 0 without a clamp
+//   rinv = rsqrt(d2),  r = d2 rinv,  score_i += w_j r   (TwoSum)
+//   product 2 (tensor cores):  [su~ | rowsum]_i += sum_j rinv_ij T_j,
+//        T_j = [s~_j w_j (F columns) | w_j | 0 ...], its F + 1 columns
+//        in n-tiles of 8 (FP / 8 tiles where F < FP, else one more)
+//
+// after which su = su~ + c rowsum and d score / d x = x rowsum - su.
+//
+// Both products run as mma.sync.m16n8k8 TF32 tiles with fp32
+// accumulation, in 3xTF32: each operand a is split into a_hi = tf32(a)
+// and a_lo = a - a_hi, and a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi
+// (product 1 sums the three in separate accumulators, which also keeps
+// its chains of dependent products short).
+// Plain TF32 keeps ~3 decimal digits, too few where fitted weights
+// cancel (sum_j |w_j| r_j ~ 7.5e3 against |score| ~ 1.5). |x~|^2 is
+// formed in double and kept as hi + lo floats, because its rounding
+// would enter every pair of the row alike. The score stays on the CUDA
+// cores, compensated per thread and merged with compensation across the
+// four lanes that share a row.
+//
+// Fragments (PTX m16n8k8 .tf32; lane = 4 g + t): A a0..a3 at (row, k) =
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B b0, b1 at (k, n) =
+// (t, g), (t + 4, g); C c0..c3 at (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1). Product 1's accumulator gives each lane rinv for
+// supports 2t and 2t + 1 of its n-tile: product 2 takes them as its A
+// fragment (k = t for support 2t, k = t + 4 for 2t + 1), and its B
+// operand is stored with the same order of the supports within each k-step
+// of 8, so no shuffle is needed (a sum over supports does not care about
+// their order). Each chunk is stored pre-split in fragment order (one
+// float4 per lane per k-step: no bank conflicts), beside (|s~_j|^2, w_j).
+// A lane takes two n-tiles of 8 supports per pass of its loop (one on
+// rows wider than kTcRegMaxFP), so that their products and pair work
+// interleave.
+//
+// Budget: 256 threads, __launch_bounds__(256, kTcBlocksPerSM = 2), at
+// most 128 registers a thread, and 15-66 KB of dynamic shared memory
+// (TcSmem<FP>::kBytes; B1's kernel adds 25 KB for its rows' joint axes):
+// two blocks, 16 warps, per SM at every FP. x~'s fragments stay in
+// registers up to kTcRegMaxFP components; wider rows split them from
+// shared memory at each use.
+//
+// Ragged ends: supports past S and components past F are zeros with
+// weight 0 (they add nothing, and no value the staging did not write
+// reaches an output); rows past B run on q = 0 and are masked by the
+// caller.
+#pragma once
+
+#include <cstring>
+
+#include "cp_async.cuh"
+#include "score_block.cuh"
+
+namespace diffco {
+
+constexpr int kTcRows = 128;       // query rows per block
+constexpr int kTcThreads = 256;    // 8 warps x 16 rows
+constexpr int kTcChunk = 32;       // supports per staged chunk (4 n-tiles)
+constexpr int kTcBlocksPerSM = 512 / kTcThreads;  // 16 warps per SM
+constexpr int kTcRegMaxFP = 32;    // x~ fragments in registers up to here
+// The design's parts (scripts/ab_kernel.py's ablations replace these
+// lines in a copy): product 1 on the tensor cores (false: every d2 by
+// direct difference), 3 products per split (1: plain TF32), and the
+// guard's threshold kappa.
+constexpr bool kTcDist = true;
+constexpr int kTcSplit = 3;
+// kappa: below kTcGuard (|x~|^2 + |s~|^2) the expanded d2 has lost more
+// than ~1/kappa of its relative precision to cancellation. Chosen from
+// the fitted PandaFK sweep on the H100 (PERF.md, section 6).
+constexpr float kTcGuard = 1.f / 64.f;
+
+// Dynamic shared memory, in floats (every offset a multiple of 4).
+template <int FP>
+struct TcSmem {
+  static constexpr int kKK = FP / 8;       // k-steps of product 1
+  static constexpr int kNT2 = FP / 8 + 1;  // n-tiles of product 2, at most
+  static constexpr int kXS = FP + 1;       // point row stride, odd
+  static constexpr int kSuS = FP + 9;      // sums row stride, odd
+  static constexpr int kCen = 0;                         // c [FP]
+  static constexpr int kNx = kCen + FP;                  // [128][2]
+  static constexpr int kX = kNx + 2 * kTcRows;           // x~ [128][kXS]
+  static constexpr int kArea = kX + kTcRows * kXS;
+  // the chunk buffers
+  static constexpr int kRawS = kArea;                    // [2][K][FP]
+  static constexpr int kRawW = kRawS + 2 * kTcChunk * FP;       // [2][K]
+  static constexpr int kB1 = kRawW + 2 * kTcChunk;      // [K/8][KK][32][4]
+  static constexpr int kB2 = kB1 + kTcChunk * 2 * FP;    // [K/8][NT2][32][4]
+  static constexpr int kNw = kB2 + kTcChunk * 2 * (FP + 8);     // [K][2]
+  static constexpr int kLoopEnd = kNw + 2 * kTcChunk;
+  // after the last chunk, over the chunk buffers
+  static constexpr int kSu = kArea;                      // [128][kSuS]
+  static constexpr int kScore = kSu + kTcRows * kSuS;    // [128]
+  static constexpr int kEnd = kScore + kTcRows;
+  static constexpr int kFloats = kLoopEnd > kEnd ? kLoopEnd : kEnd;
+  static constexpr int kBytes = 4 * kFloats;
+};
+
+__device__ __forceinline__ float bits_float(unsigned u) {
+#if defined(__CUDA_ARCH__)
+  return __uint_as_float(u);
+#else
+  float v;
+  std::memcpy(&v, &u, 4);
+  return v;
+#endif
+}
+
+__device__ __forceinline__ unsigned float_bits(float v) {
+#if defined(__CUDA_ARCH__)
+  return __float_as_uint(v);
+#else
+  unsigned u;
+  std::memcpy(&u, &v, 4);
+  return u;
+#endif
+}
+
+// (hi, lo) with hi = v rounded to TF32 (10 mantissa bits, to nearest,
+// ties away: half an ulp added, the 13 low bits cleared) and lo = v - hi
+// (exact). The tensor cores read the 19 high bits of an operand, so lo
+// enters a product cut to TF32: 2^-11 of lo, ~2^-22 of v, is lost.
+// Two integer operations and a subtraction, for finite v.
+__device__ __forceinline__ float2 tf32_split(float v) {
+  const float hi = bits_float((float_bits(v) + 0x1000u) & 0xffffe000u);
+  return make_float2(hi, v - hi);
+}
+
+// d += A B for one m16n8k8 TF32 tile (fragments as above)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#elif defined(DIFFCO_REPLAY)
+  diffco_replay_mma(d, a, b0, b1);
+#endif
+}
+
+// d += A B in 3xTF32: the large product into d, the two small ones into
+// s1 and s2 (product 1 keeps three accumulators, so that its three
+// chains of products run side by side; product 2 passes one three times);
+// b = (b0 hi, b1 hi, b0 lo, b1 lo) as stored in a chunk (each operand
+// pair in adjacent registers, as the instruction takes it)
+__device__ __forceinline__ void mma_split(float (&d)[4], float (&s1)[4],
+                                          float (&s2)[4],
+                                          const unsigned (&ahi)[4],
+                                          const unsigned (&alo)[4],
+                                          float4 b) {
+  if (kTcSplit == 3) {
+    mma_tf32(s1, alo, float_bits(b.x), float_bits(b.y));
+    mma_tf32(s2, ahi, float_bits(b.z), float_bits(b.w));
+  }
+  mma_tf32(d, ahi, float_bits(b.x), float_bits(b.y));
+}
+
+__device__ __forceinline__ float shfl_xor(float v, int mask) {
+#if defined(__CUDA_ARCH__)
+  return __shfl_xor_sync(0xffffffffu, v, mask);
+#elif defined(DIFFCO_REPLAY)
+  return diffco_replay_shfl_xor(v, mask);
+#else
+  return v;
+#endif
+}
+
+// sum_f (x~_f - (s_f - c_f))^2 over FP components (zeros past F in all
+// three)
+template <int FP>
+__device__ __forceinline__ float tc_direct(const float* x, const float* s,
+                                           const float* c) {
+  float d2 = 0.f;
+#pragma unroll
+  for (int f = 0; f < FP; ++f) {
+    const float d = x[f] - (s[f] - c[f]);
+    d2 = fmaf(d, d, d2);
+  }
+  return d2;
+}
+
+// 1 / sqrt(v) for v >= 1e-12: the special function unit's approximation
+// (MUFU.RSQ) without the scaling rsqrtf adds for subnormal arguments
+__device__ __forceinline__ float tc_rsqrt(float v) {
+#if defined(__CUDA_ARCH__)
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+#else
+  return rsqrtf(v);
+#endif
+}
+
+// The guard's recomputation. Out of line where x~'s fragments stay in
+// registers: it is rarely taken, and a call keeps the support loop's code
+// and registers those of the common path. Inline on wider rows, where
+// the registers a call saves would spill.
+template <int FP>
+__device__ __noinline__ float tc_direct_call(const float* x, const float* s,
+                                             const float* c) {
+  return tc_direct<FP>(x, s, c);
+}
+
+template <int FP>
+__device__ __forceinline__ float tc_guard(const float* x, const float* s,
+                                          const float* c) {
+  if constexpr (FP <= kTcRegMaxFP)
+    return tc_direct_call<FP>(x, s, c);
+  else
+    return tc_direct<FP>(x, s, c);
+}
+
+// The staging's share of a thread: support j = tid / 8 of the chunk,
+// components e + 8m (m < FP / 8) for e = tid % 8 (kTcThreads = 8 kTcChunk)
+static_assert(kTcThreads == 8 * kTcChunk, "staging map");
+
+// Start copying supports c0 .. c0 + kTcChunk - 1 (components < F) and
+// their weights into raw buffer `buf`; rows past S become zeros.
+template <int FP>
+__device__ __forceinline__ void tc_stage(const float* __restrict__ s,
+                                         const float* __restrict__ w, int c0,
+                                         int S, int F, float* smem, int buf) {
+  using L = TcSmem<FP>;
+  const int j = threadIdx.x / 8, e = threadIdx.x % 8;
+  const bool in = c0 + j < S;
+  const float* src = s + static_cast<size_t>(in ? c0 + j : 0) * F;
+  float* sb = smem + L::kRawS + (buf * kTcChunk + j) * FP;
+#pragma unroll
+  for (int m = 0; m < L::kKK; ++m)
+    if (e + 8 * m < F) cp_async_f32(sb + e + 8 * m, src + e + 8 * m, in);
+  if (threadIdx.x < kTcChunk) {
+    const int j = threadIdx.x;
+    const bool in = c0 + j < S;
+    cp_async_f32(smem + L::kRawW + buf * kTcChunk + j, w + (in ? c0 + j : 0),
+                 in);
+  }
+  cp_async_commit();
+}
+
+// a split value into its B fragment slot: hi there, lo two floats on
+__device__ __forceinline__ void tc_put(float* p, float2 hl) {
+  p[0] = hl.x;
+  p[2] = hl.y;
+}
+
+// Centre and split raw buffer `buf` (n live supports) into the chunk's
+// stores: product 1's and product 2's B fragments, (|s~|^2, w).
+// Every thread takes part (its share as tc_stage's); callers sync before
+// and after.
+template <int FP>
+__device__ __forceinline__ void tc_transform(float* smem, int buf, int n,
+                                             int F) {
+  using L = TcSmem<FP>;
+  const int j = threadIdx.x / 8, e = threadIdx.x % 8;
+  const bool in = j < n;
+  const float* sb = smem + L::kRawS + (buf * kTcChunk + j) * FP;
+  const float wj = in ? smem[L::kRawW + buf * kTcChunk + j] : 0.f;
+  // product 1: support j = 8 tile + g is n = g, component 8m + e is k = e
+  // (b0) or e - 4 (b1) of lane 4g + e % 4; product 2: support j = 8 tile
+  // + 2t + h is k = t (b0, h = 0) or t + 4 (b1) of lane 4 (column % 8) + t
+  float* b1 = smem + L::kB1 + ((j / 8) * L::kKK * 32 + 4 * (j % 8) + e % 4) *
+                                  4 + e / 4;
+  float* b2 = smem + L::kB2 + ((j / 8) * L::kNT2 * 32 + 4 * e + (j % 8) / 2) *
+                                  4 + j % 2;
+  float ns = 0.f;
+#pragma unroll
+  for (int m = 0; m < L::kKK; ++m) {
+    const int f = e + 8 * m;
+    const float v = in && f < F ? sb[f] - smem[L::kCen + f] : 0.f;
+    ns = fmaf(v, v, ns);
+    tc_put(b1 + m * 128, tf32_split(v));
+    tc_put(b2 + m * 128, tf32_split(f == F ? wj : v * wj));
+  }
+  // product 2's last column tile, used where F = FP: w_j at column FP
+  tc_put(b2 + L::kKK * 128, tf32_split(e == 0 && F == FP ? wj : 0.f));
+  ns += shfl_xor(ns, 1);
+  ns += shfl_xor(ns, 2);
+  ns += shfl_xor(ns, 4);
+  if (e == 0) {
+    smem[L::kNw + 2 * j] = ns;
+    smem[L::kNw + 2 * j + 1] = wj;
+  }
+}
+
+// tf32_split of four values, as mma operand bits
+__device__ __forceinline__ void tf32_split_bits(const float (&v)[4],
+                                                unsigned (&hi)[4],
+                                                unsigned (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 hl = tf32_split(v[i]);
+    hi[i] = float_bits(hl.x);
+    lo[i] = float_bits(hl.y);
+  }
+}
+
+// x~'s A fragment of k-step kk for rows r0, r0 + 8 (lane's t), split
+template <int FP>
+__device__ __forceinline__ void tc_x_fragment(const float* xs, int r0, int t,
+                                              int kk, unsigned (&hi)[4],
+                                              unsigned (&lo)[4]) {
+  constexpr int S_ = TcSmem<FP>::kXS;
+  const float v[4] = {xs[r0 * S_ + 8 * kk + t], xs[(r0 + 8) * S_ + 8 * kk + t],
+                      xs[r0 * S_ + 8 * kk + t + 4],
+                      xs[(r0 + 8) * S_ + 8 * kk + t + 4]};
+  tf32_split_bits(v, hi, lo);
+}
+
+// The score of the block's rows against supports s [S, F] with weights
+// w [S]. On entry the caller has written each row's points x [FP]
+// (zeros past F) to TcSmem<FP>::kX + row kXS, and has started chunk 0
+// with tc_stage(s, w, 0, S, F, smem, 0) if S > 0; every thread calls.
+// On return (all threads synced) row i's score is at kScore + i and its
+// sums at kSu + i kSuS (su~ at f < F, rowsum at F): tc_row_sums reads
+// them. kMeasure counts the guard's recomputations into *guard_pairs,
+// with kappa in place of kTcGuard (a measurement build only).
+template <int FP, bool kMeasure>
+__device__ __forceinline__ void tc_score_block(
+    const float* __restrict__ s, const float* __restrict__ w, int S, int F,
+    float* smem, float kappa, unsigned long long* guard_pairs) {
+  using L = TcSmem<FP>;
+  constexpr int K = kTcChunk;
+  constexpr int KK = L::kKK, NT2 = L::kNT2;
+  constexpr bool kXRegs = FP <= kTcRegMaxFP;
+  // two n-tiles per pass of the support loop where x~'s fragments stay in
+  // registers (their products and pair work interleave); one on wider
+  // rows, which would spill
+  constexpr int kUnroll = kXRegs ? 2 : 1;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp + g;  // and r0 + 8
+  float* xs = smem + L::kX;
+  if (!kMeasure) kappa = kTcGuard;
+  // the raw buffers' components F..FP-1, which the staging never writes
+  for (int i = tid; i < 2 * K * FP; i += kTcThreads)
+    if (i % FP >= F) smem[L::kRawS + i] = 0.f;
+
+  // the centre: the mean of the block's rows
+  __syncthreads();
+  // eight lanes per component, 16 rows each, then summed across them
+  for (int f = tid / 8; f < (FP + 31) / 32 * 32; f += kTcThreads / 8) {
+    float acc = 0.f;
+    if (f < FP)
+#pragma unroll 4
+      for (int r = tid % 8; r < kTcRows; r += 8) acc += xs[r * L::kXS + f];
+    acc += shfl_xor(acc, 1);
+    acc += shfl_xor(acc, 2);
+    acc += shfl_xor(acc, 4);
+    if (f < FP && tid % 8 == 0) smem[L::kCen + f] = acc * (1.f / kTcRows);
+  }
+  __syncthreads();
+  if (tid < kTcRows) {
+    double nx = 0.0;
+#pragma unroll 4
+    for (int f = 0; f < FP; ++f) {
+      const float v = xs[tid * L::kXS + f] - smem[L::kCen + f];
+      xs[tid * L::kXS + f] = v;
+      nx += static_cast<double>(v) * v;
+    }
+    const float hi = static_cast<float>(nx);
+    smem[L::kNx + 2 * tid] = hi;
+    smem[L::kNx + 2 * tid + 1] = static_cast<float>(nx - hi);
+  }
+  __syncthreads();
+
+  unsigned ahi[kXRegs ? KK : 1][4], alo[kXRegs ? KK : 1][4];
+  if constexpr (kTcDist && kXRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      tc_x_fragment<FP>(xs, r0, t, kk, ahi[kk], alo[kk]);
+  }
+  const float nxh[2] = {smem[L::kNx + 2 * r0], smem[L::kNx + 2 * r0 + 16]};
+  // the low part of |x~|^2 carries the 1e-12 floor
+  const float nxl[2] = {smem[L::kNx + 2 * r0 + 1] + 1e-12f,
+                        smem[L::kNx + 2 * r0 + 17] + 1e-12f};
+  const int nt2 = (F + 8) / 8;  // product 2's column tiles (F + 1 columns)
+  float sc[2] = {0.f, 0.f}, cc[2] = {0.f, 0.f};
+  float acc[NT2][4];
+#pragma unroll
+  for (int n2 = 0; n2 < NT2; ++n2)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n2][i] = 0.f;
+
+  const float4* b1s = reinterpret_cast<const float4*>(smem + L::kB1);
+  const float4* b2s = reinterpret_cast<const float4*>(smem + L::kB2);
+  const int nch = (S + K - 1) / K;
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk ch landed; the last chunk's reads are done
+    if (ch + 1 < nch)
+      tc_stage<FP>(s, w, (ch + 1) * K, S, F, smem, (ch + 1) & 1);
+    tc_transform<FP>(smem, ch & 1, min(K, S - ch * K), F);
+    __syncthreads();
+    // the chunk's raw supports, for the direct differences
+    const float* raw = smem + L::kRawS + (ch & 1) * K * FP;
+#pragma unroll (kUnroll)
+    for (int nt = 0; nt < K / 8; ++nt) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f}, ds[4] = {0.f, 0.f, 0.f, 0.f},
+            dt[4] = {0.f, 0.f, 0.f, 0.f};
+      if (kTcDist) {
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk) {
+          const float4 b = b1s[(nt * KK + kk) * 32 + lane];
+          if constexpr (kXRegs) {
+            mma_split(d, ds, dt, ahi[kk], alo[kk], b);
+          } else {
+            unsigned h[4], l[4];
+            tc_x_fragment<FP>(xs, r0, t, kk, h, l);
+            mma_split(d, ds, dt, h, l, b);
+          }
+        }
+      }
+      // (|s~|^2, w) of supports 2t and 2t + 1 of the n-tile
+      const float4 nw = *reinterpret_cast<const float4*>(
+          smem + L::kNw + 2 * (8 * nt + 2 * t));
+      const float nsv[2] = {nw.x, nw.z}, wv[2] = {nw.y, nw.w};
+      float d2[4], ri[4], r[4];  // pairs (r0, 2t), (r0, 2t + 1), (r0 + 8, 2t)..
+      if (kTcDist) {
+        float norms[4], slack[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          norms[p] = nxh[p >> 1] + nsv[p & 1];
+          d2[p] = fmaf(-2.f, d[p] + (ds[p] + dt[p]), norms[p]) + nxl[p >> 1];
+          slack[p] = fmaf(-kappa, norms[p], d2[p]);
+        }
+        if (fminf(fminf(slack[0], slack[1]), fminf(slack[2], slack[3])) <
+            0.f) {  // rare: some pair below the guard's threshold
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            if (d2[p] < kappa * norms[p]) {
+              d2[p] = tc_guard<FP>(xs + (r0 + 8 * (p >> 1)) * L::kXS,
+                                   raw + (8 * nt + 2 * t + (p & 1)) * FP,
+                                   smem + L::kCen) +
+                      1e-12f;
+              if constexpr (kMeasure) atomicAdd(guard_pairs, 1ull);
+            }
+        }
+      } else {
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          d2[p] = tc_direct<FP>(xs + (r0 + 8 * (p >> 1)) * L::kXS,
+                                raw + (8 * nt + 2 * t + (p & 1)) * FP,
+                                smem + L::kCen) +
+                  1e-12f;
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        ri[p] = tc_rsqrt(d2[p]);
+        r[p] = d2[p] * ri[p];
+      }
+      // a row's two terms summed, then added with compensation
+      two_sum_add(fmaf(wv[1], r[1], wv[0] * r[0]), sc[0], cc[0]);
+      two_sum_add(fmaf(wv[1], r[3], wv[0] * r[2]), sc[1], cc[1]);
+      // product 2's A fragment: (g, k = t) support 2t, (g, t + 4) 2t + 1
+      unsigned hi[4], lo[4];
+      tf32_split_bits({ri[0], ri[2], ri[1], ri[3]}, hi, lo);
+      __syncwarp();
+#pragma unroll
+      for (int n2 = 0; n2 < NT2; ++n2)
+        if (n2 < nt2)
+          mma_split(acc[n2], acc[n2], acc[n2], hi, lo,
+                    b2s[(nt * NT2 + n2) * 32 + lane]);
+    }
+  }
+
+  // the four lanes of a row merge their compensated scores
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+    for (int m = 1; m <= 2; m *= 2) {
+      const float so = shfl_xor(sc[rr], m), co = shfl_xor(cc[rr], m);
+      two_sum_add(so, sc[rr], cc[rr]);
+      cc[rr] += co;
+    }
+  __syncthreads();  // every warp is done with the chunk buffers
+  float* su = smem + L::kSu;
+#pragma unroll
+  for (int n2 = 0; n2 < NT2; ++n2) {
+    const int col = 8 * n2 + 2 * t;
+    su[r0 * L::kSuS + col] = acc[n2][0];
+    su[r0 * L::kSuS + col + 1] = acc[n2][1];
+    su[(r0 + 8) * L::kSuS + col] = acc[n2][2];
+    su[(r0 + 8) * L::kSuS + col + 1] = acc[n2][3];
+  }
+  if (t == 0) {
+    smem[L::kScore + r0] = sc[0] + cc[0];
+    smem[L::kScore + r0 + 8] = sc[1] + cc[1];
+  }
+  __syncthreads();
+}
+
+// Row `row`'s sums after tc_score_block, turned in place into the rows'
+// own frame (su = su~ + c rowsum at f < F): returns them, su then rowsum
+// at F, in shared memory.
+template <int FP>
+__device__ __forceinline__ float* tc_row_sums(float* smem, int row, int F) {
+  using L = TcSmem<FP>;
+  float* r = smem + L::kSu + row * L::kSuS;
+  const float rowsum = r[F];
+#pragma unroll
+  for (int f = 0; f < FP; ++f)
+    if (f < F) r[f] = fmaf(smem[L::kCen + f], rowsum, r[f]);
+  return r;
+}
+
+}  // namespace diffco

@@ -82,6 +82,37 @@ def multi_plan(P: int, C: int) -> dict:
                 warps_per_sm=blocks * MULTI_THREADS // 32)
 
 
+# csrc/tc_score_block.cuh's block (kTcRows, kTcThreads, kTcChunk, two
+# blocks per SM by its launch bound, kTcGuard), mirrored for B1's launch plan as
+# dh_score_plan gives it on the card (test_dh_score_plan_matches_the_card);
+# a change to TcSmem's layout is made here too.
+TC_ROWS, TC_THREADS, TC_CHUNK, TC_MIN_BLOCKS = 128, 256, 32, 2
+TC_GUARD = 1 / 64   # kTcGuard, the near-pair guard's threshold
+
+
+def dh_tc_plan(P: int) -> dict:
+    """B1's launch plan (``csrc/dh_score.cu`` on the tensor-core block) for
+    P control points: dynamic shared bytes per block (``TcSmem<FP>`` and
+    the rows' joint axes and origins, ``DhSmem<FP>``), and
+    the blocks and warps per SM that the register bound and shared memory
+    allow."""
+    fp = (3 * P + 7) // 8 * 8
+    K, R = TC_CHUNK, TC_ROWS
+    area = fp + 2 * R + R * (fp + 1)       # centre, |x~|^2, x~ rows
+    # raw double buffer, weights, both B fragments, (|s~|^2, w)
+    loop = area + 2 * K * fp + 2 * K + 2 * K * fp + 2 * K * (fp + 8) \
+        + 2 * K
+    sums = area + R * (fp + 9) + R         # after the loop: sums, scores
+    axes = R * (6 * MAX_J + 1)             # csrc/dh_score.cu: az, ao per row
+    smem = 4 * (max(loop, sums) + axes)
+    blocks = min(TC_MIN_BLOCKS,
+                 SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED),
+                 SM_MAX_THREADS // TC_THREADS)
+    return dict(fp=fp, smem_bytes=smem, blocks_per_sm=blocks,
+                warps_per_sm=blocks * TC_THREADS // 32,
+                threads=TC_THREADS, rows=TC_ROWS)
+
+
 class DHSpec(ctypes.Structure):
     """Mirror of ``struct DHSpec`` in csrc/dh_chain.cuh."""
     _fields_ = [('J', ctypes.c_int),
@@ -182,6 +213,14 @@ def _bind(libs):
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
                    ctypes.POINTER(DHSpec), ptr]
     fn.restype = cint
+    # B1's measurement build (the near-pair guard's count) and its plan
+    fn = libs['dh_score'].dh_score_grad_guard
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, ctypes.c_float, ptr,
+                   ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
+    fn = libs['dh_score'].dh_score_plan
+    fn.argtypes = [cint, ctypes.POINTER(cint)]
+    fn.restype = cint
     fn = libs['chain_score'].chain_score_grad
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
                    ctypes.POINTER(ChainSpec), ptr]
@@ -233,6 +272,16 @@ def dh_multi_plan_on_card(P: int, C: int) -> dict:
     """``multi_plan``'s numbers as B4's build and the card's occupancy
     calculator give them (needs the card)."""
     return _multi_plan_on_card('dh_multi_score', P, C)
+
+
+def dh_score_plan_on_card(P: int) -> dict:
+    """``dh_tc_plan``'s numbers as B1's build and the card's occupancy
+    calculator give them (needs the card)."""
+    out = (ctypes.c_int * 4)()
+    raise_on_error('dh_score_plan', build()['dh_score'].dh_score_plan(P, out))
+    return dict(fp=(3 * P + 7) // 8 * 8, smem_bytes=out[0],
+                blocks_per_sm=out[1], warps_per_sm=out[1] * out[2] // 32,
+                threads=out[2], rows=out[3])
 
 
 def check_cuda_inputs(name, *tensors):

@@ -15,6 +15,14 @@ these functions from each run's inputs;
 
 prints the bounds of all seven at the shapes PERF.md states (no card
 needed: this is arithmetic on shapes).
+
+B1 runs its two matrix products on the tensor cores (``csrc/dh_score.cu``
+on ``csrc/tc_score_block.cuh``), so its least time on that route is
+``dh_tc_bound``: the larger of the bytes over HBM, the two products in
+3xTF32 over the TF32 peak, and the per-pair work left on the CUDA cores
+over the fp32 peak. Its fp32 bound (the one above) stays beside it, and
+B2-B7 keep theirs: a bound that assumes no tensor cores would be beaten
+by a kernel that uses them.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import json
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W)
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_TF32_FLOPS = 495e12   # dense, tensor cores
 
 
 def bound(bytes_moved, ops):
@@ -31,6 +40,41 @@ def bound(bytes_moved, ops):
     t_ops = ops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes > t_ops
                                        else 'operations')
+
+
+def tc_product_ops(B, S, F):
+    """The two products of the tensor-core score block, as 3xTF32 runs
+    them (3 products each): the cross term x . s (2F a pair) and the
+    [s w | w] sums (2 (F + 1) a pair)."""
+    return 3 * B * S * (2 * F + 2 * (F + 1))
+
+
+# per pair on the CUDA cores beside the products: d2 from the norms and
+# the cross term (3), clamp and floor (2), rsqrt (1), r (1), w r into the
+# score (2), and rinv split into TF32 hi and lo (3)
+TC_PAIR_OPS = 12
+
+
+def dh_tc_times(B, S, F, J, P):
+    """B1's least times on the tensor-core route, in ms: 'bytes' (over
+    HBM), 'tensor' (``tc_product_ops`` over the TF32 peak) and 'fp32' (per
+    configuration FK and backward, ``dh_ops``, and |x~|^2 (2F), per
+    support |s~|^2 (2F), and ``TC_PAIR_OPS`` a pair, over the fp32
+    peak)."""
+    return dict(
+        bytes=fk_score_bytes(B, S, F, J) / PEAK_HBM_BYTES * 1e3,
+        tensor=tc_product_ops(B, S, F) / PEAK_TF32_FLOPS * 1e3,
+        fp32=(B * S * TC_PAIR_OPS + B * (dh_ops(J, P) + 2 * F) + S * 2 * F)
+        / PEAK_FP32_FLOPS * 1e3)
+
+
+def dh_tc_bound(B, S, F, J, P):
+    """(least ms, 'bytes' or 'operations') of B1 on the tensor-core route:
+    the largest of ``dh_tc_times`` (its operations on the tensor cores and
+    on the CUDA cores run side by side)."""
+    t = dh_tc_times(B, S, F, J, P)
+    ms = max(t.values())
+    return ms, 'bytes' if ms == t['bytes'] else 'operations'
 
 
 def score_ops(B, S, F, C=1):
@@ -129,6 +173,9 @@ def table():
 
     put('B1', fk_score_bytes(B, S, F, J),
         score_ops(B, S, F) + B * dh_ops(J, P), dict(B=B, S=S, J=J, F=F))
+    ms, by = dh_tc_bound(B, S, F, J, P)
+    rows['B1']['bound_tc_ms'], rows['B1']['bound_tc_by'] = ms, by
+    rows['B1']['bound_tc_times_ms'] = dh_tc_times(B, S, F, J, P)
     put('B2', 4 * (B * F + S * F + S + B + B * F), score_ops(B, S, F),
         dict(B=B, S=S, F=F))
     put('B3', fk_score_bytes(B, S, 24, 7),

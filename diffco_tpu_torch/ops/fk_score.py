@@ -148,11 +148,29 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
 def dh_score_grad(q, s, w, spec):
     """Score and configuration gradient in one pass: q [B, J] ->
     (score [B], dq [B, J]). A CUDA tensor launches ``csrc/dh_score.cu``
-    (or raises); a CPU tensor runs the plain twin."""
+    (the tensor-core kernel, ``csrc/tc_score_block.cuh``) or raises; a CPU
+    tensor runs the plain twin."""
     if q.device.type == 'cpu':
         return _dh_score_grad_plain(q, s, w, spec)
     c = _c_spec(spec)
     return _launch('dh_score_grad', 'dh_score', q, s, w, c, c.J, c.P)
+
+
+def dh_score_guard_pairs(q, s, w, spec, kappa):
+    """B1's kernel in its measurement build (``dh_score_grad_guard``) with
+    the near-pair guard at threshold ``kappa`` (``csrc/tc_score_block.cuh``
+    recomputes d2 by direct difference where the expanded form falls below
+    kappa (|x~|^2 + |s~|^2)): (score [B], dq [B, J], the number of
+    (configuration, support) pairs the guard recomputed). A measurement
+    entry for float32 CUDA tensors; production launches go through
+    ``dh_score_grad`` and are the only ones counted."""
+    c = _c_spec(spec)
+    pairs = torch.zeros(1, dtype=torch.int64, device=q.device)
+    score, dq = _launch('dh_score_grad', 'dh_score', q, s, w, c, c.J, c.P,
+                        ctypes.c_float(kappa), pairs.data_ptr(),
+                        entry='dh_score_grad_guard', counts={
+                            'dh_score_grad_launches': 0})
+    return score, dq, int(pairs.item())
 
 
 def _per_class(x, s, W, vjp):

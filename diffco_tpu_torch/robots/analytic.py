@@ -180,6 +180,23 @@ _PANDA_LIMITS = [[-2.8973, 2.8973],
                  [-2.8973, 2.8973]]
 
 
+def panda_with_points(P: int) -> DHChainRobot:
+    """PandaFK's chain with P control points (7 to 16): its own 7, then
+    P - 7 more at fixed offsets in frames 2-7, ordered by frame. No robot
+    of the catalogue has more than 7 DH points; this one reaches the DH
+    kernels' instances for 3P padded to 32, 40 and 48 components."""
+    robot = PandaFK()
+    n = len(robot._dh_const)
+    extra = tuple((2 + k % (n - 1), (0.04 * (1 + k % 3), 0.03 * (k % 2),
+                                     0.02 * (1 + k % 4)))
+                  for k in range(P - 7))
+    robot._point_specs = tuple(sorted(robot._point_specs + extra,
+                                      key=lambda s: s[0]))
+    robot._fkine_flat = make_dh_fkine(
+        robot._dh_const, robot._point_specs, base=robot._base_soa())
+    return robot
+
+
 class PandaFK(DHChainRobot):
     """7-DOF Franka Panda with two extra gripper-finger control points:
     5 masked frames plus 2 finger points on frame 7 (F = 21)."""

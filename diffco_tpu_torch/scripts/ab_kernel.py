@@ -1,11 +1,13 @@
 """A/B of the multi-class kernels B5 (``csrc/chain_multi_score.cu``) and
-B4 (``csrc/dh_multi_score.cu``) against other builds of the same C entry,
-on one card in one process.
+B4 (``csrc/dh_multi_score.cu``), and of B1 (``csrc/dh_score.cu``), against
+other builds of the same C entry, on one card in one process.
 
-    python3 -m diffco_tpu_torch.scripts.ab_kernel [--kernel chain|dh] \
+    python3 -m diffco_tpu_torch.scripts.ab_kernel [--kernel chain|dh|b1] \
         --source OTHER.cu [--classes 5 8] [--out PATH]
     python3 -m diffco_tpu_torch.scripts.ab_kernel [--kernel chain|dh] \
         --ablate noA noB ...
+    python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b1 \
+        --ablate directDist noP2 noGuard tf32x1 noEpilogue noFK noLoop
 
 ``--source OTHER.cu`` is any source that defines the kernel's C entry
 (``chain_multi_score_grad`` or ``dh_multi_score_grad``) with the
@@ -23,7 +25,19 @@ outputs allocated per call.
 Shapes (seeds fixed; supports are FK points of random configurations,
 weights N(0, 0.05^2)): ``chain`` is the FrankaPanda multi-class path's
 (B = 65573, S = 1024, C = 5 and 8 by default), ``dh`` chip_smoke's B4
-row on PandaFK (B = 65573, S = 512, C = 1, 2, 3, 5 and 8). Each build is
+row on PandaFK (B = 65573, S = 512, C = 1, 2, 3, 5 and 8), ``b1``
+chip_smoke's B1 row (PandaFK, B = 65573, S = 512, one weight column).
+
+B1's ablations (``B1_ABLATIONS``) change one part of the tensor-core
+block: ``directDist`` computes every d2 by direct difference (product 1
+off: the block's step A), ``noP2`` takes product 2 out (the gradient
+sums), ``noGuard`` never takes the near-pair guard, ``tf32x1`` runs both
+products in plain TF32 instead of 3xTF32, ``noEpilogue`` leaves out the
+backward, ``noFK`` the FK (the rows' points stay zero), ``noLoop`` the support loop's products and pair work (what
+remains is staging, FK, centring and the epilogue). ``directDist`` and ``tf32x1``
+compute the function and their error against the twin (and a float64
+twin) is reported beside their time, which shows what the split buys;
+none of them is held to the tolerance. Each build is
 timed against the production kernel in turns (production, other, other,
 production; CUDA events, 50 launches after 5 warm-ups each), and each C
 records the production launch plan (``_native.*_multi_plan_on_card``).
@@ -55,6 +69,8 @@ KERNELS = {
                   entry='chain_multi_score_grad', S=1024, classes=(5, 8)),
     'dh': dict(source='dh_multi_score.cu', entry='dh_multi_score_grad',
                S=512, classes=(1, 2, 3, 5, 8)),
+    'b1': dict(source='dh_score.cu', entry='dh_score_grad', S=512,
+               classes=None),
 }
 _MSB = 'multi_score_block.cuh'
 # name -> [(file, text, replacement)]: each takes one part of the kernel
@@ -79,6 +95,24 @@ ABLATIONS = {
     'noSums': [(_MSB, 'for (int g = 0; g < FP / 4; ++g) {',
                 'for (int g = 0; g < 0; ++g) {')],
     'noEpilogue': [(None, 'if (slot >= cg) return;', 'return;')],
+}
+_TCB = 'tc_score_block.cuh'
+B1_ABLATIONS = {
+    'directDist': [(_TCB, 'constexpr bool kTcDist = true;',
+                    'constexpr bool kTcDist = false;')],
+    'noP2': [(_TCB, 'if (n2 < nt2)\n', 'if (n2 < 0)\n')],
+    'noEpilogue': [(None, 'if (tid < kTcRows) {  // the epilogue',
+                    'if (false) {  // the epilogue')],
+    'noLoop': [(_TCB, 'for (int nt = 0; nt < K / 8; ++nt) {',
+                'for (int nt = 0; nt < 0; ++nt) {')],
+    'noFK': [(None, '''    dh_chain<KP>(qr, sp, xrow, axes, axes + 3 * kMaxJ);
+  }
+  tc_score_block''', '''  }
+  tc_score_block''')],
+    'noGuard': [(_TCB, 'if (fminf(fminf(slack[0], slack[1]), fminf(slack[2], slack[3])) <',
+                 'if (false &&')],
+    'tf32x1': [(_TCB, 'constexpr int kTcSplit = 3;',
+                'constexpr int kTcSplit = 1;')],
 }
 
 
@@ -114,14 +148,21 @@ def _build_all(sources, entry):
     return fns
 
 
+def ablation_table(kernel):
+    """The named ablations a kernel takes: B1_ABLATIONS for ``b1``,
+    ABLATIONS for the multi-class kernels."""
+    return B1_ABLATIONS if kernel == 'b1' else ABLATIONS
+
+
 def _ablated(name, kernel):
-    """csrc/ copied to the build directory with ABLATIONS[name] applied;
-    the path of the kernel's source there."""
+    """csrc/ copied to the build directory with the ablation ``name``
+    (ABLATIONS, or B1_ABLATIONS for b1) applied; the path of the kernel's
+    source there."""
     source = KERNELS[kernel]['source']
     d = _native._BUILD / f'ablate-{kernel}-{name}'
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_native._CSRC, d)
-    for fname, text, repl in ABLATIONS[name]:
+    for fname, text, repl in ablation_table(kernel)[name]:
         path = d / (fname or source)
         body = path.read_text()
         if body.count(text) != 1:
@@ -165,9 +206,73 @@ def _setup(kernel, dev, g):
             _native.dh_multi_plan_on_card)
 
 
+def _errors(score, dq, ref, ref_dq):
+    return dict(max_abs_err=max(float((score - ref).abs().max()),
+                                float((dq - ref_dq).abs().max())),
+                within_tol=bool(
+                    torch.allclose(score, ref, rtol=1e-4, atol=1e-4)
+                    and torch.allclose(dq, ref_dq, rtol=1e-3, atol=1e-3)))
+
+
+def run_b1(builds):
+    """B1: {name: (source, check)} timed against production, with each
+    build's error against the fp32 twin and relative to a float64 twin
+    (max |diff| / max |twin| for score and dq). A build with ``check``
+    (another build of the C entry) must agree with the twin; an ablation
+    is reported only."""
+    dev = torch.device('cuda')
+    entry = KERNELS['b1']['entry']
+    libs = _build_all([src for src, _ in builds.values()], entry)
+    g = torch.Generator().manual_seed(0)
+    robot = PandaFK()
+    spec = fk_score.robot_spec(robot)
+    c = fk_score._c_spec(spec)
+    S = KERNELS['b1']['S']
+    q = robot.rand_configs(B, g, dev)
+    sup = robot.fkine(robot.rand_configs(S, g, dev), flat=True).contiguous()
+    w = (torch.randn(S, generator=g) * 0.05).to(dev)
+    ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
+    r64, r64_dq = fk_score._dh_score_grad_plain(q.double(), sup.double(),
+                                                w.double(), spec)
+
+    def prod():
+        return fk_score.dh_score_grad(q, sup, w, spec)
+
+    res = dict(kernel='b1', shape=dict(B=B, S=S, P=c.P, J=c.J),
+               plan=_native.dh_score_plan_on_card(c.P), builds={})
+    for name, (src, check) in builds.items():
+        fn = libs[src]
+
+        def alt(fn=fn):   # as the wrapper: allocate, launch, check
+            score, dq = q.new_empty(B), q.new_empty((B, c.J))
+            _native.raise_on_error(f'{entry} ({name})', fn(
+                *(t.data_ptr() for t in (q, sup, w, score, dq)), B, S,
+                ctypes.byref(c), torch.cuda.current_stream(dev).cuda_stream))
+            return score, dq
+        row = {}
+        for who, f in (('production', prod), (name, alt)):
+            score, dq = f()
+            torch.cuda.synchronize()
+            err = _errors(score, dq, ref, ref_dq)
+            if (who == 'production' or check) and not err['within_tol']:
+                raise AssertionError(f'{who} disagrees with the plain twin: '
+                                     f'{err}')
+            row[f'{who}_err'] = dict(err, rel_err_vs_float64=dict(
+                score=float((score.double() - r64).abs().max()
+                            / r64.abs().max()),
+                dq=float((dq.double() - r64_dq).abs().max()
+                         / r64_dq.abs().max())))
+        t = [_time_ms(f) for f in (prod, alt, alt, prod)]
+        res['builds'][name] = dict(row, production_ms=t[::3],
+                                   other_ms=t[1:3])
+    return res
+
+
 def run(builds, classes=None, kernel='chain'):
     """{name: (source, check)} timed against production (module
     docstring)."""
+    if kernel == 'b1':
+        return run_b1(builds)
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
     classes = classes or KERNELS[kernel]['classes']
@@ -219,10 +324,14 @@ def main(argv=None):
     ap.add_argument('--kernel', choices=KERNELS, default='chain')
     ap.add_argument('--source', action='append', default=[],
                     help='another build of the C entry (repeatable)')
-    ap.add_argument('--ablate', nargs='+', default=[], choices=ABLATIONS)
+    ap.add_argument('--ablate', nargs='+', default=[],
+                    choices=[*ABLATIONS, *B1_ABLATIONS])
     ap.add_argument('--classes', type=int, nargs='+', default=None)
     ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)
+    table = ablation_table(args.kernel)
+    if any(name not in table for name in args.ablate):
+        ap.error(f'--kernel {args.kernel} takes the ablations {list(table)}')
     builds = {src: (src, True) for src in args.source}
     builds.update({name: (_ablated(name, args.kernel), False)
                    for name in args.ablate})

@@ -8,7 +8,9 @@ one-pass FK kernel, read from its SASS.
 Compiles the source with the flags of ``ops/_native.py`` into a cubin
 (``nvcc -cubin``, so it needs the CUDA toolkit but no card), disassembles
 it with ``cuobjdump -sass`` and takes the kernel instance for ``--fp``
-components (of B4 or B5, the multi-class block's full one). Every
+components (of B4 or B5, the multi-class block's full one; of B1,
+``csrc/dh_score.cu``, the production tensor-core kernel, whose HMMA
+instructions must be there: the run fails without them). Every
 backward branch closes a loop; for each innermost loop it prints the
 opcode counts of its body. Two kinds of loop carry the per-pair work:
 
@@ -21,6 +23,14 @@ opcode counts of its body. Two kinds of loop carry the per-pair work:
   ``MULTI_ROWS`` rows (phase B: 64 FFMAs per support, 256 threads for 128
   rows), so its counts per pair are the body's x (threads / rows) /
   (FFMAs / N).
+
+In B1's tensor-core block a lane computes four pairs per n-tile of its
+support loop (one rsqrt each; two n-tiles per iteration at FP <= 32), so
+the per-pair counts are the warp's instructions per 32 pairs, as in the
+one-pair-per-thread kernels, and ``hmma_per_128_pairs`` is 4 HMMA /
+MUFU.RSQ of the loop body. The near-pair guard's direct difference is a
+call out of the loop, rarely taken: its call sites' set-up is in the
+body's static counts, the difference itself is not.
 
 The per-pair sum covers one pass over the supports; a kernel that walks
 them once per class tile (``csrc/chain_multi_score.cu`` before the
@@ -41,7 +51,7 @@ from pathlib import Path
 
 from ..ops import _native
 
-KEYS = ('LDS', 'FFMA', 'FADD', 'FMUL', 'MUFU.RSQ', 'STS', 'total')
+KEYS = ('LDS', 'FFMA', 'FADD', 'FMUL', 'MUFU.RSQ', 'HMMA', 'STS', 'total')
 
 
 def _tool(name):
@@ -128,12 +138,16 @@ def run(source, fp, product_cols=None):
     version = subprocess.run([_native._nvcc(), '--version'],
                              capture_output=True, text=True).stdout
     funcs = parse_functions(sass)
-    # a multi-class kernel's full instance, <FP, kInstFull, 0>
-    # (csrc/multi_score_block.cuh), else the one instance for FP
-    names = [n for n in funcs if '_score_grad_kernel' in n
+    # B1's production kernel <FP, false>, a multi-class kernel's full
+    # instance, <FP, kInstFull, 0> (csrc/multi_score_block.cuh), else the
+    # one instance for FP
+    names = [n for n in funcs if ('_score_grad_kernel' in n
+                                  or 'dh_score_tc_kernel' in n)
              and f'ILi{fp}E' in n]
-    name = next((n for n in names if f'ILi{fp}ELi2ELi0EE' in n),
-                names[0] if names else None)
+    name = next((n for n in names if 'dh_score_tc_kernel' in n
+                 and f'ILi{fp}ELb0EE' in n),
+                next((n for n in names if f'ILi{fp}ELi2ELi0EE' in n),
+                     names[0] if names else None))
     if name is None:
         raise RuntimeError(f'no kernel instance for FP = {fp} in {src}: '
                            f'{sorted(funcs)}')
@@ -143,8 +157,9 @@ def run(source, fp, product_cols=None):
     # the support loop: most rsqrts (an unrolled body, not its remainder)
     rsq = [lp for lp in loops if lp['body']['MUFU.RSQ']]
     chosen = []
+    rsq_loop = None
     if rsq:
-        lp = max(rsq, key=lambda lp: lp['body']['MUFU.RSQ'])
+        lp = rsq_loop = max(rsq, key=lambda lp: lp['body']['MUFU.RSQ'])
         lp['role'] = 'pairs, one per MUFU.RSQ'
         chosen.append((lp, 1.0 / lp['body']['MUFU.RSQ']))
     prod = [lp for lp in loops if not lp['body']['MUFU.RSQ']
@@ -159,6 +174,9 @@ def run(source, fp, product_cols=None):
     for lp, scale in chosen:
         for k in KEYS:
             per_pair[k] += lp['body'][k] * scale
+    tc = 'dh_score_tc_kernel' in name
+    if tc and not counts(instrs)['HMMA']:
+        raise RuntimeError(f'{name}: no HMMA instruction in its SASS')
     log = ptxas.stderr + ptxas.stdout
     regs = re.search(rf"entry function '{re.escape(name)}'.*?"
                      r'(\d+) bytes stack frame, (\d+) bytes spill stores.*?'
@@ -169,7 +187,10 @@ def run(source, fp, product_cols=None):
                             spill_bytes=int(regs.group(2)),
                             registers=int(regs.group(3))) if regs else None),
                 function=counts(instrs), loops=loops,
-                per_pair_per_pass=per_pair)
+                per_pair_per_pass=per_pair,
+                hmma_per_128_pairs=(4 * rsq_loop['body']['HMMA']
+                                    / rsq_loop['body']['MUFU.RSQ']
+                                    if tc and rsq else None))
 
 
 def main(argv=None):

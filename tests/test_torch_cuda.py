@@ -10,7 +10,7 @@ import torch
 from diffco_tpu_torch import robot_data
 from diffco_tpu_torch.ops import _native, fk_score, fused_score
 from diffco_tpu_torch.robots import PandaFK, URDFRobot
-from diffco_tpu_torch.robots.analytic import baxter_arm
+from diffco_tpu_torch.robots.analytic import baxter_arm, panda_with_points
 from diffco_tpu_torch.scripts import ab_dual_tile as ab
 from diffco_tpu_torch.scripts import roofline_fk_score as rf
 
@@ -97,17 +97,60 @@ def test_poly_score_kernel_matches_plain(cuda, B, S):
     _close(dx, ref_dx, 1e-3)
 
 
+def _near_supports(robot, q, sup, seed):
+    """Supports 0-11 (of at least 12) moved onto the FK points of
+    configurations 0-11: 0-3 exactly, 4-7 at 1e-3 and 8-11 at 1e-2."""
+    g = torch.Generator().manual_seed(seed)
+    x = robot.fkine(q[:12], flat=True)
+    d = torch.randn(x.shape, generator=g).to(x.device)
+    d = d / d.norm(dim=1, keepdim=True)
+    off = torch.tensor([0.0] * 4 + [1e-3] * 4 + [1e-2] * 4, device=x.device)
+    sup = sup.clone()
+    sup[:12] = x + off[:, None] * d
+    return sup.contiguous()
+
+
+def _close_near(score, dq, ref, ref_dq):
+    """Rows 0-3 sit on a support, where dq is divided by a distance of
+    ~1e-7 in kernel and twin alike: their dq only has to be finite."""
+    _close(score, ref, 1e-4)
+    _close(dq[4:], ref_dq[4:], 1e-3)
+    assert torch.isfinite(dq).all()
+
+
 @pytest.mark.parametrize('B,S', SHAPES)
 def test_dh_score_kernel_matches_plain(cuda, B, S):
+    """B1 against its twin; at S >= 12 configurations 0-11 sit on a
+    support or 1e-3 or 1e-2 from one (the near-pair guard's cases)."""
     robot, q, sup, w = _inputs(B, S, cuda, seed=1)
+    if S >= 12:
+        sup = _near_supports(robot, q, sup, seed=1)
     spec = fk_score.robot_spec(robot)
     before = fk_score.dh_score_grad_launches
     score, dq = fk_score.dh_score_grad(q, sup, w, spec)
     torch.cuda.synchronize()
     assert fk_score.dh_score_grad_launches == before + 1
     ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
-    _close(score, ref, 1e-4)
-    _close(dq, ref_dq, 1e-3)
+    _close_near(score, dq, ref, ref_dq)
+
+
+@pytest.mark.parametrize('P', [10, 13, 16])
+def test_dh_score_kernel_at_wide_rows(cuda, P):
+    """B1 at FP = 32, 40 and 48 (PandaFK's chain with more points), with
+    its launch plan on the card as ops/_native.py::dh_tc_plan gives it:
+    16 warps per SM."""
+    robot = panda_with_points(P)
+    g = torch.Generator().manual_seed(P)
+    q = robot.rand_configs(4096 + 5, g, cuda)
+    sup = robot.fkine(robot.rand_configs(128, g, cuda), flat=True)
+    sup = _near_supports(robot, q, sup, seed=P)
+    w = (torch.randn(128, generator=g) * 0.05).to(cuda)
+    spec = fk_score.robot_spec(robot)
+    score, dq = fk_score.dh_score_grad(q, sup, w, spec)
+    ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
+    _close_near(score, dq, ref, ref_dq)
+    plan = _native.dh_score_plan_on_card(P)
+    assert plan == _native.dh_tc_plan(P) and plan['warps_per_sm'] >= 16
 
 
 @pytest.mark.parametrize('fp', list(BAXTER_MASKS))

@@ -24,7 +24,7 @@ import torch
 from diffco_tpu_torch.ops import _native, fk_score
 from diffco_tpu_torch.robots import PandaFK
 from diffco_tpu_torch.robots.urdf import FrankaPanda
-from diffco_tpu_torch.robots.analytic import baxter_arm
+from diffco_tpu_torch.robots.analytic import baxter_arm, panda_with_points
 
 torch.set_num_threads(1)
 
@@ -275,3 +275,270 @@ def test_chain_multi_register_instance_replay_matches_plain(replay_bin,
                   fk_score._chain_multi_score_grad_plain, 2, seed=11,
                   tmp_path=tmp_path)
     assert inst == 'register'
+
+
+# ---- B1 (csrc/dh_score.cu) on the tensor-core block (csrc/tc_score_block.cuh)
+#
+# The tensor-core instructions are emulated on the host: each lane writes
+# its fragments to its warp's scratch, the warp's 32 threads meet at a
+# barrier, and each lane computes its own accumulator fragment from the
+# whole tile, with the operands cut to TF32 (their low 13 bits dropped, as
+# the tensor cores read them) and the eight products (exact in fp32) added
+# in order to the accumulator in fp32; a shuffle goes through the same
+# scratch. ``cvt.rna.tf32.f32`` is the header's own host version. The
+# emulation is not bit-exact to the tensor core, whose accumulation order
+# and rounding within a tile are not specified, so the replay is held to
+# the plain twin at the tolerances chip_smoke.py holds the card's kernel
+# to (score 1e-4, dq 1e-3 of max): 3xTF32 with fp32 accumulation lies
+# within both, plain TF32 does not.
+
+TC_PRELUDE = PRELUDE.replace('#include <algorithm>', '#include <algorithm>\n'
+                             '#include <array>\n#include <memory>') + r'''
+#define DIFFCO_REPLAY 1
+#define __noinline__
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
+inline void __syncwarp() {}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+struct WarpScratch {
+  float a[32][4], b[32][2], v[32];
+  std::barrier<>* bar;
+};
+WarpScratch g_warps[8];
+inline WarpScratch& my_warp() { return g_warps[threadIdx.x / 32]; }
+inline float tf32_cut(unsigned u) {
+  u &= 0xffffe000u;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+void diffco_replay_mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                       unsigned b1) {
+  WarpScratch& w = my_warp();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = tf32_cut(a[i]);
+  w.b[lane][0] = tf32_cut(b0);
+  w.b[lane][1] = tf32_cut(b1);
+  w.bar->arrive_and_wait();
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int m = i < 2 ? g : g + 8, n = 2 * t + (i & 1);
+    float acc = d[i];
+    for (int k = 0; k < 8; ++k) {
+      // A (m, k) lies in lane 4 (m % 8) + k % 4, register (m / 8) + 2 (k / 4);
+      // B (k, n) in lane 4 n + k % 4, register k / 4
+      const float av = w.a[4 * (m % 8) + k % 4][m / 8 + 2 * (k / 4)];
+      const float bv = w.b[4 * n + k % 4][k / 4];
+      acc += av * bv;
+    }
+    out[i] = acc;
+  }
+  w.bar->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+float diffco_replay_shfl_xor(float v, int mask) {
+  WarpScratch& w = my_warp();
+  const int lane = threadIdx.x % 32;
+  w.v[lane] = v;
+  w.bar->arrive_and_wait();
+  const float o = w.v[lane ^ mask];
+  w.bar->arrive_and_wait();
+  return o;
+}
+'''
+
+# Runs B1's kernel (its measurement build, at the production threshold):
+#   replay B S IN OUT
+# IN holds the DHSpec, then q [B, J], s [S, 3P], w [S] (float32); OUT gets
+# the guard's recomputations (int64), score [B] and dq [B, J].
+TC_RUNNER = r'''
+alignas(16) float diffco_tc_smem[1 << 15];
+
+template <int FP>
+void run_tc(const std::vector<float>& q, const std::vector<float>& s,
+            const std::vector<float>& w, std::vector<float>& score,
+            std::vector<float>& dq, int B, int S, const diffco::DHSpec& sp,
+            unsigned long long* guard) {
+  static_assert(diffco::DhSmem<FP>::kBytes <= 4 * (1 << 15), "smem");
+  const int nblocks = (B + diffco::kTcRows - 1) / diffco::kTcRows;
+  for (int blk = 0; blk < nblocks; ++blk) {
+    std::fill(std::begin(diffco_tc_smem), std::end(diffco_tc_smem),
+              std::nanf(""));
+    std::barrier<> bar(diffco::kTcThreads);
+    g_barrier = &bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    for (int i = 0; i < diffco::kTcThreads / 32; ++i) {
+      warp_bars.emplace_back(new std::barrier<>(32));
+      g_warps[i].bar = warp_bars.back().get();
+    }
+    std::vector<std::thread> threads;
+    for (int t = 0; t < diffco::kTcThreads; ++t)
+      threads.emplace_back([&, t] {
+        threadIdx = Dim3{unsigned(t), 0u, 0u};
+        blockIdx = Dim3{unsigned(blk), 0u, 0u};
+        blockDim = Dim3{unsigned(diffco::kTcThreads), 1u, 1u};
+        diffco::dh_score_tc_kernel<FP, true>(
+            q.data(), s.data(), w.data(), score.data(), dq.data(), B, S, sp,
+            diffco::kTcGuard, guard);
+      });
+    for (auto& th : threads) th.join();
+  }
+}
+
+template <class T>
+std::vector<T> take(FILE* f, size_t n) {
+  std::vector<T> v(n);
+  if (n && fread(v.data(), sizeof(T), n, f) != n) std::exit(3);
+  return v;
+}
+
+int main(int argc, char** argv) {
+  if (argc == 2 && std::string(argv[1]) == "plan") {
+    // the kernel's shared bytes at FP = 8, 16, ..., 48
+    for (int b : {diffco::DhSmem<8>::kBytes, diffco::DhSmem<16>::kBytes,
+                  diffco::DhSmem<24>::kBytes, diffco::DhSmem<32>::kBytes,
+                  diffco::DhSmem<40>::kBytes, diffco::DhSmem<48>::kBytes})
+      std::printf("%d\n", b);
+    std::printf("%.9g\n", diffco::kTcGuard);
+    return 0;
+  }
+  if (argc != 5) return 2;
+  const int B = std::atoi(argv[1]), S = std::atoi(argv[2]);
+  FILE* in = std::fopen(argv[3], "rb");
+  if (!in) return 2;
+  const diffco::DHSpec sp = take<diffco::DHSpec>(in, 1)[0];
+  const auto q = take<float>(in, size_t(B) * sp.J);
+  const auto s = take<float>(in, size_t(S) * 3 * sp.P);
+  const auto w = take<float>(in, size_t(S));
+  std::fclose(in);
+  std::vector<float> score(B, std::nanf("")), dq(size_t(B) * sp.J,
+                                                  std::nanf(""));
+  unsigned long long guard = 0;
+  switch ((3 * sp.P + 7) / 8 * 8) {
+    case 8: run_tc<8>(q, s, w, score, dq, B, S, sp, &guard); break;
+    case 16: run_tc<16>(q, s, w, score, dq, B, S, sp, &guard); break;
+    case 24: run_tc<24>(q, s, w, score, dq, B, S, sp, &guard); break;
+    case 48: run_tc<48>(q, s, w, score, dq, B, S, sp, &guard); break;
+    default: return 4;
+  }
+  FILE* out = std::fopen(argv[4], "wb");
+  if (!out) return 2;
+  std::fwrite(&guard, sizeof(guard), 1, out);
+  std::fwrite(score.data(), sizeof(float), score.size(), out);
+  std::fwrite(dq.data(), sizeof(float), dq.size(), out);
+  std::fclose(out);
+  return 0;
+}
+'''
+
+
+def _build(tmp_path_factory, name, source):
+    """g++ -std=c++20 build of a replay source; skips without g++ or
+    C++20's <barrier>."""
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('needs g++ to replay the kernels on the CPU')
+    probe = subprocess.run([gxx, '-std=c++20', '-x', 'c++', '-fsyntax-only',
+                            '-'], input='#include <barrier>\n',
+                           capture_output=True, text=True)
+    if probe.returncode != 0:
+        pytest.skip('needs g++ with -std=c++20 and <barrier>')
+    d = tmp_path_factory.mktemp(name)
+    src, exe = d / 'replay.cpp', d / 'replay'
+    src.write_text(source)
+    build = subprocess.run(
+        [gxx, '-std=c++20', '-O1', '-pthread', '-w', '-I',
+         str(_native._CSRC), '-o', str(exe), str(src)],
+        capture_output=True, text=True, timeout=300)
+    assert build.returncode == 0, build.stderr[-4000:]
+    return exe
+
+
+@pytest.fixture(scope='module')
+def tc_replay_bin(tmp_path_factory):
+    text = (_native._CSRC / 'dh_score.cu').read_text()
+    assert text.count(LAUNCH_MARKER) == 1
+    device = text[:text.index(LAUNCH_MARKER)].replace(
+        '#include <cuda_runtime.h>', '')
+    return _build(tmp_path_factory, 'tc_block_replay',
+                  TC_PRELUDE + device + TC_RUNNER)
+
+
+def _near_support_inputs(robot, seed):
+    """q [B, J] and supports s [S, 3P] whose first rows sit on query rows'
+    FK points: supports 0-3 exactly on rows 0-3, 4-7 at 1e-3 from rows
+    4-7 and 8-11 at 1e-2 from rows 8-11 (random directions in point
+    space), the rest FK points of random configurations; w [S] ~
+    N(0, 0.05^2). numpy from a seed."""
+    lims = np.asarray(robot.joint_limits, np.float32)
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(size=(S + B, lims.shape[0])).astype(np.float32)
+    qs = u * (lims[:, 1] - lims[:, 0]) + lims[:, 0]
+    q = np.ascontiguousarray(qs[S:])
+    sup = robot.fkine(torch.from_numpy(qs[:S])).reshape(S, -1).numpy()
+    x = robot.fkine(torch.from_numpy(q[:12])).reshape(12, -1).numpy()
+    d = rng.normal(size=x.shape)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    sup[:12] = x + np.repeat([0.0, 1e-3, 1e-2], 4)[:, None] * d
+    w = (rng.normal(size=S) * 0.05).astype(np.float32)
+    return q, np.ascontiguousarray(sup, np.float32), w
+
+
+@pytest.mark.parametrize('robot_name', ['PandaFK', 'Baxter arm, 2 points',
+                                        'Baxter arm, 4 points',
+                                        'PandaFK chain, 16 points'])
+def test_dh_tc_block_replay_matches_plain(tc_replay_bin, tmp_path,
+                                          robot_name):
+    """B1 at FP = 24, 8, 16 and 48 (whose x~ fragments come from shared
+    memory) against its plain twin at B = 128 + 5 (two
+    blocks, the second nearly empty) and S = 70 (two full chunks of 32 and
+    a ragged one), shared memory filled with NaN: score 1e-4, dq 1e-3 of
+    max; on the rows that sit exactly on a support dq is ill-conditioned
+    (a distance of ~1e-7 divides it, in kernel and twin alike) and only
+    has to be finite. The near-pair guard must have recomputed those."""
+    robot = (PandaFK() if robot_name == 'PandaFK' else
+             panda_with_points(16) if robot_name.endswith('16 points') else
+             baxter_arm(BAXTER_MASKS[robot_name]))
+    spec = fk_score.robot_spec(robot)
+    q, sup, w = _near_support_inputs(robot, seed=len(robot_name))
+    src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
+    src.write_bytes(bytes(fk_score._c_spec(spec)) + q.tobytes()
+                    + sup.tobytes() + w.tobytes())
+    proc = subprocess.run([str(tc_replay_bin), str(B), str(S), str(src),
+                           str(dst)], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+    raw = dst.read_bytes()
+    guard = int(np.frombuffer(raw[:8], np.int64)[0])
+    out = np.frombuffer(raw[8:], np.float32)
+    J = q.shape[1]
+    score, dq = out[:B], out[B:].reshape(B, J)
+    assert np.isfinite(score).all() and np.isfinite(dq).all()
+    ref, ref_dq = fk_score._dh_score_grad_plain(
+        *(torch.from_numpy(a) for a in (q, sup, w)), spec)
+    ref, ref_dq = ref.numpy(), ref_dq.numpy()
+    np.testing.assert_allclose(score, ref, rtol=1e-4, atol=1e-4)
+    tol = 1e-3 * float(np.abs(ref_dq[4:]).max())
+    np.testing.assert_allclose(dq[4:], ref_dq[4:], rtol=1e-3, atol=tol)
+    assert guard >= 4, guard
+
+
+def test_dh_tc_plan_matches_the_block(tc_replay_bin):
+    """ops/_native.py::dh_tc_plan's shared bytes are those of B1's kernel
+    (csrc/dh_score.cu: csrc/tc_score_block.cuh's TcSmem<FP> and the rows'
+    joint axes) at every FP, and TC_GUARD the block's kTcGuard (on
+    the card,
+    test_dh_score_kernel_at_wide_rows holds the plan to the occupancy
+    calculator)."""
+    proc = subprocess.run([str(tc_replay_bin), 'plan'], capture_output=True,
+                          text=True, timeout=60)
+    assert proc.returncode == 0
+    *got, guard = proc.stdout.split()
+    assert [int(v) for v in got] == [_native.dh_tc_plan(P)['smem_bytes']
+                                     for P in (1, 5, 8, 10, 13, 16)]
+    assert float(guard) == np.float32(_native.TC_GUARD)
+    assert all(_native.dh_tc_plan(P)['warps_per_sm'] == 16
+               for P in range(1, 17))

@@ -250,13 +250,12 @@ def test_chain_multi_plan_fits_the_card():
 def test_ab_kernel_ablations_find_their_text():
     """Each edit of each named ablation of scripts/ab_kernel.py is to text
     that its file holds exactly once (the shared block's, or the own
-    source of each kernel, B5 and B4), so it takes out the part it
-    names."""
+    source of each kernel that takes it: B5 and B4 their ABLATIONS, B1
+    its B1_ABLATIONS), so it takes out the part it names."""
     from diffco_tpu_torch.scripts import ab_kernel
-    for name, edits in ab_kernel.ABLATIONS.items():
-        for fname, text, _ in edits:
-            files = ([fname] if fname else
-                     [k['source'] for k in ab_kernel.KERNELS.values()])
-            for f in files:
+    for kernel, spec in ab_kernel.KERNELS.items():
+        for name, edits in ab_kernel.ablation_table(kernel).items():
+            for fname, text, _ in edits:
+                f = fname or spec['source']
                 assert (_native._CSRC / f).read_text().count(text) == 1, (
-                    name, f)
+                    kernel, name, f)

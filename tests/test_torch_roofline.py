@@ -172,6 +172,22 @@ def test_ablation_bounds_extend_b1():
     assert ops == sorted(ops)
 
 
+def test_tc_bound_of_b1():
+    """B1's tensor-core bound: the two products in 3xTF32 over the TF32
+    peak set it at PandaFK's shape, below the fp32 bound that assumes no
+    tensor cores, and it is reported as 'operations'."""
+    B_, S_, F, J, P = 65536, 512, 21, 7, 7
+    assert bounds.tc_product_ops(B_, S_, F) == 3 * B_ * S_ * (4 * F + 2)
+    times = bounds.dh_tc_times(B_, S_, F, J, P)
+    ms, by = bounds.dh_tc_bound(B_, S_, F, J, P)
+    assert ms == times['tensor'] > times['fp32'] > times['bytes']
+    assert by == 'operations'
+    fp32_ms, _ = bounds.bound(bounds.fk_score_bytes(B_, S_, F, J),
+                              bounds.score_ops(B_, S_, F)
+                              + B_ * bounds.dh_ops(J, P))
+    assert ms < fp32_ms
+
+
 def test_roofline_entry_point_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(rf, 'N_SHORT', 1)
     monkeypatch.setattr(rf, 'N_LONG', 2)
