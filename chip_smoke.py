@@ -3,11 +3,12 @@
 Builds the hand-written kernels from csrc/, holds each against its plain
 PyTorch twin at the main paths' shapes (B3 and B5 on three URDF robots: a
 serial arm, a branching tree and a prismatic + mimic rig, B5 with five
-and eight classes; B4 with two and five classes; B1 and B4 also at their
-FP = 16 and 8 instances, on Baxter's arm with 4 and 2 control points, B1
-at FP = 32, 40 and 48 on PandaFK's chain with more points, and B1 with
-configurations whose points sit on a support or 1e-3 and 1e-2 from one),
-then drives five paths through the entry points a user calls:
+and eight classes, B3 also on a marked rope with 21 control points; B4
+with two and five classes; B1 and B4 also at their FP = 16 and 8
+instances, on Baxter's arm with 4 and 2 control points, B1 at FP = 32, 40
+and 48 on PandaFK's chain with more points, B2 at every FP = 8-64; B1, B2
+and B3 with rows whose points sit on a support or 1e-3 and 1e-2 from
+one), then drives five paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -32,9 +33,10 @@ Before the paths it holds B6 (every variant) against the B1 kernel and
 B1's plain twin, B1 at each block size of the sweep against the twin,
 and each B7 mode against its plain twin, at B = 65536 + 37, S = 512.
 
-On the PandaFK path's fitted sweep it also prints the share of pairs that
-B1's near-pair guard recomputes, and B1's error there, for several
-thresholds (its measurement build).
+On the PandaFK and FrankaPanda paths' fitted sweeps it also prints the
+share of pairs that the near-pair guard of the tensor-core kernels
+recomputes, and the kernel's error there, for several thresholds (their
+measurement builds): B1 and B2 on PandaFK, B3 and B2 on FrankaPanda.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after, which shows that its sweeps went through its kernels. Then
@@ -57,8 +59,10 @@ import numpy as np
 import torch
 
 from diffco_tpu_torch.ops.bounds import (ablation_work, bound, chain_ops,
-                                         dh_ops, dh_tc_bound, dh_tc_times,
-                                         fk_score_bytes, score_ops)
+                                         chain_tc_bound, dh_ops, dh_tc_bound,
+                                         dh_tc_times, fk_score_bytes,
+                                         poly_bytes, poly_tc_bound, score_ops,
+                                         tc_times)
 from diffco_tpu_torch.robots.analytic import baxter_arm
 
 # the main path's shapes (bench.py's primitive: B = 65536, S = 512)
@@ -76,9 +80,12 @@ BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
 # B1 at FP = 32, 40 and 48 (no DH robot of the catalogue reaches them):
 # PandaFK's chain with 10, 13 and 16 control points
 WIDE_POINTS = (10, 13, 16)
-# the near-pair guard's thresholds measured on the fitted PandaFK sweep
-# (csrc/tc_score_block.cuh; ops/_native.py::TC_GUARD, its kTcGuard, is
-# the production one)
+# B2 at each of its FP instances (8, 16, ..., 64), at an F that pads to it
+# (64: the full row, where product 2 takes an extra column tile)
+POLY_FS = (5, 13, 21, 32, 37, 48, 53, 64)
+# the near-pair guard's thresholds measured on the fitted PandaFK and
+# FrankaPanda sweeps, from q and from points (csrc/tc_score_block.cuh;
+# ops/_native.py::TC_GUARD, its kTcGuard, is the production one)
 GUARD_KAPPAS = (0.0, 1 / 1024, 1 / 256, 1 / 64, 1 / 16, 1 / 4)
 # B4 on PandaFK (FP = 24): C <= 2 takes the block's register instance, 3-5
 # one full pass, 8 two; on Baxter's arm each instance at FP = 16 and 8
@@ -128,7 +135,7 @@ def _ptxas_report(log):
     out, kernel, spill, stack = [], None, None, None
     for ln in log.splitlines():
         m = re.search(r'((?:poly|dh|chain)(?:_multi|_dual)?_score_grad_kernel'
-                      r'|dh_ablation_kernel|dh_score_tc_kernel)'
+                      r'|dh_ablation_kernel|(?:dh|poly|chain)_score_tc_kernel)'
                       r'I((?:L[ib]\d+E)+)E', ln)
         if 'Compiling entry function' in ln and m:
             args = re.findall(r'L[ib](\d+)E', m.group(2))
@@ -161,19 +168,26 @@ def _check_multi_ptxas(regs):
         raise AssertionError('ptxas: no multi-class kernel instance found')
 
 
+# the production instances of the kernels on the tensor-core block: B1 at
+# FP = 8-48, B2 and B3 at FP = 8-64
+TC_INSTANCES = {'dh_score_tc_kernel': set(range(8, 49, 8)),
+                'poly_score_tc_kernel': set(range(8, 65, 8)),
+                'chain_score_tc_kernel': set(range(8, 65, 8))}
+
+
 def _check_tc_ptxas(regs):
-    """B1's production instances (dh_score_tc_kernel<FP, 0>, FP = 8-48)
+    """Every production instance of B1, B2 and B3 (<FP, 0>: TC_INSTANCES)
     within the launch bound's 128 registers and unspilled, or fail."""
-    fps = set()
+    found = {k: set() for k in TC_INSTANCES}
     for line in regs:
-        m = re.match(r'dh_score_tc_kernel<(\d+),0>: (\d+) regs/(\d+) B '
-                     r'spilled', line)
+        m = re.match(r'((?:dh|poly|chain)_score_tc_kernel)<(\d+),0>: (\d+) '
+                     r'regs/(\d+) B spilled', line)
         if m:
-            fps.add(int(m.group(1)))
-            if int(m.group(2)) > 128 or int(m.group(3)) != 0:
+            found[m.group(1)].add(int(m.group(2)))
+            if int(m.group(3)) > 128 or int(m.group(4)) != 0:
                 raise AssertionError(f'ptxas: {line}')
-    if fps != {8, 16, 24, 32, 40, 48}:
-        raise AssertionError(f'ptxas: B1 instances found for FP {fps}')
+    if found != TC_INSTANCES:
+        raise AssertionError(f'ptxas: tensor-core instances found {found}')
 
 
 def _max_err(pairs):
@@ -202,28 +216,66 @@ def _inputs(robot, B, S, dev, seed):
 
 
 def check_poly_kernel(robot, dev):
-    """B2 against its plain twin at B = 65536 + 37, S = 512, F = 21."""
-    from diffco_tpu_torch.ops import fused_score
+    """B2 against its plain twin at B = 65536 + 37, S = 512, F = 21
+    (PandaFK's points), rows 0-11 on or near a support (_near_points);
+    then at every FP instance (POLY_FS) on rows uniform in a box. Prints
+    B2's launch plan as the card gives it (fails unless it is
+    ops/_native.py::poly_tc_plan's and keeps 16 warps per SM, at every
+    FP)."""
+    from diffco_tpu_torch.ops import _native, fused_score
     t0 = time.perf_counter()
     q, sup, w = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=1)
     x = robot.fkine(q, flat=True).contiguous()
+    sup = _near_points(x[:12], sup, seed=1)
     score, dx = fused_score.poly_score_grad(x, sup, w)
     ref, ref_dx = fused_score._poly_score_grad_plain(x, sup, w)
     torch.cuda.synchronize()
-    _check_close('poly_score_grad score', score, ref, 1e-4)
-    _check_close('poly_score_grad dx', dx, ref_dx, 1e-3)
-    err = _max_err([(score, ref), (dx, ref_dx)])
+    _check_near('poly_score_grad', score, dx, ref, ref_dx)
+    err = _max_err([(score, ref), (dx[4:], ref_dx[4:])])
+    plans = {}
+    for F in POLY_FS:
+        card = plans[F] = _native.poly_score_plan_on_card(F)
+        if card != _native.poly_tc_plan(F) or card['warps_per_sm'] < 16:
+            raise AssertionError(f'B2 plan {card} on the card at F = {F}, '
+                                 f'{_native.poly_tc_plan(F)} in '
+                                 'ops/_native.py::poly_tc_plan (16 warps per '
+                                 'SM at least)')
+    print(f'B2 launch plan (F = 21): {plans[21]}', flush=True)
     _phase('B2 poly_score_grad vs plain', t0, B=B_RAGGED, S=S_BENCH,
-           F=x.shape[1], max_abs_err=err)
-    return dict(args=(x, sup, w), err=err)
+           F=x.shape[1], max_abs_err=err,
+           near_support_rows='0-3 on, 4-7 at 1e-3, 8-11 at 1e-2')
+    out = dict(args=(x, sup, w), err=err, plan=plans[21])
+    for F in POLY_FS:
+        t0 = time.perf_counter()
+        g = torch.Generator().manual_seed(F)
+        xf = (torch.rand(B_CHAIN_SMALL, F, generator=g) * 1.2 - 0.3).to(dev)
+        sf = (torch.rand(S_CHAIN_SMALL, F, generator=g) * 1.2 - 0.3).to(dev)
+        sf = _near_points(xf[:12], sf, seed=F)
+        wf = (torch.randn(S_CHAIN_SMALL, generator=g) * 0.05).to(dev)
+        score, dx = fused_score.poly_score_grad(xf, sf, wf)
+        ref, ref_dx = fused_score._poly_score_grad_plain(xf, sf, wf)
+        torch.cuda.synchronize()
+        _check_near(f'poly_score_grad (F = {F})', score, dx, ref, ref_dx)
+        err = _max_err([(score, ref), (dx[4:], ref_dx[4:])])
+        out['err'] = max(out['err'], err)
+        _phase(f'B2 poly_score_grad vs plain, F = {F}, FP = '
+               f'{plans[F]["fp"]}', t0, B=B_CHAIN_SMALL, S=S_CHAIN_SMALL,
+               max_abs_err=err, warps_per_sm=plans[F]['warps_per_sm'],
+               smem_bytes=plans[F]['smem_bytes'])
+    return out
 
 
 def _near_supports(robot, q, sup, seed):
-    """Supports 0-11 moved onto the FK points of configurations 0-11:
-    0-3 exactly, 4-7 at 1e-3 and 8-11 at 1e-2 (random directions in point
-    space). Returns the new supports."""
+    """Supports 0-11 moved onto the FK points of configurations 0-11
+    (_near_points). Returns the new supports."""
+    return _near_points(robot.fkine(q[:12]).reshape(12, -1), sup, seed)
+
+
+def _near_points(x, sup, seed):
+    """Supports 0-11 moved onto the rows x [12, F]: 0-3 exactly, 4-7 at
+    1e-3 and 8-11 at 1e-2 (random directions). Returns the new
+    supports."""
     g = torch.Generator().manual_seed(seed)
-    x = robot.fkine(q[:12], flat=True)
     d = torch.randn(x.shape, generator=g).to(x.device)
     d = d / d.norm(dim=1, keepdim=True)
     off = torch.tensor([0.0] * 4 + [1e-3] * 4 + [1e-2] * 4, device=x.device)
@@ -304,13 +356,17 @@ def check_dh_kernel(robot, dev):
 
 def check_chain_kernel(dev):
     """B3 against its plain twin: FrankaPanda at B = 65536 + 37, S = 512
-    (F = 24), and the generated branching trifinger and prismatic + mimic
-    lift rig at B = 4096 + 5, S = 128, so that every joint type runs on
-    the card; then autograd through fk_polyharmonic_score_auto on
-    FrankaPanda against the kernel's dq."""
+    (F = 24), and the generated branching trifinger, prismatic + mimic
+    lift rig and marked rope (21 points on 11 moving joints: FP = 64) at
+    B = 4096 + 5, S = 128, so that every joint type runs on the card;
+    configurations 0-11 on or near a support in every case. Then autograd
+    through fk_polyharmonic_score_auto on FrankaPanda against the kernel's
+    dq. Prints B3's launch plan as the card gives it (fails unless it is
+    ops/_native.py::chain_tc_plan's, with 16 warps per SM at
+    FrankaPanda's shape)."""
     import diffco_tpu_torch as dc
     from diffco_tpu_torch import robot_data
-    from diffco_tpu_torch.ops import fk_score
+    from diffco_tpu_torch.ops import _native, fk_score
     robot_data.ensure_default_assets()
     cases = [('FrankaPanda', dc.FrankaPanda(load_gripper=True, device=dev),
               B_RAGGED, S_BENCH)]
@@ -318,29 +374,43 @@ def check_chain_kernel(dev):
         cases.append((name, dc.URDFRobot(
             f'{robot_data.data_dir}/{name}', device=dev, setup_acm=False),
             B_CHAIN_SMALL, S_CHAIN_SMALL))
+    cases.append(('marked rope', dc.URDFRobot(
+        robot_data.generate_marked_rope_urdf(), device=dev,
+        setup_acm=False), B_CHAIN_SMALL, S_CHAIN_SMALL))
     errs, out = [], None
     for seed, (name, robot, B, S) in enumerate(cases, start=5):
         t0 = time.perf_counter()
         q, sup, w = _inputs(robot, B, S, dev, seed=seed)
+        sup = _near_supports(robot, q, sup, seed=seed)
         cs = fk_score.robot_chain_statics(robot)
         score, dq = fk_score.chain_score_grad(q, sup, w, cs)
         ref, ref_dq = fk_score._chain_score_grad_plain(q, sup, w, cs)
         torch.cuda.synchronize()
-        _check_close(f'chain_score_grad score ({name})', score, ref, 1e-4)
-        _check_close(f'chain_score_grad dq ({name})', dq, ref_dq, 1e-3)
-        err = _max_err([(score, ref), (dq, ref_dq)])
+        _check_near(f'chain_score_grad ({name})', score, dq, ref, ref_dq)
+        err = _max_err([(score, ref), (dq[4:], ref_dq[4:])])
         errs.append(err)
         c = fk_score._c_chain_spec(cs)
+        card = _native.chain_score_plan_on_card(c.P, c.M)
+        if (card != _native.chain_tc_plan(c.P, c.M)
+                or (name == 'FrankaPanda' and card['warps_per_sm'] < 16)):
+            raise AssertionError(f'B3 plan {card} on the card for {name}, '
+                                 f'{_native.chain_tc_plan(c.P, c.M)} in '
+                                 'ops/_native.py::chain_tc_plan (16 warps '
+                                 'per SM at least for FrankaPanda)')
         _phase(f'B3 chain_score_grad vs plain, {name}', t0, B=B, S=S,
                D=q.shape[1], moving_joints=c.M, points=c.P,
-               max_abs_err=err)
+               max_abs_err=err, warps_per_sm=card['warps_per_sm'],
+               smem_bytes=card['smem_bytes'],
+               near_support_rows='0-3 on, 4-7 at 1e-3, 8-11 at 1e-2')
         if out is None:
+            print(f'B3 launch plan (FrankaPanda, P = {c.P}, M = {c.M}): '
+                  f'{card}', flush=True)
             qg = q.clone().requires_grad_(True)
             s_auto = fk_score.fk_polyharmonic_score_auto(qg, robot, sup, w)
             g, = torch.autograd.grad(s_auto.sum(), qg)
             _check_close('autograd through fk_polyharmonic_score_auto '
                          '(FrankaPanda)', g, dq, 1e-6)
-            out = dict(args=(q, sup, w, cs))
+            out = dict(args=(q, sup, w, cs), plan=card)
     out['err'] = max(errs)
     return out
 
@@ -704,37 +774,43 @@ def _sweeps(checker, robot, gt, dev, kernel_plain, tag):
           f'{float(ref_dq.abs().max())}, max sum_j |w_j| r_j {cond}; '
           f'max_rel_err (to max |score|, max |dq|) from q score '
           f'{_rel_err(pq[:1])} grad {_rel_err(pq[1:])}', flush=True)
-    return dict(q=q, sup=sup, w=w, ref_q=ref_q, ref_dq=ref_dq)
+    return dict(q=q, sup=sup, w=w, ref_q=ref_q, ref_dq=ref_dq,
+                x=robot.fkine(q).reshape(B_BENCH, -1).contiguous(),
+                ref_p=ref_p, ref_dx=ref_dx)
 
 
-def _guard_share(robot, fitted, tag):
-    """B1's near-pair guard on the fitted sweep: for each threshold of
-    GUARD_KAPPAS (the production one marked), the share of (configuration,
-    support) pairs it recomputes and the kernel's error against the
-    float64 twin there, from the kernel's measurement build. Fails unless
-    the production threshold's scores and dq are within the sweep's
+def _guard_share(fitted, tag, kernels):
+    """The near-pair guard of the tensor-core kernels on a fitted sweep:
+    for each of ``kernels``, (name, measurement entry run on the sweep's
+    inputs at a threshold, 'q' or 'points'), and each threshold of
+    GUARD_KAPPAS (the production one marked), the share of (row, support)
+    pairs it recomputes and the kernel's error against the float64 twin
+    there, from the kernel's measurement build. Fails unless the
+    production threshold's scores and gradients are within the sweep's
     tolerances (1e-4, 1e-3)."""
-    from diffco_tpu_torch.ops import _native, fk_score
-    spec = fk_score.robot_spec(robot)
-    q, sup, w = fitted['q'], fitted['sup'], fitted['w']
-    pairs = q.shape[0] * sup.shape[0]
-    rows = []
-    for kappa in GUARD_KAPPAS:
-        score, dq, n = fk_score.dh_score_guard_pairs(q, sup, w, spec, kappa)
-        torch.cuda.synchronize()
-        e = [(score.double(), fitted['ref_q']),
-             (dq.double(), fitted['ref_dq'])]
-        rows.append(dict(kappa=kappa, share=n / pairs, pairs=n,
-                         score_err=_max_err(e[:1]), dq_err=_max_err(e[1:])))
-        if kappa == _native.TC_GUARD:
-            _check_close(f'{tag} B1 at the production guard, score', *e[0],
-                         1e-4)
-            _check_close(f'{tag} B1 at the production guard, dq', *e[1],
-                         1e-3)
-    print(f'{tag} B1 near-pair guard on the fitted sweep ({pairs} pairs, '
-          f'production kappa = {_native.TC_GUARD}): {json.dumps(rows)}',
-          flush=True)
-    return rows
+    from diffco_tpu_torch.ops import _native
+    pairs = fitted['q'].shape[0] * fitted['sup'].shape[0]
+    out = {}
+    for name, run, frm in kernels:
+        ref = ((fitted['ref_q'], fitted['ref_dq']) if frm == 'q' else
+               (fitted['ref_p'], fitted['ref_dx']))
+        rows = out[name] = []
+        for kappa in GUARD_KAPPAS:
+            score, grad, n = run(kappa)
+            torch.cuda.synchronize()
+            e = [(score.double(), ref[0]), (grad.double(), ref[1])]
+            rows.append(dict(kappa=kappa, share=n / pairs, pairs=n,
+                             score_err=_max_err(e[:1]),
+                             grad_err=_max_err(e[1:])))
+            if kappa == _native.TC_GUARD:
+                _check_close(f'{tag} {name} at the production guard, score',
+                             *e[0], 1e-4)
+                _check_close(f'{tag} {name} at the production guard, '
+                             'gradient', *e[1], 1e-3)
+        print(f'{tag} {name} near-pair guard on the fitted sweep from {frm} '
+              f'({pairs} pairs, production kappa = {_native.TC_GUARD}): '
+              f'{json.dumps(rows)}', flush=True)
+    return out
 
 
 def _multi_sweeps(checker, robot, gt, dev, kernel_plain, tag):
@@ -821,7 +897,7 @@ def _trajopt(checker, robot, gt, dev, tag, dist_est=None, **options):
 def journey(robot, dev):
     """The PandaFK path through the entry points a user calls."""
     import diffco_tpu_torch as dc
-    from diffco_tpu_torch.ops import fk_score
+    from diffco_tpu_torch.ops import fk_score, fused_score
     env = _scene()
     gt = dc.CapsuleChainCollision(robot, link_radius=LINK_RADIUS) \
         .checker_fn(env)
@@ -834,7 +910,11 @@ def journey(robot, dev):
                      lambda q, s, w: fk_score._dh_score_grad_plain(q, s, w,
                                                                    spec),
                      'PandaFK')
-    _guard_share(robot, fitted, 'PandaFK')
+    _guard_share(fitted, 'PandaFK', [
+        ('B1', lambda k: fk_score.dh_score_guard_pairs(
+            fitted['q'], fitted['sup'], fitted['w'], spec, k), 'q'),
+        ('B2', lambda k: fused_score.poly_score_guard_pairs(
+            fitted['x'], fitted['sup'], fitted['w'], k), 'points')])
     _trajopt(checker, robot, gt, dev, 'PandaFK')
 
 
@@ -847,7 +927,7 @@ def urdf_journey(dev):
     trajectory optimization, which checks its paths URDF_TRAJ_DENSE_SUB
     points per segment."""
     import diffco_tpu_torch as dc
-    from diffco_tpu_torch.ops import fk_score
+    from diffco_tpu_torch.ops import fk_score, fused_score
     t0 = time.perf_counter()
     robot = dc.FrankaPanda(load_gripper=True, setup_acm=True,
                            link_spheres=24, device=dev)
@@ -861,9 +941,14 @@ def urdf_journey(dev):
            control_points=len(robot.unique_position_link_names))
     _fit(checker, URDF_FIT_SAMPLES, 'FrankaPanda')
     cs = fk_score.robot_chain_statics(robot)
-    _sweeps(checker, robot, gt, dev,
-            lambda q, s, w: fk_score._chain_score_grad_plain(q, s, w, cs),
-            'FrankaPanda')
+    fitted = _sweeps(checker, robot, gt, dev,
+                     lambda q, s, w: fk_score._chain_score_grad_plain(
+                         q, s, w, cs), 'FrankaPanda')
+    _guard_share(fitted, 'FrankaPanda', [
+        ('B3', lambda k: fk_score.chain_score_guard_pairs(
+            fitted['q'], fitted['sup'], fitted['w'], cs, k), 'q'),
+        ('B2', lambda k: fused_score.poly_score_guard_pairs(
+            fitted['x'], fitted['sup'], fitted['w'], k), 'points')])
     _fit(checker, URDF_TRAJ_FIT_SAMPLES, 'FrankaPanda trajopt', verify=False)
     _trajopt(checker, robot, gt, dev, 'FrankaPanda',
              dense_sub=URDF_TRAJ_DENSE_SUB)
@@ -944,9 +1029,10 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
     ``score_ops`` for the score block (with C weight columns for B4, B5),
     plus per configuration ``dh_ops`` (B1, B4, B6) or ``chain_ops`` (B3,
     B5) for the FK and its backward, or a B7 mode's ``ablation_work``
-    (diffco_tpu_torch/ops/bounds.py). B1 runs its products on the tensor
-    cores: its ``bound_ms`` is ``dh_tc_bound``, with the fp32 bound
-    beside it (``bound_fp32_ms``). B6 and B7 have one row per variant
+    (diffco_tpu_torch/ops/bounds.py). B1, B2 and B3 run their products on
+    the tensor cores: their ``bound_ms`` is the tensor-core route's
+    (``dh_tc_bound``, ``poly_tc_bound``, ``chain_tc_bound``), with the
+    fp32 bound beside it (``bound_fp32_ms``). B6 and B7 have one row per variant
     and mode."""
     from diffco_tpu_torch.ops import fk_score, fused_score
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
@@ -954,8 +1040,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
     x, sup, w = b2['args']
     B, F = x.shape
     S = sup.shape[0]
-    bound2, by2 = bound(4 * (B * F + S * F + S + B + B * F),
-                        score_ops(B, S, F))
+    bound2, by2 = poly_tc_bound(B, S, F)
+    bound2_fp32, by2_fp32 = bound(poly_bytes(B, S, F), score_ops(B, S, F))
     q, sup1, w1, spec = b1['args']
     B1, J = q.shape
     S1, F1 = sup1.shape
@@ -966,9 +1052,10 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
     q3, sup3, w3, cs = b3['args']
     B3, D = q3.shape
     S3, F3 = sup3.shape
-    bound3, by3 = bound(fk_score_bytes(B3, S3, F3, D),
-                        score_ops(B3, S3, F3)
-                        + chain_ops(fk_score._c_chain_spec(cs)) * B3)
+    c3 = fk_score._c_chain_spec(cs)
+    bound3, by3 = chain_tc_bound(B3, S3, F3, D, c3)
+    bound3_fp32, by3_fp32 = bound(fk_score_bytes(B3, S3, F3, D),
+                                  score_ops(B3, S3, F3) + chain_ops(c3) * B3)
     q4, sup4, W4, spec4 = b4['args']
     B4, J4 = q4.shape
     S4, F4 = sup4.shape
@@ -1026,7 +1113,9 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             'diffco_tpu/ops/fused_score.py:138', [B, S, F], b2,
             lambda: fused_score.poly_score_grad(x, sup, w),
             lambda: fused_score._poly_score_grad_plain(x, sup, w),
-            bound2, by2),
+            bound2, by2, bound_fp32_ms=bound2_fp32, bound_fp32_by=by2_fp32,
+            bound_times_ms=tc_times(B, S, F, poly_bytes(B, S, F), 2 * F),
+            plan=b2['plan'], warps_per_sm=b2['plan']['warps_per_sm']),
         # its launches include the roofline path's block-size sweep, so its
         # error is the largest of the production and the sweep instances
         row('dh_score_grad', 'diffco_tpu_torch/csrc/dh_score.cu',
@@ -1041,7 +1130,10 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             'diffco_tpu/ops/fk_score.py:587', [B3, S3, D], b3,
             lambda: fk_score.chain_score_grad(q3, sup3, w3, cs),
             lambda: fk_score._chain_score_grad_plain(q3, sup3, w3, cs),
-            bound3, by3),
+            bound3, by3, bound_fp32_ms=bound3_fp32, bound_fp32_by=by3_fp32,
+            bound_times_ms=tc_times(B3, S3, F3, fk_score_bytes(B3, S3, F3, D),
+                                    chain_ops(c3)),
+            plan=b3['plan'], warps_per_sm=b3['plan']['warps_per_sm']),
         row('dh_multi_score_grad', 'diffco_tpu_torch/csrc/dh_multi_score.cu',
             'diffco_tpu/ops/fk_score.py:255', [B4, S4, J4, C4], b4,
             lambda: fk_score.dh_multi_score_grad(q4, sup4, W4, spec4),

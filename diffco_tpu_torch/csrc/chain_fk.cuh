@@ -71,8 +71,8 @@ inline bool spec_ok(const ChainSpec& sp) {
 // (rotation row-major in [0..8], translation in [9..11]), its world axis
 // and origin to zo[m] (axis in [0..2], origin in [3..5]), and point k to
 // x[3k..3k+2] for k < min(P, KP). The point loop unrolls over KP so x
-// keeps constant indices (registers); fr and zo are indexed by data and
-// live in local memory.
+// keeps constant indices (registers); fr and zo are indexed by data, so
+// they live in local memory (chain_score.cu passes zo in shared memory).
 template <int KP>
 DIFFCO_HD void chain_fk(const float* qb, bool live, const ChainSpec& sp,
                         float (*fr)[12], float (*zo)[6], float* x) {

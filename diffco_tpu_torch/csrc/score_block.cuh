@@ -1,7 +1,8 @@
-// Polyharmonic DiffCo score block shared by the one-row-per-thread
-// kernels (poly_score.cu, dh_score.cu, chain_score.cu and the roofline
-// kernels; the multi-class kernels take only its TwoSum, through
-// multi_score_block.cuh).
+// Polyharmonic DiffCo score block of the one-row-per-thread design: the
+// roofline path's kernels run it (dh_score.cu's first design, the B1
+// block-size sweep; dh_ablation.cu, B7; dh_dual_score.cu, B6). The
+// production kernels take only its TwoSum (tc_score_block.cuh for B1-B3,
+// multi_score_block.cuh for B4 and B5).
 //
 // For one query x (FP components, zero-padded past F) against a chunk of
 // supports s_j with weights w_j:

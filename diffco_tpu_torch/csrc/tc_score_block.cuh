@@ -1,12 +1,15 @@
 // Tensor-core polyharmonic score block: the score of a block of query
 // rows against all supports, with both matrix products of the TPU
-// kernel on Hopper's tensor cores (dh_score.cu, B1; written to carry over
-// to the point-space and URDF-chain kernels).
+// kernels on Hopper's tensor cores. Three kernels run on it: B1
+// (dh_score.cu, DH FK + score + dq), B2 (poly_score.cu, point-space score
+// + dx) and B3 (chain_score.cu, URDF-chain FK + score + dq); each writes
+// its rows' points into the block and reads the sums back.
 //
-// Replaces, inside B1, the score block of
-// diffco_tpu/ops/fk_score.py::_make_dh_score_kernel: the cross term
-// s . x^T (fk_score.py:115-118) and the [s w | w]^T . rinv product that
-// yields su and rowsum (:129-132), both MXU products there.
+// Replaces, inside each, the score block of the TPU kernel
+// (diffco_tpu/ops/fk_score.py::_make_dh_score_kernel,
+// _make_chain_score_kernel, fused_score.py::_make_fwdgrad_kernel): the
+// cross term s . x^T (fk_score.py:115-118) and the [s w | w]^T . rinv
+// product that yields su and rowsum (:129-132), both MXU products there.
 //
 // A block holds kTcRows = 128 query rows x [FP] (zero-padded past F) and
 // kTcThreads = 256 threads, 8 warps of 16 rows. Supports and weights
@@ -28,7 +31,8 @@
 //        T_j = [s~_j w_j (F columns) | w_j | 0 ...], its F + 1 columns
 //        in n-tiles of 8 (FP / 8 tiles where F < FP, else one more)
 //
-// after which su = su~ + c rowsum and d score / d x = x rowsum - su.
+// after which su = su~ + c rowsum and d score / d x = x rowsum - su
+// (= x~ rowsum - su~).
 //
 // Both products run as mma.sync.m16n8k8 TF32 tiles with fp32
 // accumulation, in 3xTF32: each operand a is split into a_hi = tf32(a)
@@ -36,11 +40,18 @@
 // (product 1 sums the three in separate accumulators, which also keeps
 // its chains of dependent products short).
 // Plain TF32 keeps ~3 decimal digits, too few where fitted weights
-// cancel (sum_j |w_j| r_j ~ 7.5e3 against |score| ~ 1.5). |x~|^2 is
-// formed in double and kept as hi + lo floats, because its rounding
-// would enter every pair of the row alike. The score stays on the CUDA
-// cores, compensated per thread and merged with compensation across the
-// four lanes that share a row.
+// cancel (sum_j |w_j| r_j ~ 7.5e3 against |score| ~ 1.5). With
+// kChunkSums (B2 and B3 up to kTcChunkMaxFP) product 2 accumulates each
+// chunk on the tensor cores into a fresh accumulator, added to the rows'
+// running sums on the CUDA cores after the chunk: one accumulator over
+// all S supports lost ~8x more of the gradient (the tensor cores' fp32
+// accumulation rounds less well than an fp32 add; dq 8.7e-4 against
+// 7.9e-5 on the fitted FrankaPanda sweep, S = 896, PERF.md section 6).
+// B1 keeps one accumulator: the second one's registers spill there.
+// |x~|^2 is formed in double and kept as hi + lo floats, because its
+// rounding would enter every pair of the row alike. The score stays on
+// the CUDA cores, compensated per thread and merged with compensation
+// across the four lanes that share a row.
 //
 // Fragments (PTX m16n8k8 .tf32; lane = 4 g + t): A a0..a3 at (row, k) =
 // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B b0, b1 at (k, n) =
@@ -57,16 +68,19 @@
 // interleave.
 //
 // Budget: 256 threads, __launch_bounds__(256, kTcBlocksPerSM = 2), at
-// most 128 registers a thread, and 15-66 KB of dynamic shared memory
-// (TcSmem<FP>::kBytes; B1's kernel adds 25 KB for its rows' joint axes):
-// two blocks, 16 warps, per SM at every FP. x~'s fragments stay in
-// registers up to kTcRegMaxFP components; wider rows split them from
-// shared memory at each use.
+// most 128 registers a thread, and 15-84 KB of dynamic shared memory at
+// FP = 8-64 (TcSmem<FP>::kBytes; B1 adds 25 KB for its rows' joint axes,
+// B3 (6M + 1) floats a row for its joints' axes and origins): two
+// blocks, 16 warps, per SM wherever the caller's share fits. x~'s
+// fragments stay in registers up to kTcRegMaxFP components
+// (kTcChunkRegMaxFP with kChunkSums); wider rows split them from shared
+// memory at each use.
 //
 // Ragged ends: supports past S and components past F are zeros with
 // weight 0 (they add nothing, and no value the staging did not write
-// reaches an output); rows past B run on q = 0 and are masked by the
-// caller.
+// reaches an output); rows past B are the caller's (B1 and B3 run them on
+// q = 0, B2 on copies of row B - 1, so that the centre stays on the
+// data) and masked by it.
 #pragma once
 
 #include <cstring>
@@ -81,6 +95,12 @@ constexpr int kTcThreads = 256;    // 8 warps x 16 rows
 constexpr int kTcChunk = 32;       // supports per staged chunk (4 n-tiles)
 constexpr int kTcBlocksPerSM = 512 / kTcThreads;  // 16 warps per SM
 constexpr int kTcRegMaxFP = 32;    // x~ fragments in registers up to here
+// Product 2 by chunks (kChunkSums) up to kTcChunkMaxFP components, where
+// its second accumulator fits the 128 registers unspilled (ptxas on the
+// H100: FP = 56 and 64 spill 12-24 B), with x~'s fragments in registers
+// up to kTcChunkRegMaxFP (FP = 32 with them in registers spills 64-88 B).
+constexpr int kTcChunkMaxFP = 48;
+constexpr int kTcChunkRegMaxFP = 24;
 // The design's parts (scripts/ab_kernel.py's ablations replace these
 // lines in a copy): product 1 on the tensor cores (false: every d2 by
 // direct difference), 3 products per split (1: plain TF32), and the
@@ -338,14 +358,18 @@ __device__ __forceinline__ void tc_x_fragment(const float* xs, int r0, int t,
 // sums at kSu + i kSuS (su~ at f < F, rowsum at F): tc_row_sums reads
 // them. kMeasure counts the guard's recomputations into *guard_pairs,
 // with kappa in place of kTcGuard (a measurement build only).
-template <int FP, bool kMeasure>
+// kChunkSums: product 2 accumulates each chunk into a fresh accumulator
+// (file comment); x~'s fragments then stay in registers only up to
+// kTcChunkRegMaxFP components, for the registers that accumulator takes.
+template <int FP, bool kMeasure, bool kChunkSums = false>
 __device__ __forceinline__ void tc_score_block(
     const float* __restrict__ s, const float* __restrict__ w, int S, int F,
     float* smem, float kappa, unsigned long long* guard_pairs) {
   using L = TcSmem<FP>;
   constexpr int K = kTcChunk;
   constexpr int KK = L::kKK, NT2 = L::kNT2;
-  constexpr bool kXRegs = FP <= kTcRegMaxFP;
+  constexpr bool kXRegs =
+      FP <= (kChunkSums ? kTcChunkRegMaxFP : kTcRegMaxFP);
   // two n-tiles per pass of the support loop where x~'s fragments stay in
   // registers (their products and pair work interleave); one on wider
   // rows, which would spill
@@ -417,6 +441,14 @@ __device__ __forceinline__ void tc_score_block(
     __syncthreads();
     // the chunk's raw supports, for the direct differences
     const float* raw = smem + L::kRawS + (ch & 1) * K * FP;
+    // product 2 of this chunk, added to acc after it (kChunkSums)
+    float part[NT2][4];
+    if constexpr (kChunkSums) {
+#pragma unroll
+      for (int n2 = 0; n2 < NT2; ++n2)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[n2][i] = 0.f;
+    }
 #pragma unroll (kUnroll)
     for (int nt = 0; nt < K / 8; ++nt) {
       float d[4] = {0.f, 0.f, 0.f, 0.f}, ds[4] = {0.f, 0.f, 0.f, 0.f},
@@ -480,10 +512,18 @@ __device__ __forceinline__ void tc_score_block(
       tf32_split_bits({ri[0], ri[2], ri[1], ri[3]}, hi, lo);
       __syncwarp();
 #pragma unroll
-      for (int n2 = 0; n2 < NT2; ++n2)
+      for (int n2 = 0; n2 < NT2; ++n2) {
+        float(&sums)[4] = kChunkSums ? part[n2] : acc[n2];
         if (n2 < nt2)
-          mma_split(acc[n2], acc[n2], acc[n2], hi, lo,
+          mma_split(sums, sums, sums, hi, lo,
                     b2s[(nt * NT2 + n2) * 32 + lane]);
+      }
+    }
+    if constexpr (kChunkSums) {
+#pragma unroll
+      for (int n2 = 0; n2 < NT2; ++n2)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n2][i] += part[n2][i];
     }
   }
 

@@ -83,34 +83,59 @@ def multi_plan(P: int, C: int) -> dict:
 
 
 # csrc/tc_score_block.cuh's block (kTcRows, kTcThreads, kTcChunk, two
-# blocks per SM by its launch bound, kTcGuard), mirrored for B1's launch plan as
-# dh_score_plan gives it on the card (test_dh_score_plan_matches_the_card);
-# a change to TcSmem's layout is made here too.
+# blocks per SM by its launch bound, kTcGuard), mirrored for the launch
+# plans of its three kernels (B1, B2, B3) as dh_score_plan,
+# poly_score_plan and chain_score_plan give them on the card
+# (tests/test_torch_cuda.py holds each to the card); a change to TcSmem's
+# layout is made here too.
 TC_ROWS, TC_THREADS, TC_CHUNK, TC_MIN_BLOCKS = 128, 256, 32, 2
 TC_GUARD = 1 / 64   # kTcGuard, the near-pair guard's threshold
 
 
-def dh_tc_plan(P: int) -> dict:
-    """B1's launch plan (``csrc/dh_score.cu`` on the tensor-core block) for
-    P control points: dynamic shared bytes per block (``TcSmem<FP>`` and
-    the rows' joint axes and origins, ``DhSmem<FP>``), and
-    the blocks and warps per SM that the register bound and shared memory
-    allow."""
-    fp = (3 * P + 7) // 8 * 8
+def _tc_block_floats(fp: int) -> int:
+    """``TcSmem<FP>::kFloats``: the block's shared floats, the larger of
+    its layout in the support loop and after it."""
     K, R = TC_CHUNK, TC_ROWS
     area = fp + 2 * R + R * (fp + 1)       # centre, |x~|^2, x~ rows
     # raw double buffer, weights, both B fragments, (|s~|^2, w)
     loop = area + 2 * K * fp + 2 * K + 2 * K * fp + 2 * K * (fp + 8) \
         + 2 * K
     sums = area + R * (fp + 9) + R         # after the loop: sums, scores
-    axes = R * (6 * MAX_J + 1)             # csrc/dh_score.cu: az, ao per row
-    smem = 4 * (max(loop, sums) + axes)
+    return max(loop, sums)
+
+
+def _tc_plan(fp: int, row_floats: int) -> dict:
+    """The plan of a kernel on the tensor-core block that adds
+    ``row_floats`` shared floats per row after ``TcSmem<FP>``: dynamic
+    shared bytes per block, and the blocks and warps per SM that the
+    register bound and shared memory allow."""
+    smem = 4 * (_tc_block_floats(fp) + TC_ROWS * row_floats)
     blocks = min(TC_MIN_BLOCKS,
                  SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED),
                  SM_MAX_THREADS // TC_THREADS)
     return dict(fp=fp, smem_bytes=smem, blocks_per_sm=blocks,
                 warps_per_sm=blocks * TC_THREADS // 32,
                 threads=TC_THREADS, rows=TC_ROWS)
+
+
+def dh_tc_plan(P: int) -> dict:
+    """B1's launch plan (``csrc/dh_score.cu``) for P control points: the
+    block's shared memory and each row's joint axes and origins
+    (``DhSmem<FP>``, 6 kMaxJ + 1 floats a row)."""
+    return _tc_plan((3 * P + 7) // 8 * 8, 6 * MAX_J + 1)
+
+
+def poly_tc_plan(F: int) -> dict:
+    """B2's launch plan (``csrc/poly_score.cu``) for F components: the
+    block's shared memory alone."""
+    return _tc_plan((F + 7) // 8 * 8, 0)
+
+
+def chain_tc_plan(P: int, M: int) -> dict:
+    """B3's launch plan (``csrc/chain_score.cu``) for P control points and
+    M moving joints: the block's shared memory and each row's joint axes
+    and origins (``ChainSmem<FP>``, 6 M + 1 floats a row)."""
+    return _tc_plan((3 * P + 7) // 8 * 8, 6 * M + 1)
 
 
 class DHSpec(ctypes.Structure):
@@ -176,23 +201,27 @@ def build():
     _BUILD.mkdir(parents=True, exist_ok=True)
     sources = sorted(_CSRC.glob('*.cu'))
     targets = {src.stem: _BUILD / f'{src.stem}-{tag}.so' for src in sources}
-    procs = []
+    procs, logs = [], []
     for src in sources:
         out = targets[src.stem]
-        if out.exists():
+        if out.exists():   # built before: its nvcc output beside it
+            log = out.with_suffix('.log')
+            logs.append(log.read_text() if log.exists() else
+                        f'== {src.name}: built before, no log\n')
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
         cmd = [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp), str(src)]
         procs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    logs, failed = [], []
+    failed = []
     for src, out, tmp, proc in procs:
         text, _ = proc.communicate()
         logs.append(f'== {src.name}\n{text}')
         if proc.returncode != 0:
             failed.append(src.name)
         else:
+            out.with_suffix('.log').write_text(logs[-1])
             os.replace(tmp, out)
     build_log = '\n'.join(logs)
     if failed:
@@ -224,6 +253,21 @@ def _bind(libs):
     fn = libs['chain_score'].chain_score_grad
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
                    ctypes.POINTER(ChainSpec), ptr]
+    fn.restype = cint
+    # B2's and B3's measurement builds (the guard's count) and plans
+    fn = libs['poly_score'].poly_score_grad_guard
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint, ctypes.c_float,
+                   ptr, ptr]
+    fn.restype = cint
+    fn = libs['poly_score'].poly_score_plan
+    fn.argtypes = [cint, ctypes.POINTER(cint)]
+    fn.restype = cint
+    fn = libs['chain_score'].chain_score_grad_guard
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, ctypes.c_float, ptr,
+                   ctypes.POINTER(ChainSpec), ptr]
+    fn.restype = cint
+    fn = libs['chain_score'].chain_score_plan
+    fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
     fn.restype = cint
     fn = libs['dh_multi_score'].dh_multi_score_grad
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
@@ -274,14 +318,33 @@ def dh_multi_plan_on_card(P: int, C: int) -> dict:
     return _multi_plan_on_card('dh_multi_score', P, C)
 
 
+def _tc_plan_on_card(lib: str, entry: str, fp: int, *args) -> dict:
+    out = (ctypes.c_int * 4)()
+    raise_on_error(entry, getattr(build()[lib], entry)(*args, out))
+    return dict(fp=fp, smem_bytes=out[0], blocks_per_sm=out[1],
+                warps_per_sm=out[1] * out[2] // 32, threads=out[2],
+                rows=out[3])
+
+
 def dh_score_plan_on_card(P: int) -> dict:
     """``dh_tc_plan``'s numbers as B1's build and the card's occupancy
     calculator give them (needs the card)."""
-    out = (ctypes.c_int * 4)()
-    raise_on_error('dh_score_plan', build()['dh_score'].dh_score_plan(P, out))
-    return dict(fp=(3 * P + 7) // 8 * 8, smem_bytes=out[0],
-                blocks_per_sm=out[1], warps_per_sm=out[1] * out[2] // 32,
-                threads=out[2], rows=out[3])
+    return _tc_plan_on_card('dh_score', 'dh_score_plan',
+                            (3 * P + 7) // 8 * 8, P)
+
+
+def poly_score_plan_on_card(F: int) -> dict:
+    """``poly_tc_plan``'s numbers as B2's build and the card's occupancy
+    calculator give them (needs the card)."""
+    return _tc_plan_on_card('poly_score', 'poly_score_plan',
+                            (F + 7) // 8 * 8, F)
+
+
+def chain_score_plan_on_card(P: int, M: int) -> dict:
+    """``chain_tc_plan``'s numbers as B3's build and the card's occupancy
+    calculator give them (needs the card)."""
+    return _tc_plan_on_card('chain_score', 'chain_score_plan',
+                            (3 * P + 7) // 8 * 8, P, M)
 
 
 def check_cuda_inputs(name, *tensors):

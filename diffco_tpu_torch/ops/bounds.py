@@ -16,13 +16,13 @@ these functions from each run's inputs;
 prints the bounds of all seven at the shapes PERF.md states (no card
 needed: this is arithmetic on shapes).
 
-B1 runs its two matrix products on the tensor cores (``csrc/dh_score.cu``
-on ``csrc/tc_score_block.cuh``), so its least time on that route is
-``dh_tc_bound``: the larger of the bytes over HBM, the two products in
-3xTF32 over the TF32 peak, and the per-pair work left on the CUDA cores
-over the fp32 peak. Its fp32 bound (the one above) stays beside it, and
-B2-B7 keep theirs: a bound that assumes no tensor cores would be beaten
-by a kernel that uses them.
+B1, B2 and B3 run their two matrix products on the tensor cores
+(``csrc/dh_score.cu``, ``poly_score.cu`` and ``chain_score.cu`` on
+``csrc/tc_score_block.cuh``), so their least time on that route is
+``tc_bound`` (``dh_tc_bound``, ``poly_tc_bound``, ``chain_tc_bound``):
+the largest of the bytes over HBM, the two products in 3xTF32 over the
+TF32 peak, and the work left on the CUDA cores over the fp32 peak. Their
+fp32 bounds (the one above) stay beside them; B4-B7 keep theirs alone.
 """
 from __future__ import annotations
 
@@ -55,26 +55,56 @@ def tc_product_ops(B, S, F):
 TC_PAIR_OPS = 12
 
 
-def dh_tc_times(B, S, F, J, P):
-    """B1's least times on the tensor-core route, in ms: 'bytes' (over
-    HBM), 'tensor' (``tc_product_ops`` over the TF32 peak) and 'fp32' (per
-    configuration FK and backward, ``dh_ops``, and |x~|^2 (2F), per
+def tc_times(B, S, F, bytes_moved, row_ops):
+    """Least times, in ms, of a kernel on the tensor-core score block
+    (``csrc/tc_score_block.cuh``: B1, B2, B3) that moves ``bytes_moved``
+    and does ``row_ops`` operations per row of its own (FK and backward,
+    or B2's dx): 'bytes' (over HBM), 'tensor' (``tc_product_ops`` over the
+    TF32 peak) and 'fp32' (per row ``row_ops`` and |x~|^2 (2F), per
     support |s~|^2 (2F), and ``TC_PAIR_OPS`` a pair, over the fp32
     peak)."""
     return dict(
-        bytes=fk_score_bytes(B, S, F, J) / PEAK_HBM_BYTES * 1e3,
+        bytes=bytes_moved / PEAK_HBM_BYTES * 1e3,
         tensor=tc_product_ops(B, S, F) / PEAK_TF32_FLOPS * 1e3,
-        fp32=(B * S * TC_PAIR_OPS + B * (dh_ops(J, P) + 2 * F) + S * 2 * F)
+        fp32=(B * S * TC_PAIR_OPS + B * (row_ops + 2 * F) + S * 2 * F)
         / PEAK_FP32_FLOPS * 1e3)
 
 
-def dh_tc_bound(B, S, F, J, P):
-    """(least ms, 'bytes' or 'operations') of B1 on the tensor-core route:
-    the largest of ``dh_tc_times`` (its operations on the tensor cores and
-    on the CUDA cores run side by side)."""
-    t = dh_tc_times(B, S, F, J, P)
+def tc_bound(B, S, F, bytes_moved, row_ops):
+    """(least ms, 'bytes' or 'operations') on the tensor-core route: the
+    largest of ``tc_times`` (its operations on the tensor cores and on the
+    CUDA cores run side by side)."""
+    t = tc_times(B, S, F, bytes_moved, row_ops)
     ms = max(t.values())
     return ms, 'bytes' if ms == t['bytes'] else 'operations'
+
+
+def dh_tc_times(B, S, F, J, P):
+    """B1's ``tc_times``: q in, score and dq out, and per configuration
+    the FK and backward (``dh_ops``)."""
+    return tc_times(B, S, F, fk_score_bytes(B, S, F, J), dh_ops(J, P))
+
+
+def dh_tc_bound(B, S, F, J, P):
+    """B1's ``tc_bound``."""
+    return tc_bound(B, S, F, fk_score_bytes(B, S, F, J), dh_ops(J, P))
+
+
+def poly_bytes(B, S, F):
+    """B2: x [B, F] + s [S, F] + w [S] in; score [B] + dx [B, F] out;
+    fp32."""
+    return 4 * (B * F + S * F + S + B + B * F)
+
+
+def poly_tc_bound(B, S, F):
+    """B2's ``tc_bound``: per row its dx, x~ rowsum - su~ (2F)."""
+    return tc_bound(B, S, F, poly_bytes(B, S, F), 2 * F)
+
+
+def chain_tc_bound(B, S, F, D, c):
+    """B3's ``tc_bound`` for a folded ``_native.ChainSpec`` ``c``: per
+    configuration the chain FK and backward (``chain_ops``)."""
+    return tc_bound(B, S, F, fk_score_bytes(B, S, F, D), chain_ops(c))
 
 
 def score_ops(B, S, F, C=1):
@@ -176,11 +206,18 @@ def table():
     ms, by = dh_tc_bound(B, S, F, J, P)
     rows['B1']['bound_tc_ms'], rows['B1']['bound_tc_by'] = ms, by
     rows['B1']['bound_tc_times_ms'] = dh_tc_times(B, S, F, J, P)
-    put('B2', 4 * (B * F + S * F + S + B + B * F), score_ops(B, S, F),
-        dict(B=B, S=S, F=F))
+    put('B2', poly_bytes(B, S, F), score_ops(B, S, F), dict(B=B, S=S, F=F))
+    rows['B2']['bound_tc_ms'], rows['B2']['bound_tc_by'] = poly_tc_bound(
+        B, S, F)
+    rows['B2']['bound_tc_times_ms'] = tc_times(B, S, F, poly_bytes(B, S, F),
+                                               2 * F)
     put('B3', fk_score_bytes(B, S, 24, 7),
         score_ops(B, S, 24) + B * chain_ops(panda),
         dict(B=B, S=S, D=7, F=24))
+    rows['B3']['bound_tc_ms'], rows['B3']['bound_tc_by'] = chain_tc_bound(
+        B, S, 24, 7, panda)
+    rows['B3']['bound_tc_times_ms'] = tc_times(
+        B, S, 24, fk_score_bytes(B, S, 24, 7), chain_ops(panda))
     put('B4', fk_score_bytes(B, S, F, J, C=2),
         score_ops(B, S, F, C=2) + B * dh_ops(J, P, C=2),
         dict(B=B, S=S, J=J, F=F, C=2))

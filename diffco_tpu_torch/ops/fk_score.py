@@ -331,11 +331,26 @@ def _chain_score_grad_plain(q, s, w, cs: ChainStatics):
 def chain_score_grad(q, s, w, cs: ChainStatics):
     """Score and configuration gradient in one pass: q [B, D] ->
     (score [B], dq [B, D]). A CUDA tensor launches ``csrc/chain_score.cu``
-    (or raises); a CPU tensor runs the plain twin."""
+    (the tensor-core kernel, ``csrc/tc_score_block.cuh``) or raises; a CPU
+    tensor runs the plain twin."""
     if q.device.type == 'cpu':
         return _chain_score_grad_plain(q, s, w, cs)
     c = _c_chain_spec(cs)
     return _launch('chain_score_grad', 'chain_score', q, s, w, c, c.D, c.P)
+
+
+def chain_score_guard_pairs(q, s, w, cs: ChainStatics, kappa):
+    """B3's kernel in its measurement build (``chain_score_grad_guard``),
+    as ``dh_score_guard_pairs`` is B1's: (score [B], dq [B, D], the
+    number of pairs the near-pair guard recomputed at threshold
+    ``kappa``). Not counted as a launch."""
+    c = _c_chain_spec(cs)
+    pairs = torch.zeros(1, dtype=torch.int64, device=q.device)
+    score, dq = _launch('chain_score_grad', 'chain_score', q, s, w, c, c.D,
+                        c.P, ctypes.c_float(kappa), pairs.data_ptr(),
+                        entry='chain_score_grad_guard', counts={
+                            'chain_score_grad_launches': 0})
+    return score, dq, int(pairs.item())
 
 
 def _chain_multi_score_grad_plain(q, s, W, cs: ChainStatics):

@@ -5,7 +5,8 @@ The serving hot path is ``score(x) = sum_j w_j ||x - s_j||`` with its
 query gradient ``dx = x * sum_j w_j / r_j - sum_j s_j w_j / r_j``. A
 float32 CUDA batch >= ``_FUSED_MIN_BATCH`` runs through
 ``poly_score_grad``, one pass that computes score and dx together (the
-hand-written CUDA kernel ``csrc/poly_score.cu`` for a CUDA tensor, its
+hand-written CUDA kernel ``csrc/poly_score.cu``, on the tensor-core score
+block ``csrc/tc_score_block.cuh``, for a CUDA tensor, its
 plain twin ``_poly_score_grad_plain`` for a CPU tensor); the autograd
 Function saves dx so the backward is a broadcast multiply. Everywhere
 else (below the gate, on the CPU, in float64, as the JAX package off its
@@ -13,6 +14,8 @@ accelerator) the plain expanded-square formulation ``_poly_score_xla``
 runs, which stays differentiable to every order in every argument.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -48,14 +51,10 @@ def _poly_score_grad_plain(x, s, w):
     return torch.cat(scores), torch.cat(dxs)
 
 
-def poly_score_grad(x, s, w):
-    """Score and gradient in one pass: x [B, F] -> (score [B], dx [B, F]).
-
-    A CUDA tensor launches ``csrc/poly_score.cu`` (or raises); a CPU tensor
-    runs the plain twin."""
-    global poly_score_grad_launches
-    if x.device.type == 'cpu':
-        return _poly_score_grad_plain(x, s, w)
+def _poly_launch(x, s, w, *args, entry='poly_score_grad'):
+    """Check B2's inputs, allocate its outputs and launch the C function
+    ``entry`` of ``csrc/poly_score.cu`` with ``args`` after F:
+    (score [B], dx [B, F])."""
     _native.check_cuda_inputs('poly_score_grad', x, s, w)
     B, F = x.shape
     S = s.shape[0]
@@ -66,15 +65,40 @@ def poly_score_grad(x, s, w):
         raise ValueError(f'poly_score_grad: F = {F} > {_native.MAX_F}')
     score = torch.empty(B, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
-    if B == 0:
-        return score, dx
-    lib = _native.build()['poly_score']
-    rc = lib.poly_score_grad(
-        x.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
-        dx.data_ptr(), B, S, F, torch.cuda.current_stream(x.device).cuda_stream)
-    _native.raise_on_error('poly_score_grad', rc)
-    poly_score_grad_launches += 1
+    if B > 0:
+        fn = getattr(_native.build()['poly_score'], entry)
+        rc = fn(x.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
+                dx.data_ptr(), B, S, F, *args,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _native.raise_on_error(entry, rc)
     return score, dx
+
+
+def poly_score_grad(x, s, w):
+    """Score and gradient in one pass: x [B, F] -> (score [B], dx [B, F]).
+
+    A CUDA tensor launches ``csrc/poly_score.cu`` (the tensor-core kernel,
+    ``csrc/tc_score_block.cuh``) or raises; a CPU tensor runs the plain
+    twin."""
+    global poly_score_grad_launches
+    if x.device.type == 'cpu':
+        return _poly_score_grad_plain(x, s, w)
+    score, dx = _poly_launch(x, s, w)
+    if x.shape[0] > 0:
+        poly_score_grad_launches += 1
+    return score, dx
+
+
+def poly_score_guard_pairs(x, s, w, kappa):
+    """B2's kernel in its measurement build (``poly_score_grad_guard``)
+    with the near-pair guard at threshold ``kappa``: (score [B], dx [B, F],
+    the number of (row, support) pairs the guard recomputed). A
+    measurement entry for float32 CUDA tensors, not counted as a launch;
+    production launches go through ``poly_score_grad``."""
+    pairs = torch.zeros(1, dtype=torch.int64, device=x.device)
+    score, dx = _poly_launch(x, s, w, ctypes.c_float(kappa),
+                             pairs.data_ptr(), entry='poly_score_grad_guard')
+    return score, dx, int(pairs.item())
 
 
 class _PolyScoreFused(torch.autograd.Function):

@@ -53,6 +53,40 @@ def generate_rope_urdf(n_links: int = 20, link_length: float = 0.05,
     return path
 
 
+def generate_marked_rope_urdf(n_links: int = 11, link_length: float = 0.08,
+                              path: str = None) -> str:
+    """The N-link rope of ``generate_rope_urdf`` with a marker link on a
+    fixed joint beside each link (off the rope's axis): 2N - 1 control
+    points on N moving joints (21 on 11 at the default), the widest point
+    rows the chain kernels take within their 16 moving joints. Returns the
+    file path."""
+    parts = ['<?xml version="1.0"?>', '<robot name="marked_rope_robot">',
+             '<link name="base"/>']
+    for i in range(1, n_links + 1):
+        parent = 'base' if i == 1 else f'link{i - 1}'
+        z = 0.0 if i == 1 else link_length
+        axis = '0 1 0' if i % 2 else '1 0 0'
+        parts.append(
+            f'<link name="link{i}"/>\n'
+            f'<link name="marker{i}"/>\n'
+            f'<joint name="joint{i}" type="continuous">\n'
+            f'  <origin xyz="0 0 {z}" rpy="0 0 0"/>\n'
+            f'  <parent link="{parent}"/>\n'
+            f'  <child link="link{i}"/>\n'
+            f'  <axis xyz="{axis}"/>\n'
+            f'</joint>\n'
+            f'<joint name="marker_joint{i}" type="fixed">\n'
+            f'  <origin xyz="0.03 0.01 {link_length / 2}" rpy="0 0 0"/>\n'
+            f'  <parent link="link{i}"/>\n'
+            f'  <child link="marker{i}"/>\n'
+            f'</joint>')
+    parts.append('</robot>')
+    if path is None:
+        path = os.path.join(data_dir, f'marked_rope_{n_links}.urdf')
+    _write(path, '\n'.join(parts))
+    return path
+
+
 def generate_two_link_urdf(path: str = None) -> str:
     """A planar 2-link arm URDF equivalent to the reference's
     2link_robot.urdf asset (two 1 m x 0.05 m box links on z-axis revolute

@@ -1,19 +1,25 @@
 """A/B of the multi-class kernels B5 (``csrc/chain_multi_score.cu``) and
-B4 (``csrc/dh_multi_score.cu``), and of B1 (``csrc/dh_score.cu``), against
-other builds of the same C entry, on one card in one process.
+B4 (``csrc/dh_multi_score.cu``), and of the tensor-core kernels B1
+(``csrc/dh_score.cu``), B2 (``csrc/poly_score.cu``) and B3
+(``csrc/chain_score.cu``), against other builds of the same C entry, on
+one card in one process.
 
-    python3 -m diffco_tpu_torch.scripts.ab_kernel [--kernel chain|dh|b1] \
-        --source OTHER.cu [--classes 5 8] [--out PATH]
+    python3 -m diffco_tpu_torch.scripts.ab_kernel \
+        [--kernel chain|dh|b1|b2|b3] --source OTHER.cu [--classes 5 8] \
+        [--out PATH]
     python3 -m diffco_tpu_torch.scripts.ab_kernel [--kernel chain|dh] \
         --ablate noA noB ...
     python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b1 \
         --ablate directDist noP2 noGuard tf32x1 noEpilogue noFK noLoop
+    python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b3 \
+        --ablate noLoop noGuard tf32x1 noFK oneAcc
 
 ``--source OTHER.cu`` is any source that defines the kernel's C entry
-(``chain_multi_score_grad`` or ``dh_multi_score_grad``) with the
-production signature, for example the file as an earlier commit had it
-(``git archive`` into an ignored directory); it is held against the plain
-twin (score 1e-4, dq 1e-3, as chip_smoke.py) before it is timed.
+(``chain_multi_score_grad``, ``dh_multi_score_grad``, ``dh_score_grad``,
+``poly_score_grad`` or ``chain_score_grad``) with the production
+signature, for example the file as an earlier commit had it (``git
+archive`` into an ignored directory); it is held against the plain twin
+(score 1e-4, gradient 1e-3, as chip_smoke.py) before it is timed.
 ``--ablate`` builds copies of ``csrc/`` with one part of the kernel taken
 out (``ABLATIONS``: phase A, phase B, the class table, the compensated
 score, the register instance's class sums, the epilogue), which
@@ -26,21 +32,30 @@ Shapes (seeds fixed; supports are FK points of random configurations,
 weights N(0, 0.05^2)): ``chain`` is the FrankaPanda multi-class path's
 (B = 65573, S = 1024, C = 5 and 8 by default), ``dh`` chip_smoke's B4
 row on PandaFK (B = 65573, S = 512, C = 1, 2, 3, 5 and 8), ``b1``
-chip_smoke's B1 row (PandaFK, B = 65573, S = 512, one weight column).
+chip_smoke's B1 row (PandaFK, B = 65573, S = 512, one weight column),
+``b2`` its B2 row (PandaFK's points of those configurations, F = 21) and
+``b3`` its B3 row (FrankaPanda, B = 65573, S = 512).
 
-B1's ablations (``B1_ABLATIONS``) change one part of the tensor-core
-block: ``directDist`` computes every d2 by direct difference (product 1
-off: the block's step A), ``noP2`` takes product 2 out (the gradient
-sums), ``noGuard`` never takes the near-pair guard, ``tf32x1`` runs both
-products in plain TF32 instead of 3xTF32, ``noEpilogue`` leaves out the
-backward, ``noFK`` the FK (the rows' points stay zero), ``noLoop`` the support loop's products and pair work (what
-remains is staging, FK, centring and the epilogue). ``directDist`` and ``tf32x1``
-compute the function and their error against the twin (and a float64
-twin) is reported beside their time, which shows what the split buys;
-none of them is held to the tolerance. Each build is
+The tensor-core block's ablations, which B1, B2 and B3 share
+(``B1_ABLATIONS``, ``B2_ABLATIONS``, ``B3_ABLATIONS``): ``noGuard`` never
+takes the near-pair guard, ``tf32x1`` runs both products in plain TF32
+instead of 3xTF32, ``noLoop`` leaves out the support loop's products and
+pair work (what remains is staging, FK, centring and the epilogue).
+B1's also: ``directDist`` computes every d2 by direct difference
+(product 1 off: the block's step A), ``noP2`` takes product 2 out (the
+gradient sums), ``noEpilogue`` leaves out the backward, ``noFK`` the FK
+(the rows' points stay zero). B3's: ``noFK`` (the chain FK out; the rows'
+points stay zero). B2's and B3's
+``oneAcc``: product 2 in one accumulator over all supports instead of one
+per chunk (the block's ``kChunkSums`` off). ``directDist`` and
+``tf32x1`` compute the function and their error against the twin (and a
+float64 twin) is reported beside their time, which shows what the split
+buys; none of them is held to the tolerance. Each build is
 timed against the production kernel in turns (production, other, other,
 production; CUDA events, 50 launches after 5 warm-ups each), and each C
-records the production launch plan (``_native.*_multi_plan_on_card``).
+records the production launch plan (``_native.*_multi_plan_on_card``;
+``dh_score_plan_on_card``, ``poly_score_plan_on_card``,
+``chain_score_plan_on_card`` for B1, B2, B3).
 The result goes to ``--out`` (default
 ``build/diffco_tpu_torch/ab_kernel-<kernel>.json``) and is printed as
 JSON with the card's name and power limit.
@@ -57,7 +72,7 @@ from pathlib import Path
 
 import torch
 
-from ..ops import _native, fk_score
+from ..ops import _native, fk_score, fused_score
 from ..robots import PandaFK
 from ..robots.urdf import FrankaPanda
 from .roofline_fk_score import card_info, write_result
@@ -70,6 +85,10 @@ KERNELS = {
     'dh': dict(source='dh_multi_score.cu', entry='dh_multi_score_grad',
                S=512, classes=(1, 2, 3, 5, 8)),
     'b1': dict(source='dh_score.cu', entry='dh_score_grad', S=512,
+               classes=None),
+    'b2': dict(source='poly_score.cu', entry='poly_score_grad', S=512,
+               classes=None),
+    'b3': dict(source='chain_score.cu', entry='chain_score_grad', S=512,
                classes=None),
 }
 _MSB = 'multi_score_block.cuh'
@@ -97,22 +116,33 @@ ABLATIONS = {
     'noEpilogue': [(None, 'if (slot >= cg) return;', 'return;')],
 }
 _TCB = 'tc_score_block.cuh'
+# the tensor-core block's parts, which B1, B2 and B3 share
+_TC_ABLATIONS = {
+    'noLoop': [(_TCB, 'for (int nt = 0; nt < K / 8; ++nt) {',
+                'for (int nt = 0; nt < 0; ++nt) {')],
+    'noGuard': [(_TCB, 'if (fminf(fminf(slack[0], slack[1]), fminf(slack[2], slack[3])) <',
+                 'if (false &&')],
+    'tf32x1': [(_TCB, 'constexpr int kTcSplit = 3;',
+                'constexpr int kTcSplit = 1;')],
+}
 B1_ABLATIONS = {
     'directDist': [(_TCB, 'constexpr bool kTcDist = true;',
                     'constexpr bool kTcDist = false;')],
     'noP2': [(_TCB, 'if (n2 < nt2)\n', 'if (n2 < 0)\n')],
     'noEpilogue': [(None, 'if (tid < kTcRows) {  // the epilogue',
                     'if (false) {  // the epilogue')],
-    'noLoop': [(_TCB, 'for (int nt = 0; nt < K / 8; ++nt) {',
-                'for (int nt = 0; nt < 0; ++nt) {')],
     'noFK': [(None, '''    dh_chain<KP>(qr, sp, xrow, axes, axes + 3 * kMaxJ);
   }
   tc_score_block''', '''  }
   tc_score_block''')],
-    'noGuard': [(_TCB, 'if (fminf(fminf(slack[0], slack[1]), fminf(slack[2], slack[3])) <',
-                 'if (false &&')],
-    'tf32x1': [(_TCB, 'constexpr int kTcSplit = 3;',
-                'constexpr int kTcSplit = 1;')],
+    **_TC_ABLATIONS,
+}
+_ONE_ACC = [(None, '(FP <= kTcChunkMaxFP)', 'false')]
+B2_ABLATIONS = {'oneAcc': _ONE_ACC, **_TC_ABLATIONS}
+B3_ABLATIONS = {
+    'oneAcc': _ONE_ACC,
+    'noFK': [(None, 'chain_fk<KP>(qb, live, sp, fr, zo, xrow);', '')],
+    **_TC_ABLATIONS,
 }
 
 
@@ -149,15 +179,17 @@ def _build_all(sources, entry):
 
 
 def ablation_table(kernel):
-    """The named ablations a kernel takes: B1_ABLATIONS for ``b1``,
-    ABLATIONS for the multi-class kernels."""
-    return B1_ABLATIONS if kernel == 'b1' else ABLATIONS
+    """The named ablations a kernel takes: B1_ABLATIONS, B2_ABLATIONS and
+    B3_ABLATIONS for ``b1``, ``b2`` and ``b3``, ABLATIONS for the
+    multi-class kernels."""
+    return {'b1': B1_ABLATIONS, 'b2': B2_ABLATIONS,
+            'b3': B3_ABLATIONS}.get(kernel, ABLATIONS)
 
 
 def _ablated(name, kernel):
-    """csrc/ copied to the build directory with the ablation ``name``
-    (ABLATIONS, or B1_ABLATIONS for b1) applied; the path of the kernel's
-    source there."""
+    """csrc/ copied to the build directory with the ablation ``name`` of
+    ``ablation_table(kernel)`` applied; the path of the kernel's source
+    there."""
     source = KERNELS[kernel]['source']
     d = _native._BUILD / f'ablate-{kernel}-{name}'
     shutil.rmtree(d, ignore_errors=True)
@@ -214,54 +246,84 @@ def _errors(score, dq, ref, ref_dq):
                     and torch.allclose(dq, ref_dq, rtol=1e-3, atol=1e-3)))
 
 
-def run_b1(builds):
-    """B1: {name: (source, check)} timed against production, with each
-    build's error against the fp32 twin and relative to a float64 twin
-    (max |diff| / max |twin| for score and dq). A build with ``check``
-    (another build of the C entry) must agree with the twin; an ablation
-    is reported only."""
-    dev = torch.device('cuda')
-    entry = KERNELS['b1']['entry']
-    libs = _build_all([src for src, _ in builds.values()], entry)
-    g = torch.Generator().manual_seed(0)
+def _single_setup(kernel, dev, g):
+    """One weight column at the kernel's shape (module docstring): (the
+    production wrapper's arguments, the wrapper, its plain twin on given
+    arguments, the C entry's arguments after the output pointers, the
+    gradient's columns, the launch plan on the card)."""
+    S = KERNELS[kernel]['S']
+    if kernel == 'b3':
+        robot = FrankaPanda(load_gripper=True, device=dev)
+        spec = fk_score.robot_chain_statics(robot)
+        c = fk_score._c_chain_spec(spec)
+        q = robot.rand_configs(B, g, dev)
+        sup = robot.fkine(robot.rand_configs(S, g, dev)).reshape(S, -1)
+        w = (torch.randn(S, generator=g) * 0.05).to(dev)
+        return ((q, sup.contiguous(), w), fk_score.chain_score_grad,
+                fk_score._chain_score_grad_plain, spec, (ctypes.byref(c),),
+                c.D, _native.chain_score_plan_on_card(c.P, c.M))
     robot = PandaFK()
     spec = fk_score.robot_spec(robot)
     c = fk_score._c_spec(spec)
-    S = KERNELS['b1']['S']
     q = robot.rand_configs(B, g, dev)
     sup = robot.fkine(robot.rand_configs(S, g, dev), flat=True).contiguous()
     w = (torch.randn(S, generator=g) * 0.05).to(dev)
-    ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
-    r64, r64_dq = fk_score._dh_score_grad_plain(q.double(), sup.double(),
-                                                w.double(), spec)
+    if kernel == 'b2':
+        x = robot.fkine(q, flat=True).contiguous()
+        F = x.shape[1]
+        return ((x, sup, w),
+                lambda x, s, w, _: fused_score.poly_score_grad(x, s, w),
+                lambda x, s, w, _: fused_score._poly_score_grad_plain(x, s, w),
+                None, (F,), F, _native.poly_score_plan_on_card(F))
+    return ((q, sup, w), fk_score.dh_score_grad,
+            fk_score._dh_score_grad_plain, spec, (ctypes.byref(c),), c.J,
+            _native.dh_score_plan_on_card(c.P))
+
+
+def run_single(builds, kernel):
+    """B1, B2 or B3: {name: (source, check)} timed against production,
+    with each build's error against the fp32 twin and relative to a
+    float64 twin (max |diff| / max |twin| for score and gradient). A build
+    with ``check`` (another build of the C entry) must agree with the
+    twin; an ablation is reported only."""
+    dev = torch.device('cuda')
+    entry = KERNELS[kernel]['entry']
+    libs = _build_all([src for src, _ in builds.values()], entry)
+    g = torch.Generator().manual_seed(0)
+    args, wrapper, plain, spec, tail, n_grad, plan = _single_setup(
+        kernel, dev, g)
+    Bq, S = args[0].shape[0], args[1].shape[0]
+    ref, ref_g = plain(*args, spec)
+    r64, r64_g = plain(*(a.double() for a in args), spec)
 
     def prod():
-        return fk_score.dh_score_grad(q, sup, w, spec)
+        return wrapper(*args, spec)
 
-    res = dict(kernel='b1', shape=dict(B=B, S=S, P=c.P, J=c.J),
-               plan=_native.dh_score_plan_on_card(c.P), builds={})
+    res = dict(kernel=kernel, shape=dict(B=Bq, S=S, F=args[1].shape[1],
+                                         grad=n_grad), plan=plan, builds={})
     for name, (src, check) in builds.items():
         fn = libs[src]
 
         def alt(fn=fn):   # as the wrapper: allocate, launch, check
-            score, dq = q.new_empty(B), q.new_empty((B, c.J))
+            score, grad = args[0].new_empty(Bq), args[0].new_empty(
+                (Bq, n_grad))
             _native.raise_on_error(f'{entry} ({name})', fn(
-                *(t.data_ptr() for t in (q, sup, w, score, dq)), B, S,
-                ctypes.byref(c), torch.cuda.current_stream(dev).cuda_stream))
-            return score, dq
+                *(t.data_ptr() for t in (*args, score, grad)), Bq, S,
+                *tail, torch.cuda.current_stream(dev).cuda_stream))
+            return score, grad
         row = {}
         for who, f in (('production', prod), (name, alt)):
-            score, dq = f()
+            score, grad = f()
             torch.cuda.synchronize()
-            err = _errors(score, dq, ref, ref_dq)
+            err = _errors(score, grad, ref, ref_g)
             if (who == 'production' or check) and not err['within_tol']:
                 raise AssertionError(f'{who} disagrees with the plain twin: '
                                      f'{err}')
             row[f'{who}_err'] = dict(err, rel_err_vs_float64=dict(
                 score=float((score.double() - r64).abs().max()
                             / r64.abs().max()),
-                dq=float((dq.double() - r64_dq).abs().max()
-                         / r64_dq.abs().max())))
+                grad=float((grad.double() - r64_g).abs().max()
+                           / r64_g.abs().max())))
         t = [_time_ms(f) for f in (prod, alt, alt, prod)]
         res['builds'][name] = dict(row, production_ms=t[::3],
                                    other_ms=t[1:3])
@@ -271,8 +333,8 @@ def run_b1(builds):
 def run(builds, classes=None, kernel='chain'):
     """{name: (source, check)} timed against production (module
     docstring)."""
-    if kernel == 'b1':
-        return run_b1(builds)
+    if kernel in ('b1', 'b2', 'b3'):
+        return run_single(builds, kernel)
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
     classes = classes or KERNELS[kernel]['classes']
@@ -325,7 +387,8 @@ def main(argv=None):
     ap.add_argument('--source', action='append', default=[],
                     help='another build of the C entry (repeatable)')
     ap.add_argument('--ablate', nargs='+', default=[],
-                    choices=[*ABLATIONS, *B1_ABLATIONS])
+                    choices=sorted({*ABLATIONS, *B1_ABLATIONS,
+                                    *B3_ABLATIONS}))
     ap.add_argument('--classes', type=int, nargs='+', default=None)
     ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)

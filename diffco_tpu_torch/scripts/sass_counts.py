@@ -8,9 +8,10 @@ one-pass FK kernel, read from its SASS.
 Compiles the source with the flags of ``ops/_native.py`` into a cubin
 (``nvcc -cubin``, so it needs the CUDA toolkit but no card), disassembles
 it with ``cuobjdump -sass`` and takes the kernel instance for ``--fp``
-components (of B4 or B5, the multi-class block's full one; of B1,
-``csrc/dh_score.cu``, the production tensor-core kernel, whose HMMA
-instructions must be there: the run fails without them). Every
+components (of B4 or B5, the multi-class block's full one; of B1, B2 and
+B3, ``csrc/dh_score.cu``, ``poly_score.cu`` and ``chain_score.cu``, the
+production tensor-core kernel, whose HMMA instructions must be there:
+the run fails without them). Every
 backward branch closes a loop; for each innermost loop it prints the
 opcode counts of its body. Two kinds of loop carry the per-pair work:
 
@@ -24,9 +25,9 @@ opcode counts of its body. Two kinds of loop carry the per-pair work:
   rows), so its counts per pair are the body's x (threads / rows) /
   (FFMAs / N).
 
-In B1's tensor-core block a lane computes four pairs per n-tile of its
-support loop (one rsqrt each; two n-tiles per iteration at FP <= 32), so
-the per-pair counts are the warp's instructions per 32 pairs, as in the
+In the tensor-core block (B1, B2, B3) a lane computes four pairs per
+n-tile of its support loop (one rsqrt each; two n-tiles per iteration
+where x~'s fragments stay in registers), so the per-pair counts are the warp's instructions per 32 pairs, as in the
 one-pair-per-thread kernels, and ``hmma_per_128_pairs`` is 4 HMMA /
 MUFU.RSQ of the loop body. The near-pair guard's direct difference is a
 call out of the loop, rarely taken: its call sites' set-up is in the
@@ -52,6 +53,9 @@ from pathlib import Path
 from ..ops import _native
 
 KEYS = ('LDS', 'FFMA', 'FADD', 'FMUL', 'MUFU.RSQ', 'HMMA', 'STS', 'total')
+# the kernels on the tensor-core block (csrc/tc_score_block.cuh)
+TC_KERNELS = ('dh_score_tc_kernel', 'poly_score_tc_kernel',
+              'chain_score_tc_kernel')
 
 
 def _tool(name):
@@ -138,13 +142,13 @@ def run(source, fp, product_cols=None):
     version = subprocess.run([_native._nvcc(), '--version'],
                              capture_output=True, text=True).stdout
     funcs = parse_functions(sass)
-    # B1's production kernel <FP, false>, a multi-class kernel's full
-    # instance, <FP, kInstFull, 0> (csrc/multi_score_block.cuh), else the
-    # one instance for FP
+    # a tensor-core kernel's production instance <FP, false> (B1, B2,
+    # B3), a multi-class kernel's full instance, <FP, kInstFull, 0>
+    # (csrc/multi_score_block.cuh), else the one instance for FP
     names = [n for n in funcs if ('_score_grad_kernel' in n
-                                  or 'dh_score_tc_kernel' in n)
+                                  or any(k in n for k in TC_KERNELS))
              and f'ILi{fp}E' in n]
-    name = next((n for n in names if 'dh_score_tc_kernel' in n
+    name = next((n for n in names if any(k in n for k in TC_KERNELS)
                  and f'ILi{fp}ELb0EE' in n),
                 next((n for n in names if f'ILi{fp}ELi2ELi0EE' in n),
                      names[0] if names else None))
@@ -174,7 +178,7 @@ def run(source, fp, product_cols=None):
     for lp, scale in chosen:
         for k in KEYS:
             per_pair[k] += lp['body'][k] * scale
-    tc = 'dh_score_tc_kernel' in name
+    tc = any(k in name for k in TC_KERNELS)
     if tc and not counts(instrs)['HMMA']:
         raise RuntimeError(f'{name}: no HMMA instruction in its SASS')
     log = ptxas.stderr + ptxas.stdout

@@ -24,7 +24,8 @@ SHAPES = [(37, 5), (300, 130), (65536 + 37, 512)]
 CHAIN_CASES = [('panda_simple.urdf', 37, 5),
                ('panda_simple.urdf', 65536 + 37, 512),
                ('trifinger_simple.urdf', 4096 + 5, 128),
-               ('lift_rig.urdf', 4096 + 5, 128)]
+               ('lift_rig.urdf', 4096 + 5, 128),
+               ('marked_rope.urdf', 4096 + 5, 128)]
 # B4 on PandaFK (FP = 24): ragged B, S off the 32-support chunk; C = 1 and
 # 2 take the block's register instance, 3 and 5 one full pass, 8 two
 DH_MULTI_CASES = [(37, 5, 1), (300, 130, 2), (65536 + 37, 512, 1),
@@ -84,24 +85,16 @@ def _close(a, b, tol):
                                atol=tol)
 
 
-@pytest.mark.parametrize('B,S', SHAPES)
-def test_poly_score_kernel_matches_plain(cuda, B, S):
-    robot, q, sup, w = _inputs(B, S, cuda)
-    x = robot.fkine(q, flat=True).contiguous()
-    before = fused_score.poly_score_grad_launches
-    score, dx = fused_score.poly_score_grad(x, sup, w)
-    torch.cuda.synchronize()
-    assert fused_score.poly_score_grad_launches == before + 1
-    ref, ref_dx = fused_score._poly_score_grad_plain(x, sup, w)
-    _close(score, ref, 1e-4)
-    _close(dx, ref_dx, 1e-3)
-
-
 def _near_supports(robot, q, sup, seed):
     """Supports 0-11 (of at least 12) moved onto the FK points of
     configurations 0-11: 0-3 exactly, 4-7 at 1e-3 and 8-11 at 1e-2."""
+    return _near_points(robot.fkine(q[:12]).reshape(12, -1), sup, seed)
+
+
+def _near_points(x, sup, seed):
+    """Supports 0-11 moved onto the rows x [12, F]: 0-3 exactly, 4-7 at
+    1e-3 and 8-11 at 1e-2 (random directions)."""
     g = torch.Generator().manual_seed(seed)
-    x = robot.fkine(q[:12], flat=True)
     d = torch.randn(x.shape, generator=g).to(x.device)
     d = d / d.norm(dim=1, keepdim=True)
     off = torch.tensor([0.0] * 4 + [1e-3] * 4 + [1e-2] * 4, device=x.device)
@@ -116,6 +109,49 @@ def _close_near(score, dq, ref, ref_dq):
     _close(score, ref, 1e-4)
     _close(dq[4:], ref_dq[4:], 1e-3)
     assert torch.isfinite(dq).all()
+
+
+@pytest.mark.parametrize('B,S', SHAPES)
+def test_poly_score_kernel_matches_plain(cuda, B, S):
+    """B2 against its twin at PandaFK's points (F = 21); at S >= 12 rows
+    0-11 sit on a support or 1e-3 or 1e-2 from one."""
+    robot, q, sup, w = _inputs(B, S, cuda)
+    x = robot.fkine(q, flat=True).contiguous()
+    if S >= 12:
+        sup = _near_points(x[:12], sup, seed=S)
+    before = fused_score.poly_score_grad_launches
+    score, dx = fused_score.poly_score_grad(x, sup, w)
+    torch.cuda.synchronize()
+    assert fused_score.poly_score_grad_launches == before + 1
+    ref, ref_dx = fused_score._poly_score_grad_plain(x, sup, w)
+    if S >= 12:
+        _close_near(score, dx, ref, ref_dx)
+    else:
+        _close(score, ref, 1e-4)
+        _close(dx, ref_dx, 1e-3)
+
+
+# B2's instances FP = 8, 16, ..., 64, each at an F that pads to it (64:
+# the full row, where product 2 takes an extra column tile)
+POLY_FS = [5, 13, 21, 32, 37, 48, 53, 64]
+
+
+@pytest.mark.parametrize('F', POLY_FS)
+def test_poly_score_kernel_at_every_fp(cuda, F):
+    """B2 at every FP instance against its twin, rows uniform in a box
+    off the origin and rows 0-11 on or near a support, with its launch
+    plan on the card as ops/_native.py::poly_tc_plan gives it: 16 warps
+    per SM."""
+    g = torch.Generator().manual_seed(F)
+    x = (torch.rand(4096 + 5, F, generator=g) * 1.2 - 0.3).to(cuda)
+    sup = (torch.rand(128, F, generator=g) * 1.2 - 0.3).to(cuda)
+    sup = _near_points(x[:12], sup, seed=F)
+    w = (torch.randn(128, generator=g) * 0.05).to(cuda)
+    score, dx = fused_score.poly_score_grad(x, sup, w)
+    ref, ref_dx = fused_score._poly_score_grad_plain(x, sup, w)
+    _close_near(score, dx, ref, ref_dx)
+    plan = _native.poly_score_plan_on_card(F)
+    assert plan == _native.poly_tc_plan(F) and plan['warps_per_sm'] >= 16
 
 
 @pytest.mark.parametrize('B,S', SHAPES)
@@ -220,8 +256,12 @@ def test_kernels_reject_what_they_cannot_take(cuda):
 
 
 def _chain_inputs(name, B, S, dev, seed=0):
-    robot = URDFRobot(os.path.join(robot_data.ensure_default_assets(), name),
-                      device=dev, setup_acm=False, link_spheres=2)
+    """``marked_rope.urdf``: robot_data.generate_marked_rope_urdf's 21
+    control points on 11 moving joints (FP = 64)."""
+    path = (robot_data.generate_marked_rope_urdf() if name ==
+            'marked_rope.urdf' else
+            os.path.join(robot_data.ensure_default_assets(), name))
+    robot = URDFRobot(path, device=dev, setup_acm=False, link_spheres=2)
     g = torch.Generator().manual_seed(seed)
     q = robot.rand_configs(B, g, dev)
     # FK of S configurations; an empty support set keeps its width F
@@ -233,15 +273,34 @@ def _chain_inputs(name, B, S, dev, seed=0):
 
 @pytest.mark.parametrize('name,B,S', CHAIN_CASES)
 def test_chain_score_kernel_matches_plain(cuda, name, B, S):
+    """B3 against its twin; at S >= 12 configurations 0-11 sit on a
+    support or 1e-3 or 1e-2 from one."""
     robot, q, sup, w = _chain_inputs(name, B, S, cuda, seed=3)
+    if S >= 12:
+        sup = _near_supports(robot, q, sup, seed=S)
     cs = fk_score.robot_chain_statics(robot)
     before = fk_score.chain_score_grad_launches
     score, dq = fk_score.chain_score_grad(q, sup, w, cs)
     torch.cuda.synchronize()
     assert fk_score.chain_score_grad_launches == before + 1
     ref, ref_dq = fk_score._chain_score_grad_plain(q, sup, w, cs)
-    _close(score, ref, 1e-4)
-    _close(dq, ref_dq, 1e-3)
+    if S >= 12:
+        _close_near(score, dq, ref, ref_dq)
+    else:
+        _close(score, ref, 1e-4)
+        _close(dq, ref_dq, 1e-3)
+
+
+def test_chain_score_plan_matches_the_card(cuda):
+    """B3's launch plan as its build and the occupancy calculator give it
+    equals ops/_native.py::chain_tc_plan's for every P and M the C entry
+    takes, and keeps 16 warps per SM at FrankaPanda's shape (P = 8,
+    M = 7)."""
+    for P in range(1, _native.MAX_CP + 1):
+        for M in range(1, _native.MAX_M + 1):
+            assert (_native.chain_score_plan_on_card(P, M)
+                    == _native.chain_tc_plan(P, M)), (P, M)
+    assert _native.chain_score_plan_on_card(8, 7)['warps_per_sm'] >= 16
 
 
 def test_chain_auto_router_gradient_is_kernel_dq(cuda):

@@ -21,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from diffco_tpu_torch.ops import _native, fk_score
-from diffco_tpu_torch.robots import PandaFK
+from diffco_tpu_torch import robot_data
+from diffco_tpu_torch.ops import _native, fk_score, fused_score
+from diffco_tpu_torch.robots import PandaFK, URDFRobot
 from diffco_tpu_torch.robots.urdf import FrankaPanda
 from diffco_tpu_torch.robots.analytic import baxter_arm, panda_with_points
 
@@ -179,19 +180,12 @@ def _device_code(name):
 def replay_bin(tmp_path_factory):
     """The replay executable, built once for the module; skips when no
     g++ with C++20 (std::barrier) is present."""
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to replay the kernels on the CPU')
+    gxx = _gxx()
     d = tmp_path_factory.mktemp('multi_block_replay')
     src = d / 'replay.cpp'
     src.write_text(PRELUDE + _device_code('dh_multi_score.cu')
                    + _device_code('chain_multi_score.cu') + RUNNER)
     exe = d / 'replay'
-    probe = subprocess.run([gxx, '-std=c++20', '-x', 'c++', '-fsyntax-only',
-                            '-'], input='#include <barrier>\n',
-                           capture_output=True, text=True)
-    if probe.returncode != 0:
-        pytest.skip('needs g++ with -std=c++20 and <barrier>')
     build = subprocess.run(
         [gxx, '-std=c++20', '-O1', '-pthread', '-w', '-I',
          str(_native._CSRC), '-o', str(exe), str(src)],
@@ -350,19 +344,16 @@ float diffco_replay_shfl_xor(float v, int mask) {
 }
 '''
 
-# Runs B1's kernel (its measurement build, at the production threshold):
-#   replay B S IN OUT
-# IN holds the DHSpec, then q [B, J], s [S, 3P], w [S] (float32); OUT gets
-# the guard's recomputations (int64), score [B] and dq [B, J].
-TC_RUNNER = r'''
-alignas(16) float diffco_tc_smem[1 << 15];
+# The block runner of the tensor-core kernels (B1, B2, B3), after their
+# device code: each block runs as its 256 threads, one block at a time,
+# with shared memory filled with NaN first; OUT gets the guard's
+# recomputations (int64), then the score and the gradient (float32).
+TC_COMMON = r'''
+alignas(16) float diffco_tc_smem[1 << 16];
 
-template <int FP>
-void run_tc(const std::vector<float>& q, const std::vector<float>& s,
-            const std::vector<float>& w, std::vector<float>& score,
-            std::vector<float>& dq, int B, int S, const diffco::DHSpec& sp,
-            unsigned long long* guard) {
-  static_assert(diffco::DhSmem<FP>::kBytes <= 4 * (1 << 15), "smem");
+template <class K>
+void run_tc_blocks(int B, int smem_bytes, K&& kernel) {
+  if (smem_bytes > int(sizeof(diffco_tc_smem))) std::exit(5);
   const int nblocks = (B + diffco::kTcRows - 1) / diffco::kTcRows;
   for (int blk = 0; blk < nblocks; ++blk) {
     std::fill(std::begin(diffco_tc_smem), std::end(diffco_tc_smem),
@@ -380,9 +371,7 @@ void run_tc(const std::vector<float>& q, const std::vector<float>& s,
         threadIdx = Dim3{unsigned(t), 0u, 0u};
         blockIdx = Dim3{unsigned(blk), 0u, 0u};
         blockDim = Dim3{unsigned(diffco::kTcThreads), 1u, 1u};
-        diffco::dh_score_tc_kernel<FP, true>(
-            q.data(), s.data(), w.data(), score.data(), dq.data(), B, S, sp,
-            diffco::kTcGuard, guard);
+        kernel();
       });
     for (auto& th : threads) th.join();
   }
@@ -395,9 +384,37 @@ std::vector<T> take(FILE* f, size_t n) {
   return v;
 }
 
+int put(const char* path, unsigned long long guard,
+        const std::vector<float>& score, const std::vector<float>& grad) {
+  FILE* out = std::fopen(path, "wb");
+  if (!out) return 2;
+  std::fwrite(&guard, sizeof(guard), 1, out);
+  std::fwrite(score.data(), sizeof(float), score.size(), out);
+  std::fwrite(grad.data(), sizeof(float), grad.size(), out);
+  std::fclose(out);
+  return 0;
+}
+'''
+
+# B1 (its measurement build, at the production threshold):
+#   replay B S IN OUT
+# IN holds the DHSpec, then q [B, J], s [S, 3P], w [S] (float32);
+# `replay plan` prints DhSmem<FP>::kBytes at FP = 8-48 and kTcGuard.
+TC_RUNNER = TC_COMMON + r'''
+template <int FP>
+void run_tc(const std::vector<float>& q, const std::vector<float>& s,
+            const std::vector<float>& w, std::vector<float>& score,
+            std::vector<float>& dq, int B, int S, const diffco::DHSpec& sp,
+            unsigned long long* guard) {
+  run_tc_blocks(B, diffco::DhSmem<FP>::kBytes, [&] {
+    diffco::dh_score_tc_kernel<FP, true>(
+        q.data(), s.data(), w.data(), score.data(), dq.data(), B, S, sp,
+        diffco::kTcGuard, guard);
+  });
+}
+
 int main(int argc, char** argv) {
   if (argc == 2 && std::string(argv[1]) == "plan") {
-    // the kernel's shared bytes at FP = 8, 16, ..., 48
     for (int b : {diffco::DhSmem<8>::kBytes, diffco::DhSmem<16>::kBytes,
                   diffco::DhSmem<24>::kBytes, diffco::DhSmem<32>::kBytes,
                   diffco::DhSmem<40>::kBytes, diffco::DhSmem<48>::kBytes})
@@ -424,20 +441,115 @@ int main(int argc, char** argv) {
     case 48: run_tc<48>(q, s, w, score, dq, B, S, sp, &guard); break;
     default: return 4;
   }
-  FILE* out = std::fopen(argv[4], "wb");
-  if (!out) return 2;
-  std::fwrite(&guard, sizeof(guard), 1, out);
-  std::fwrite(score.data(), sizeof(float), score.size(), out);
-  std::fwrite(dq.data(), sizeof(float), dq.size(), out);
-  std::fclose(out);
-  return 0;
+  return put(argv[4], guard, score, dq);
 }
 '''
 
+# B2 (its measurement build, at the production threshold):
+#   replay B S F IN OUT
+# IN holds x [B, F], s [S, F], w [S] (float32); `replay plan` prints
+# TcSmem<FP>::kBytes at FP = 8-64.
+POLY_RUNNER = TC_COMMON + r'''
+template <int FP>
+void run_poly(const std::vector<float>& x, const std::vector<float>& s,
+              const std::vector<float>& w, std::vector<float>& score,
+              std::vector<float>& dx, int B, int S, int F,
+              unsigned long long* guard) {
+  run_tc_blocks(B, diffco::TcSmem<FP>::kBytes, [&] {
+    diffco::poly_score_tc_kernel<FP, true>(
+        x.data(), s.data(), w.data(), score.data(), dx.data(), B, S, F,
+        diffco::kTcGuard, guard);
+  });
+}
 
-def _build(tmp_path_factory, name, source):
-    """g++ -std=c++20 build of a replay source; skips without g++ or
-    C++20's <barrier>."""
+int main(int argc, char** argv) {
+  if (argc == 2 && std::string(argv[1]) == "plan") {
+    for (int b : {diffco::TcSmem<8>::kBytes, diffco::TcSmem<16>::kBytes,
+                  diffco::TcSmem<24>::kBytes, diffco::TcSmem<32>::kBytes,
+                  diffco::TcSmem<40>::kBytes, diffco::TcSmem<48>::kBytes,
+                  diffco::TcSmem<56>::kBytes, diffco::TcSmem<64>::kBytes})
+      std::printf("%d\n", b);
+    return 0;
+  }
+  if (argc != 6) return 2;
+  const int B = std::atoi(argv[1]), S = std::atoi(argv[2]),
+            F = std::atoi(argv[3]);
+  FILE* in = std::fopen(argv[4], "rb");
+  if (!in) return 2;
+  const auto x = take<float>(in, size_t(B) * F);
+  const auto s = take<float>(in, size_t(S) * F);
+  const auto w = take<float>(in, size_t(S));
+  std::fclose(in);
+  std::vector<float> score(B, std::nanf("")), dx(size_t(B) * F,
+                                                  std::nanf(""));
+  unsigned long long guard = 0;
+  switch ((F + 7) / 8 * 8) {
+    case 8: run_poly<8>(x, s, w, score, dx, B, S, F, &guard); break;
+    case 24: run_poly<24>(x, s, w, score, dx, B, S, F, &guard); break;
+    case 64: run_poly<64>(x, s, w, score, dx, B, S, F, &guard); break;
+    default: return 4;
+  }
+  return put(argv[5], guard, score, dx);
+}
+'''
+
+# B3 (its measurement build, at the production threshold):
+#   replay B S IN OUT
+# IN holds the ChainSpec, then q [B, D], s [S, 3P], w [S] (float32);
+# `replay plan` prints ChainSmem<FP>::bytes(M) at FP = 8-64 (rows) for
+# M in CHAIN_PLAN_M (columns).
+CHAIN_PLAN_M = (1, 4, 7, 9, 11, 16)
+CHAIN_RUNNER = TC_COMMON + r'''
+template <int FP>
+void run_chain(const std::vector<float>& q, const std::vector<float>& s,
+               const std::vector<float>& w, std::vector<float>& score,
+               std::vector<float>& dq, int B, int S,
+               const diffco::ChainSpec& sp, unsigned long long* guard) {
+  run_tc_blocks(B, diffco::ChainSmem<FP>::bytes(sp.M), [&] {
+    diffco::chain_score_tc_kernel<FP, true>(
+        q.data(), s.data(), w.data(), score.data(), dq.data(), B, S, sp,
+        diffco::kTcGuard, guard);
+  });
+}
+
+template <int FP>
+void plan_row() {
+  for (int m : {M_LIST}) std::printf("%d ", diffco::ChainSmem<FP>::bytes(m));
+  std::printf("\n");
+}
+
+int main(int argc, char** argv) {
+  if (argc == 2 && std::string(argv[1]) == "plan") {
+    plan_row<8>(); plan_row<16>(); plan_row<24>(); plan_row<32>();
+    plan_row<40>(); plan_row<48>(); plan_row<56>(); plan_row<64>();
+    return 0;
+  }
+  if (argc != 5) return 2;
+  const int B = std::atoi(argv[1]), S = std::atoi(argv[2]);
+  FILE* in = std::fopen(argv[3], "rb");
+  if (!in) return 2;
+  const diffco::ChainSpec sp = take<diffco::ChainSpec>(in, 1)[0];
+  const auto q = take<float>(in, size_t(B) * sp.D);
+  const auto s = take<float>(in, size_t(S) * 3 * sp.P);
+  const auto w = take<float>(in, size_t(S));
+  std::fclose(in);
+  std::vector<float> score(B, std::nanf("")), dq(size_t(B) * sp.D,
+                                                  std::nanf(""));
+  unsigned long long guard = 0;
+  switch ((3 * sp.P + 7) / 8 * 8) {
+    case 16: run_chain<16>(q, s, w, score, dq, B, S, sp, &guard); break;
+    case 24: run_chain<24>(q, s, w, score, dq, B, S, sp, &guard); break;
+    case 32: run_chain<32>(q, s, w, score, dq, B, S, sp, &guard); break;
+    case 64: run_chain<64>(q, s, w, score, dq, B, S, sp, &guard); break;
+    default: return 4;
+  }
+  return put(argv[4], guard, score, dq);
+}
+'''.replace('M_LIST', ', '.join(map(str, CHAIN_PLAN_M)))
+
+
+def _gxx():
+    """g++ with C++20's <barrier>, or skip."""
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++ to replay the kernels on the CPU')
@@ -446,25 +558,44 @@ def _build(tmp_path_factory, name, source):
                            capture_output=True, text=True)
     if probe.returncode != 0:
         pytest.skip('needs g++ with -std=c++20 and <barrier>')
-    d = tmp_path_factory.mktemp(name)
-    src, exe = d / 'replay.cpp', d / 'replay'
-    src.write_text(source)
-    build = subprocess.run(
-        [gxx, '-std=c++20', '-O1', '-pthread', '-w', '-I',
-         str(_native._CSRC), '-o', str(exe), str(src)],
-        capture_output=True, text=True, timeout=300)
-    assert build.returncode == 0, build.stderr[-4000:]
-    return exe
+    return gxx
+
+
+def _tc_device_code(name):
+    """A tensor-core kernel's source up to its launch code."""
+    text = (_native._CSRC / name).read_text()
+    assert text.count(LAUNCH_MARKER) == 1, name
+    return text[:text.index(LAUNCH_MARKER)].replace(
+        '#include <cuda_runtime.h>', '')
 
 
 @pytest.fixture(scope='module')
-def tc_replay_bin(tmp_path_factory):
-    text = (_native._CSRC / 'dh_score.cu').read_text()
-    assert text.count(LAUNCH_MARKER) == 1
-    device = text[:text.index(LAUNCH_MARKER)].replace(
-        '#include <cuda_runtime.h>', '')
-    return _build(tmp_path_factory, 'tc_block_replay',
-                  TC_PRELUDE + device + TC_RUNNER)
+def tc_bins(tmp_path_factory):
+    """The replay executables of B1, B2 and B3 (g++ -std=c++20, the three
+    builds started together)."""
+    gxx = _gxx()
+    d = tmp_path_factory.mktemp('tc_block_replay')
+    procs = {}
+    for kind, source, runner in (('dh', 'dh_score.cu', TC_RUNNER),
+                                 ('poly', 'poly_score.cu', POLY_RUNNER),
+                                 ('chain', 'chain_score.cu', CHAIN_RUNNER)):
+        src, exe = d / f'{kind}.cpp', d / kind
+        src.write_text(TC_PRELUDE + _tc_device_code(source) + runner)
+        procs[kind] = (exe, subprocess.Popen(
+            [gxx, '-std=c++20', '-O1', '-pthread', '-w', '-I',
+             str(_native._CSRC), '-o', str(exe), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    bins = {}
+    for kind, (exe, proc) in procs.items():
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, (kind, log[-4000:])
+        bins[kind] = exe
+    return bins
+
+
+@pytest.fixture(scope='module')
+def tc_replay_bin(tc_bins):
+    return tc_bins['dh']
 
 
 def _near_support_inputs(robot, seed):
@@ -487,6 +618,35 @@ def _near_support_inputs(robot, seed):
     return q, np.ascontiguousarray(sup, np.float32), w
 
 
+def _run_tc(exe, args, blobs, n_grad, tmp_path):
+    """Run a tensor-core replay on the inputs ``blobs`` (bytes, in order)
+    with the command-line ``args`` before IN and OUT: (the guard's
+    recomputations, score [B], gradient [B, n_grad])."""
+    src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
+    src.write_bytes(b''.join(blobs))
+    proc = subprocess.run([str(exe), *map(str, args), str(src), str(dst)],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+    raw = dst.read_bytes()
+    guard = int(np.frombuffer(raw[:8], np.int64)[0])
+    out = np.frombuffer(raw[8:], np.float32)
+    return guard, out[:B], out[B:].reshape(B, n_grad)
+
+
+def _check_tc(guard, score, grad, ref, ref_grad):
+    """Score 1e-4 on every row, the gradient 1e-3 of max on all but rows
+    0-3: they sit exactly on a support, where the gradient is divided by
+    a distance of ~1e-7 (ill-conditioned in kernel and twin alike) and
+    only has to be finite. The near-pair guard must have recomputed
+    those."""
+    ref, ref_grad = ref.numpy(), ref_grad.numpy()
+    assert np.isfinite(score).all() and np.isfinite(grad).all()
+    np.testing.assert_allclose(score, ref, rtol=1e-4, atol=1e-4)
+    tol = 1e-3 * float(np.abs(ref_grad[4:]).max())
+    np.testing.assert_allclose(grad[4:], ref_grad[4:], rtol=1e-3, atol=tol)
+    assert guard >= 4, guard
+
+
 @pytest.mark.parametrize('robot_name', ['PandaFK', 'Baxter arm, 2 points',
                                         'Baxter arm, 4 points',
                                         'PandaFK chain, 16 points'])
@@ -495,35 +655,71 @@ def test_dh_tc_block_replay_matches_plain(tc_replay_bin, tmp_path,
     """B1 at FP = 24, 8, 16 and 48 (whose x~ fragments come from shared
     memory) against its plain twin at B = 128 + 5 (two
     blocks, the second nearly empty) and S = 70 (two full chunks of 32 and
-    a ragged one), shared memory filled with NaN: score 1e-4, dq 1e-3 of
-    max; on the rows that sit exactly on a support dq is ill-conditioned
-    (a distance of ~1e-7 divides it, in kernel and twin alike) and only
-    has to be finite. The near-pair guard must have recomputed those."""
+    a ragged one), shared memory filled with NaN (``_check_tc``)."""
     robot = (PandaFK() if robot_name == 'PandaFK' else
              panda_with_points(16) if robot_name.endswith('16 points') else
              baxter_arm(BAXTER_MASKS[robot_name]))
     spec = fk_score.robot_spec(robot)
     q, sup, w = _near_support_inputs(robot, seed=len(robot_name))
-    src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
-    src.write_bytes(bytes(fk_score._c_spec(spec)) + q.tobytes()
-                    + sup.tobytes() + w.tobytes())
-    proc = subprocess.run([str(tc_replay_bin), str(B), str(S), str(src),
-                           str(dst)], capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
-    raw = dst.read_bytes()
-    guard = int(np.frombuffer(raw[:8], np.int64)[0])
-    out = np.frombuffer(raw[8:], np.float32)
-    J = q.shape[1]
-    score, dq = out[:B], out[B:].reshape(B, J)
-    assert np.isfinite(score).all() and np.isfinite(dq).all()
-    ref, ref_dq = fk_score._dh_score_grad_plain(
-        *(torch.from_numpy(a) for a in (q, sup, w)), spec)
-    ref, ref_dq = ref.numpy(), ref_dq.numpy()
-    np.testing.assert_allclose(score, ref, rtol=1e-4, atol=1e-4)
-    tol = 1e-3 * float(np.abs(ref_dq[4:]).max())
-    np.testing.assert_allclose(dq[4:], ref_dq[4:], rtol=1e-3, atol=tol)
-    assert guard >= 4, guard
+    out = _run_tc(tc_replay_bin, (B, S), (bytes(fk_score._c_spec(spec)),
+                                          q.tobytes(), sup.tobytes(),
+                                          w.tobytes()), q.shape[1], tmp_path)
+    _check_tc(*out, *fk_score._dh_score_grad_plain(
+        *(torch.from_numpy(a) for a in (q, sup, w)), spec))
+
+
+@pytest.mark.parametrize('F', [5, 21, 64])
+def test_poly_tc_block_replay_matches_plain(tc_bins, tmp_path, F):
+    """B2 at FP = 8, 24 and 64 (F = 64 fills the row: product 2 takes its
+    extra column tile for the weights) against its plain twin, as B1's
+    replay: B = 128 + 5, whose second block holds 5 live rows and 123
+    copies of row B - 1, S = 70, shared memory filled with NaN. Rows and
+    supports are uniform in a box off the origin, so that the block's
+    centre matters; supports 0-11 sit on rows 0-3, 1e-3 from rows 4-7 and
+    1e-2 from rows 8-11."""
+    rng = np.random.default_rng(F)
+    x = rng.uniform(-0.3, 0.9, size=(B, F)).astype(np.float32)
+    sup = rng.uniform(-0.3, 0.9, size=(S, F))
+    d = rng.normal(size=(12, F))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    sup[:12] = x[:12] + np.repeat([0.0, 1e-3, 1e-2], 4)[:, None] * d
+    sup = sup.astype(np.float32)
+    w = (rng.normal(size=S) * 0.05).astype(np.float32)
+    out = _run_tc(tc_bins['poly'], (B, S, F),
+                  (x.tobytes(), sup.tobytes(), w.tobytes()), F, tmp_path)
+    _check_tc(*out, *fused_score._poly_score_grad_plain(
+        *(torch.from_numpy(a) for a in (x, sup, w))))
+
+
+def _chain_robot(name, tmp_path):
+    if name == 'FrankaPanda':
+        return FrankaPanda(load_gripper=True, device='cpu')
+    path = (robot_data.generate_marked_rope_urdf(
+        path=str(tmp_path / 'marked_rope.urdf')) if name == 'marked rope'
+        else f'{robot_data.ensure_default_assets()}/{name}')
+    return URDFRobot(path, device='cpu', setup_acm=False, link_spheres=1)
+
+
+# FP = 24 (FrankaPanda, P = 8), 32 (the branching trifinger, P = 9), 16
+# (the prismatic + mimic lift rig, P = 4) and 64 (the marked rope, P = 21
+# on 11 moving joints)
+CHAIN_TC_ROBOTS = ['FrankaPanda', 'trifinger_simple.urdf', 'lift_rig.urdf',
+                   'marked rope']
+
+
+@pytest.mark.parametrize('robot_name', CHAIN_TC_ROBOTS)
+def test_chain_tc_block_replay_matches_plain(tc_bins, tmp_path, robot_name):
+    """B3 on the tensor-core block against its plain twin, as B1's replay
+    (``_check_tc``), on every joint type and at the widest rows the
+    kernel takes."""
+    robot = _chain_robot(robot_name, tmp_path)
+    cs = fk_score.robot_chain_statics(robot)
+    q, sup, w = _near_support_inputs(robot, seed=len(robot_name))
+    out = _run_tc(tc_bins['chain'], (B, S), (
+        bytes(fk_score._c_chain_spec(cs)), q.tobytes(), sup.tobytes(),
+        w.tobytes()), q.shape[1], tmp_path)
+    _check_tc(*out, *fk_score._chain_score_grad_plain(
+        *(torch.from_numpy(a) for a in (q, sup, w)), cs))
 
 
 def test_dh_tc_plan_matches_the_block(tc_replay_bin):
@@ -542,3 +738,34 @@ def test_dh_tc_plan_matches_the_block(tc_replay_bin):
     assert float(guard) == np.float32(_native.TC_GUARD)
     assert all(_native.dh_tc_plan(P)['warps_per_sm'] == 16
                for P in range(1, 17))
+
+
+def _plan(exe):
+    proc = subprocess.run([str(exe), 'plan'], capture_output=True,
+                          text=True, timeout=60)
+    assert proc.returncode == 0
+    return proc.stdout.split()
+
+
+def test_poly_tc_plan_matches_the_block(tc_bins):
+    """ops/_native.py::poly_tc_plan's shared bytes are B2's kernel's
+    (csrc/poly_score.cu: TcSmem<FP>) at every FP = 8-64, two blocks (16
+    warps) per SM at each (on the card, test_poly_score_kernel_at_every_fp
+    holds the plan to the occupancy calculator)."""
+    got = [int(v) for v in _plan(tc_bins['poly'])]
+    assert got == [_native.poly_tc_plan(F)['smem_bytes']
+                   for F in range(8, 65, 8)]
+    assert all(_native.poly_tc_plan(F)['warps_per_sm'] == 16
+               for F in range(1, 65))
+
+
+def test_chain_tc_plan_matches_the_block(tc_bins):
+    """ops/_native.py::chain_tc_plan's shared bytes are B3's kernel's
+    (csrc/chain_score.cu: TcSmem<FP> and each row's zo, 6 M + 1 floats)
+    at every FP = 8-64 and several M; FrankaPanda's shape (P = 8, M = 7)
+    keeps two blocks (16 warps) per SM."""
+    got = [int(v) for v in _plan(tc_bins['chain'])]
+    want = [_native.chain_tc_plan(fp // 3, M)['smem_bytes']
+            for fp in range(8, 65, 8) for M in CHAIN_PLAN_M]
+    assert got == want
+    assert _native.chain_tc_plan(8, 7)['warps_per_sm'] == 16

@@ -188,6 +188,27 @@ def test_tc_bound_of_b1():
     assert ms < fp32_ms
 
 
+@pytest.mark.parametrize('kernel,ms', [('B2', 0.0175), ('B3', 0.0199)])
+def test_tc_bounds_of_b2_and_b3(kernel, ms):
+    """B2's and B3's tensor-core bounds (``bounds.tc_bound``, which B1's
+    shares): at the main paths' shapes (PandaFK's points, F = 21;
+    FrankaPanda's chain, F = 24; B = 65536, S = 512) the two products in
+    3xTF32 over the TF32 peak set them, below their fp32 bounds, and
+    ``bounds.table()`` gives both."""
+    row = bounds.table()[kernel]
+    B_, S_, F = row['shape']['B'], row['shape']['S'], row['shape']['F']
+    times = row['bound_tc_times_ms']
+    assert row['bound_tc_ms'] == times['tensor'] > times['fp32'] > \
+        times['bytes']
+    assert times['tensor'] == bounds.tc_product_ops(B_, S_, F) \
+        / bounds.PEAK_TF32_FLOPS * 1e3
+    assert row['bound_tc_by'] == 'operations'
+    assert abs(row['bound_tc_ms'] - ms) < 1e-4
+    assert row['bound_tc_ms'] < row['bound_ms']
+    assert bounds.poly_tc_bound(B_, S_, 21)[0] == bounds.dh_tc_bound(
+        B_, S_, 21, 7, 7)[0]
+
+
 def test_roofline_entry_point_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(rf, 'N_SHORT', 1)
     monkeypatch.setattr(rf, 'N_LONG', 2)
