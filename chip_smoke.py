@@ -8,7 +8,7 @@ with two and five classes; B1 and B4 also at their FP = 16 and 8
 instances, on Baxter's arm with 4 and 2 control points, B1 at FP = 32, 40
 and 48 on PandaFK's chain with more points, B2 at every FP = 8-64; B1, B2
 and B3 with rows whose points sit on a support or 1e-3 and 1e-2 from
-one), then drives five paths through the entry points a user calls:
+one), then drives six paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -23,6 +23,14 @@ one), then drives five paths through the entry points a user calls:
 - FrankaPanda multi-class at the quick start's width: five classes
   (self-collision and each of the 4 shapes) -> fit -> verify -> the
   [B, 5] sweeps;
+- the Baxter benchmarks' journey (scripts/baxter_trajopt_benchmark.py,
+  scripts/batch_trajopt_bench.py): BaxterLeftArmFK in their table / pole /
+  ball scene -> fit -> verify / collision_score sweeps (B1 and B2 at
+  FP = 16) -> 64 problems in one adam_traj_optimize_batch -> ground-truth
+  check -> a batched repair against the ground truth's signed distance ->
+  al_traj_optimize on 2 problems -> SLSQP and trust-constr on one problem
+  each (their derivatives on CPU float64, the scipy paths' route) -> one
+  Weighted.step;
 - the roofline path at bench.py's primitive shape (PandaFK, B = 65536,
   S = 512): ``diffco_tpu_torch.scripts.roofline_fk_score.run`` (B1's
   bench step and kernel, the B7 ablation ladder, the B1 block-size sweep)
@@ -111,6 +119,20 @@ LINK_RADIUS = 0.15
 N_PROBLEMS = 4
 TRAJ_OPTIONS = {'N_WAYPOINTS': 20, 'NUM_RE_TRIALS': 8, 'MAXITER': 300,
                 'max_speed': 2.0, 'dense_sub': 4, 'history': False}
+# The Baxter benchmarks' journey (scripts/baxter_trajopt_benchmark.py,
+# scripts/batch_trajopt_bench.py): their scene, ground truth and options.
+# The batch and its repair run all N_BATCH problems, AL the first N_AL,
+# SLSQP and trust-constr one each with SCIPY_OPTIONS (one restart).
+BAXTER_LINK_RADIUS = 0.07
+N_BATCH = 64
+N_AL = 2
+BAXTER_TRAJ = {'N_WAYPOINTS': 20, 'NUM_RE_TRIALS': 8, 'MAXITER': 200,
+               'max_speed': 2.0, 'dense_sub': 3, 'seed': 0}
+REPAIR_TRAJ = {'NUM_RE_TRIALS': 1, 'MAXITER': 200, 'safety_margin': -0.03,
+               'dense_sub': 8}
+SCIPY_OPTIONS = {'NUM_RE_TRIALS': 1, 'MAXITER': 200}
+TC_FREE_WAYPOINTS = 8
+WEIGHTED_STEPS = 50
 # B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
 # without dq, 1e-3 with it. In mv_bf16_full kernel and twin may round an r
 # or 1/r to neighbouring bf16 values (2^-8 of a term; on the H100 they
@@ -954,6 +976,153 @@ def urdf_journey(dev):
              dense_sub=URDF_TRAJ_DENSE_SUB)
 
 
+def _baxter_shapes():
+    def T(t):
+        m = np.eye(4)
+        m[:3, 3] = t
+        return m
+    # scripts/baxter_trajopt_benchmark.py's scene
+    return {'table': {'type': 'Box', 'params': {'extents': [0.8, 0.8, 0.05]},
+                      'transform': T([0.7, 0.0, -0.1])},
+            'pole': {'type': 'Cylinder',
+                     'params': {'radius': 0.1, 'height': 1.2},
+                     'transform': T([0.6, 0.3, 0.5])},
+            'ball': {'type': 'Sphere', 'params': {'radius': 0.15},
+                     'transform': T([0.4, -0.35, 0.3])}}
+
+
+def _gt_valid(gt, sols):
+    """Per path [P, N, dof]: no ground-truth hit on the dense path, 8
+    points per segment (the benchmarks' validation)."""
+    from diffco_tpu_torch.utils import dense_path
+    dense = dense_path(sols, 8)[:, 1:-1]
+    hits = gt(dense.reshape(-1, dense.shape[-1])).reshape(sols.shape[0], -1)
+    return ~hits.any(dim=1)
+
+
+def baxter_journey(dev):
+    """The Baxter benchmarks' journey on BaxterLeftArmFK (4 control
+    points: B1's and B2's FP = 16 instances): fit on 5000 samples, verify
+    and the sweeps against the float64 twin; N_BATCH problems in one
+    adam_traj_optimize_batch, checked against the ground truth and the
+    failures repaired in one more batch against its signed distance;
+    al_traj_optimize on the first N_AL; SLSQP and trust-constr (free
+    waypoints) on one problem each, evaluated on CPU float64 tensors (the
+    scipy paths' route); one Weighted.step."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import optim
+    from diffco_tpu_torch.ops import fk_score
+    t0 = time.perf_counter()
+    robot = dc.BaxterLeftArmFK()
+    env = dc.ShapeEnv(_baxter_shapes())
+    cap = dc.CapsuleChainCollision(robot, link_radius=BAXTER_LINK_RADIUS,
+                                   per_seg=4)
+    gt = cap.checker_fn(env)
+    checker = dc.ForwardKinematicsDiffCo(robot=robot, gt_check_func=gt,
+                                         seed=0, device=dev)
+    b1_before = fk_score.dh_score_grad_launches
+    _fit(checker, FIT_SAMPLES, 'Baxter')
+    spec = fk_score.robot_spec(robot)
+    _sweeps(checker, robot, gt, dev,
+            lambda q, s, w: fk_score._dh_score_grad_plain(q, s, w, spec),
+            'Baxter')
+    b1 = fk_score.dh_score_grad_launches - b1_before
+    _phase('Baxter fit and sweeps (B1 at FP = 16 on the fitted proxy)', t0,
+           b1_launches=b1, points=len(spec[1]))
+    if b1 <= 0:
+        raise AssertionError('Baxter fit and sweeps: B1 never launched')
+
+    # N_BATCH free (start, target) pairs, as batch_trajopt_bench.py picks
+    q = robot.rand_configs(4096, torch.Generator().manual_seed(7), dev)
+    idx = torch.nonzero(~gt(q)).reshape(-1)
+    starts = q[idx[0:2 * N_BATCH:2]]
+    targets = q[idx.flip(0)[0:2 * N_BATCH:2]]
+    dist_est = checker.score_fn(bias=0.0)
+    opts = dict(BAXTER_TRAJ, safety_margin=-checker.safety_bias)
+
+    t_batch = t0 = time.perf_counter()
+    recs = optim.adam_traj_optimize_batch(robot, dist_est, starts, targets,
+                                          opts)
+    sols = torch.tensor([r['solution'] for r in recs], device=dev)
+    valid = _gt_valid(gt, sols)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    before = float(valid.float().mean())
+    t0 = time.perf_counter()
+    fixed = optim.adam_traj_optimize_batch(
+        robot, lambda qq: cap.signed_dist(qq, env), starts, targets,
+        dict(opts, **REPAIR_TRAJ, init_solutions=sols.cpu().numpy()))
+    bad = ~valid
+    sols[bad] = torch.tensor([r['solution'] for r in fixed],
+                             device=dev)[bad]
+    valid = _gt_valid(gt, sols)
+    torch.cuda.synchronize()
+    repair_s = time.perf_counter() - t0
+    costs = [r['cost'] for r in recs + fixed]
+    _phase('Baxter batched Adam', t_batch, problems=N_BATCH,
+           batch_s=round(batch_s, 3), repair_s=round(repair_s, 3),
+           repaired=int(bad.sum()), gt_valid_before=before,
+           gt_valid_after=float(valid.float().mean()),
+           success=float(np.mean([r['success'] for r in recs])))
+    if not all(math.isfinite(c) for c in costs):
+        raise AssertionError('Baxter batched Adam: non-finite cost')
+
+    t0 = time.perf_counter()
+    al = []
+    for i in range(N_AL):
+        rec = optim.al_traj_optimize(robot, dist_est, starts[i], targets[i],
+                                     dict(opts, seed=i, num_sub=4))
+        ok = bool(_gt_valid(gt, torch.tensor([rec['solution']],
+                                             device=dev))[0])
+        al.append((rec, ok))
+    torch.cuda.synchronize()
+    _phase('Baxter augmented Lagrangian', t0, problems=N_AL,
+           seconds=[round(r['time'], 2) for r, _ in al],
+           success=[r['success'] for r, _ in al],
+           max_violation=[r['max_violation'] for r, _ in al],
+           gt_valid=[ok for _, ok in al], cost=[r['cost'] for r, _ in al])
+    if not all(math.isfinite(r['cost']) and math.isfinite(r['max_violation'])
+               for r, _ in al):
+        raise AssertionError('Baxter AL: non-finite cost or violation')
+    if not any(ok for _, ok in al):
+        raise AssertionError('Baxter AL: no ground-truth-valid path')
+
+    for i, (name, extra) in enumerate((
+            ('givengrad', {}),
+            ('trustconstr', {'free_waypoints': TC_FREE_WAYPOINTS}))):
+        t0 = time.perf_counter()
+        rec = getattr(optim, f'{name}_traj_optimize')(
+            robot, dist_est, starts[N_AL + i], targets[N_AL + i],
+            dict(opts, **SCIPY_OPTIONS, **extra))
+        ok = bool(_gt_valid(gt, torch.tensor([rec['solution']],
+                                             device=dev))[0])
+        _phase(f'Baxter {name} (scipy; derivatives on '
+               f'{rec["eval_device"]} {rec["eval_dtype"]})', t0,
+               seconds=round(rec['time'], 2), success=rec['success'],
+               feasible=rec['feasible'], gt_valid=ok, cost=rec['cost'],
+               cnt_check=rec['cnt_check'], **SCIPY_OPTIONS, **extra)
+        if not math.isfinite(rec['cost']):
+            raise AssertionError(f'Baxter {name}: non-finite cost')
+
+    t0 = time.perf_counter()
+    stepper = optim.Weighted(robot, checker.perceptron, {
+        'n_waypoints': BAXTER_TRAJ['N_WAYPOINTS'], 'maxiter': WEIGHTED_STEPS,
+        'max_move_weight': 10.0, 'collision_weight': 10.0,
+        'joint_limit_weight': 10.0, 'safety_bias': checker.safety_bias,
+        'max_speed': 2.0, 'dense_check': True, 'num_sub': 4,
+        'optimizer_params': {'lr': 0.1}})
+    line = torch.stack([torch.linspace(0, 1, BAXTER_TRAJ['N_WAYPOINTS'],
+                                       device=dev)] * 7, 1)
+    p0 = starts[0] + line * (targets[0] - starts[0])
+    res = stepper.step(p0)
+    torch.cuda.synchronize()
+    _phase('Baxter Weighted.step', t0, maxiter=WEIGHTED_STEPS,
+           device=res.x.device, finite=bool(torch.isfinite(res.x).all()))
+    if res.x.device.type != 'cuda' or not bool(torch.isfinite(res.x).all()):
+        raise AssertionError('Baxter Weighted.step: off the card or '
+                             'non-finite')
+
+
 def _per_shape_gt(robot, names):
     """Ground truth [B, len(names)]: one capsule-chain check per shape."""
     import diffco_tpu_torch as dc
@@ -1239,6 +1408,7 @@ def main():
                                                                     dev)),
                       ('FrankaPanda multi-class',
                        lambda: urdf_multi_journey(dev)),
+                      ('Baxter', lambda: baxter_journey(dev)),
                       ('roofline', lambda: roofline_path(dev))):
         _zero_launches()
         run()
@@ -1250,6 +1420,8 @@ def main():
                     ('FrankaPanda', 'chain_score_grad'),
                     ('PandaFK multi-class', 'dh_multi_score_grad'),
                     ('FrankaPanda multi-class', 'chain_multi_score_grad'),
+                    ('Baxter', 'dh_score_grad'),
+                    ('Baxter', 'poly_score_grad'),
                     ('roofline', 'dh_score_grad'),
                     ('roofline', 'dh_dual_score_grad'),
                     ('roofline', 'dh_ablation'),

@@ -2,14 +2,17 @@
 
 Differentiable kernel-perceptron collision proxies for motion planning,
 on PyTorch tensors, with hand-written CUDA kernels (``csrc/``) on the
-hot paths. It holds the ``PandaFK`` DH robot and the URDF robots
+hot paths. It holds the ``PandaFK`` and Baxter DH robots (``BaxterLeftArmFK``,
+``BaxterRightArmFK``, ``BaxterFK``, the dual-arm ``BaxterDualArmFK`` and
+``DualPandaFK``) and the URDF robots
 (``URDFRobot``, ``FrankaPanda`` and the other convenience robots) with
 their analytic FK derivatives, a ``ShapeEnv`` scene with the
 ``CapsuleChainCollision`` or sphere-model ground truth, the proxies
 (``DiffCo``, the multi-class ``MultiDiffCo``, the distance-regressing
 ``DiffCoBeta`` and the vector-gain ``MultiDimDiffCo``),
-``ForwardKinematicsDiffCo`` (fit, verify, collision_score) and Adam
-trajectory optimization.
+``ForwardKinematicsDiffCo`` (fit, verify, collision_score) and the
+trajectory optimizers (``optim``: Adam, batched Adam, the augmented
+Lagrangian, scipy's SLSQP and trust-constr, the ``Weighted`` stepper).
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; they
 raise rather than fall back when no card is present. Nothing here imports
@@ -20,7 +23,9 @@ from . import utils
 from . import kernels
 from . import optim
 from .device import resolve_device
-from .robots import Model, DHParameters, DHChainRobot, PandaFK
+from .robots import (Model, DHParameters, DHChainRobot, PandaFK,
+                     DualPandaFK, BaxterLeftArmFK, BaxterRightArmFK,
+                     BaxterFK, BaxterDualArmFK)
 from .robots.capsule_chain import CapsuleChainCollision
 from .robots.urdf import (URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot,
                           TrifingerEdu, parse_urdf, robot_description_folder)
@@ -29,13 +34,21 @@ from .perceptron import (Perceptron, DiffCo, DiffCoBeta, MultiDiffCo,
                          MultiDimDiffCo)
 from .checkers import CollisionChecker, RBFDiffCo, ForwardKinematicsDiffCo
 from .convert import load_reference_state
+from .optim import (adam_traj_optimize, adam_traj_optimize_batch,
+                    al_traj_optimize, givengrad_traj_optimize,
+                    gradient_free_traj_optimize, trustconstr_traj_optimize,
+                    TrajOptimizer, Weighted)
 
 __all__ = [
     'utils', 'kernels', 'optim', 'resolve_device', 'Model', 'DHParameters',
-    'DHChainRobot', 'PandaFK', 'CapsuleChainCollision', 'URDFRobot',
+    'DHChainRobot', 'PandaFK', 'DualPandaFK', 'BaxterLeftArmFK',
+    'BaxterRightArmFK', 'BaxterFK', 'BaxterDualArmFK', 'CapsuleChainCollision', 'URDFRobot',
     'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu', 'parse_urdf',
     'robot_description_folder', 'ShapeEnv',
     'Perceptron', 'DiffCo', 'DiffCoBeta', 'MultiDiffCo', 'MultiDimDiffCo',
     'CollisionChecker', 'RBFDiffCo',
     'ForwardKinematicsDiffCo', 'load_reference_state',
+    'adam_traj_optimize', 'adam_traj_optimize_batch', 'al_traj_optimize',
+    'givengrad_traj_optimize', 'gradient_free_traj_optimize',
+    'trustconstr_traj_optimize', 'TrajOptimizer', 'Weighted',
 ]

@@ -259,20 +259,34 @@ class RBFDiffCo(CollisionChecker):
     def score_fn(self, bias=None):
         """A score function q [B, dof] -> [B] for the trajectory
         optimizers: a plain kernel matvec over the current support state
-        (it reaches neither hand-written kernel)."""
+        (it reaches neither hand-written kernel). It runs on the device
+        and in the dtype of q: the state is converted once per (device,
+        dtype) and support set, and the copy kept (the scipy paths call it
+        on CPU float64 tensors)."""
         bias = self.safety_bias if bias is None else bias
         perceptron = self.perceptron
         rbf_kernel = perceptron.rbf_kernel
         transform = perceptron._apply_transform
+        copies = {}
+
+        def state(like):
+            now = (perceptron.support_transformed, perceptron.valid_mask,
+                   perceptron.rbf_nodes)
+            key = (like.device, like.dtype)
+            if key not in copies or any(
+                    a is not b for a, b in zip(copies[key][0], now)):
+                copies[key] = (now, tuple(
+                    t.to(device=like.device, dtype=like.dtype) for t in now))
+            return copies[key][1]
 
         def fn(q):
             pt = transform(q)
-            sup = perceptron.support_transformed
+            sup, mask, nodes = state(pt)
             with fp32_matmul():
-                kv = rbf_kernel(pt, sup) * perceptron.valid_mask.to(
-                    pt.dtype)[None, :]
-                out = kv @ perceptron.rbf_nodes.reshape(-1, 1)
+                out = ((rbf_kernel(pt, sup) * mask[None, :])
+                       @ nodes.reshape(-1, 1))
             return out.reshape(-1) + bias
+        fn.follows_input = True
         return fn
 
     def _sweep_raw(self, q):

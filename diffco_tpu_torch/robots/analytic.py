@@ -1,7 +1,8 @@
 """Analytic (closed-form) robot models, batched and differentiable
 (PyTorch counterpart of ``diffco_tpu/robots/analytic.py``: ``Model``,
-``DHParameters``, ``DHChainRobot``, ``PandaFK`` and Baxter's arm as a
-``DHChainRobot``).
+``DHParameters``, ``DHChainRobot``, ``PandaFK``, ``DualPandaFK`` and the
+Baxter arms ``BaxterLeftArmFK``, ``BaxterRightArmFK``, ``BaxterFK`` and
+``BaxterDualArmFK``).
 
 Robots are device-agnostic: their DH constants are Python floats, so
 ``fkine`` runs wherever ``q`` lies. ``limits`` is a CPU tensor that callers
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..utils import wrap2pi
+from ..utils import rotz, wrap2pi
 from .soa import (vec_add, transform_compose, dh_rot_trans, rot_from_static,
                   stack_points)
 from .fk_jvp import make_dh_fkine
@@ -156,19 +157,84 @@ _BAXTER_LIMITS = [[-1.70167993878, 1.70167993878],
 _BAXTER_L = np.array([270.35, 69, 364.35, 69, 374.29, 10, 387.35]) / 1000
 
 
-def baxter_arm(fk_mask: Sequence[bool] = (True, False, True, False, True,
-                                          False, True)) -> DHChainRobot:
-    """Baxter's 7-DOF arm as a DHChainRobot. The default mask is the
-    reference's BaxterLeftArmFK (4 control points, F = 12); a mask with
-    fewer points gives the smaller component counts the DH kernels are
-    built for."""
+def _baxter_dh():
     L = _BAXTER_L
-    dh = DHParameters(
+    return DHParameters(
         a=[L[1], 0, L[3], 0, L[5], 0, 0],
         alpha=[-PI / 2, PI / 2, -PI / 2, PI / 2, -PI / 2, PI / 2, 0],
         d=[L[0], 0, L[2], 0, L[4], 0, L[6]],
         theta=[0, PI / 2, 0, 0, 0, 0, 0])
-    return DHChainRobot(dh, _BAXTER_LIMITS, fk_mask=list(fk_mask))
+
+
+_BAXTER_MASK = (True, False, True, False, True, False, True)
+
+
+def baxter_arm(fk_mask: Sequence[bool] = _BAXTER_MASK) -> DHChainRobot:
+    """Baxter's 7-DOF arm as a DHChainRobot. The default mask is
+    BaxterLeftArmFK's (4 control points, F = 12); a mask with fewer points
+    gives the smaller component counts the DH kernels are built for."""
+    return DHChainRobot(_baxter_dh(), _BAXTER_LIMITS, fk_mask=list(fk_mask))
+
+
+class BaxterLeftArmFK(DHChainRobot):
+    """7-DOF Baxter left arm: 4 control points (F = 12)."""
+
+    def __init__(self):
+        super().__init__(_baxter_dh(), _BAXTER_LIMITS,
+                         fk_mask=list(_BAXTER_MASK))
+
+
+class BaxterRightArmFK(DHChainRobot):
+    """7-DOF Baxter right arm (the left arm's DH, as in the reference)."""
+
+    def __init__(self):
+        super().__init__(_baxter_dh(), _BAXTER_LIMITS,
+                         fk_mask=list(_BAXTER_MASK))
+
+
+BaxterFK = BaxterLeftArmFK
+
+
+def _arm_base(yaw: float, trans) -> np.ndarray:
+    """A torso-mounted arm base: rotation about z by ``yaw`` (in float32,
+    as the JAX package computes it) and a translation."""
+    base = np.zeros((4, 4), np.float32)
+    base[:3, :3] = rotz(torch.tensor(yaw, dtype=torch.float32)).numpy()
+    base[:, 3] = list(trans) + [1]
+    return base
+
+
+class BaxterDualArmFK(Model):
+    """14-DOF dual-arm Baxter with torso-mounted arm bases: q is (left 7,
+    right 7); fkine returns [B, 8, 3], the arms' control points
+    interleaved as (left_i, right_i) pairs."""
+
+    def __init__(self):
+        self.limits = torch.as_tensor(_BAXTER_LIMITS * 2,
+                                      dtype=torch.float32)
+        self.dof = 14
+        self.fk_mask = list(_BAXTER_MASK)
+        self.dh = _baxter_dh()
+        L, h, H = np.array([278, 64, 1104]) / 1000
+        self.arm_bases = np.stack([_arm_base(-PI / 4, (L, -h, H)),
+                                   _arm_base(-3 * PI / 4, (-L, -h, H))])
+        consts, specs = _dh_consts_and_specs(self.dh, self.fk_mask)
+        self._arm_fkine = [
+            make_dh_fkine(consts, specs,
+                          base=(rot_from_static(b[:3, :3]),
+                                tuple(float(v) for v in b[:3, 3])))
+            for b in self.arm_bases]
+
+    def fkine(self, q, flat: bool = False):
+        q = torch.reshape(q, (-1, self.dof))
+        B, half = q.shape[0], self.dof // 2
+        left = self._arm_fkine[0](q[:, :half]).reshape(B, -1, 3)
+        right = self._arm_fkine[1](q[:, half:]).reshape(B, -1, 3)
+        inter = torch.stack([left, right], dim=2).reshape(B, -1, 3)
+        return inter.reshape(B, -1) if flat else inter
+
+    def wrap(self, q):
+        return wrap2pi(q)
 
 
 _PANDA_LIMITS = [[-2.8973, 2.8973],
@@ -227,3 +293,28 @@ class PandaFK(DHChainRobot):
         left = vec_add(t_ee, tuple(c * fy for c in y_col))
         right = vec_add(t_ee, tuple(c * (-fy) for c in y_col))
         return stack_points(pts + [left, right], flat=flat)
+
+
+class DualPandaFK(Model):
+    """14-DOF dual Panda: q interleaves (right, left) per joint; fkine
+    returns [B, 14, 3], the left arm's 7 points (base at y = 0.84) then
+    the right arm's."""
+
+    def __init__(self):
+        self.left_panda = PandaFK()
+        self.right_panda = PandaFK()
+        self.limits = torch.as_tensor(
+            [row for row in _PANDA_LIMITS for _ in range(2)],
+            dtype=torch.float32)
+        self.dof = 14
+        self.bases = torch.tensor([[0.0, 0.84, 0.0], [0.0, 0.0, 0.0]])
+
+    def fkine(self, q):
+        q = torch.reshape(q, (-1, 14))
+        bases = self.bases.to(q)
+        left = self.left_panda.fkine(q[:, 1::2]) + bases[0]
+        right = self.right_panda.fkine(q[:, 0::2]) + bases[1]
+        return torch.cat([left, right], dim=1)
+
+    def wrap(self, q):
+        return wrap2pi(q)

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 PI = math.pi
@@ -62,3 +63,79 @@ def dense_path(q, num_sub: int):
            + fr[:, None] * delta[..., :, None, :])
     pts = pts.reshape(q.shape[:-2] + (n_seg * num_sub, q.shape[-1]))
     return torch.cat([pts, q[..., -1:, :]], dim=-2)
+
+
+def rotz(phi):
+    """Batched rotation about z: phi [...] -> [..., 3, 3]."""
+    phi = torch.as_tensor(phi)
+    s, c = torch.sin(phi), torch.cos(phi)
+    z, o = torch.zeros_like(phi), torch.ones_like(phi)
+    return torch.stack([torch.stack([c, -s, z], -1),
+                        torch.stack([s, c, z], -1),
+                        torch.stack([z, z, o], -1)], -2)
+
+
+def _segment_scores(scores, batch_dims: int, xp):
+    """Scores as ``[*batch, M]``: a multi-output ``[*batch, M, C...]``
+    collapses with max over its trailing dimensions."""
+    s = torch.as_tensor(scores) if xp is torch else xp.asarray(scores)
+    if s.ndim > batch_dims + 1:
+        s = s.reshape(tuple(s.shape[:batch_dims + 1]) + (-1,))
+        s = s.amax(-1) if xp is torch else s.max(-1)
+    return s
+
+
+def segment_violations(scores, n_segments: int, num_sub: int,
+                       safety_margin=0.0, xp=torch, batch_dims: int = 0):
+    """Per-segment summed collision violations, the trajectory
+    optimizers' constraint: each segment owns its start point and its
+    ``num_sub - 1`` interior points, the global start (excluded from the
+    scores) counts as zero.
+
+    scores: the score on ``dense_path(p, num_sub)[..., 1:-1, :]``, flat
+    ``[*batch, n_segments * num_sub - 1]`` or multi-output
+    ``[*batch, n_segments * num_sub - 1, C]`` (the most violating class
+    governs), with ``batch_dims`` leading batch dimensions (the restarts
+    of a trajectory optimization). ``xp`` is ``torch`` or ``numpy`` (the
+    host scipy loops). Returns ``[*batch, n_segments]``.
+    """
+    s = _segment_scores(scores, batch_dims, xp)
+    if xp is torch:
+        viol = torch.clamp(s - safety_margin, min=0.0)
+        viol = torch.cat([viol.new_zeros(viol.shape[:-1] + (1,)), viol], -1)
+    else:
+        viol = xp.maximum(s - safety_margin, 0.0)
+        viol = xp.concatenate([xp.zeros(viol.shape[:-1] + (1,), viol.dtype),
+                               viol], -1)
+    return viol.reshape(viol.shape[:-1] + (n_segments, num_sub)).sum(-1)
+
+
+def segment_max_scores(scores, n_segments: int, num_sub: int, xp=torch,
+                       batch_dims: int = 0):
+    """Per-segment maximum score, with the segment ownership of
+    ``segment_violations`` (the excluded global start counts as -inf).
+    ``margin - segment_max_scores(...) >= 0`` is the same feasible set as
+    ``-segment_violations(...) >= 0`` but keeps a nonzero Jacobian on and
+    inside the boundary, where the clamped sum is identically zero.
+    Returns ``[*batch, n_segments]``."""
+    s = _segment_scores(scores, batch_dims, xp)
+    if xp is torch:
+        s = torch.cat([s.new_full(s.shape[:-1] + (1,), -math.inf), s], -1)
+        return s.reshape(s.shape[:-1] + (n_segments, num_sub)).amax(-1)
+    s = xp.concatenate([xp.full(s.shape[:-1] + (1,), -xp.inf, s.dtype), s],
+                       -1)
+    return s.reshape(s.shape[:-1] + (n_segments, num_sub)).max(-1)
+
+
+def dense_path_params(q, max_step: float,
+                      max_dense_waypoints: int | None = None) -> int:
+    """The per-segment subdivision count for ``dense_path`` that keeps
+    every sub-step of the path q [N, dof] within ``max_step`` (host side;
+    with ``max_dense_waypoints`` the step grows to at least the path's
+    length over that many points)."""
+    qn = q.detach().cpu().numpy() if torch.is_tensor(q) else np.asarray(q)
+    seg_len = np.linalg.norm(qn[1:] - qn[:-1], axis=-1)
+    if max_dense_waypoints is not None:
+        max_step = max(max_step, float(seg_len.sum()) / max_dense_waypoints)
+    num_sub = int(np.ceil(seg_len.max() / max_step)) if len(seg_len) else 1
+    return max(num_sub, 1)

@@ -508,3 +508,103 @@ def test_roofline_entry_points_on_the_card(cuda, monkeypatch):
     res = ab.run('cuda', batch=4096, supports=128)
     for v in res['variants'].values():
         assert v['rel_grad_err_vs_prod'] < 1e-3
+
+
+def _baxter_checkers(cuda):
+    """A BaxterLeftArmFK proxy fitted on the CPU (400 configurations,
+    labels from a sphere in its workspace) and a checker on the card
+    holding the same state."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.convert import load_reference_state
+    robot = dc.BaxterLeftArmFK()
+
+    def gt(q):
+        p = robot.fkine(q)
+        return (p - torch.tensor([0.5, 0.0, 0.3], device=q.device)).norm(
+            dim=-1).amin(-1) < 0.25
+
+    cpu = dc.ForwardKinematicsDiffCo(robot=robot, gt_check_func=gt, seed=0,
+                                     device='cpu')
+    cpu.fit(num_samples=400)
+    p = cpu.perceptron
+    arrays = {k: getattr(p, k).numpy() for k in (
+        'support_points', 'support_transformed', 'gains', 'hypothesis', 'y',
+        'kernel_matrix', 'rbf_nodes', 'valid_mask')}
+    arrays.update(num_valid=p.num_valid, epsilon=p.rbf_kernel.epsilon,
+                  safety_bias=cpu.safety_bias)
+    card = dc.ForwardKinematicsDiffCo(robot=robot, gt_check_func=gt,
+                                      device=cuda)
+    load_reference_state(card, arrays)
+    return robot, cpu, card, gt
+
+
+def _baxter_paths_close(robot, a, b, atol):
+    """Joints 1-6 and the control points (BaxterLeftArmFK's last joint
+    moves no control point: its gradient is rounding noise)."""
+    a, b = torch.tensor(a), torch.tensor(b)
+    _close(a[..., :6], b[..., :6], atol)
+    _close(robot.fkine(a.reshape(-1, 7)), robot.fkine(b.reshape(-1, 7)),
+           atol)
+
+
+def test_baxter_optimizers_on_the_card_match_the_cpu(cuda):
+    """al_traj_optimize (2 restarts, a jittered init) and
+    adam_traj_optimize_batch (3 problems) on the card agree with the same
+    calls on the CPU over the same state: paths 1e-3 (joints 1-6 and
+    control points), costs rtol 1e-3, success equal."""
+    from diffco_tpu_torch import optim
+    robot, cpu, card, gt = _baxter_checkers(cuda)
+    g = torch.Generator().manual_seed(3)
+    q = robot.rand_configs(256, g, 'cpu')
+    free = q[~gt(q)]
+    starts, targets = free[:3], free[3:6]
+    init = (torch.stack([torch.linspace(0, 1, 12)] * 7, 1)
+            * (targets[0] - starts[0]) + starts[0]
+            + 0.05 * torch.randn(12, 7, generator=g))
+    al = {'N_WAYPOINTS': 12, 'NUM_RE_TRIALS': 2, 'outer_iters': 3,
+          'inner_iters': 5, 'restore_iters': 20, 'seed': 1,
+          'safety_margin': -cpu.safety_bias, 'init_solution': init.numpy()}
+    batch = {'N_WAYPOINTS': 12, 'NUM_RE_TRIALS': 2, 'MAXITER': 15,
+             'dense_sub': 3, 'seed': 2, 'safety_margin': -cpu.safety_bias}
+    runs = []
+    for dev, ck in (('cpu', cpu), (cuda, card)):
+        fn = ck.score_fn(0.0)
+        runs.append([optim.al_traj_optimize(robot, fn, starts[0].to(dev),
+                                            targets[0].to(dev), al)]
+                    + optim.adam_traj_optimize_batch(
+                        robot, fn, starts.to(dev), targets.to(dev), batch))
+    for a, b in zip(*runs):
+        _baxter_paths_close(robot, a['solution'], b['solution'], 1e-3)
+        assert abs(a['cost'] - b['cost']) <= 1e-3 * abs(a['cost']) + 1e-6
+        assert a['success'] == b['success']
+
+
+def test_baxter_collision_score_launches_b1(cuda):
+    """collision_score of the fitted Baxter proxy at B = 65536 launches B1
+    (FP = 16) and matches the float64 plain twin: score 1e-4, dq 1e-3."""
+    robot, _, card, _ = _baxter_checkers(cuda)
+    q = robot.rand_configs(65536, torch.Generator().manual_seed(4), cuda)
+    before = fk_score.dh_score_grad_launches
+    qg = q.clone().requires_grad_(True)
+    s = card.collision_score(qg, bias=0.0)
+    dq, = torch.autograd.grad(s.sum(), qg)
+    assert fk_score.dh_score_grad_launches > before
+    p = card.perceptron
+    w = p.rbf_nodes * p.valid_mask.to(p.rbf_nodes.dtype) / \
+        p.rbf_kernel.epsilon
+    ref, ref_dq = fk_score._dh_score_grad_plain(
+        q.double(), p.support_transformed.double(), w.double(),
+        fk_score.robot_spec(robot))
+    _close(s.detach().reshape(-1).double(), ref, 1e-4)
+    _close(dq.double(), ref_dq, 1e-3)
+
+
+def test_score_fn_takes_cpu_float64(cuda):
+    """A checker on the card scores a CPU float64 batch (the scipy paths'
+    route) in float64 on the CPU, within 1e-5 of the card's float32."""
+    robot, _, card, _ = _baxter_checkers(cuda)
+    q = robot.rand_configs(64, torch.Generator().manual_seed(5), 'cpu')
+    fn = card.score_fn(0.0)
+    s64 = fn(q.double())
+    assert s64.dtype == torch.float64 and s64.device.type == 'cpu'
+    _close(s64, fn(q.to(cuda)).cpu().double(), 1e-5)

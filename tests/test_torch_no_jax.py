@@ -1,8 +1,9 @@
 """The port stands alone: importing diffco_tpu_torch, scoring on the CPU
 (a DH robot and a URDF robot, one class and two), training a small
-MultiDiffCo, running the roofline path's twins (every B7 mode, B6) and
-importing the kernel-reading scripts load neither JAX nor the JAX
-package."""
+MultiDiffCo, running the roofline path's twins (every B7 mode, B6),
+importing the kernel-reading scripts and running the augmented
+Lagrangian, batched Adam and trust-constr on Baxter's arm load neither
+JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -51,6 +52,15 @@ for mode in rf.MODES:
     assert out.shape == (8,) and bool(torch.isfinite(out).all())
 s, dq = ab_dual_tile.dh_dual_score_grad(q, sup, w, spec)
 assert s.shape == (8,) and dq.shape == (8, 7)
+arm = dc.BaxterLeftArmFK()
+qa = arm.rand_configs(2, g, 'cpu')
+def dist(p):
+    return 0.3 - torch.linalg.norm(arm.fkine(p) - 0.4, dim=-1).amin(-1)
+opts = {'N_WAYPOINTS': 5, 'NUM_RE_TRIALS': 2, 'MAXITER': 4, 'seed': 0}
+rec = dc.al_traj_optimize(arm, dist, qa[0], qa[1], dict(opts, restore_iters=3))
+recs = dc.adam_traj_optimize_batch(arm, dist, qa[:1], qa[1:], opts)
+rec = dc.trustconstr_traj_optimize(arm, dist, qa[0], qa[1], opts)
+assert rec['eval_dtype'] == 'float64' and len(recs) == 1
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'diffco_tpu'
              or m.startswith('diffco_tpu.'))
