@@ -5,10 +5,11 @@ PyTorch twin at the main paths' shapes (B3 and B5 on three URDF robots: a
 serial arm, a branching tree and a prismatic + mimic rig, B5 with five
 and eight classes, B3 also on a marked rope with 21 control points; B4
 with two and five classes; B1 and B4 also at their FP = 16 and 8
-instances, on Baxter's arm with 4 and 2 control points, B1 at FP = 32, 40
-and 48 on PandaFK's chain with more points, B2 at every FP = 8-64; B1, B2
-and B3 with rows whose points sit on a support or 1e-3 and 1e-2 from
-one), then drives six paths through the entry points a user calls:
+instances, on Baxter's arm with 4 and 2 control points, and at FP = 32,
+40 and 48 on PandaFK's chain with more points, B2 at every FP = 8-64; B1,
+B2 and B3 with rows whose points sit on a support or 1e-3 and 1e-2 from
+one; B1 on fitted proxies of 2048 and 4096 supports against its float64
+twin), then drives seven paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -31,6 +32,13 @@ one), then drives six paths through the entry points a user calls:
   al_traj_optimize on 2 problems -> SLSQP and trust-constr on one problem
   each (their derivatives on CPU float64, the scipy paths' route) -> one
   Weighted.step;
+- PandaFK active learning (scripts/active_2d.py's updates, on the
+  panda_world scene with a moving sphere): HybridForwardKinematicsDiffCo
+  fit -> ten obstacle moves, each with the ground truth rebound and an
+  update, the proxy's agreement with the moved scene before and after ->
+  Adam before and after a path-targeted update on its solutions -> the
+  sweeps (B1, B2) at the final supports -> the hybrid recheck and
+  OptimisticChecker.in_collision;
 - the roofline path at bench.py's primitive shape (PandaFK, B = 65536,
   S = 512): ``diffco_tpu_torch.scripts.roofline_fk_score.run`` (B1's
   bench step and kernel, the B7 ablation ladder, the B1 block-size sweep)
@@ -101,6 +109,12 @@ GUARD_KAPPAS = (0.0, 1 / 1024, 1 / 256, 1 / 64, 1 / 16, 1 / 4)
 # FP = 8)
 DH_MULTI_CLASSES = (1, 2, 3, 5, 8)
 BAXTER_MULTI_CASES = ((16, 2), (16, 3), (16, 5), (8, 5), (8, 6), (8, 8))
+# B4 at FP = 32, 40 and 48 (PandaFK's chain with WIDE_POINTS points): the
+# narrow instance at C = 1, one full pass at C = 2, two or three at C = 5
+WIDE_MULTI_CLASSES = (1, 2, 5)
+# B1 on proxies of this many supports, with weights that cancel as a
+# fitted proxy's do (_fitted_proxy), held to the float64 twin
+LARGE_S = (2048, 4096)
 FIT_SAMPLES = 5000               # ForwardKinematicsDiffCo.fit's default
 URDF_FIT_SAMPLES = 3000          # the README quick start's
 # The URDF trajopt departs from the README's options in two places. 83 %
@@ -133,6 +147,23 @@ REPAIR_TRAJ = {'NUM_RE_TRIALS': 1, 'MAXITER': 200, 'safety_margin': -0.03,
 SCIPY_OPTIONS = {'NUM_RE_TRIALS': 1, 'MAXITER': 200}
 TC_FREE_WAYPOINTS = 8
 WEIGHTED_STEPS = 50
+# The active-learning path (scripts/active_2d.py's 10 updates at
+# --num-update 300 with a 0.2 verify split, on PandaFK in the moving
+# panda_world scene): sphere1 moves along x from ACTIVE_X[0] to
+# ACTIVE_X[1] at y = 0.3, z = 0.4 in ACTIVE_MOVES steps; each step's proxy
+# is held to the moved scene's ground truth on ACTIVE_SWEEP
+# configurations. Then ACTIVE_PROBLEMS Adam problems before and after a
+# path-targeted update of ACTIVE_EXPLOIT samples, and the hybrid recheck
+# on ACTIVE_RECHECK configurations.
+ACTIVE_MOVES = 10
+ACTIVE_X = (0.5, -0.3)
+ACTIVE_YZ = (0.3, 0.4)
+ACTIVE_UPDATE_SAMPLES = 300
+ACTIVE_VERIFY = 0.2
+ACTIVE_SWEEP = 65536
+ACTIVE_PROBLEMS = 2
+ACTIVE_EXPLOIT = 1024
+ACTIVE_RECHECK = 16384
 # B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
 # without dq, 1e-3 with it. In mv_bf16_full kernel and twin may round an r
 # or 1/r to neighbouring bf16 values (2^-8 of a term; on the H100 they
@@ -376,6 +407,84 @@ def check_dh_kernel(robot, dev):
     return out
 
 
+def _fitted_proxy(robot, gt, S, dev, seed):
+    """Supports and weights of a polyharmonic proxy fitted the way
+    fit_poly fits one: the FK points of S ground-truth-labelled random
+    configurations and the weights that interpolate their +-1 labels
+    (masked_rbf_solve, every row valid, in float32 on the card). Such
+    weights cancel: sum_j |w_j| r_j is far beyond |score|."""
+    from diffco_tpu_torch.device import fp32_matmul
+    from diffco_tpu_torch.kernels import Polyharmonic
+    from diffco_tpu_torch.perceptron import masked_rbf_solve
+    qs = robot.rand_configs(S, torch.Generator().manual_seed(seed), dev)
+    sup = robot.fkine(qs).reshape(S, -1).contiguous()
+    y = gt(qs).float() * 2 - 1
+    with fp32_matmul():
+        w = masked_rbf_solve(Polyharmonic(k=1, epsilon=1)(sup, sup), y,
+                             torch.ones(S, dtype=torch.bool, device=dev))
+    return sup, w.contiguous()
+
+
+def _large_s_cases(dev):
+    """(name, robot, ground truth) of the B1 check at LARGE_S: PandaFK
+    (FP = 24) in the panda_world scene and BaxterLeftArmFK (FP = 16) in
+    the Baxter benchmarks' scene, each with its capsule-chain ground
+    truth."""
+    import diffco_tpu_torch as dc
+    panda, baxter = dc.PandaFK(), dc.BaxterLeftArmFK()
+    return [('PandaFK', panda, dc.CapsuleChainCollision(
+                panda, link_radius=LINK_RADIUS).checker_fn(_scene())),
+            ('Baxter arm', baxter, dc.CapsuleChainCollision(
+                baxter, link_radius=BAXTER_LINK_RADIUS, per_seg=4)
+             .checker_fn(dc.ShapeEnv(_baxter_shapes())))]
+
+
+def check_dh_large_s(dev):
+    """B1 on fitted proxies of LARGE_S supports (_fitted_proxy) at
+    B = 65536 + 37, against its twin in float64, at the sweeps'
+    tolerances (score 1e-4, dq 1e-3): PandaFK (FP = 24) and Baxter's arm
+    (FP = 16). Prints each error beside max sum_j |w_j| r_j, as _sweeps
+    does, and fails after all cases if any is out of tolerance."""
+    from diffco_tpu_torch.ops import fk_score
+    out, failed = dict(err=0.0, cases=[]), []
+    for i, (name, robot, gt) in enumerate(_large_s_cases(dev)):
+        spec = fk_score.robot_spec(robot)
+        q = robot.rand_configs(B_RAGGED, torch.Generator().manual_seed(60 + i),
+                               dev)
+        for S in LARGE_S:
+            t0 = time.perf_counter()
+            sup, w = _fitted_proxy(robot, gt, S, dev, seed=70 + i + S)
+            score, dq = fk_score.dh_score_grad(q, sup, w, spec)
+            with torch.no_grad():
+                q64, sup64, w64 = q.double(), sup.double(), w.double()
+                ref, ref_dq = fk_score._dh_score_grad_plain(q64, sup64, w64,
+                                                            spec)
+                x64 = robot.fkine(q64).reshape(q.shape[0], -1)
+                cond = max(float((torch.cdist(xc, sup64) * w64.abs())
+                                 .sum(1).max())
+                           for xc in torch.split(x64, 8192))
+            torch.cuda.synchronize()
+            err_s = _max_err([(score.double(), ref)])
+            err_dq = _max_err([(dq.double(), ref_dq)])
+            row = dict(robot=name, S=S, F=sup.shape[1],
+                       score_err=err_s, dq_err=err_dq,
+                       max_abs_score=float(ref.abs().max()),
+                       max_abs_dq=float(ref_dq.abs().max()),
+                       max_sum_w_r=cond)
+            out['cases'].append(row)
+            out['err'] = max(out['err'], err_s, err_dq)
+            for what, a, b, tol in (('score', score.double(), ref, 1e-4),
+                                    ('dq', dq.double(), ref_dq, 1e-3)):
+                if not torch.allclose(a, b, rtol=tol, atol=tol):
+                    failed.append(f'{name} S = {S} {what}')
+            _phase(f'B1 dh_score_grad vs float64 twin, {name}, S = {S}', t0,
+                   B=B_RAGGED, **{k: v for k, v in row.items()
+                                  if k not in ('robot', 'S')})
+    if failed:
+        raise AssertionError(f'B1 at large S beyond the tolerance: {failed}')
+    return out
+
+
 def check_chain_kernel(dev):
     """B3 against its plain twin: FrankaPanda at B = 65536 + 37, S = 512
     (F = 24), and the generated branching trifinger, prismatic + mimic
@@ -494,10 +603,13 @@ def check_dh_multi_kernel(robot, dev):
     pass, two), and the class-mixed autograd through
     fk_polyharmonic_multi_score_auto against its dq; then its FP = 16 and
     FP = 8 instances on Baxter's arm at B = 4096 + 5, S = 128, each in the
-    register, narrow and full instance. Every case prints the instance
+    register, narrow and full instance, and its FP = 32, 40 and 48
+    instances on PandaFK's chain with WIDE_POINTS points at C = 1, 2, 5
+    (narrow; full in one pass; two or three). Every case prints the instance
     and launch plan that dh_multi_score_plan gives (and fails below 16
     warps per SM or off the CPU mirror)."""
     from diffco_tpu_torch.ops import _native, fk_score
+    from diffco_tpu_torch.robots.analytic import panda_with_points
     spec = fk_score.robot_spec(robot)
     P = len(spec[1])
     out = dict(err=0.0)
@@ -536,6 +648,25 @@ def check_dh_multi_kernel(robot, dev):
                f'C={C}', t0, B=B_CHAIN_SMALL, S=S_CHAIN_SMALL,
                F=sup.shape[1], max_abs_err=err, instance=plan['instance'],
                plan=plan)
+    for P in WIDE_POINTS:
+        arm = panda_with_points(P)
+        arm_spec = fk_score.robot_spec(arm)
+        fp = (3 * P + 7) // 8 * 8
+        for C in WIDE_MULTI_CLASSES:
+            t0 = time.perf_counter()
+            q, sup, _ = _inputs(arm, B_CHAIN_SMALL, S_CHAIN_SMALL, dev,
+                                seed=50 + P)
+            W = _class_weights(S_CHAIN_SMALL, C, dev, seed=P + C)
+            err, _ = _check_multi(f'dh_multi_score_grad FP = {fp}, C={C}',
+                                  fk_score.dh_multi_score_grad,
+                                  fk_score._dh_multi_score_grad_plain, q, sup,
+                                  W, arm_spec)
+            plan = _plan_line('B4', _native.dh_multi_plan_on_card(P, C), P, C)
+            out['err'] = max(out['err'], err)
+            _phase(f'B4 dh_multi_score_grad vs plain, PandaFK chain with {P} '
+                   f'points, FP = {fp}, C={C}', t0, B=B_CHAIN_SMALL,
+                   S=S_CHAIN_SMALL, F=sup.shape[1], max_abs_err=err,
+                   instance=plan['instance'], plan=plan)
     return out
 
 
@@ -884,27 +1015,36 @@ def _multi_sweeps(checker, robot, gt, dev, kernel_plain, tag):
           f'{float(ref_g.abs().max())}', flush=True)
 
 
-def _trajopt(checker, robot, gt, dev, tag, dist_est=None, **options):
-    """Adam trajectory optimization on N_PROBLEMS problems, each path
-    checked against the ground truth gt (bool [B]) at 10 points per
-    segment. dist_est defaults to the checker's unbiased score."""
+def _solve(checker, robot, gt, dev, pairs, dist_est=None, **options):
+    """Adam trajectory optimization (TRAJ_OPTIONS) of each (start, target)
+    pair, each path checked against the ground truth gt (bool [B]) at 10
+    points per segment: [(success, GT-valid, cost, seconds, hits,
+    solution)]. dist_est defaults to the checker's unbiased score."""
     from diffco_tpu_torch import optim
     from diffco_tpu_torch.utils import dense_path
     if dist_est is None:
         def dist_est(pp):
             return checker.collision_score(pp, bias=0).reshape(-1)
-    t0 = time.perf_counter()
     results = []
-    for i, (start, target) in enumerate(_problems(robot, gt, dev,
-                                                  N_PROBLEMS)):
+    for i, (start, target) in enumerate(pairs):
         opts = dict(TRAJ_OPTIONS, seed=i,
                     safety_margin=-checker.safety_bias, **options)
         rec = optim.adam_traj_optimize(robot, dist_est, start, target, opts)
         sol = torch.as_tensor(rec['solution'], device=dev)
         hits = int(gt(dense_path(sol, 10)).sum())
         results.append((rec['success'], hits == 0, rec['cost'], rec['time'],
-                        hits))
+                        hits, sol))
     torch.cuda.synchronize()
+    return results
+
+
+def _trajopt(checker, robot, gt, dev, tag, dist_est=None, **options):
+    """_solve on N_PROBLEMS problems; fails on a non-finite cost or
+    without a ground-truth-valid path."""
+    t0 = time.perf_counter()
+    results = _solve(checker, robot, gt, dev,
+                     _problems(robot, gt, dev, N_PROBLEMS), dist_est,
+                     **options)
     _phase(f'{tag} trajopt', t0, problems=N_PROBLEMS,
            success=[r[0] for r in results], gt_valid=[r[1] for r in results],
            gt_hits_of_191=[r[4] for r in results],
@@ -938,6 +1078,151 @@ def journey(robot, dev):
         ('B2', lambda k: fused_score.poly_score_guard_pairs(
             fitted['x'], fitted['sup'], fitted['w'], k), 'points')])
     _trajopt(checker, robot, gt, dev, 'PandaFK')
+
+
+def _agreement(checker, q, truth):
+    """The proxy's labels on q against the ground truth's: the share of
+    configurations where the unbiased score's sign agrees with it (the
+    proxy's own classification), and where the biased one does, with the
+    biased labels' TPR (the safe labels a planner reads). Scores through
+    collision_score (B1 at this batch); fails on a non-finite score."""
+    with torch.no_grad():
+        score = checker.collision_score(q, bias=0).reshape(-1)
+    if not bool(torch.isfinite(score).all()):
+        raise AssertionError('collision_score: non-finite score')
+    biased = score + checker.safety_bias > 0
+    return dict(agreement=float(((score > 0) == truth).float().mean()),
+                biased_agreement=float((biased == truth).float().mean()),
+                tpr=float((biased & truth).sum() / truth.sum().clamp(min=1)))
+
+
+def active_journey(robot, dev):
+    """The active-learning path: PandaFK in the panda_world scene with a
+    HybridForwardKinematicsDiffCo; sphere1 moves ACTIVE_MOVES times, each
+    time the ground truth is rebound to the moved scene and the proxy
+    updated (update(num_samples=ACTIVE_UPDATE_SAMPLES,
+    verify=ACTIVE_VERIFY)), its agreement with that ground truth measured
+    on a fixed sweep before and after (_agreement; fails if the update
+    lowers it); then Adam on ACTIVE_PROBLEMS
+    problems, a path-targeted update on their solutions (and the straight
+    line of each problem whose solution is not GT-valid), Adam again; the
+    sweeps through B1 and B2 against the float64 twin at the final
+    supports; the hybrid recheck against the raw proxy, and
+    OptimisticChecker.in_collision on one path in both modes."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.ops import fk_score
+    from diffco_tpu_torch.utils import dense_path
+    env = _scene()
+    cap = dc.CapsuleChainCollision(robot, link_radius=LINK_RADIUS)
+    checker = dc.HybridForwardKinematicsDiffCo(
+        robot=robot, environment=env, gt_check_func=cap.checker_fn(env),
+        seed=0, device=dev)
+    _fit(checker, FIT_SAMPLES, 'PandaFK active', verify=False)
+    p = checker.perceptron
+    q_sweep = robot.rand_configs(ACTIVE_SWEEP,
+                                 torch.Generator().manual_seed(8), dev)
+    max_s = p.support_transformed.shape[0]
+    steps = []
+    for step, x in enumerate(np.linspace(*ACTIVE_X, ACTIVE_MOVES)):
+        t0 = time.perf_counter()
+        pose = np.eye(4)
+        pose[:3, 3] = (x, *ACTIVE_YZ)
+        env.update_transform('sphere1', pose)
+        # a bound ground truth keeps the scene it was bound to: rebind
+        gt = checker.gt_check_func = cap.checker_fn(env)
+        truth = gt(q_sweep)
+        stale = _agreement(checker, q_sweep, truth)
+        t1 = time.perf_counter()
+        acc, tpr, tnr = checker.update(num_samples=ACTIVE_UPDATE_SAMPLES,
+                                       verify=ACTIVE_VERIFY)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t1
+        fresh = _agreement(checker, q_sweep, truth)
+        max_s = max(max_s, p.support_transformed.shape[0])
+        steps.append(dict(update_s=update_s, supports=p.num_valid,
+                          padded=p.support_transformed.shape[0]))
+        _phase(f'PandaFK active, move {step + 1} of {ACTIVE_MOVES}', t0,
+               sphere1=[round(float(x), 4), *ACTIVE_YZ],
+               update_s=round(update_s, 3), supports=p.num_valid,
+               padded_supports=p.support_transformed.shape[0],
+               iterations=p.train_iterations, verify_acc=acc,
+               verify_tpr=tpr, verify_tnr=tnr, sweep_tpr_before=stale['tpr'],
+               sweep_tpr_after=fresh['tpr'],
+               agreement_before=stale['agreement'],
+               agreement_after=fresh['agreement'],
+               biased_agreement_before=stale['biased_agreement'],
+               biased_agreement_after=fresh['biased_agreement'],
+               colliding_share=float(truth.float().mean()),
+               safety_bias=checker.safety_bias)
+        if not fresh['agreement'] >= stale['agreement']:
+            raise AssertionError(
+                f'PandaFK active move {step + 1}: the proxy agrees with the '
+                f'moved scene on {fresh["agreement"]} after the update, '
+                f'{stale["agreement"]} before')
+
+    t0 = time.perf_counter()
+    pairs = _problems(robot, gt, dev, ACTIVE_PROBLEMS)
+    before = _solve(checker, robot, gt, dev, pairs)
+    paths = [r[5] for r in before] + [
+        dense_path(torch.stack(pair), 19)
+        for pair, r in zip(pairs, before) if not r[1]]
+    t1 = time.perf_counter()
+    acc, tpr, tnr = checker.update(exploit_paths=paths,
+                                   num_exploit_samples=ACTIVE_EXPLOIT,
+                                   verify=ACTIVE_VERIFY)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t1
+    max_s = max(max_s, p.support_transformed.shape[0])
+    after = _solve(checker, robot, gt, dev, pairs)
+    costs = [r[2] for r in before + after]
+    _phase('PandaFK active, path-targeted update', t0,
+           problems=ACTIVE_PROBLEMS, exploit_paths=len(paths),
+           update_s=round(update_s, 3), supports=p.num_valid,
+           verify_acc=acc, verify_tpr=tpr, verify_tnr=tnr,
+           gt_valid_before=[r[1] for r in before],
+           gt_valid_after=[r[1] for r in after],
+           gt_hits_before=[r[4] for r in before],
+           gt_hits_after=[r[4] for r in after],
+           cost=[round(c, 4) for c in costs],
+           seconds=[round(r[3], 2) for r in before + after])
+    if not all(math.isfinite(c) for c in costs):
+        raise AssertionError('PandaFK active trajopt: non-finite cost')
+
+    spec = fk_score.robot_spec(robot)
+    _sweeps(checker, robot, gt, dev,
+            lambda q, s, w: fk_score._dh_score_grad_plain(q, s, w, spec),
+            'PandaFK active')
+    print(f'PandaFK active: largest S of the run {max_s} (padded), final '
+          f'{p.support_transformed.shape[0]} with {p.num_valid} supports; '
+          f'seconds per update {[round(s["update_s"], 3) for s in steps]}, '
+          f'supports per move {[s["supports"] for s in steps]}', flush=True)
+
+    t0 = time.perf_counter()
+    q = robot.rand_configs(ACTIVE_RECHECK, torch.Generator().manual_seed(9),
+                           dev)
+    truth = gt(q)
+    hybrid = checker.collision(q)
+    raw = _agreement(checker, q, truth)
+    agree_h = float((hybrid == truth).float().mean())
+    optimistic = dc.OptimisticChecker(robot=robot, environment=env,
+                                      gt_check_func=gt, device=dev)
+    optimistic.perceptron, optimistic.safety_bias = p, checker.safety_bias
+    path = paths[0]
+    answers = [optimistic.in_collision(path, optimistic=o)
+               for o in (False, True)]
+    _phase('PandaFK active, hybrid recheck', t0, configs=ACTIVE_RECHECK,
+           hybrid_agreement=agree_h,
+           raw_agreement=raw['biased_agreement'],
+           raw_unbiased_agreement=raw['agreement'],
+           optimistic_in_collision={'False': answers[0], 'True': answers[1]},
+           gt_hits_on_the_path=int(gt(path).sum()))
+    # the reference's own assertion (tests/test_checkers2.py): against the
+    # raw proxy's labels, collision_score(q) > 0
+    if not agree_h >= raw['biased_agreement']:
+        raise AssertionError(f'PandaFK active: the hybrid recheck agrees '
+                             f'with the ground truth on {agree_h}, below '
+                             f'the raw proxy\'s {raw["biased_agreement"]}')
+    return dict(max_s=max_s, steps=steps)
 
 
 def urdf_journey(dev):
@@ -1294,7 +1579,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             lambda: fk_score._dh_score_grad_plain(q, sup1, w1, spec),
             bound1, by1, bound_fp32_ms=bound1_fp32, bound_fp32_by=by1_fp32,
             bound_times_ms=dh_tc_times(B1, S1, F1, J, len(spec[1])),
-            plan=b1['plan'], warps_per_sm=b1['plan']['warps_per_sm']),
+            plan=b1['plan'], warps_per_sm=b1['plan']['warps_per_sm'],
+            large_s_vs_float64=b1['large_s']['cases']),
         row('chain_score_grad', 'diffco_tpu_torch/csrc/chain_score.cu',
             'diffco_tpu/ops/fk_score.py:587', [B3, S3, D], b3,
             lambda: fk_score.chain_score_grad(q3, sup3, w3, cs),
@@ -1395,6 +1681,7 @@ def main():
     robot = dc.PandaFK()
     b2 = check_poly_kernel(robot, dev)
     b1 = check_dh_kernel(robot, dev)
+    b1['large_s'] = check_dh_large_s(dev)
     b3 = check_chain_kernel(dev)
     b4 = check_dh_multi_kernel(robot, dev)
     b5 = check_chain_multi_kernel(dev)
@@ -1409,6 +1696,7 @@ def main():
                       ('FrankaPanda multi-class',
                        lambda: urdf_multi_journey(dev)),
                       ('Baxter', lambda: baxter_journey(dev)),
+                      ('PandaFK active', lambda: active_journey(robot, dev)),
                       ('roofline', lambda: roofline_path(dev))):
         _zero_launches()
         run()
@@ -1422,6 +1710,8 @@ def main():
                     ('FrankaPanda multi-class', 'chain_multi_score_grad'),
                     ('Baxter', 'dh_score_grad'),
                     ('Baxter', 'poly_score_grad'),
+                    ('PandaFK active', 'dh_score_grad'),
+                    ('PandaFK active', 'poly_score_grad'),
                     ('roofline', 'dh_score_grad'),
                     ('roofline', 'dh_dual_score_grad'),
                     ('roofline', 'dh_ablation'),

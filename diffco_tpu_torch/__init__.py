@@ -10,7 +10,10 @@ their analytic FK derivatives, a ``ShapeEnv`` scene with the
 ``CapsuleChainCollision`` or sphere-model ground truth, the proxies
 (``DiffCo``, the multi-class ``MultiDiffCo``, the distance-regressing
 ``DiffCoBeta`` and the vector-gain ``MultiDimDiffCo``),
-``ForwardKinematicsDiffCo`` (fit, verify, collision_score) and the
+``ForwardKinematicsDiffCo`` (fit, verify, collision_score, the
+active-learning ``update``), the ``HybridForwardKinematicsDiffCo`` and
+``OptimisticChecker`` that re-check the uncertain band with the ground
+truth, ``corridor_update`` for a bare perceptron, and the
 trajectory optimizers (``optim``: Adam, batched Adam, the augmented
 Lagrangian, scipy's SLSQP and trust-constr, the ``Weighted`` stepper).
 
@@ -32,7 +35,9 @@ from .robots.urdf import (URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot,
 from .envs import ShapeEnv
 from .perceptron import (Perceptron, DiffCo, DiffCoBeta, MultiDiffCo,
                          MultiDimDiffCo)
-from .checkers import CollisionChecker, RBFDiffCo, ForwardKinematicsDiffCo
+from .checkers import (CollisionChecker, RBFDiffCo, ForwardKinematicsDiffCo,
+                       HybridForwardKinematicsDiffCo, OptimisticChecker,
+                       corridor_update)
 from .convert import load_reference_state
 from .optim import (adam_traj_optimize, adam_traj_optimize_batch,
                     al_traj_optimize, givengrad_traj_optimize,
@@ -47,7 +52,9 @@ __all__ = [
     'robot_description_folder', 'ShapeEnv',
     'Perceptron', 'DiffCo', 'DiffCoBeta', 'MultiDiffCo', 'MultiDimDiffCo',
     'CollisionChecker', 'RBFDiffCo',
-    'ForwardKinematicsDiffCo', 'load_reference_state',
+    'ForwardKinematicsDiffCo', 'HybridForwardKinematicsDiffCo',
+    'OptimisticChecker', 'corridor_update',
+    'load_reference_state',
     'adam_traj_optimize', 'adam_traj_optimize_batch', 'al_traj_optimize',
     'givengrad_traj_optimize', 'gradient_free_traj_optimize',
     'trustconstr_traj_optimize', 'TrajOptimizer', 'Weighted',

@@ -1,10 +1,13 @@
 """High-level collision-checker API (PyTorch counterpart of
 ``diffco_tpu/checkers.py``: ``CollisionChecker``, ``RBFDiffCo``,
-``ForwardKinematicsDiffCo``).
+``ForwardKinematicsDiffCo``, ``HybridForwardKinematicsDiffCo``,
+``OptimisticChecker`` and ``corridor_update``).
 
 A checker wires a robot, an environment, a ground-truth check function and
 a kernel perceptron together: dataset generation, fit/verify with the
-safety-bias rule, and the score functions the trajectory optimizers call.
+safety-bias rule, active-learning updates (a warm-started retrain on
+samples around the supports or around given paths), and the score
+functions the trajectory optimizers call.
 Everything runs on the checker's ``device`` (CUDA unless the caller asks
 for the CPU). Configurations are drawn from a seeded CPU
 ``torch.Generator`` and host-side splits from a seeded numpy stream, so a
@@ -24,6 +27,11 @@ from .device import fp32_matmul, resolve_device
 from .envs.shape_env import ShapeEnv
 from .perceptron import DiffCo
 from .robots.urdf import URDFRobot
+from .sampler import path_band_samples
+
+
+def _numpy(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 class CollisionChecker:
@@ -148,29 +156,40 @@ class RBFDiffCo(CollisionChecker):
     def fit(self, q=None, labels=None, dists=None, update=False,
             exist_mask=None, num_samples=5000, verify_ratio=0.1,
             verbose=False, **get_dataset_kwargs):
-        """Train the proxy from scratch and verify on a held-out split.
-        Returns the biased (acc, tpr, tnr), or Nones without a split."""
-        del exist_mask
-        if update:
-            raise NotImplementedError(
-                'warm-start updates are not ported yet '
-                '(ROADMAP A7, warm-start update)')
+        """Train the proxy (from scratch, or warm-started with ``update``
+        from the current supports, whose rows of q ``exist_mask`` marks)
+        and verify on a held-out split. Returns the biased (acc, tpr,
+        tnr), or Nones without a split."""
         get_dataset_kwargs.setdefault('verbose', not self.perceptron_trained)
         q, labels, dists = self._generate_dataset(
             q, labels, dists, num_samples, **get_dataset_kwargs)
         num_samples = q.shape[0]
         labels = 2 * labels - 1
 
+        warm = update and exist_mask is not None
+        if warm:
+            exist_mask = _numpy(exist_mask).astype(bool)
         if 0 < verify_ratio < 1:
             rng = self._next_rng()
             num_verify = max(1, int(verify_ratio * num_samples))
-            verify_idx = rng.permutation(num_samples)[:num_verify]
+            if warm:
+                # the previous supports stay in the training split (the
+                # warm start seeds their gains by position): the verify
+                # rows come from the other rows, an exact count of them
+                non_exist = np.where(~exist_mask)[0]
+                num_verify = min(num_verify, len(non_exist))
+                verify_idx = non_exist[
+                    rng.permutation(len(non_exist))[:num_verify]]
+            else:
+                verify_idx = rng.permutation(num_samples)[:num_verify]
             verify_mask = np.zeros(num_samples, bool)
             verify_mask[verify_idx] = True
             vm = torch.as_tensor(verify_mask, device=q.device)
             q_train, q_verify = q[~vm], q[vm]
             labels_train, labels_verify = labels[~vm], labels[vm]
             dists_train = dists[~vm]
+            if warm:
+                exist_mask = exist_mask[~verify_mask]
         elif verify_ratio:
             raise ValueError(
                 f'verify_ratio should be in (0, 1), got {verify_ratio}')
@@ -181,8 +200,9 @@ class RBFDiffCo(CollisionChecker):
 
         # 3N iterations: the greedy loop often needs ~2N to converge
         self.perceptron.train(
-            q_train, labels_train, max_iteration=3 * q_train.shape[0],
-            distance=dists_train, verbose=verbose)
+            q_train, labels_train, update=update, exist_mask=exist_mask,
+            max_iteration=3 * q_train.shape[0], distance=dists_train,
+            verbose=verbose)
         self.perceptron.fit_poly(
             kernel_func=kernel.Polyharmonic(k=1, epsilon=1), target='label')
         self.safety_bias = self._calculate_safety_bias(q_verify)
@@ -195,10 +215,78 @@ class RBFDiffCo(CollisionChecker):
         self.perceptron_trained = True
         return verify_acc, verify_tpr, verify_tnr
 
-    def update(self, *args, **kwargs):
-        raise NotImplementedError(
-            'active-learning updates are not ported yet '
-            '(ROADMAP A7, warm-start update)')
+    def update(self, q=None, labels=None, dists=None, exploit_std=0.3,
+               num_samples=100, num_exploit_samples=None,
+               num_explore_samples=None, verify=False, verbose=False,
+               exploit_paths=None, path_band_scales=(0.05, 0.15, 0.35),
+               path_num_sub=8):
+        """Active-learning update: a warm-started ``fit`` on exploit
+        samples, uniform explore samples and the current supports.
+
+        The exploit samples jitter the supports (``exploit_std``, tiled
+        when more are asked for than there are supports, clipped to the
+        joint limits) or, with ``exploit_paths`` (a list of [N_i, dof]
+        waypoint paths), come from bands around those paths
+        (``sampler.path_band_samples``): feed it a failed trajectory or a
+        planner's path through the region the proxy mislabels, then
+        re-run the optimizer. Explore samples pad the total to a multiple
+        of 256 over the padded support size. The dataset is exploit,
+        explore, then the supports in the support buffer's order, which
+        ``exist_mask`` marks. ``verify=True`` holds out 0.1 of the rows, a
+        float that ratio. Raises RuntimeError before the first fit. With
+        ``q`` given, that is the dataset (no exist_mask).
+
+        The ground truth is ``gt_check_func``. A closure bound to a scene
+        (``CapsuleChainCollision.checker_fn(env)``) keeps the scene it was
+        bound to: after moving an obstacle (``ShapeEnv.update_transform``
+        replaces ``env.scene``) rebind it, for example
+        ``checker.gt_check_func = cap.checker_fn(env)``, as the JAX
+        package's callers must too."""
+        n_exploit = (num_samples if num_exploit_samples is None
+                     else num_exploit_samples)
+        n_explore = (num_samples if num_explore_samples is None
+                     else num_explore_samples)
+        verify_ratio = 0.1 if verify is True else float(verify)
+        exist_mask = None
+        if q is None:
+            rng = self._next_rng()
+            nv = self.perceptron.num_valid
+            if nv == 0:
+                raise RuntimeError(
+                    'update() needs a trained checker (no supports yet) - '
+                    'call fit() first')
+            supports = _numpy(self.perceptron.support_points[:nv])
+            dof = supports.shape[-1]
+            lims = _numpy(self.robot.joint_limits)
+            if exploit_paths is not None:
+                exploit = path_band_samples(
+                    [_numpy(p) for p in exploit_paths], lims, rng,
+                    n_total=n_exploit, num_sub=path_num_sub,
+                    scales=path_band_scales)
+            else:
+                if n_exploit > nv:
+                    reps = -(-n_exploit // nv)
+                    centers = np.tile(supports, (reps, 1))[:n_exploit]
+                else:
+                    centers = supports[rng.permutation(nv)[:n_exploit]]
+                exploit = np.clip(
+                    centers + rng.normal(size=centers.shape) * exploit_std,
+                    lims[:, 0], lims[:, 1])
+            # the total bucketed to a multiple of 256 on the padded support
+            # size (stable across updates), the rest drawn as explore
+            base_total = exploit.shape[0] + n_explore + nv
+            s_pad = self.perceptron.support_points.shape[0]
+            bucket = -(-(exploit.shape[0] + n_explore + s_pad) // 256) * 256
+            n_explore_padded = n_explore + (bucket - base_total)
+            explore = rng.uniform(lims[:, 0], lims[:, 1],
+                                  (n_explore_padded, dof))
+            q = self._tensor(np.concatenate([exploit, explore, supports],
+                                            axis=0).astype(np.float32))
+            exist_mask = np.zeros(q.shape[0], bool)
+            exist_mask[-nv:] = True
+        return self.fit(q, labels, dists, update=True,
+                        exist_mask=exist_mask, verify_ratio=verify_ratio,
+                        verbose=verbose)
 
     # -- verification ---------------------------------------------------------
 
@@ -356,3 +444,74 @@ class ForwardKinematicsDiffCo(RBFDiffCo):
             transformed_point=p.reshape((-1,) + p.shape[-2:]))
         raw = raw.reshape(p.shape[:-2] + raw.shape[1:])
         return raw + bias
+
+
+def corridor_update(base_dataset, paths, limits, gt_dist_fn, retrain, rng,
+                    n_total=2048, num_sub=8, scales=(0.05, 0.15, 0.35),
+                    device=None):
+    """Path-targeted active learning for a bare perceptron and its
+    dataset, the functional twin of ``RBFDiffCo.update(exploit_paths=)``:
+    draw bands around ``paths`` (``sampler.path_band_samples``), label
+    them with the ground truth's signed distance ``gt_dist_fn`` (a tensor
+    of configurations on ``device``, CUDA unless the caller asks for the
+    CPU, -> [n], positive in collision), append them to the dataset and
+    rebuild the proxy with the caller's ``retrain(cfgs, labels, dists)``
+    (a full retrain: a bare perceptron keeps no warm-start bookkeeping).
+
+    base_dataset: (cfgs, labels, dists) numpy arrays. Returns
+    (retrain's result, samples, signed distances), numpy."""
+    cfgs, labels, dists = base_dataset
+    samples = path_band_samples(paths, limits, rng, n_total=n_total,
+                                num_sub=num_sub, scales=scales)
+    sd = _numpy(gt_dist_fn(torch.as_tensor(samples,
+                                           device=resolve_device(device))))
+    new_cfgs = np.concatenate([cfgs, samples], axis=0)
+    new_labels = np.concatenate([labels, (sd > 0) * 2.0 - 1.0], axis=0)
+    new_dists = np.concatenate([dists, sd], axis=0)
+    return retrain(new_cfgs, new_labels, new_dists), samples, sd
+
+
+class HybridForwardKinematicsDiffCo(ForwardKinematicsDiffCo):
+    """Proxy labels re-checked with the ground truth where the proxy is
+    unsure: rows whose unbiased score lies within the safety bias of 0
+    take the ground truth's label (computed for the whole batch in one
+    sweep, as in the JAX package); with ``lazy_line_check`` only the row
+    of the highest score is checked exactly."""
+
+    def __init__(self, *args, lazy_line_check=False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.lazy_line_check = lazy_line_check
+
+    def collision(self, q):
+        q = torch.atleast_2d(q if torch.is_tensor(q) else self._tensor(q))
+        with torch.no_grad():
+            unbias = self.collision_score(q, bias=0).reshape(-1)
+        labels = unbias + self.safety_bias > 0
+        if self.lazy_line_check:
+            max_i = torch.argmax(unbias)
+            gt = torch.as_tensor(self.gt_check_func(q[max_i][None]),
+                                 device=labels.device).reshape(())
+            labels = labels.clone()
+            labels[max_i] = gt.to(torch.bool)
+        else:
+            uncertain = ((unbias + self.safety_bias > 0)
+                         & (unbias - self.safety_bias < 0))
+            gt = torch.as_tensor(self._gt_labels(q),
+                                 device=labels.device).reshape(-1)
+            labels = torch.where(uncertain, gt.to(torch.bool), labels)
+        return labels
+
+
+class OptimisticChecker(HybridForwardKinematicsDiffCo):
+    """``in_collision`` of a set of states: any state in collision by the
+    hybrid check, or, optimistic, only a score above the safety bias
+    counts as a collision."""
+
+    def in_collision(self, states, optimistic=False):
+        states = torch.atleast_2d(states if torch.is_tensor(states)
+                                  else self._tensor(states))
+        if optimistic:
+            with torch.no_grad():
+                scores = self.collision_score(states, bias=0).reshape(-1)
+            return bool(scores.max() - self.safety_bias > 0)
+        return bool(torch.any(self.collision(states)))

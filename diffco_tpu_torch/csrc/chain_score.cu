@@ -96,8 +96,9 @@ chain_score_tc_kernel(const float* __restrict__ q, const float* __restrict__ s,
     chain_fk<KP>(qb, live, sp, fr, zo, xrow);
   }
   // product 2 by chunks where its accumulator fits (kTcChunkMaxFP)
-  tc_score_block<FP, kMeasure, (FP <= kTcChunkMaxFP)>(s, w, S, F, smem,
-                                                      kappa, guard_pairs);
+  tc_score_block<FP, kMeasure,
+                 (FP <= kTcChunkMaxFP ? kTcSumsRegs : kTcSumsOne)>(
+      s, w, S, F, smem, kappa, guard_pairs);
   if (tid < kTcRows) {  // the epilogue: the backward
     float dqr[kMaxD];
 #pragma unroll

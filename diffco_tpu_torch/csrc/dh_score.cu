@@ -28,7 +28,10 @@
 // joint axes and origins for the backward, which the same thread runs
 // after the supports from the row's sums in shared memory. The DH
 // constants and point specs arrive by value in a DHSpec kernel argument,
-// so one build serves every DH robot with J <= 8, P <= 16.
+// so one build serves every DH robot with J <= 8, P <= 16. Product 2
+// sums each chunk of supports into a fresh accumulator (kDhSums): one
+// accumulator over all of them took the dq of fitted proxies of 4096
+// supports past half the 1e-3 tolerance (PERF.md section 6).
 //
 // The first design, one thread per configuration on the CUDA cores with
 // supports staged through shared memory in chunks of 128
@@ -94,14 +97,25 @@ dh_score_grad_kernel(const float* __restrict__ q, const float* __restrict__ s,
   }
 }
 
+// How product 2 sums over the chunks at each FP (tc_score_block.cuh's
+// kSums). One accumulator over all supports lost dq precision as S grew
+// (PERF.md section 6): per-chunk sums in registers where ptxas keeps the
+// kernel within 128 registers unspilled, else with the running sums in
+// shared memory.
+template <int FP>
+constexpr int kDhSums = FP == 24 ? kTcSumsShared : kTcSumsRegs;
+
 // The kernel's dynamic shared memory: the block's (TcSmem<FP>), then each
 // row's joint axes and origins (az, ao: 3 kMaxJ floats each) at an odd
-// stride.
+// stride, then kTcSumsShared's running sums where kDhSums takes them.
 template <int FP>
 struct DhSmem {
   static constexpr int kAxesStride = 6 * kMaxJ + 1;
   static constexpr int kAxes = TcSmem<FP>::kFloats;
-  static constexpr int kBytes = 4 * (kAxes + kTcRows * kAxesStride);
+  static constexpr int kRun = kAxes + kTcRows * kAxesStride;
+  static constexpr int kBytes =
+      4 * (kRun + (kDhSums<FP> == kTcSumsShared ? TcSmem<FP>::kRunFloats
+                                                 : 0));
 };
 
 // B1 on the tensor-core score block (file comment). kMeasure: a
@@ -136,7 +150,9 @@ dh_score_tc_kernel(const float* __restrict__ q, const float* __restrict__ s,
     for (int f = 0; f < FP; ++f) xrow[f] = 0.f;
     dh_chain<KP>(qr, sp, xrow, axes, axes + 3 * kMaxJ);
   }
-  tc_score_block<FP, kMeasure>(s, w, S, F, smem, kappa, guard_pairs);
+  tc_score_block<FP, kMeasure, kDhSums<FP>>(s, w, S, F, smem, kappa,
+                                            guard_pairs,
+                                            smem + DhSmem<FP>::kRun);
   if (tid < kTcRows) {  // the epilogue: the backward
     float dqr[kMaxJ];
 #pragma unroll

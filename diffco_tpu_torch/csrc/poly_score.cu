@@ -60,8 +60,9 @@ poly_score_tc_kernel(const float* __restrict__ x, const float* __restrict__ s,
     smem[L::kX + r * L::kXS + f] = f < F ? x[b * F + f] : 0.f;
   }
   // product 2 by chunks where its accumulator fits (kTcChunkMaxFP)
-  tc_score_block<FP, kMeasure, (FP <= kTcChunkMaxFP)>(s, w, S, F, smem,
-                                                      kappa, guard_pairs);
+  tc_score_block<FP, kMeasure,
+                 (FP <= kTcChunkMaxFP ? kTcSumsRegs : kTcSumsOne)>(
+      s, w, S, F, smem, kappa, guard_pairs);
   // dx = x~ rowsum - su~ (rowsum at column F of the row's sums)
   for (int i = tid; i < live * FP; i += kTcThreads) {
     const int r = i / FP, f = i % FP;

@@ -41,13 +41,16 @@
 // its chains of dependent products short).
 // Plain TF32 keeps ~3 decimal digits, too few where fitted weights
 // cancel (sum_j |w_j| r_j ~ 7.5e3 against |score| ~ 1.5). With
-// kChunkSums (B2 and B3 up to kTcChunkMaxFP) product 2 accumulates each
-// chunk on the tensor cores into a fresh accumulator, added to the rows'
-// running sums on the CUDA cores after the chunk: one accumulator over
-// all S supports lost ~8x more of the gradient (the tensor cores' fp32
-// accumulation rounds less well than an fp32 add; dq 8.7e-4 against
-// 7.9e-5 on the fitted FrankaPanda sweep, S = 896, PERF.md section 6).
-// B1 keeps one accumulator: the second one's registers spill there.
+// kChunkSums (B2 and B3 up to kTcChunkMaxFP, B1 where it fits) product
+// 2 accumulates each chunk on the tensor cores into a fresh accumulator,
+// added to the rows' running sums on the CUDA cores after the chunk: one
+// accumulator over all S supports lost ~8x more of the gradient (the
+// tensor cores' fp32 accumulation rounds less well than an fp32 add; dq
+// 8.7e-4 against 7.9e-5 on the fitted FrankaPanda sweep, S = 896,
+// PERF.md section 6).
+// Where a second accumulator in registers would spill, kTcSumsShared
+// keeps the running sums in shared memory instead (each lane its own
+// slots, added to after each chunk: B1, dh_score.cu).
 // |x~|^2 is formed in double and kept as hi + lo floats, because its
 // rounding would enter every pair of the row alike. The score stays on
 // the CUDA cores, compensated per thread and merged with compensation
@@ -101,6 +104,15 @@ constexpr int kTcRegMaxFP = 32;    // x~ fragments in registers up to here
 // up to kTcChunkRegMaxFP (FP = 32 with them in registers spills 64-88 B).
 constexpr int kTcChunkMaxFP = 48;
 constexpr int kTcChunkRegMaxFP = 24;
+// How product 2 sums over the supports (tc_score_block's kSums): one
+// accumulator over all of them; a fresh one per chunk added to the
+// running sums in registers after it (kChunkSums above); or a fresh one
+// per chunk added to running sums in shared memory (4 NT2 floats a
+// thread, TcSmem<FP>::kRunFloats, the caller's), for kernels whose
+// registers cannot hold the second accumulator.
+constexpr int kTcSumsOne = 0;
+constexpr int kTcSumsRegs = 1;
+constexpr int kTcSumsShared = 2;
 // The design's parts (scripts/ab_kernel.py's ablations replace these
 // lines in a copy): product 1 on the tensor cores (false: every d2 by
 // direct difference), 3 products per split (1: plain TF32), and the
@@ -136,6 +148,8 @@ struct TcSmem {
   static constexpr int kEnd = kScore + kTcRows;
   static constexpr int kFloats = kLoopEnd > kEnd ? kLoopEnd : kEnd;
   static constexpr int kBytes = 4 * kFloats;
+  // kTcSumsShared's running sums: [NT2][4][kTcThreads], outside the block
+  static constexpr int kRunFloats = 4 * kNT2 * kTcThreads;
 };
 
 __device__ __forceinline__ float bits_float(unsigned u) {
@@ -358,16 +372,21 @@ __device__ __forceinline__ void tc_x_fragment(const float* xs, int r0, int t,
 // sums at kSu + i kSuS (su~ at f < F, rowsum at F): tc_row_sums reads
 // them. kMeasure counts the guard's recomputations into *guard_pairs,
 // with kappa in place of kTcGuard (a measurement build only).
-// kChunkSums: product 2 accumulates each chunk into a fresh accumulator
-// (file comment); x~'s fragments then stay in registers only up to
-// kTcChunkRegMaxFP components, for the registers that accumulator takes.
-template <int FP, bool kMeasure, bool kChunkSums = false>
+// kSums: how product 2 sums over the chunks (kTcSumsOne, kTcSumsRegs,
+// kTcSumsShared). With kTcSumsRegs x~'s fragments stay in registers only
+// up to kTcChunkRegMaxFP components, for the registers the second
+// accumulator takes; kTcSumsShared keeps the running sums at `run`
+// (TcSmem<FP>::kRunFloats floats of shared memory, outside the block's).
+template <int FP, bool kMeasure, int kSums = kTcSumsOne>
 __device__ __forceinline__ void tc_score_block(
     const float* __restrict__ s, const float* __restrict__ w, int S, int F,
-    float* smem, float kappa, unsigned long long* guard_pairs) {
+    float* smem, float kappa, unsigned long long* guard_pairs,
+    float* run = nullptr) {
   using L = TcSmem<FP>;
   constexpr int K = kTcChunk;
   constexpr int KK = L::kKK, NT2 = L::kNT2;
+  constexpr bool kChunkSums = kSums == kTcSumsRegs;
+  constexpr bool kRunShared = kSums == kTcSumsShared;
   constexpr bool kXRegs =
       FP <= (kChunkSums ? kTcChunkRegMaxFP : kTcRegMaxFP);
   // two n-tiles per pass of the support loop where x~'s fragments stay in
@@ -427,7 +446,10 @@ __device__ __forceinline__ void tc_score_block(
 #pragma unroll
   for (int n2 = 0; n2 < NT2; ++n2)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n2][i] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      acc[n2][i] = 0.f;
+      if constexpr (kRunShared) run[(4 * n2 + i) * kTcThreads + tid] = 0.f;
+    }
 
   const float4* b1s = reinterpret_cast<const float4*>(smem + L::kB1);
   const float4* b2s = reinterpret_cast<const float4*>(smem + L::kB2);
@@ -525,6 +547,22 @@ __device__ __forceinline__ void tc_score_block(
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[n2][i] += part[n2][i];
     }
+    if constexpr (kRunShared) {  // acc held this chunk's sums alone
+#pragma unroll
+      for (int n2 = 0; n2 < NT2; ++n2)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          run[(4 * n2 + i) * kTcThreads + tid] += acc[n2][i];
+          acc[n2][i] = 0.f;
+        }
+    }
+  }
+  if constexpr (kRunShared) {
+#pragma unroll
+    for (int n2 = 0; n2 < NT2; ++n2)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[n2][i] = run[(4 * n2 + i) * kTcThreads + tid];
   }
 
   // the four lanes of a row merge their compensated scores

@@ -90,6 +90,10 @@ def multi_plan(P: int, C: int) -> dict:
 # layout is made here too.
 TC_ROWS, TC_THREADS, TC_CHUNK, TC_MIN_BLOCKS = 128, 256, 32, 2
 TC_GUARD = 1 / 64   # kTcGuard, the near-pair guard's threshold
+# B1's widths whose product-2 running sums live in shared memory
+# (csrc/dh_score.cu kDhSums == kTcSumsShared; per-chunk sums in registers
+# at the others)
+DH_SHARED_SUMS_FP = (24,)
 
 
 def _tc_block_floats(fp: int) -> int:
@@ -104,12 +108,12 @@ def _tc_block_floats(fp: int) -> int:
     return max(loop, sums)
 
 
-def _tc_plan(fp: int, row_floats: int) -> dict:
+def _tc_plan(fp: int, row_floats: int, extra_floats: int = 0) -> dict:
     """The plan of a kernel on the tensor-core block that adds
-    ``row_floats`` shared floats per row after ``TcSmem<FP>``: dynamic
-    shared bytes per block, and the blocks and warps per SM that the
-    register bound and shared memory allow."""
-    smem = 4 * (_tc_block_floats(fp) + TC_ROWS * row_floats)
+    ``row_floats`` shared floats per row and ``extra_floats`` per block
+    after ``TcSmem<FP>``: dynamic shared bytes per block, and the blocks
+    and warps per SM that the register bound and shared memory allow."""
+    smem = 4 * (_tc_block_floats(fp) + TC_ROWS * row_floats + extra_floats)
     blocks = min(TC_MIN_BLOCKS,
                  SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED),
                  SM_MAX_THREADS // TC_THREADS)
@@ -120,9 +124,14 @@ def _tc_plan(fp: int, row_floats: int) -> dict:
 
 def dh_tc_plan(P: int) -> dict:
     """B1's launch plan (``csrc/dh_score.cu``) for P control points: the
-    block's shared memory and each row's joint axes and origins
-    (``DhSmem<FP>``, 6 kMaxJ + 1 floats a row)."""
-    return _tc_plan((3 * P + 7) // 8 * 8, 6 * MAX_J + 1)
+    block's shared memory, each row's joint axes and origins
+    (``DhSmem<FP>``, 6 kMaxJ + 1 floats a row) and, at
+    ``DH_SHARED_SUMS_FP``, product 2's running sums (``TcSmem<FP>::
+    kRunFloats``: 4 floats per thread per column tile)."""
+    fp = (3 * P + 7) // 8 * 8
+    run = (4 * (fp // 8 + 1) * TC_THREADS if fp in DH_SHARED_SUMS_FP
+           else 0)
+    return _tc_plan(fp, 6 * MAX_J + 1, run)
 
 
 def poly_tc_plan(F: int) -> dict:

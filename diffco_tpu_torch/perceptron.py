@@ -16,7 +16,10 @@ for a scalar perceptron): each class takes its own greedy step per
 iteration, and the loop is done when every class is.
 
 Support sets are fixed-shape padded arrays with a validity mask, as in
-the JAX package.
+the JAX package. ``train(update=True, exist_mask=...)`` warm-starts from
+them: the previous supports' gains are seeded at their rows of the new
+dataset and the hypothesis is their kernel sum, exactly (float32 products,
+never TF32: the greedy picks read it).
 """
 from __future__ import annotations
 
@@ -284,13 +287,6 @@ def extract_supports(gains, S: int):
     return idx, valid, num_valid
 
 
-def _no_update(update):
-    if update:
-        raise NotImplementedError(
-            'warm-start update=True is not ported yet '
-            '(ROADMAP A7, warm-start update)')
-
-
 def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
@@ -321,6 +317,22 @@ class Perceptron:
     @property
     def valid_supports(self):
         return self.num_valid
+
+    def _prev_gains(self, exist_mask, N: int):
+        """The warm start's gains: (prev [N, C], vg [S, C]) with vg the
+        valid supports' gains (padded rows 0) and prev vg scattered to the
+        rows ``exist_mask`` marks, by position. The marked rows must come
+        in the support buffer's order (``extract_supports``'s, as
+        ``RBFDiffCo.update`` appends them)."""
+        if exist_mask is None:
+            raise ValueError('update=True requires exist_mask')
+        g = self.gains.reshape(self.gains.shape[0], -1)
+        exist_idx = torch.nonzero(torch.as_tensor(
+            exist_mask, device=g.device)).reshape(-1)
+        vg = g * self.valid_mask.to(g.dtype)[:, None]
+        prev = g.new_zeros((N, g.shape[1]))
+        prev[exist_idx] = vg[:exist_idx.shape[0]]
+        return prev, vg
 
     def _select_supports(self, X, Xt, gains, hyp, y, dist, K):
         """Compact to the fixed-size padded support set. ``K`` is None
@@ -429,20 +441,24 @@ class DiffCo(Perceptron):
 
     def train(self, X, y, update=False, exist_mask=None, max_iteration=1000,
               method='original', distance=None, verbose=False):
-        """Cold-start training: over the dense Gram of the transformed X
-        up to ``lazy_gram_threshold`` rows, over lazy Gram rows past it."""
-        del method, exist_mask
-        _no_update(update)
+        """Training over the dense Gram of the transformed X up to
+        ``lazy_gram_threshold`` rows, over lazy Gram rows past it.
+        ``update=True`` warm-starts from the current supports, whose rows
+        of X ``exist_mask`` marks (``_prev_gains``); without supports yet
+        it starts cold."""
+        del method
         self._train(X, y.reshape(-1), max_iteration,
                     distance.reshape(-1) if distance is not None else None,
-                    verbose)
+                    verbose, update, exist_mask)
 
-    def _train(self, X, y, max_iteration, distance, verbose):
+    def _train(self, X, y, max_iteration, distance, verbose, update=False,
+               exist_mask=None):
         """Train on labels y [N] or [N, C] and select the supports."""
         N = X.shape[0]
         Xt = self._apply_transform(X)
         yc = y.reshape(N, -1).to(Xt.dtype)
         K = None
+        init_gains = init_hyp = None
         with fp32_matmul():
             if N > self.lazy_gram_threshold:
                 rows = _lazy_rows(self.kernel_func, Xt)
@@ -450,8 +466,17 @@ class DiffCo(Perceptron):
             else:
                 K = self.kernel_func(Xt, Xt)
                 rows, diagK = (lambda idx: K[idx]), torch.diagonal(K)
+            if update and self.gains is not None:
+                init_gains, vg = self._prev_gains(exist_mask, N)
+                # hypothesis = K @ gains; on the lazy path a cross-Gram
+                # against the full padded support buffer (padded rows
+                # carry zero gain)
+                init_hyp = (K @ init_gains if K is not None else
+                            self.kernel_func(Xt, self.support_transformed)
+                            @ vg)
             gains, hyp, it = _train_columns(rows, diagK, yc, self.beta,
-                                            int(max_iteration))
+                                            int(max_iteration), init_gains,
+                                            init_hyp)
         gains, hyp = gains.reshape(y.shape), hyp.reshape(y.shape)
         self.train_iterations = int(it)
         if verbose:
@@ -649,12 +674,14 @@ class MultiDiffCo(DiffCo):
 
     def train(self, X, y, update=False, exist_mask=None, max_iteration=1000,
               method='original', distance=None, verbose=False):
-        del method, exist_mask
-        _no_update(update)
+        """``DiffCo.train`` on labels [N, num_class]; a warm start seeds
+        the [S, C] gains."""
+        del method
         if y.dim() != 2:
             raise ValueError('MultiDiffCo expects labels [N, num_class]')
         self.num_class = y.shape[1]
-        self._train(X, y, max_iteration, distance, verbose)
+        self._train(X, y, max_iteration, distance, verbose, update,
+                    exist_mask)
 
     def fit_poly(self, kernel_func=None, target='hypo', reg: float = 0.0):
         """Per-class masked solve over the shared supports: class c solves
@@ -734,19 +761,36 @@ class MultiDimDiffCo(Perceptron):
 
     def train(self, X, y, update=False, exist_mask=None, max_iteration=1000,
               method='original', distance=None, verbose=False):
-        del method, exist_mask
-        _no_update(update)
+        """Vector-gain training; ``update=True`` warm-starts as
+        ``DiffCo.train`` does, with h_i = sum_j K[i, j] . g_j, and raises
+        ValueError without a previous training."""
+        del method
         y = y.reshape(-1)
+        N = X.shape[0]
         Xt = self._apply_transform(X)                 # [N, M, d]
+        lazy = N > self.lazy_gram_threshold
         K = None
+        init_gains = init_hyp = None
         with fp32_matmul():
-            if X.shape[0] > self.lazy_gram_threshold:
-                gains, hyp, it = multidim_train_loop_lazy(
-                    Xt, y, self.kernel_func, self.beta, int(max_iteration))
-            else:
+            if not lazy:
                 K = self.kernel_func(Xt, Xt)
-                gains, hyp, it = multidim_train_loop(K, y, self.beta,
-                                                     int(max_iteration))
+            if update and self.gains is not None:
+                init_gains, vg = self._prev_gains(exist_mask, N)
+                init_hyp = (torch.einsum('nsc,sc->n', K, init_gains)
+                            if K is not None else torch.einsum(
+                                'nsc,sc->n', self.kernel_func(
+                                    Xt, self.support_transformed), vg))
+            elif update:
+                raise ValueError('update=True requires a previously trained '
+                                 'MultiDimDiffCo (no gains present)')
+            if lazy:
+                gains, hyp, it = multidim_train_loop_lazy(
+                    Xt, y, self.kernel_func, self.beta, int(max_iteration),
+                    init_gains, init_hyp)
+            else:
+                gains, hyp, it = multidim_train_loop(
+                    K, y, self.beta, int(max_iteration), init_gains,
+                    init_hyp)
         self.train_iterations = int(it)
         if verbose:
             acc = float(torch.mean(((hyp > 0) == (y > 0)).float()))

@@ -13,6 +13,8 @@ one card in one process.
         --ablate directDist noP2 noGuard tf32x1 noEpilogue noFK noLoop
     python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b3 \
         --ablate noLoop noGuard tf32x1 noFK oneAcc
+    python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b1 \
+        --supports 4096 --fitted --ablate oneAcc regsSums
 
 ``--source OTHER.cu`` is any source that defines the kernel's C entry
 (``chain_multi_score_grad``, ``dh_multi_score_grad``, ``dh_score_grad``,
@@ -34,14 +36,25 @@ weights N(0, 0.05^2)): ``chain`` is the FrankaPanda multi-class path's
 row on PandaFK (B = 65573, S = 512, C = 1, 2, 3, 5 and 8), ``b1``
 chip_smoke's B1 row (PandaFK, B = 65573, S = 512, one weight column),
 ``b2`` its B2 row (PandaFK's points of those configurations, F = 21) and
-``b3`` its B3 row (FrankaPanda, B = 65573, S = 512).
+``b3`` its B3 row (FrankaPanda, B = 65573, S = 512). ``--supports S``
+takes another S for ``b1``, ``b2`` and ``b3``; ``--fitted`` (``b1`` and
+``b2``) replaces the random weights by those of a fitted proxy, which
+cancel: the polyharmonic weights that interpolate the supports'
+ground-truth labels in the box + sphere scene of
+tests/test_checkers.py::panda_world (capsule chain, link radius 0.15;
+``masked_rbf_solve``, every row valid), as chip_smoke.py's B1 check at
+large S.
 
 The tensor-core block's ablations, which B1, B2 and B3 share
 (``B1_ABLATIONS``, ``B2_ABLATIONS``, ``B3_ABLATIONS``): ``noGuard`` never
 takes the near-pair guard, ``tf32x1`` runs both products in plain TF32
 instead of 3xTF32, ``noLoop`` leaves out the support loop's products and
 pair work (what remains is staging, FK, centring and the epilogue).
-B1's also: ``directDist`` computes every d2 by direct difference
+B1's also: ``oneAcc`` sums product 2 in one accumulator over all
+supports (its design before per-chunk sums), ``regsSums`` keeps the
+per-chunk sums in registers at every FP (production keeps them in
+shared memory at FP = 24, where registers spill: each build's ptxas
+report is in the result), ``directDist`` computes every d2 by direct difference
 (product 1 off: the block's step A), ``noP2`` takes product 2 out (the
 gradient sums), ``noEpilogue`` leaves out the backward, ``noFK`` the FK
 (the rows' points stay zero). B3's: ``noFK`` (the chain FK out; the rows'
@@ -66,6 +79,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -125,7 +139,10 @@ _TC_ABLATIONS = {
     'tf32x1': [(_TCB, 'constexpr int kTcSplit = 3;',
                 'constexpr int kTcSplit = 1;')],
 }
+_DH_SUMS = 'constexpr int kDhSums = FP == 24 ? kTcSumsShared : kTcSumsRegs;'
 B1_ABLATIONS = {
+    'oneAcc': [(None, _DH_SUMS, 'constexpr int kDhSums = kTcSumsOne;')],
+    'regsSums': [(None, _DH_SUMS, 'constexpr int kDhSums = kTcSumsRegs;')],
     'directDist': [(_TCB, 'constexpr bool kTcDist = true;',
                     'constexpr bool kTcDist = false;')],
     'noP2': [(_TCB, 'if (n2 < nt2)\n', 'if (n2 < 0)\n')],
@@ -137,7 +154,8 @@ B1_ABLATIONS = {
   tc_score_block''')],
     **_TC_ABLATIONS,
 }
-_ONE_ACC = [(None, '(FP <= kTcChunkMaxFP)', 'false')]
+_ONE_ACC = [(None, '(FP <= kTcChunkMaxFP ? kTcSumsRegs : kTcSumsOne)',
+             'kTcSumsOne')]
 B2_ABLATIONS = {'oneAcc': _ONE_ACC, **_TC_ABLATIONS}
 B3_ABLATIONS = {
     'oneAcc': _ONE_ACC,
@@ -146,11 +164,29 @@ B3_ABLATIONS = {
 }
 
 
+def _ptxas(log):
+    """'<mangled kernel>: <registers> regs/<spill> B spilled' for each
+    kernel instance in nvcc's -Xptxas -v output."""
+    out, name, spill = [], None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r'(\d+) bytes spill stores', ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r'Used (\d+) registers', ln)
+        if m and name:
+            out.append(f'{name}: {m.group(1)} regs/{spill} B spilled')
+    return out
+
+
 def _build_all(sources, entry):
-    """{source: its C entry}, each source built into a library with the
-    production flags (one nvcc per source not yet built, all started
-    together)."""
-    outs, procs = {}, []
+    """({source: its C entry}, {source: its ptxas report}), each source
+    built into a library with the production flags (one nvcc per source
+    not yet built, all started together; a build's nvcc output is kept
+    beside it)."""
+    outs, procs, reports = {}, [], {}
     _native._BUILD.mkdir(parents=True, exist_ok=True)
     for source in sources:
         src = Path(source).resolve()
@@ -160,14 +196,18 @@ def _build_all(sources, entry):
         out = outs[source] = (_native._BUILD /
                               f'ab-{src.stem}-{h.hexdigest()[:12]}.so')
         if not out.exists():
-            procs.append((src, subprocess.Popen(
+            procs.append((source, src, out, subprocess.Popen(
                 [_native._nvcc(), *_native._NVCC_FLAGS, '-o', str(out),
                  str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-    for src, proc in procs:
+    for source, src, out, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed for {src}:\n{log}')
+        out.with_suffix('.log').write_text(log)
+    for source, out in outs.items():
+        log = out.with_suffix('.log')
+        reports[source] = _ptxas(log.read_text()) if log.exists() else []
     argtypes = getattr(_native.build()[entry.replace('_grad', '')],
                        entry).argtypes
     fns = {}
@@ -175,7 +215,7 @@ def _build_all(sources, entry):
         fn = fns[source] = getattr(ctypes.CDLL(str(out)), entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return fns
+    return fns, reports
 
 
 def ablation_table(kernel):
@@ -246,12 +286,44 @@ def _errors(score, dq, ref, ref_dq):
                     and torch.allclose(dq, ref_dq, rtol=1e-3, atol=1e-3)))
 
 
-def _single_setup(kernel, dev, g):
-    """One weight column at the kernel's shape (module docstring): (the
-    production wrapper's arguments, the wrapper, its plain twin on given
-    arguments, the C entry's arguments after the output pointers, the
-    gradient's columns, the launch plan on the card)."""
-    S = KERNELS[kernel]['S']
+def _fitted_weights(robot, qs, sup):
+    """The polyharmonic weights interpolating the +-1 ground-truth labels
+    of configurations qs (points sup) in panda_world's box + sphere scene
+    (module docstring)."""
+    import numpy as np
+    from ..device import fp32_matmul
+    from ..envs import ShapeEnv
+    from ..kernels import Polyharmonic
+    from ..perceptron import masked_rbf_solve
+    from ..robots.capsule_chain import CapsuleChainCollision
+
+    def pose(t):
+        m = np.eye(4)
+        m[:3, 3] = t
+        return m
+    env = ShapeEnv({
+        'box1': {'type': 'Box', 'params': {'extents': [0.1, 0.1, 0.1]},
+                 'transform': pose([0.5, 0.5, 0.5])},
+        'sphere1': {'type': 'Sphere', 'params': {'radius': 0.1},
+                    'transform': pose([0.5, 0, 0])}})
+    y = CapsuleChainCollision(robot, link_radius=0.15).checker_fn(env)(
+        qs).float() * 2 - 1
+    with fp32_matmul():
+        return masked_rbf_solve(
+            Polyharmonic(k=1, epsilon=1)(sup, sup), y,
+            torch.ones(sup.shape[0], dtype=torch.bool,
+                       device=sup.device)).contiguous()
+
+
+def _single_setup(kernel, dev, g, S=None, fitted=False):
+    """One weight column at the kernel's shape (module docstring), or S
+    supports, with a fitted proxy's weights: (the production wrapper's
+    arguments, the wrapper, its plain twin on given arguments, the C
+    entry's arguments after the output pointers, the gradient's columns,
+    the launch plan on the card)."""
+    S = S or KERNELS[kernel]['S']
+    if fitted and kernel == 'b3':
+        raise ValueError('--fitted takes b1 or b2 (PandaFK)')
     if kernel == 'b3':
         robot = FrankaPanda(load_gripper=True, device=dev)
         spec = fk_score.robot_chain_statics(robot)
@@ -266,8 +338,11 @@ def _single_setup(kernel, dev, g):
     spec = fk_score.robot_spec(robot)
     c = fk_score._c_spec(spec)
     q = robot.rand_configs(B, g, dev)
-    sup = robot.fkine(robot.rand_configs(S, g, dev), flat=True).contiguous()
+    qs = robot.rand_configs(S, g, dev)
+    sup = robot.fkine(qs, flat=True).contiguous()
     w = (torch.randn(S, generator=g) * 0.05).to(dev)
+    if fitted:
+        w = _fitted_weights(robot, qs, sup)
     if kernel == 'b2':
         x = robot.fkine(q, flat=True).contiguous()
         F = x.shape[1]
@@ -280,27 +355,30 @@ def _single_setup(kernel, dev, g):
             _native.dh_score_plan_on_card(c.P))
 
 
-def run_single(builds, kernel):
+def run_single(builds, kernel, S=None, fitted=False):
     """B1, B2 or B3: {name: (source, check)} timed against production,
-    with each build's error against the fp32 twin and relative to a
-    float64 twin (max |diff| / max |twin| for score and gradient). A build
-    with ``check`` (another build of the C entry) must agree with the
-    twin; an ablation is reported only."""
+    with each build's error against the fp32 twin and against a float64
+    twin (max |diff|, and that over max |twin|, for score and gradient)
+    and its ptxas report. A build with ``check`` (another build of the C
+    entry) must agree with the fp32 twin; an ablation is reported only.
+    With ``fitted`` the builds are held to the float64 twin instead: the
+    fp32 twin's own rounding takes up the tolerance there."""
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
-    libs = _build_all([src for src, _ in builds.values()], entry)
+    libs, ptxas = _build_all([src for src, _ in builds.values()], entry)
     g = torch.Generator().manual_seed(0)
     args, wrapper, plain, spec, tail, n_grad, plan = _single_setup(
-        kernel, dev, g)
+        kernel, dev, g, S, fitted)
     Bq, S = args[0].shape[0], args[1].shape[0]
-    ref, ref_g = plain(*args, spec)
     r64, r64_g = plain(*(a.double() for a in args), spec)
+    ref, ref_g = (r64, r64_g) if fitted else plain(*args, spec)
 
     def prod():
         return wrapper(*args, spec)
 
-    res = dict(kernel=kernel, shape=dict(B=Bq, S=S, F=args[1].shape[1],
-                                         grad=n_grad), plan=plan, builds={})
+    res = dict(kernel=kernel, fitted=fitted,
+               shape=dict(B=Bq, S=S, F=args[1].shape[1], grad=n_grad),
+               plan=plan, builds={})
     for name, (src, check) in builds.items():
         fn = libs[src]
 
@@ -315,30 +393,34 @@ def run_single(builds, kernel):
         for who, f in (('production', prod), (name, alt)):
             score, grad = f()
             torch.cuda.synchronize()
-            err = _errors(score, grad, ref, ref_g)
+            err = _errors(score.to(ref.dtype), grad.to(ref.dtype), ref,
+                          ref_g)
             if (who == 'production' or check) and not err['within_tol']:
                 raise AssertionError(f'{who} disagrees with the plain twin: '
                                      f'{err}')
-            row[f'{who}_err'] = dict(err, rel_err_vs_float64=dict(
-                score=float((score.double() - r64).abs().max()
-                            / r64.abs().max()),
-                grad=float((grad.double() - r64_g).abs().max()
-                           / r64_g.abs().max())))
+            d = (score.double() - r64).abs().max(), \
+                (grad.double() - r64_g).abs().max()
+            row[f'{who}_err'] = dict(
+                err, abs_err_vs_float64=dict(score=float(d[0]),
+                                             grad=float(d[1])),
+                rel_err_vs_float64=dict(
+                    score=float(d[0] / r64.abs().max()),
+                    grad=float(d[1] / r64_g.abs().max())))
         t = [_time_ms(f) for f in (prod, alt, alt, prod)]
         res['builds'][name] = dict(row, production_ms=t[::3],
-                                   other_ms=t[1:3])
+                                   other_ms=t[1:3], ptxas=ptxas[src])
     return res
 
 
-def run(builds, classes=None, kernel='chain'):
+def run(builds, classes=None, kernel='chain', S=None, fitted=False):
     """{name: (source, check)} timed against production (module
     docstring)."""
     if kernel in ('b1', 'b2', 'b3'):
-        return run_single(builds, kernel)
+        return run_single(builds, kernel, S, fitted)
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
     classes = classes or KERNELS[kernel]['classes']
-    libs = _build_all([src for src, _ in builds.values()], entry)
+    libs, _ = _build_all([src for src, _ in builds.values()], entry)
     fns = {name: (libs[src], check) for name, (src, check) in
            builds.items()}
     g = torch.Generator().manual_seed(0)
@@ -390,6 +472,10 @@ def main(argv=None):
                     choices=sorted({*ABLATIONS, *B1_ABLATIONS,
                                     *B3_ABLATIONS}))
     ap.add_argument('--classes', type=int, nargs='+', default=None)
+    ap.add_argument('--supports', type=int, default=None,
+                    help='S for b1, b2, b3 (default: the module docstring)')
+    ap.add_argument('--fitted', action='store_true',
+                    help="b1, b2: a fitted proxy's weights")
     ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)
     table = ablation_table(args.kernel)
@@ -400,7 +486,10 @@ def main(argv=None):
                    for name in args.ablate})
     if not builds:
         ap.error('give --source or --ablate')
-    res = run(builds, args.classes, args.kernel)
+    if (args.supports or args.fitted) and args.kernel not in ('b1', 'b2',
+                                                             'b3'):
+        ap.error('--supports and --fitted take b1, b2 or b3')
+    res = run(builds, args.classes, args.kernel, args.supports, args.fitted)
     res.update(card_info(torch.device('cuda')))
     write_result(res, args.out or
                  _native._BUILD / f'ab_kernel-{args.kernel}.json')

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card. Run there with ``python -m pytest -m cuda tests/test_torch_cuda.py``;
 without a card every test skips (the fixture decides, at run time)."""
+import copy
 import os
 
 import numpy as np
@@ -37,6 +38,13 @@ DH_MULTI_CASES = [(37, 5, 1), (300, 130, 2), (65536 + 37, 512, 1),
 BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
                 8: (False, False, True, False, False, False, True)}
 BAXTER_MULTI_CLASSES = {16: (2, 3, 5), 8: (5, 6, 8)}
+# B4 at FP = 32, 40 and 48 (PandaFK's chain with 10, 13 and 16 points):
+# the narrow instance at C = 1, one full pass at C = 2, more at C = 5
+WIDE_MULTI_CASES = [(P, C) for P in (10, 13, 16) for C in (1, 2, 5)]
+# B1 on fitted proxies with many supports: PandaFK (FP = 24) and Baxter's
+# left arm (FP = 16)
+LARGE_S_CASES = [(name, S) for name in ('PandaFK', 'Baxter arm')
+                 for S in (2048, 4096)]
 # B5 on the three robots (FP = 24, 32 and 16: one pass up to 5, 3 and 7
 # classes); FrankaPanda's multi-class proxy has S = 1024 and C = 5. C = 1,
 # 2, 5 and 8 (8 at FP = 24 takes a second pass; C <= 2 there the register
@@ -210,6 +218,118 @@ def test_dh_kernels_at_fewer_points(cuda, fp):
         ref, ref_dq = fk_score._dh_multi_score_grad_plain(q, sup, W, spec)
         _close(score, ref, 1e-4)
         _close(dq, ref_dq, 1e-3)
+
+
+@pytest.mark.parametrize('P,C', WIDE_MULTI_CASES)
+def test_dh_multi_kernel_at_wide_rows(cuda, P, C):
+    """B4 at FP = 32, 40 and 48 against its twin, with its launch plan on
+    the card as ops/_native.py::multi_plan gives it."""
+    robot = panda_with_points(P)
+    g = torch.Generator().manual_seed(P + C)
+    q = robot.rand_configs(4096 + 5, g, cuda)
+    sup = robot.fkine(robot.rand_configs(128, g, cuda), flat=True)
+    W = (torch.randn(128, C, generator=g) * 0.05).to(cuda)
+    spec = fk_score.robot_spec(robot)
+    score, dq = fk_score.dh_multi_score_grad(q, sup, W, spec)
+    ref, ref_dq = fk_score._dh_multi_score_grad_plain(q, sup, W, spec)
+    _close(score, ref, 1e-4)
+    _close(dq, ref_dq, 1e-3)
+    card, plan = _native.dh_multi_plan_on_card(P, C), _native.multi_plan(P, C)
+    for key in ('instance', 'classes_per_pass', 'passes', 'smem_bytes'):
+        assert card[key] == plan[key], key
+    assert card['warps_per_sm'] >= 16
+
+
+def _shape(kind, size, xyz):
+    m = np.eye(4)
+    m[:3, 3] = xyz
+    key = 'radius' if kind == 'Sphere' else 'extents'
+    return {'type': kind, 'params': {key: size}, 'transform': m}
+
+
+def _fitted_proxy(name, S, dev):
+    """The FK points of S ground-truth-labelled configurations and the
+    polyharmonic weights that interpolate their labels (masked_rbf_solve,
+    every row valid, float32 on the card), which cancel as a fitted
+    proxy's do: PandaFK in the box + sphere scene, Baxter's left arm with
+    a ball and a table."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.device import fp32_matmul
+    from diffco_tpu_torch.kernels import Polyharmonic
+    from diffco_tpu_torch.perceptron import masked_rbf_solve
+    if name == 'PandaFK':
+        robot = dc.PandaFK()
+        env = dc.ShapeEnv({'box1': _shape('Box', [0.1] * 3, [0.5, 0.5, 0.5]),
+                           'sphere1': _shape('Sphere', 0.1, [0.5, 0, 0])})
+        cap = dc.CapsuleChainCollision(robot, link_radius=0.15)
+    else:
+        robot = dc.BaxterLeftArmFK()
+        env = dc.ShapeEnv({
+            'table': _shape('Box', [0.8, 0.8, 0.05], [0.7, 0.0, -0.1]),
+            'ball': _shape('Sphere', 0.15, [0.4, -0.35, 0.3])})
+        cap = dc.CapsuleChainCollision(robot, link_radius=0.07, per_seg=4)
+    g = torch.Generator().manual_seed(S)
+    qs = robot.rand_configs(S, g, dev)
+    sup = robot.fkine(qs).reshape(S, -1).contiguous()
+    y = cap.checker_fn(env)(qs).float() * 2 - 1
+    with fp32_matmul():
+        w = masked_rbf_solve(Polyharmonic(k=1, epsilon=1)(sup, sup), y,
+                             torch.ones(S, dtype=torch.bool, device=dev))
+    return robot, robot.rand_configs(65536 + 37, g, dev), sup, w.contiguous()
+
+
+@pytest.mark.parametrize('name,S', LARGE_S_CASES)
+def test_dh_score_kernel_on_large_fitted_proxies(cuda, name, S):
+    """B1 with 2048 and 4096 supports whose weights cancel against its
+    float64 twin: score 1e-4, dq 1e-3 (its per-chunk product-2 sums; one
+    accumulator over all supports took dq past half the tolerance at
+    S = 4096, PERF.md section 6)."""
+    robot, q, sup, w = _fitted_proxy(name, S, cuda)
+    spec = fk_score.robot_spec(robot)
+    score, dq = fk_score.dh_score_grad(q, sup, w, spec)
+    ref, ref_dq = fk_score._dh_score_grad_plain(q.double(), sup.double(),
+                                                w.double(), spec)
+    _close(score.double(), ref, 1e-4)
+    _close(dq.double(), ref_dq, 1e-3)
+
+
+def test_warm_start_train_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """DiffCo.train(update=True) on the card, with TF32 allowed for the
+    caller's matrix products, equals the same warm start on the CPU from
+    one cold state: the warm hypothesis (K @ gains) is computed in
+    float32, so the greedy picks do not diverge."""
+    from diffco_tpu_torch import kernels as tk
+    from diffco_tpu_torch import perceptron as tp
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+    rng = np.random.default_rng(0)
+    X0 = rng.uniform(-1, 1, size=(600, 6)).astype(np.float32)
+    X1 = rng.uniform(-1, 1, size=(500, 6)).astype(np.float32)
+
+    def labels(X):
+        return np.where(np.linalg.norm(X[:, :3] - 0.2, axis=1) < 0.6, 1.0,
+                        -1.0).astype(np.float32)
+    cold = tp.DiffCo(kernel_func=tk.RQKernel(10.0))
+    cold.train(torch.from_numpy(X0), torch.from_numpy(labels(X0)),
+               max_iteration=1800)
+    nv = cold.num_valid
+    X = np.concatenate([X1, cold.support_points[:nv].numpy()])
+    em = np.zeros(X.shape[0], bool)
+    em[-nv:] = True
+    out = {}
+    for dev in ('cpu', cuda):
+        p = copy.deepcopy(cold)
+        for k, v in vars(p).items():
+            if torch.is_tensor(v):
+                setattr(p, k, v.to(dev))
+        p.train(torch.from_numpy(X).to(dev), torch.from_numpy(
+            labels(X)).to(dev), update=True, exist_mask=em,
+            max_iteration=3 * X.shape[0])
+        out[str(dev)] = p
+    cpu, card = out['cpu'], out[str(cuda)]
+    assert card.train_iterations == cpu.train_iterations
+    assert card.num_valid == cpu.num_valid
+    _close(card.support_points, cpu.support_points, 1e-6)
+    _close(card.gains, cpu.gains, 1e-4)
 
 
 def test_auto_router_gradient_is_kernel_dq(cuda):

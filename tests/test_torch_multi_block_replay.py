@@ -135,6 +135,9 @@ int main(int argc, char** argv) {
       case 8: inst = replay<8>(B, C, k); break;
       case 16: inst = replay<16>(B, C, k); break;
       case 24: inst = replay<24>(B, C, k); break;
+      case 32: inst = replay<32>(B, C, k); break;
+      case 40: inst = replay<40>(B, C, k); break;
+      case 48: inst = replay<48>(B, C, k); break;
       default: return 4;
     }
   } else {
@@ -239,20 +242,28 @@ def _check(exe, kind, robot, spec, c_spec, plain, C, seed, tmp_path):
 # PandaFK's 7 points take FP = 24 (C <= 2 register, 3-5 one full pass,
 # 8 two); Baxter's arm with 2 points FP = 8 (C <= 5 register, 6-7 narrow,
 # 8 full), with 4 points FP = 16 (C <= 2 register, 3 narrow, 4-7 full,
-# whose pass reads the points from shared memory)
+# whose pass reads the points from shared memory); PandaFK's chain with
+# 10, 13 and 16 points FP = 32, 40 and 48 (no register instance: C = 1
+# narrow, 2 one full pass, 5 two or three)
 BAXTER_MASKS = {'Baxter arm, 2 points': (False, False, True, False, False,
                                          False, True),
                 'Baxter arm, 4 points': (True, False, True, False, True,
                                          False, True)}
+WIDE_POINTS = {'PandaFK chain, 10 points': 10,
+               'PandaFK chain, 13 points': 13,
+               'PandaFK chain, 16 points': 16}
 DH_CASES = [('PandaFK', C) for C in (1, 2, 3, 5, 8)] + \
            [('Baxter arm, 2 points', C) for C in (1, 2, 3, 5, 8)] + \
-           [('Baxter arm, 4 points', C) for C in (2, 5)]
+           [('Baxter arm, 4 points', C) for C in (2, 5)] + \
+           [(name, C) for name in WIDE_POINTS for C in (1, 2, 5)]
 
 
 @pytest.mark.parametrize('robot_name,C', DH_CASES)
 def test_dh_multi_block_replay_matches_plain(replay_bin, tmp_path,
                                              robot_name, C):
     robot = (PandaFK() if robot_name == 'PandaFK' else
+             panda_with_points(WIDE_POINTS[robot_name])
+             if robot_name in WIDE_POINTS else
              baxter_arm(BAXTER_MASKS[robot_name]))
     spec = fk_score.robot_spec(robot)
     _check(replay_bin, 'dh', robot, spec, fk_score._c_spec(spec),

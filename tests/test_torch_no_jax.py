@@ -1,9 +1,10 @@
 """The port stands alone: importing diffco_tpu_torch, scoring on the CPU
 (a DH robot and a URDF robot, one class and two), training a small
 MultiDiffCo, running the roofline path's twins (every B7 mode, B6),
-importing the kernel-reading scripts and running the augmented
-Lagrangian, batched Adam and trust-constr on Baxter's arm load neither
-JAX nor the JAX package."""
+importing the kernel-reading scripts, running the augmented
+Lagrangian, batched Adam and trust-constr on Baxter's arm, and a hybrid
+checker's fit, active-learning update, collision and path bands load
+neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -14,6 +15,7 @@ torch.set_num_threads(1)
 
 _SCRIPT = r'''
 import sys
+import numpy as np
 import torch
 torch.set_num_threads(1)
 import diffco_tpu_torch as dc
@@ -61,6 +63,21 @@ rec = dc.al_traj_optimize(arm, dist, qa[0], qa[1], dict(opts, restore_iters=3))
 recs = dc.adam_traj_optimize_batch(arm, dist, qa[:1], qa[1:], opts)
 rec = dc.trustconstr_traj_optimize(arm, dist, qa[0], qa[1], opts)
 assert rec['eval_dtype'] == 'float64' and len(recs) == 1
+env = dc.ShapeEnv({'ball': {'type': 'Sphere', 'params': {'radius': 0.2},
+                             'transform': [[1, 0, 0, 0.4], [0, 1, 0, 0.2],
+                                           [0, 0, 1, 0.3], [0, 0, 0, 1]]}})
+cap = dc.CapsuleChainCollision(dc.PandaFK(), link_radius=0.1)
+ck = dc.HybridForwardKinematicsDiffCo(robot=dc.PandaFK(),
+                                      gt_check_func=cap.checker_fn(env),
+                                      device='cpu')
+ck.fit(num_samples=200)
+ck.update(num_samples=40, verify=0.2)
+qs = dc.PandaFK().rand_configs(16, g, 'cpu')
+assert ck.collision(qs).shape == (16,)
+from diffco_tpu_torch.sampler import path_band_samples
+band = path_band_samples([qs[:4].numpy()], dc.PandaFK().limits.numpy(),
+                         np.random.default_rng(0), n_total=64)
+assert band.shape == (64, 7)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'diffco_tpu'
              or m.startswith('diffco_tpu.'))

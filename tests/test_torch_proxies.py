@@ -13,6 +13,7 @@ from diffco_tpu.ops.fused_score import rq_score as j_rq_score
 from diffco_tpu.robots import PandaFK as JPanda
 from diffco_tpu_torch import kernels as tk
 from diffco_tpu_torch import perceptron as tp
+from diffco_tpu_torch.checkers import RBFDiffCo
 from diffco_tpu_torch.convert import load_reference_state
 from diffco_tpu_torch.ops.fused_score import rq_score
 from diffco_tpu_torch.robots import PandaFK
@@ -301,11 +302,16 @@ def test_multidimdiffco_matches(lazy):
 
 
 def test_update_and_mesh_raise():
+    """The JAX package's update errors: MultiDimDiffCo without gains
+    raises ValueError, RBFDiffCo.update without supports RuntimeError;
+    mesh= (ROADMAP A15) and labels without num_class columns raise."""
     X, y = _data(N=20)
-    for p in (tp.MultiDiffCo(), tp.MultiDimDiffCo()):
-        with pytest.raises(NotImplementedError, match='ROADMAP A7'):
-            p.train(*_t(X, y if isinstance(p, tp.MultiDiffCo) else y[:, 0]),
-                    update=True)
+    with pytest.raises(ValueError, match='no gains'):
+        tp.MultiDimDiffCo().train(*_t(X, y[:, 0]), update=True)
+    ck = RBFDiffCo(robot=PandaFK(), gt_check_func=lambda q: None,
+                   device='cpu')
+    with pytest.raises(RuntimeError, match='no supports'):
+        ck.update(num_samples=10)
     with pytest.raises(NotImplementedError, match='ROADMAP A15'):
         tp.MultiDimDiffCo(mesh=object())
     with pytest.raises(ValueError, match='num_class'):
