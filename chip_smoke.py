@@ -9,7 +9,8 @@ instances, on Baxter's arm with 4 and 2 control points, and at FP = 32,
 40 and 48 on PandaFK's chain with more points, B2 at every FP = 8-64; B1,
 B2 and B3 with rows whose points sit on a support or 1e-3 and 1e-2 from
 one; B1 on fitted proxies of 2048 and 4096 supports against its float64
-twin), then drives seven paths through the entry points a user calls:
+twin; B2 also at F = 2, 4 and 14, the first two on its fp64 instance),
+then drives eight paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -39,6 +40,17 @@ twin), then drives seven paths through the entry points a user calls:
   Adam before and after a path-targeted update on its solutions -> the
   sweeps (B1, B2) at the final supports -> the hybrid recheck and
   OptimisticChecker.in_collision;
+- the paper's 2-D planar path (scripts/escape_2d.py, scripts/trajopt_2d.py
+  --init rrt and scripts/narrow_fk_study.py at their own sizes): a 2-DOF
+  q-space DiffCo in 1rect_1circle -> its score map on the 400 x 400
+  unified grid (B2 at F = 2, held to the float64 twin and the ground
+  truth) -> OptimSampler's escape against resampling; the 2class_1
+  dataset (autogenerate_2d_dataset) -> a MultiDiffCo -> RRT-Connect on
+  the ground truth seeding Adam -> RRT* with the proxy's edge costs; a
+  7-DOF DiffCo over the arm's joint positions in 7d_narrow (300 boxes)
+  -> holdout -> a 65536 sweep with its gradient (B2 at F = 14, held to
+  the float64 twin) -> FK-manifold sampling through the checker -> Adam
+  on the staged pairs;
 - the roofline path at bench.py's primitive shape (PandaFK, B = 65536,
   S = 512): ``diffco_tpu_torch.scripts.roofline_fk_score.run`` (B1's
   bench step and kernel, the B7 ablation ladder, the B1 block-size sweep)
@@ -97,8 +109,10 @@ BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
 # PandaFK's chain with 10, 13 and 16 control points
 WIDE_POINTS = (10, 13, 16)
 # B2 at each of its FP instances (8, 16, ..., 64), at an F that pads to it
-# (64: the full row, where product 2 takes an extra column tile)
-POLY_FS = (5, 13, 21, 32, 37, 48, 53, 64)
+# (64: the full row, where product 2 takes an extra column tile), and at
+# the planar path's widths: F = 2 (the 2-DOF q-space proxies) and 14 (the
+# 7-DOF arm's joint positions), with 4 beside them
+POLY_FS = (2, 4, 5, 13, 14, 21, 32, 37, 48, 53, 64)
 # the near-pair guard's thresholds measured on the fitted PandaFK and
 # FrankaPanda sweeps, from q and from points (csrc/tc_score_block.cuh;
 # ops/_native.py::TC_GUARD, its kTcGuard, is the production one)
@@ -131,6 +145,9 @@ URDF_TRAJ_DENSE_SUB = 10
 VERIFY_SAMPLES = 16384
 LINK_RADIUS = 0.15
 N_PROBLEMS = 4
+# the PandaFK multi-class path's trajopt runs its first N_MULTI_PROBLEMS
+# problems (4 before the planar path was added: the run's depth cut)
+N_MULTI_PROBLEMS = 2
 TRAJ_OPTIONS = {'N_WAYPOINTS': 20, 'NUM_RE_TRIALS': 8, 'MAXITER': 300,
                 'max_speed': 2.0, 'dense_sub': 4, 'history': False}
 # The Baxter benchmarks' journey (scripts/baxter_trajopt_benchmark.py,
@@ -164,6 +181,39 @@ ACTIVE_SWEEP = 65536
 ACTIVE_PROBLEMS = 2
 ACTIVE_EXPLOIT = 1024
 ACTIVE_RECHECK = 16384
+# The planar path, at the reference scripts' own sizes. Escape
+# (scripts/escape_2d.py's defaults): a 2-DOF arm (links 3.5, width 0.3) in
+# 1rect_1circle, a q-space DiffCo on ESCAPE_TRAIN ground-truth labels
+# (3N iterations), its score map on generate_unified_grid(GRID, GRID)
+# (B2 at F = 2), and OptimSampler on ESCAPE_N colliding configurations.
+# 2-D trajopt (scripts/trajopt_2d.py --init rrt): 2class_1, a MultiDiffCo
+# on TRAJ2D_SAMPLES class labels, RRT-Connect on the ground truth seeding
+# Adam (PLANAR_TRAJ), and RRT* with the proxy's edge costs. The 7-DOF FK
+# features (scripts/narrow_fk_study.py's FK variant): 7d_narrow's 300
+# boxes, a DiffCo over the joint positions (F = 14) on NARROW_TRAIN
+# samples fitted to their distances, a holdout, a NARROW_SWEEP sweep (B2
+# at F = 14), FK-manifold sampling and Adam on the staged pairs.
+PLANAR_LINK = 3.5
+PLANAR_WIDTH = 0.3
+ESCAPE_TRAIN = 4000
+ESCAPE_N = 256
+ESCAPE_OPTIONS = {'lr': 0.1, 'max_steps': 60, 'stop_bias': 1.0}
+ESCAPE_MIN_FREE = 0.8                 # tests/test_sampler_planning.py:38
+GRID = 400
+PLANAR_SEED = 1917
+TRAJ2D_SAMPLES = 8000
+PLANAR_TRAJ = {'N_WAYPOINTS': 20, 'NUM_RE_TRIALS': 10, 'MAXITER': 200,
+               'safety_margin': 0.0, 'max_speed': 2.0, 'dense_sub': 4,
+               'history': False, 'seed': PLANAR_SEED}
+RRT = {'step_size': 0.5, 'max_iters': 4000, 'batch': 64}
+RRT_STAR = {'step_size': 0.5, 'radius': 1.0, 'max_iters': 600,
+            'goal_tol': 0.5}
+NARROW_DOF = 7
+NARROW_TRAIN = 6000
+NARROW_HOLDOUT = 2000
+NARROW_SWEEP = 65536
+MANIFOLD_SAMPLES = 4096
+NARROW_CONFIGS = 'benchmarks/test_configs/test_configs_7d_narrow_7d.json'
 # B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
 # without dq, 1e-3 with it. In mv_bf16_full kernel and twin may round an r
 # or 1/r to neighbouring bf16 values (2^-8 of a term; on the H100 they
@@ -188,8 +238,8 @@ def _ptxas_report(log):
     out, kernel, spill, stack = [], None, None, None
     for ln in log.splitlines():
         m = re.search(r'((?:poly|dh|chain)(?:_multi|_dual)?_score_grad_kernel'
-                      r'|dh_ablation_kernel|(?:dh|poly|chain)_score_tc_kernel)'
-                      r'I((?:L[ib]\d+E)+)E', ln)
+                      r'|dh_ablation_kernel|(?:dh|poly|chain)_score_tc_kernel'
+                      r'|poly_score_f64_kernel)I((?:L[ib]\d+E)+)E', ln)
         if 'Compiling entry function' in ln and m:
             args = re.findall(r'L[ib](\d+)E', m.group(2))
             if m.group(1) == 'dh_ablation_kernel':
@@ -222,16 +272,23 @@ def _check_multi_ptxas(regs):
 
 
 # the production instances of the kernels on the tensor-core block: B1 at
-# FP = 8-48, B2 and B3 at FP = 8-64
+# FP = 8-48, B2 at FP = 16-64 (its fp64 instance at F = 1-8,
+# poly_score_f64_kernel<F>), B3 at FP = 8-64
 TC_INSTANCES = {'dh_score_tc_kernel': set(range(8, 49, 8)),
-                'poly_score_tc_kernel': set(range(8, 65, 8)),
+                'poly_score_tc_kernel': set(range(16, 65, 8)),
                 'chain_score_tc_kernel': set(range(8, 65, 8))}
+F64_INSTANCES = set(range(1, 9))
 
 
 def _check_tc_ptxas(regs):
     """Every production instance of B1, B2 and B3 (<FP, 0>: TC_INSTANCES)
-    within the launch bound's 128 registers and unspilled, or fail."""
+    within the launch bound's 128 registers and unspilled, and B2's fp64
+    instances (F64_INSTANCES) within theirs (65536 over the threads of
+    their least blocks per SM) and unspilled, or fail."""
+    from diffco_tpu_torch.ops import _native
+    f64_regs = 65536 // (_native.F64_ROWS * _native.F64_MIN_BLOCKS)
     found = {k: set() for k in TC_INSTANCES}
+    f64 = set()
     for line in regs:
         m = re.match(r'((?:dh|poly|chain)_score_tc_kernel)<(\d+),0>: (\d+) '
                      r'regs/(\d+) B spilled', line)
@@ -239,8 +296,15 @@ def _check_tc_ptxas(regs):
             found[m.group(1)].add(int(m.group(2)))
             if int(m.group(3)) > 128 or int(m.group(4)) != 0:
                 raise AssertionError(f'ptxas: {line}')
-    if found != TC_INSTANCES:
-        raise AssertionError(f'ptxas: tensor-core instances found {found}')
+        m = re.match(r'poly_score_f64_kernel<(\d+)>: (\d+) regs/(\d+) B '
+                     r'spilled', line)
+        if m:
+            f64.add(int(m.group(1)))
+            if int(m.group(2)) > f64_regs or int(m.group(3)) != 0:
+                raise AssertionError(f'ptxas: {line}')
+    if found != TC_INSTANCES or f64 != F64_INSTANCES:
+        raise AssertionError(f'ptxas: tensor-core instances found {found}, '
+                             f'fp64 instances {sorted(f64)}')
 
 
 def _max_err(pairs):
@@ -271,10 +335,10 @@ def _inputs(robot, B, S, dev, seed):
 def check_poly_kernel(robot, dev):
     """B2 against its plain twin at B = 65536 + 37, S = 512, F = 21
     (PandaFK's points), rows 0-11 on or near a support (_near_points);
-    then at every FP instance (POLY_FS) on rows uniform in a box. Prints
-    B2's launch plan as the card gives it (fails unless it is
-    ops/_native.py::poly_tc_plan's and keeps 16 warps per SM, at every
-    FP)."""
+    then at every FP instance (POLY_FS; F <= 8 is the fp64 instance) on
+    rows uniform in a box. Prints B2's launch plan as the card gives it
+    (fails unless ops/_native.py::poly_plan_holds and it keeps 16 warps
+    per SM, at every FP)."""
     from diffco_tpu_torch.ops import _native, fused_score
     t0 = time.perf_counter()
     q, sup, w = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=1)
@@ -288,7 +352,8 @@ def check_poly_kernel(robot, dev):
     plans = {}
     for F in POLY_FS:
         card = plans[F] = _native.poly_score_plan_on_card(F)
-        if card != _native.poly_tc_plan(F) or card['warps_per_sm'] < 16:
+        if not _native.poly_plan_holds(card, F) or \
+                card['warps_per_sm'] < 16:
             raise AssertionError(f'B2 plan {card} on the card at F = {F}, '
                                  f'{_native.poly_tc_plan(F)} in '
                                  'ops/_native.py::poly_tc_plan (16 warps per '
@@ -311,8 +376,10 @@ def check_poly_kernel(robot, dev):
         _check_near(f'poly_score_grad (F = {F})', score, dx, ref, ref_dx)
         err = _max_err([(score, ref), (dx[4:], ref_dx[4:])])
         out['err'] = max(out['err'], err)
-        _phase(f'B2 poly_score_grad vs plain, F = {F}, FP = '
-               f'{plans[F]["fp"]}', t0, B=B_CHAIN_SMALL, S=S_CHAIN_SMALL,
+        inst = ('the fp64 instance' if F <= _native.F64_MAX_F
+                else f'FP = {plans[F]["fp"]}')
+        _phase(f'B2 poly_score_grad vs plain, F = {F}, {inst}', t0,
+               B=B_CHAIN_SMALL, S=S_CHAIN_SMALL,
                max_abs_err=err, warps_per_sm=plans[F]['warps_per_sm'],
                smem_bytes=plans[F]['smem_bytes'])
     return out
@@ -1038,14 +1105,15 @@ def _solve(checker, robot, gt, dev, pairs, dist_est=None, **options):
     return results
 
 
-def _trajopt(checker, robot, gt, dev, tag, dist_est=None, **options):
-    """_solve on N_PROBLEMS problems; fails on a non-finite cost or
-    without a ground-truth-valid path."""
+def _trajopt(checker, robot, gt, dev, tag, dist_est=None, n=N_PROBLEMS,
+             **options):
+    """_solve on the first n of N_PROBLEMS problems; fails on a non-finite
+    cost or without a ground-truth-valid path."""
     t0 = time.perf_counter()
     results = _solve(checker, robot, gt, dev,
-                     _problems(robot, gt, dev, N_PROBLEMS), dist_est,
+                     _problems(robot, gt, dev, N_PROBLEMS)[:n], dist_est,
                      **options)
-    _phase(f'{tag} trajopt', t0, problems=N_PROBLEMS,
+    _phase(f'{tag} trajopt', t0, problems=n,
            success=[r[0] for r in results], gt_valid=[r[1] for r in results],
            gt_hits_of_191=[r[4] for r in results],
            cost=[round(r[2], 4) for r in results],
@@ -1435,7 +1503,7 @@ def multi_journey(robot, dev):
     _trajopt(checker, robot, lambda q: gt(q).any(-1), dev,
              'PandaFK multi-class',
              dist_est=lambda pp: checker.collision_score(pp, bias=0)
-             .amax(-1))
+             .amax(-1), n=N_MULTI_PROBLEMS)
 
 
 def urdf_multi_journey(dev):
@@ -1462,6 +1530,336 @@ def urdf_multi_journey(dev):
     _multi_sweeps(checker, robot, gt, dev,
                   lambda q, s, W: fk_score._chain_multi_score_grad_plain(
                       q, s, W, cs), 'FrankaPanda multi-class')
+
+
+def _check_fitted_poly(tag, perceptron, x, score, dx):
+    """B2's output on a fitted proxy's sweep (score [B], dx [B, F] of one
+    launch) against the plain twin in float64: 1e-4 (score), 1e-3 (dx).
+    Fitted weights cancel (sum_j |w_j| r_j far beyond |score|), so the
+    float32 twin's own error is printed beside. Returns the error and the
+    kernel's arguments (x, supports, weights) for the timing table."""
+    from diffco_tpu_torch.ops import fused_score
+    p = perceptron
+    w = (p.rbf_nodes.reshape(-1) * p.valid_mask.to(p.rbf_nodes.dtype)
+         / p.rbf_kernel.epsilon).contiguous()
+    sup = p.support_transformed.contiguous()
+    x = x.detach().contiguous()
+    with torch.no_grad():
+        ref, ref_dx = fused_score._poly_score_grad_plain(
+            x.double(), sup.double(), w.double())
+        twin, twin_dx = fused_score._poly_score_grad_plain(x, sup, w)
+    _check_close(f'{tag} score vs float64 twin', score.double(), ref, 1e-4)
+    _check_close(f'{tag} dx vs float64 twin', dx.double(), ref_dx, 1e-3)
+    err = _max_err([(score.double(), ref), (dx.double(), ref_dx)])
+    print(f'{tag} vs the plain twin in float64 at S = {sup.shape[0]}: '
+          f'score {_max_err([(score.double(), ref)])} dx '
+          f'{_max_err([(dx.double(), ref_dx)])}; the float32 twin itself '
+          f'score {_max_err([(twin.double(), ref)])} dx '
+          f'{_max_err([(twin_dx.double(), ref_dx)])}; max |score| '
+          f'{float(ref.abs().max())}, max |dx| {float(ref_dx.abs().max())}',
+          flush=True)
+    return dict(args=(x, sup, w), err=err)
+
+
+def _planar_escape(dev):
+    """scripts/escape_2d.py at its defaults: the q-space proxy, its score
+    map on the unified grid (B2 at F = 2) held to the float64 twin and
+    to the ground truth, then OptimSampler's escape against resampling on
+    ESCAPE_N colliding configurations."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import routines
+    from diffco_tpu_torch.envs.presets2d import get_env
+    t0 = time.perf_counter()
+    robot = dc.RevolutePlanarRobot(PLANAR_LINK, link_width=PLANAR_WIDTH,
+                                   dof=2)
+    obs = dc.Obstacles2D.from_obstacle_list(get_env('1rect_1circle'))
+    g = torch.Generator().manual_seed(0)
+    q = robot.rand_configs(ESCAPE_TRAIN, g, dev)
+    labels = (dc.planar_robot_signed_dist(robot, obs, q).amax(-1) > 0) \
+        .float() * 2 - 1
+    clf = dc.DiffCo(kernel_func=dc.kernels.RQKernel(10.0))
+    clf.train(q, labels, max_iteration=3 * ESCAPE_TRAIN)
+    clf.fit_poly(dc.kernels.Polyharmonic(1, 1), target='label')
+    torch.cuda.synchronize()
+    _phase('planar escape, fit (1rect_1circle, 2 DOF)', t0,
+           samples=ESCAPE_TRAIN, supports=clf.num_valid)
+
+    t0 = time.perf_counter()
+    grid = routines.generate_unified_grid(GRID, GRID, device=dev) \
+        .requires_grad_(True)
+    score = clf.poly_score(grid)
+    dx, = torch.autograd.grad(score.sum(), grid)
+    score = score.detach().reshape(-1)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    truth = dc.planar_robot_collision(robot, obs, grid.detach())
+    pred = score > 0
+    _phase('planar escape, score map (B2 at F = 2)', t0,
+           configs=GRID * GRID, map_s=round(t_map, 4),
+           acc=float((pred == truth).float().mean()),
+           tpr=float((pred & truth).sum() / truth.sum().clamp(min=1)),
+           tnr=float((~pred & ~truth).sum() / (~truth).sum().clamp(min=1)))
+    fitted = _check_fitted_poly('planar escape score map (F = 2)', clf, grid,
+                                score, dx)
+
+    pool = robot.rand_configs(ESCAPE_N * 10, g, dev)
+    q0 = pool[dc.planar_robot_collision(robot, obs, pool)][:ESCAPE_N]
+    sampler = dc.OptimSampler(robot,
+                              lambda qq: clf.poly_score(qq).reshape(-1),
+                              **ESCAPE_OPTIONS)
+    t0 = time.perf_counter()
+    q_opt = sampler.optim_escape(q0)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    free_opt = 1 - float(dc.planar_robot_collision(robot, obs, q_opt)
+                         .float().mean())
+    t1 = time.perf_counter()
+    q_res, checks = sampler.resample_escape(q0,
+                                            torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    t_res = time.perf_counter() - t1
+    free_res = 1 - float(dc.planar_robot_collision(robot, obs, q_res)
+                         .float().mean())
+    _phase('planar escape, OptimSampler', t0, n=q0.shape[0],
+           optim_s=round(t_opt, 4),
+           optim_checks=q0.shape[0] * ESCAPE_OPTIONS['max_steps'],
+           optim_gt_free=free_opt, resample_s=round(t_res, 4),
+           resample_checks=checks, resample_gt_free=free_res)
+    if free_opt < ESCAPE_MIN_FREE:
+        raise AssertionError(f'planar escape: GT-free rate {free_opt} < '
+                             f'{ESCAPE_MIN_FREE}')
+    return fitted
+
+
+def _gt_hits(collision, path, dev, num_sub=10):
+    """Ground-truth hits on a path densified num_sub times a segment."""
+    from diffco_tpu_torch.utils import dense_path
+    path = torch.as_tensor(np.asarray(path), dtype=torch.float32,
+                           device=dev)
+    return int(collision(dense_path(path, num_sub)).sum())
+
+
+def _planar_trajopt(dev):
+    """scripts/trajopt_2d.py --init rrt at its defaults: the 2class_1
+    dataset from autogenerate_2d_dataset, a q-space MultiDiffCo, an
+    RRT-Connect seed on the ground truth for Adam, and RRT* with the
+    proxy's score on its edge costs."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import optim, routines
+    from diffco_tpu_torch.envs.presets2d import get_env
+    t0 = time.perf_counter()
+    obstacles = get_env('2class_1')
+    data = routines.autogenerate_2d_dataset(
+        TRAJ2D_SAMPLES, dof=2, link_length=PLANAR_LINK,
+        link_width=PLANAR_WIDTH, obstacles=obstacles, label_type='class',
+        seed=PLANAR_SEED, device=dev)
+    cfgs, labels, _, _, robot = routines.unpack_dataset(data, device=dev)
+    proxy = dc.MultiDiffCo(kernel_func=dc.kernels.RQKernel(10.0))
+    proxy.train(cfgs, labels, max_iteration=3 * TRAJ2D_SAMPLES)
+    proxy.fit_poly(dc.kernels.Polyharmonic(1, 1), target='label')
+    torch.cuda.synchronize()
+    _phase('planar trajopt, fit (2class_1, MultiDiffCo)', t0,
+           samples=TRAJ2D_SAMPLES, classes=labels.shape[1],
+           supports=proxy.num_valid)
+
+    def dist_est(q):
+        return proxy.poly_score(q).amax(-1)
+
+    obs = dc.Obstacles2D.from_obstacle_list(obstacles)
+
+    def collision(q):
+        return dc.planar_robot_collision(robot, obs, q)
+
+    q = robot.rand_configs(8192, torch.Generator().manual_seed(
+        PLANAR_SEED + 7), dev)
+    idx = torch.nonzero(~collision(q)).reshape(-1)
+    pairs = [(q[idx[2 * i]], q[idx[-1 - 2 * i]])
+             for i in range(min(5, idx.shape[0] // 2))]
+    t0 = time.perf_counter()
+    planner = dc.MotionPlanner(robot, collision, step_size=RRT['step_size'],
+                               seed=PLANAR_SEED, device=dev)
+    path, tried = None, 0
+    for start, target in pairs:
+        tried += 1
+        path = planner.plan(start.cpu().numpy(), target.cpu().numpy(),
+                            max_iters=RRT['max_iters'], batch=RRT['batch'])
+        if path is not None:
+            break
+    if path is None:
+        raise AssertionError('planar trajopt: RRT-Connect found no path')
+    rrt_hits = _gt_hits(collision, path, dev)
+    _phase('planar trajopt, RRT-Connect on the ground truth', t0,
+           pairs_tried=tried, states=len(path), cnt_check=planner.cnt_check,
+           gt_hits=rrt_hits)
+
+    t0 = time.perf_counter()
+    init = path[np.linspace(0, len(path) - 1,
+                            PLANAR_TRAJ['N_WAYPOINTS']).astype(int)]
+    rec = optim.adam_traj_optimize(robot, dist_est, start, target,
+                                   dict(PLANAR_TRAJ, init_solution=init))
+    adam_hits = _gt_hits(collision, rec['solution'], dev)
+    _phase('planar trajopt, Adam from the RRT seed', t0,
+           seconds=round(rec['time'], 3), cnt_check=rec['cnt_check'],
+           cost=rec['cost'], success=rec['success'], gt_valid=adam_hits == 0,
+           gt_hits=adam_hits)
+
+    t0 = time.perf_counter()
+    star = dc.RRTStar(robot, collision, score_fn=dist_est,
+                      step_size=RRT_STAR['step_size'],
+                      radius=RRT_STAR['radius'], seed=PLANAR_SEED, device=dev)
+    star_path = star.plan(start.cpu().numpy(), target.cpu().numpy(),
+                          max_iters=RRT_STAR['max_iters'],
+                          goal_tol=RRT_STAR['goal_tol'])
+    if star_path is None:
+        raise AssertionError('planar trajopt: RRT* found no path')
+    star_hits = _gt_hits(collision, star_path, dev)
+    cost = float(np.sum(np.linalg.norm(np.diff(star_path, axis=0), axis=1)))
+    _phase('planar trajopt, RRT* (proxy-weighted edges)', t0,
+           states=len(star_path), cnt_check=star.cnt_check,
+           c_space_length=cost, gt_hits=star_hits)
+    if rrt_hits or star_hits:
+        raise AssertionError(f'planar trajopt: the planners\' paths hit the '
+                             f'ground truth ({rrt_hits}, {star_hits})')
+    if not math.isfinite(rec['cost']):
+        raise AssertionError('planar trajopt: non-finite Adam cost')
+
+
+def _planar_narrow(dev):
+    """scripts/narrow_fk_study.py's FK variant: the 7-DOF arm in
+    7d_narrow, a DiffCo over its joint positions fitted to the signed
+    distances; the holdout, the NARROW_SWEEP sweep with its gradient (B2
+    at F = 14, through the router's FK fallback and from points) held to
+    the float64 twin, FK-manifold sampling through the checker, and Adam
+    on the staged pairs."""
+    import os
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import optim
+    from diffco_tpu_torch.envs.presets2d import get_env
+    from diffco_tpu_torch.sampler import manifold_jac_det
+    t0 = time.perf_counter()
+    robot = dc.RevolutePlanarRobot(PLANAR_LINK * 2 / NARROW_DOF,
+                                   link_width=PLANAR_WIDTH, dof=NARROW_DOF)
+    obs = dc.Obstacles2D.from_obstacle_list(get_env('7d_narrow'))
+
+    def signed_dist(q):
+        return dc.planar_robot_signed_dist(robot, obs, q).amax(-1)
+
+    def collision(q):
+        return signed_dist(q) > 0
+
+    g = torch.Generator().manual_seed(PLANAR_SEED)
+    cfgs = robot.rand_configs(NARROW_TRAIN, g, dev)
+    dist = signed_dist(cfgs)
+    proxy = dc.DiffCo(kernel_func=dc.kernels.RQKernel(0.1),
+                      transform=robot.fkine)
+    proxy.train(cfgs, (dist > 0).float() * 2 - 1,
+                max_iteration=3 * NARROW_TRAIN, distance=dist)
+    proxy.fit_poly(dc.kernels.Polyharmonic(1, 1), target='dist')
+    torch.cuda.synchronize()
+    _phase('planar narrow, fit (7d_narrow, 7 DOF, FK features)', t0,
+           samples=NARROW_TRAIN, colliding=float((dist > 0).float().mean()),
+           supports=proxy.num_valid)
+
+    t0 = time.perf_counter()
+    q_hold = robot.rand_configs(NARROW_HOLDOUT, g, dev)
+    free = ~collision(q_hold)
+    with torch.no_grad():
+        pred_free = proxy.poly_score(q_hold).reshape(-1) <= 0
+    n_col = max(1, int((~free).sum()))
+    _phase('planar narrow, holdout', t0, configs=NARROW_HOLDOUT,
+           acc=float((pred_free == free).float().mean()),
+           missed_col=float((pred_free & ~free).sum()) / n_col)
+
+    t0 = time.perf_counter()
+    q = robot.rand_configs(NARROW_SWEEP, g, dev).requires_grad_(True)
+    s_q = proxy.poly_score(q)
+    dq, = torch.autograd.grad(s_q.sum(), q)
+    x = robot.fkine(q.detach()).reshape(NARROW_SWEEP, -1).requires_grad_(True)
+    s_x = proxy.poly_score(transformed_point=x)
+    dx, = torch.autograd.grad(s_x.sum(), x)
+    torch.cuda.synchronize()
+    s_q, s_x = s_q.detach().reshape(-1), s_x.detach().reshape(-1)
+    if not (bool(torch.isfinite(s_q).all()) and bool(torch.isfinite(dq).all())):
+        raise AssertionError('planar narrow sweep: non-finite score or dq')
+    _check_close('planar narrow sweep, from q vs from points', s_q, s_x, 1e-3)
+    # dq against the float64 chain: the twin's dx pulled back through the
+    # float64 FK
+    q64 = q.detach().double().requires_grad_(True)
+    x64 = robot.fkine(q64).reshape(NARROW_SWEEP, -1)
+    from diffco_tpu_torch.ops import fused_score
+    p = proxy
+    w64 = (p.rbf_nodes.reshape(-1) * p.valid_mask.to(p.rbf_nodes.dtype)
+           / p.rbf_kernel.epsilon).double()
+    with torch.no_grad():
+        _, ref_dx64 = fused_score._poly_score_grad_plain(
+            x64.detach(), p.support_transformed.double(), w64)
+    ref_dq, = torch.autograd.grad(x64, q64, ref_dx64)
+    _phase('planar narrow, sweep (B2 at F = 14)', t0, configs=NARROW_SWEEP,
+           F=x.shape[1], supports=p.support_transformed.shape[0],
+           dq_max_abs_err_vs_float64=_max_err([(dq.double(), ref_dq)]),
+           max_abs_dq=float(ref_dq.abs().max()))
+    fitted = _check_fitted_poly('planar narrow sweep (F = 14)', proxy, x,
+                                s_x, dx)
+
+    t0 = time.perf_counter()
+    checker = dc.ForwardKinematicsDiffCo(robot=robot,
+                                         gt_check_func=collision,
+                                         seed=PLANAR_SEED, device=dev)
+
+    def end_effector(qq):
+        return robot.fkine(qq)[:, -1, :]
+
+    q_man, labels, _ = checker._generate_dataset(
+        None, None, None, MANIFOLD_SAMPLES, sample_transform=end_effector)
+    torch.cuda.synchronize()
+    t_man = time.perf_counter() - t0
+    q_uni = robot.rand_configs(MANIFOLD_SAMPLES, g, dev)
+    det_u = manifold_jac_det(end_effector, q_uni)
+    det_m = manifold_jac_det(end_effector, q_man)
+    _phase('planar narrow, FK-manifold sampling (end effector)', t0,
+           samples=q_man.shape[0], sample_s=round(t_man, 4),
+           expected_acceptance=float(det_u.mean() / (1.1 * det_u.max())),
+           mean_det_manifold=float(det_m.mean()),
+           mean_det_uniform=float(det_u.mean()),
+           colliding=float(labels.mean()))
+    if q_man.shape != (MANIFOLD_SAMPLES, NARROW_DOF) or \
+            not float(det_m.mean()) > float(det_u.mean()):
+        raise AssertionError('planar narrow: the manifold samples do not '
+                             'lean towards a larger Jacobian determinant')
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, NARROW_CONFIGS)) as f:
+        staged = json.load(f)
+    t0 = time.perf_counter()
+    results = []
+    for start, target in zip(staged['start_cfgs'], staged['target_cfgs']):
+        rec = optim.adam_traj_optimize(
+            robot, lambda qq: proxy.poly_score(qq).reshape(-1),
+            torch.tensor(start, dtype=torch.float32, device=dev),
+            torch.tensor(target, dtype=torch.float32, device=dev),
+            dict(PLANAR_TRAJ))
+        hits = _gt_hits(collision, rec['solution'], dev)
+        results.append((rec['time'], rec['cost'], rec['success'], hits))
+    _phase('planar narrow, Adam on the staged pairs', t0,
+           problems=len(results),
+           seconds=[round(r[0], 3) for r in results],
+           cost=[round(r[1], 4) for r in results],
+           success=[r[2] for r in results],
+           gt_valid=[r[3] == 0 for r in results],
+           gt_hits=[r[3] for r in results])
+    if not all(math.isfinite(r[1]) for r in results):
+        raise AssertionError('planar narrow: non-finite Adam cost')
+    return fitted
+
+
+def planar_journey(dev):
+    """The paper's 2-D planar path: escape, 2-D trajopt with the planners,
+    and the 7-DOF FK-feature proxy. Returns B2's checks on its two fitted
+    proxies (F = 2 and 14) for the timing table."""
+    f2 = _planar_escape(dev)
+    _planar_trajopt(dev)
+    f14 = _planar_narrow(dev)
+    return {'F2': f2, 'F14': f14}
 
 
 def _time_ms(fn, warmup, iters):
@@ -1538,6 +1936,22 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
                     plain_ms=_time_ms(plain, 1, 3), bound_ms=b, bound_by=by,
                     library_ms=None)
 
+    def poly_at(key):
+        """B2 on the planar path's fitted proxies (F = 2 and 14), at the
+        sweep's shape, with its error against the float64 twin."""
+        xp, sp, wp = b2['planar'][key]['args']
+        Bp, Sp, Fp = xp.shape[0], sp.shape[0], xp.shape[1]
+        bp, byp = poly_tc_bound(Bp, Sp, Fp)
+        bp32, byp32 = bound(poly_bytes(Bp, Sp, Fp), score_ops(Bp, Sp, Fp))
+        return dict(
+            shape=[Bp, Sp, Fp], bound_fp32_ms=bp32, bound_fp32_by=byp32,
+            max_abs_err_vs_float64=b2['planar'][key]['err'],
+            ms=_time_ms(lambda: fused_score.poly_score_grad(xp, sp, wp), 5,
+                        50),
+            plain_ms=_time_ms(
+                lambda: fused_score._poly_score_grad_plain(xp, sp, wp), 1, 3),
+            bound_ms=bp, bound_by=byp)
+
     q6, sup6, w6, spec6 = b67['args']
     B6, J6 = q6.shape
     S6, F6 = sup6.shape
@@ -1569,7 +1983,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             lambda: fused_score._poly_score_grad_plain(x, sup, w),
             bound2, by2, bound_fp32_ms=bound2_fp32, bound_fp32_by=by2_fp32,
             bound_times_ms=tc_times(B, S, F, poly_bytes(B, S, F), 2 * F),
-            plan=b2['plan'], warps_per_sm=b2['plan']['warps_per_sm']),
+            plan=b2['plan'], warps_per_sm=b2['plan']['warps_per_sm'],
+            planar_proxies={k: poly_at(k) for k in b2['planar']}),
         # its launches include the roofline path's block-size sweep, so its
         # error is the largest of the production and the sweep instances
         row('dh_score_grad', 'diffco_tpu_torch/csrc/dh_score.cu',
@@ -1688,7 +2103,7 @@ def main():
     b67 = check_roofline_kernels(robot, dev)
 
     # count only each main path's own launches
-    launches = {}
+    launches, planar = {}, {}
     for path, run in (('PandaFK', lambda: journey(robot, dev)),
                       ('FrankaPanda', lambda: urdf_journey(dev)),
                       ('PandaFK multi-class', lambda: multi_journey(robot,
@@ -1697,6 +2112,7 @@ def main():
                        lambda: urdf_multi_journey(dev)),
                       ('Baxter', lambda: baxter_journey(dev)),
                       ('PandaFK active', lambda: active_journey(robot, dev)),
+                      ('planar', lambda: planar.update(planar_journey(dev))),
                       ('roofline', lambda: roofline_path(dev))):
         _zero_launches()
         run()
@@ -1712,6 +2128,7 @@ def main():
                     ('Baxter', 'poly_score_grad'),
                     ('PandaFK active', 'dh_score_grad'),
                     ('PandaFK active', 'poly_score_grad'),
+                    ('planar', 'poly_score_grad'),
                     ('roofline', 'dh_score_grad'),
                     ('roofline', 'dh_dual_score_grad'),
                     ('roofline', 'dh_ablation'),
@@ -1723,6 +2140,7 @@ def main():
                                  'path')
 
     t0 = time.perf_counter()
+    b2['planar'] = planar
     rows = kernel_table(b2, b1, b3, b4, b5, b67, launches)
     _phase('kernel timing', t0)
     print(json.dumps({'kernels': rows}), flush=True)

@@ -16,6 +16,13 @@ active-learning ``update``), the ``HybridForwardKinematicsDiffCo`` and
 truth, ``corridor_update`` for a bare perceptron, and the
 trajectory optimizers (``optim``: Adam, batched Adam, the augmented
 Lagrangian, scipy's SLSQP and trust-constr, the ``Weighted`` stepper).
+The planar path of the paper's 2-D experiments: the
+``RevolutePlanarRobot`` and ``RigidPlanarBody`` robots, the 2-D ground
+truth (``geometry.geometry2d``: ``Obstacles2D``,
+``planar_robot_signed_dist``), the preset scenes (``envs.presets2d``),
+dataset and checkpoint I/O (``routines``), the escape and FK-manifold
+samplers (``sampler``: ``OptimSampler``) and the RRT-Connect and RRT*
+planners (``planning``: ``MotionPlanner``, ``RRTStar``).
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; they
 raise rather than fall back when no card is present. Nothing here imports
@@ -25,14 +32,20 @@ JAX or ``diffco_tpu``.
 from . import utils
 from . import kernels
 from . import optim
+from . import routines
 from .device import resolve_device
-from .robots import (Model, DHParameters, DHChainRobot, PandaFK,
+from .robots import (Model, RevolutePlanarRobot, RigidPlanarBody,
+                     DHParameters, DHChainRobot, PandaFK,
                      DualPandaFK, BaxterLeftArmFK, BaxterRightArmFK,
                      BaxterFK, BaxterDualArmFK)
 from .robots.capsule_chain import CapsuleChainCollision
 from .robots.urdf import (URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot,
                           TrifingerEdu, parse_urdf, robot_description_folder)
 from .envs import ShapeEnv
+from .geometry.geometry2d import (Obstacles2D, planar_robot_signed_dist,
+                                  planar_robot_collision)
+from .sampler import OptimSampler
+from .planning import MotionPlanner, RRTStar
 from .perceptron import (Perceptron, DiffCo, DiffCoBeta, MultiDiffCo,
                          MultiDimDiffCo)
 from .checkers import (CollisionChecker, RBFDiffCo, ForwardKinematicsDiffCo,
@@ -45,11 +58,14 @@ from .optim import (adam_traj_optimize, adam_traj_optimize_batch,
                     TrajOptimizer, Weighted)
 
 __all__ = [
-    'utils', 'kernels', 'optim', 'resolve_device', 'Model', 'DHParameters',
+    'utils', 'kernels', 'optim', 'routines', 'resolve_device', 'Model',
+    'RevolutePlanarRobot', 'RigidPlanarBody', 'DHParameters',
     'DHChainRobot', 'PandaFK', 'DualPandaFK', 'BaxterLeftArmFK',
     'BaxterRightArmFK', 'BaxterFK', 'BaxterDualArmFK', 'CapsuleChainCollision', 'URDFRobot',
     'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu', 'parse_urdf',
-    'robot_description_folder', 'ShapeEnv',
+    'robot_description_folder', 'ShapeEnv', 'Obstacles2D',
+    'planar_robot_signed_dist', 'planar_robot_collision', 'OptimSampler',
+    'MotionPlanner', 'RRTStar',
     'Perceptron', 'DiffCo', 'DiffCoBeta', 'MultiDiffCo', 'MultiDimDiffCo',
     'CollisionChecker', 'RBFDiffCo',
     'ForwardKinematicsDiffCo', 'HybridForwardKinematicsDiffCo',

@@ -27,7 +27,8 @@ from .device import fp32_matmul, resolve_device
 from .envs.shape_env import ShapeEnv
 from .perceptron import DiffCo
 from .robots.urdf import URDFRobot
-from .sampler import path_band_samples
+from .sampler import (path_band_samples,
+                      uniform_sample_on_transformed_manifold)
 
 
 def _numpy(x):
@@ -101,12 +102,17 @@ class CollisionChecker:
     def _generate_dataset(self, q, labels, dists, num_samples,
                           fix_joints=None, fix_joint_values=None,
                           sample_transform=None, verbose=False):
-        """Random configurations + ground-truth labels."""
+        """Random configurations + ground-truth labels. With
+        ``sample_transform`` the configurations are uniform on that
+        transform's image (``uniform_sample_on_transformed_manifold``)
+        instead of in joint space."""
         if q is None:
             if sample_transform is not None:
-                raise NotImplementedError(
-                    'manifold sampling is not ported yet (ROADMAP A13)')
-            q = self._rand_configs(num_samples)
+                q = uniform_sample_on_transformed_manifold(
+                    self.robot, sample_transform, num_samples, self._gen,
+                    self.device)
+            else:
+                q = self._rand_configs(num_samples)
         q = self._tensor(q)
         if fix_joints is not None:
             q = q.clone()
@@ -429,6 +435,13 @@ class ForwardKinematicsDiffCo(RBFDiffCo):
             kernel_func=self.kernel_func, transform=self.kernel_transform,
             **perceptron_kwargs)
         self._init_state()
+
+    def _uniform_sample_on_transformed_manifold(self, transform,
+                                                num_samples):
+        """Configurations uniform on the image of ``transform`` (e.g. the
+        FK control points), from the checker's generator."""
+        return uniform_sample_on_transformed_manifold(
+            self.robot, transform, num_samples, self._gen, self.device)
 
     def collision_score(self, q=None, bias=None, q_link_pos=None):
         """Score from configurations or directly from link positions

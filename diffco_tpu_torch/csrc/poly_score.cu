@@ -22,12 +22,27 @@
 // block, two blocks (16 warps) per SM; both products on the tensor cores
 // in 3xTF32. The block's threads copy its rows of x into the block's
 // shared rows (components F..FP-1 zero, FP = F padded to a multiple of 8,
-// 8 to 64); rows past B are copies of row B - 1, so that the block's
+// 16 to 64); rows past B are copies of row B - 1, so that the block's
 // centre (the mean of its rows) stays on the data. After the supports,
 // dx = x~ rowsum - su~ in the block's centred frame (su~ = su - c rowsum),
 // which needs no centre added back. Up to FP = 48 product 2 accumulates
 // chunk by chunk (tc_score_block.cuh's kChunkSums), which the fitted
-// FrankaPanda sweep's gradient needs.
+// FrankaPanda sweep's gradient needs. This runs at F = 9-64 (FP = 16-64).
+//
+// At F <= 8 (poly_score_f64_kernel) the pairs run in fp64 on the CUDA
+// cores instead, one thread per row. The q-space proxies of the planar
+// arms (F = 2) cancel harder than the tensor-core block's float32 terms
+// allow: on the fitted 2-DOF escape proxy (S = 218, sum_j |w_j| r_j ~
+// 1.4e4 against |score| <= 3.7) the block's score was 4.5e-4 from the
+// float64 twin on the H100. Its terms w_j r_j reach several hundred,
+// where half a float32 ulp is ~3e-5, and a few hundred of them summed
+// with random signs lose ~1e-4 to that rounding alone: the terms
+// themselves need more than 24 bits.
+// Per pair: d = x - s exactly (two floats' difference in fp64), d2 =
+// |d|^2 + 1e-12, rinv from the fp32 rsqrt and one Newton step in fp64
+// (relative error ~1e-14), then score += w d2 rinv and dx += w rinv d,
+// all in fp64, rounded to float32 once at the end. At F <= 8 a pair is
+// ~4F + 12 fp64 operations, against the H100's 1:2 fp64 rate.
 #include <cuda_runtime.h>
 
 #include "tc_score_block.cuh"
@@ -74,6 +89,74 @@ poly_score_tc_kernel(const float* __restrict__ x, const float* __restrict__ s,
   if (tid < live) score[b0 + tid] = smem[L::kScore + tid];
 }
 
+// B2 at F <= kF64MaxF (file comment): kF64Rows threads, one row each;
+// the supports and weights stream through shared memory in chunks of
+// kF64Chunk rows of (s_j, w_j), F + 1 floats each (kF64Smem bytes,
+// whatever F).
+constexpr int kF64MaxF = 8;
+constexpr int kF64Rows = 256;
+constexpr int kF64Chunk = 256;
+constexpr int kF64MinBlocks = 3;   // __launch_bounds__: <= 85 registers
+constexpr int kF64Smem = 4 * kF64Chunk * (kF64MaxF + 1);
+
+// 1 / sqrt(v) for v >= 1e-12 in fp64: the fp32 rsqrt as the seed, one
+// Newton step y (3 - v y^2) / 2 in fp64 (the seed's ~1e-7 relative error
+// squared)
+__device__ __forceinline__ double f64_rsqrt(double v) {
+  const double y = static_cast<double>(rsqrtf(static_cast<float>(v)));
+  return y * fma(-0.5 * v * y, y, 1.5);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kF64Rows, kF64MinBlocks)
+poly_score_f64_kernel(const float* __restrict__ x,
+                      const float* __restrict__ s,
+                      const float* __restrict__ w, float* __restrict__ score,
+                      float* __restrict__ dx, int B, int S) {
+  float* chunk = diffco_tc_smem;      // [kF64Chunk][F + 1]: s_j, w_j
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x * kF64Rows + tid;
+  const bool live = b < B;
+  double xb[F], g[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    xb[f] = live ? static_cast<double>(x[static_cast<size_t>(b) * F + f])
+                 : 0.0;
+    g[f] = 0.0;
+  }
+  double sc = 0.0;
+  for (int c0 = 0; c0 < S; c0 += kF64Chunk) {
+    const int n = min(kF64Chunk, S - c0);
+    __syncthreads();  // the last chunk's reads are done
+    for (int i = tid; i < n * (F + 1); i += kF64Rows) {
+      const int j = i / (F + 1), f = i % (F + 1);
+      chunk[i] = f < F ? s[static_cast<size_t>(c0 + j) * F + f] : w[c0 + j];
+    }
+    __syncthreads();
+    for (int j = 0; j < n; ++j) {
+      const float* sj = chunk + j * (F + 1);
+      double d[F], d2 = 1e-12;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        d[f] = xb[f] - static_cast<double>(sj[f]);
+        d2 = fma(d[f], d[f], d2);
+      }
+      const double rinv = f64_rsqrt(d2);
+      const double wj = static_cast<double>(sj[F]);
+      sc = fma(wj, d2 * rinv, sc);
+      const double wr = wj * rinv;
+#pragma unroll
+      for (int f = 0; f < F; ++f) g[f] = fma(wr, d[f], g[f]);
+    }
+  }
+  if (live) {
+    score[b] = static_cast<float>(sc);
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      dx[static_cast<size_t>(b) * F + f] = static_cast<float>(g[f]);
+  }
+}
+
 }  // namespace
 }  // namespace diffco
 
@@ -96,6 +179,44 @@ int poly_launch(const float* x, const float* s, const float* w, float* score,
   kernel<<<(B + kTcRows - 1) / kTcRows, kTcThreads, TcSmem<FP>::kBytes,
            st>>>(x, s, w, score, dx, B, S, F, kappa, guard_pairs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B2's fp64 instance (F <= kF64MaxF) over B rows on `st`.
+template <int F>
+int poly_f64_launch(const float* x, const float* s, const float* w,
+                    float* score, float* dx, int B, int S, cudaStream_t st) {
+  poly_score_f64_kernel<F><<<(B + kF64Rows - 1) / kF64Rows, kF64Rows,
+                             kF64Smem, st>>>(x, s, w, score, dx, B, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int poly_f64_dispatch(const float* x, const float* s, const float* w,
+                      float* score, float* dx, int B, int S, int F,
+                      cudaStream_t st) {
+  switch (F) {
+    case 1: return poly_f64_launch<1>(x, s, w, score, dx, B, S, st);
+    case 2: return poly_f64_launch<2>(x, s, w, score, dx, B, S, st);
+    case 3: return poly_f64_launch<3>(x, s, w, score, dx, B, S, st);
+    case 4: return poly_f64_launch<4>(x, s, w, score, dx, B, S, st);
+    case 5: return poly_f64_launch<5>(x, s, w, score, dx, B, S, st);
+    case 6: return poly_f64_launch<6>(x, s, w, score, dx, B, S, st);
+    case 7: return poly_f64_launch<7>(x, s, w, score, dx, B, S, st);
+    case 8: return poly_f64_launch<8>(x, s, w, score, dx, B, S, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The fp64 instance's plan, as poly_plan's (its F does not change it:
+// the widest instance's occupancy).
+int poly_f64_plan(int* out) {
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, poly_score_f64_kernel<kF64MaxF>, kF64Rows, kF64Smem);
+  out[0] = kF64Smem;
+  out[1] = blocks;
+  out[2] = kF64Rows;
+  out[3] = kF64Rows;
+  return static_cast<int>(e);
 }
 
 // out = {dynamic shared bytes per block, blocks resident per SM by the
@@ -121,9 +242,9 @@ int poly_plan(int* out) {
 }  // namespace
 }  // namespace diffco
 
+// the tensor-core instances, F = 9-64
 #define DIFFCO_POLY_SWITCH(FPV, CALL)        \
   switch (FPV) {                             \
-    case 8: return CALL(8);                  \
     case 16: return CALL(16);                \
     case 24: return CALL(24);                \
     case 32: return CALL(32);                \
@@ -141,6 +262,8 @@ extern "C" int poly_score_grad(const float* x, const float* s, const float* w,
                                void* stream) {
   if (B <= 0 || F <= 0 || F > 64 || S < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F <= diffco::kF64MaxF)
+    return diffco::poly_f64_dispatch(x, s, w, score, dx, B, S, F, st);
 #define DIFFCO_LAUNCH(FPV)                                                 \
   diffco::poly_launch<FPV, false>(x, s, w, score, dx, B, S, F,             \
                                   diffco::kTcGuard, nullptr, st)
@@ -151,7 +274,8 @@ extern "C" int poly_score_grad(const float* x, const float* s, const float* w,
 // poly_score_grad's kernel in its measurement build: the near-pair guard
 // at threshold `kappa`, its recomputations added to the device counter
 // *guard_pairs (a measurement entry; production launches go through
-// poly_score_grad).
+// poly_score_grad). The fp64 instance (F <= 8) has no guard and adds
+// nothing.
 extern "C" int poly_score_grad_guard(const float* x, const float* s,
                                      const float* w, float* score, float* dx,
                                      int B, int S, int F, float kappa,
@@ -159,6 +283,8 @@ extern "C" int poly_score_grad_guard(const float* x, const float* s,
                                      void* stream) {
   if (B <= 0 || F <= 0 || F > 64 || S < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F <= diffco::kF64MaxF)
+    return diffco::poly_f64_dispatch(x, s, w, score, dx, B, S, F, st);
 #define DIFFCO_LAUNCH(FPV)                                                 \
   diffco::poly_launch<FPV, true>(x, s, w, score, dx, B, S, F, kappa,       \
                                  guard_pairs, st)
@@ -169,6 +295,7 @@ extern "C" int poly_score_grad_guard(const float* x, const float* s,
 // poly_score_grad's launch plan for F components (poly_plan).
 extern "C" int poly_score_plan(int F, int* out) {
   if (F <= 0 || F > 64) return cudaErrorInvalidValue;
+  if (F <= diffco::kF64MaxF) return diffco::poly_f64_plan(out);
 #define DIFFCO_PLAN(FPV) diffco::poly_plan<FPV>(out)
   DIFFCO_POLY_SWITCH((F + 7) / 8 * 8, DIFFCO_PLAN)
 #undef DIFFCO_PLAN

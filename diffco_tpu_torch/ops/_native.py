@@ -134,10 +134,37 @@ def dh_tc_plan(P: int) -> dict:
     return _tc_plan(fp, 6 * MAX_J + 1, run)
 
 
+# csrc/poly_score.cu's fp64 instance of B2 at F <= F64_MAX_F (kF64MaxF,
+# kF64Rows threads and rows a block, kF64Chunk supports of F64_MAX_F + 1
+# floats in shared memory, __launch_bounds__ minimum kF64MinBlocks)
+F64_MAX_F, F64_ROWS, F64_CHUNK, F64_MIN_BLOCKS = 8, 256, 256, 3
+
+
 def poly_tc_plan(F: int) -> dict:
     """B2's launch plan (``csrc/poly_score.cu``) for F components: the
-    block's shared memory alone."""
+    tensor-core block's shared memory alone (F > F64_MAX_F), or the fp64
+    instance's chunk, with the blocks per SM its launch bound guarantees
+    (its registers, which only the build knows, may allow more:
+    ``poly_plan_holds``)."""
+    if F <= F64_MAX_F:
+        return dict(fp=8, smem_bytes=4 * F64_CHUNK * (F64_MAX_F + 1),
+                    blocks_per_sm=F64_MIN_BLOCKS,
+                    warps_per_sm=F64_MIN_BLOCKS * F64_ROWS // 32,
+                    threads=F64_ROWS, rows=F64_ROWS)
     return _tc_plan((F + 7) // 8 * 8, 0)
+
+
+def poly_plan_holds(card: dict, F: int) -> bool:
+    """B2's plan as the card gives it (``poly_score_plan_on_card``) is
+    ``poly_tc_plan``'s: equal for the tensor-core instances; for the fp64
+    instance the same shared bytes, threads and rows, and at least the
+    blocks per SM of its launch bound."""
+    plan = poly_tc_plan(F)
+    if F > F64_MAX_F:
+        return card == plan
+    return (all(card[k] == plan[k]
+                for k in ('fp', 'smem_bytes', 'threads', 'rows'))
+            and card['blocks_per_sm'] >= plan['blocks_per_sm'])
 
 
 def chain_tc_plan(P: int, M: int) -> dict:

@@ -72,11 +72,14 @@ def _resample_init(init, n_waypoints):
 
 
 def _loss_terms(p, robot_fkine, dist_est, limits, safety_margin, max_speed):
-    """Penalty terms of paths p [T, N, dof], each [T]."""
+    """Penalty terms of paths p [T, N, dof], each [T]. The control points
+    keep the robot's own point dimension d (``robot_fkine``: [B, M, d]; 2
+    for a planar arm), over which each point's squared move is summed."""
     scores = dist_est(p)                                   # [T, M]
     collision = torch.sum(torch.clamp(scores - safety_margin, min=0.0), -1)
     T, N, dof = p.shape
-    cp = robot_fkine(p.reshape(T * N, dof)).reshape(T, N, -1, 3)
+    cp = robot_fkine(p.reshape(T * N, dof))
+    cp = cp.reshape((T, N) + tuple(cp.shape[1:]))          # [T, N, M, d]
     seg = cp[:, 1:] - cp[:, :-1]
     max_move = torch.sum(torch.clamp(
         torch.sum(seg ** 2, dim=3) - max_speed ** 2, min=0.0), dim=(1, 2))

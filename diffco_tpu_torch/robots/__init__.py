@@ -1,10 +1,12 @@
-from .analytic import (Model, DHParameters, DHChainRobot, PandaFK,
+from .analytic import (Model, RevolutePlanarRobot, RigidPlanarBody,
+                       DHParameters, DHChainRobot, PandaFK,
                        DualPandaFK, BaxterLeftArmFK, BaxterRightArmFK,
                        BaxterFK, BaxterDualArmFK)
 from .kinematics import ChainSpec
 from .urdf import URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot, TrifingerEdu
 
-__all__ = ['Model', 'DHParameters', 'DHChainRobot', 'PandaFK', 'DualPandaFK',
+__all__ = ['Model', 'RevolutePlanarRobot', 'RigidPlanarBody',
+           'DHParameters', 'DHChainRobot', 'PandaFK', 'DualPandaFK',
            'BaxterLeftArmFK', 'BaxterRightArmFK', 'BaxterFK',
            'BaxterDualArmFK', 'ChainSpec', 'URDFRobot', 'KUKAiiwa',
            'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu']

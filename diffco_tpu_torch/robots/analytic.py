@@ -1,12 +1,14 @@
 """Analytic (closed-form) robot models, batched and differentiable
 (PyTorch counterpart of ``diffco_tpu/robots/analytic.py``: ``Model``,
+the planar ``RevolutePlanarRobot`` and ``RigidPlanarBody``,
 ``DHParameters``, ``DHChainRobot``, ``PandaFK``, ``DualPandaFK`` and the
 Baxter arms ``BaxterLeftArmFK``, ``BaxterRightArmFK``, ``BaxterFK`` and
 ``BaxterDualArmFK``).
 
-Robots are device-agnostic: their DH constants are Python floats, so
-``fkine`` runs wherever ``q`` lies. ``limits`` is a CPU tensor that callers
-move next to their data.
+Robots are device-agnostic: their constants are Python floats or CPU
+tensors copied next to ``q`` once per device, so ``fkine`` runs wherever
+``q`` lies. ``limits`` is a CPU tensor that callers move next to their
+data.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..utils import rotz, wrap2pi
+from ..utils import rot_2d, rotz, wrap2pi
 from .soa import (vec_add, transform_compose, dh_rot_trans, rot_from_static,
                   stack_points)
 from .fk_jvp import make_dh_fkine
@@ -60,6 +62,92 @@ class Model:
     @property
     def joint_limits(self):
         return self.limits
+
+
+def _on(cache: dict, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The CPU tensor t on like's device and dtype, copied once per
+    (device, dtype) into cache."""
+    key = (like.device, like.dtype)
+    if key not in cache:
+        cache[key] = t.to(device=like.device, dtype=like.dtype)
+    return cache[key]
+
+
+class RevolutePlanarRobot(Model):
+    """Planar serial arm with revolute joints, each link along its local
+    +x. ``fkine`` returns the joint positions [B, dof, 2] (the base joint
+    at the origin left out); each link's collision shape is a capsule of
+    width ``link_width`` between consecutive joints (``link_segments``).
+    ``link_length`` is one length per link, or a scalar with ``dof``."""
+
+    def __init__(self, link_length, link_width: float,
+                 dof: Optional[int] = None, limits=None):
+        if limits is None:
+            limits = [-PI, PI]
+        if isinstance(link_length, (int, float)):
+            if dof is None:
+                raise ValueError(
+                    'dof is required when link_length is a scalar')
+            link_length = [link_length] * dof
+        elif dof is None:
+            dof = len(link_length)
+        if len(limits) == 2 and isinstance(limits[0], (int, float)):
+            limits = [limits] * dof
+        if len(limits) != dof or len(link_length) != dof:
+            raise ValueError(f'{len(link_length)} link lengths and '
+                             f'{len(limits)} limits for dof = {dof}')
+        self.dof = dof
+        self.link_width = float(link_width)
+        self.link_length = torch.as_tensor(np.asarray(link_length),
+                                           dtype=torch.float32)
+        self.limits = torch.as_tensor(np.asarray(limits),
+                                      dtype=torch.float32)
+        self._lengths = {}
+
+    def fkine(self, q):
+        q = torch.reshape(q, (-1, self.dof))
+        length = _on(self._lengths, self.link_length, q)
+        ang = torch.cumsum(q, dim=1)
+        x = torch.cumsum(length * torch.cos(ang), dim=1)
+        y = torch.cumsum(length * torch.sin(ang), dim=1)
+        return torch.stack([x, y], dim=2)
+
+    def link_segments(self, q):
+        """Per-link segment endpoints [B, dof, 2 (start, end), 2], the
+        base joint included."""
+        joints = self.fkine(q)
+        pts = torch.cat([torch.zeros_like(joints[:, :1]), joints], dim=1)
+        return torch.stack([pts[:, :-1], pts[:, 1:]], dim=2)
+
+    def wrap(self, q):
+        return wrap2pi(q)
+
+
+class RigidPlanarBody(Model):
+    """SE(2) rigid body, configuration (x, y, theta), with keypoints.
+    ``parts``: [(type, (x, y) keypoint, (w, h) dims)]; the keypoints drive
+    ``fkine`` [B, M, 2], the dims the collision boxes."""
+
+    def __init__(self, parts, limits=None):
+        self.parts = parts
+        self.dof = 3
+        self.limits = torch.as_tensor(np.asarray(
+            limits if limits is not None else
+            [[-10, 10], [-10, 10], [-PI, PI]]), dtype=torch.float32)
+        self.keypoints = torch.as_tensor(
+            np.asarray([p[1] for p in parts]), dtype=torch.float32)  # [M, 2]
+        self._keypoints = {}
+
+    def fkine(self, q):
+        q = torch.reshape(q, (-1, 3))
+        kp = _on(self._keypoints, self.keypoints, q)
+        R = rot_2d(q[:, 2])                                   # [B, 2, 2]
+        # R @ keypoints as explicit sums: no TF32 product on the card
+        pts = torch.sum(R[:, None, :, :] * kp[None, :, None, :], dim=-1)
+        return pts + q[:, None, :2]
+
+    def wrap(self, q):
+        return torch.cat([q[..., :2], wrap2pi(q[..., 2:])], dim=-1)
 
 
 class DHParameters:

@@ -15,6 +15,8 @@ one card in one process.
         --ablate noLoop noGuard tf32x1 noFK oneAcc
     python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b1 \
         --supports 4096 --fitted --ablate oneAcc regsSums
+    python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b2 --planar \
+        --source build/parent/diffco_tpu_torch/csrc/poly_score.cu
 
 ``--source OTHER.cu`` is any source that defines the kernel's C entry
 (``chain_multi_score_grad``, ``dh_multi_score_grad``, ``dh_score_grad``,
@@ -43,7 +45,13 @@ cancel: the polyharmonic weights that interpolate the supports'
 ground-truth labels in the box + sphere scene of
 tests/test_checkers.py::panda_world (capsule chain, link radius 0.15;
 ``masked_rbf_solve``, every row valid), as chip_smoke.py's B1 check at
-large S.
+large S. ``--planar`` (``b2``) takes chip_smoke.py's planar escape proxy
+instead: a q-space DiffCo fitted in 1rect_1circle (2 DOF, scripts/
+escape_2d.py's defaults) scored on its 400 x 400 unified grid (B =
+160000, F = 2), where B2 runs its fp64 instance; every build is held to
+the float64 twin there, except a ``--source``, whose error is reported
+only (the tensor-core build this instance replaced misses the
+tolerance there).
 
 The tensor-core block's ablations, which B1, B2 and B3 share
 (``B1_ABLATIONS``, ``B2_ABLATIONS``, ``B3_ABLATIONS``): ``noGuard`` never
@@ -315,12 +323,38 @@ def _fitted_weights(robot, qs, sup):
                        device=sup.device)).contiguous()
 
 
-def _single_setup(kernel, dev, g, S=None, fitted=False):
+def _planar_proxy(dev):
+    """chip_smoke.py's planar escape proxy on its unified grid (module
+    docstring): (x [160000, 2], supports, weights)."""
+    from .. import kernels, routines
+    from ..envs.presets2d import get_env
+    from ..geometry.geometry2d import Obstacles2D, planar_robot_collision
+    from ..perceptron import DiffCo
+    from ..robots.analytic import RevolutePlanarRobot
+    robot = RevolutePlanarRobot(3.5, link_width=0.3, dof=2)
+    obs = Obstacles2D.from_obstacle_list(get_env('1rect_1circle'))
+    q = robot.rand_configs(4000, torch.Generator().manual_seed(0), dev)
+    p = DiffCo(kernel_func=kernels.RQKernel(10.0))
+    p.train(q, planar_robot_collision(robot, obs, q).float() * 2 - 1,
+            max_iteration=3 * 4000)
+    p.fit_poly(kernels.Polyharmonic(1, 1), target='label')
+    w = p.rbf_nodes.reshape(-1) * p.valid_mask.float() / p.rbf_kernel.epsilon
+    return (routines.generate_unified_grid(400, 400, device=dev),
+            p.support_transformed.contiguous(), w.contiguous())
+
+
+def _single_setup(kernel, dev, g, S=None, fitted=False, planar=False):
     """One weight column at the kernel's shape (module docstring), or S
-    supports, with a fitted proxy's weights: (the production wrapper's
-    arguments, the wrapper, its plain twin on given arguments, the C
-    entry's arguments after the output pointers, the gradient's columns,
-    the launch plan on the card)."""
+    supports, with a fitted proxy's weights, or the planar proxy: (the
+    production wrapper's arguments, the wrapper, its plain twin on given
+    arguments, the C entry's arguments after the output pointers, the
+    gradient's columns, the launch plan on the card)."""
+    if planar:
+        x, sup, w = _planar_proxy(dev)
+        return ((x, sup, w),
+                lambda x, s, w, _: fused_score.poly_score_grad(x, s, w),
+                lambda x, s, w, _: fused_score._poly_score_grad_plain(x, s, w),
+                None, (2,), 2, _native.poly_score_plan_on_card(2))
     S = S or KERNELS[kernel]['S']
     if fitted and kernel == 'b3':
         raise ValueError('--fitted takes b1 or b2 (PandaFK)')
@@ -355,20 +389,24 @@ def _single_setup(kernel, dev, g, S=None, fitted=False):
             _native.dh_score_plan_on_card(c.P))
 
 
-def run_single(builds, kernel, S=None, fitted=False):
+def run_single(builds, kernel, S=None, fitted=False, planar=False):
     """B1, B2 or B3: {name: (source, check)} timed against production,
     with each build's error against the fp32 twin and against a float64
     twin (max |diff|, and that over max |twin|, for score and gradient)
     and its ptxas report. A build with ``check`` (another build of the C
     entry) must agree with the fp32 twin; an ablation is reported only.
     With ``fitted`` the builds are held to the float64 twin instead: the
-    fp32 twin's own rounding takes up the tolerance there."""
+    fp32 twin's own rounding takes up the tolerance there; so with
+    ``planar``, where another build is reported only."""
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
     libs, ptxas = _build_all([src for src, _ in builds.values()], entry)
     g = torch.Generator().manual_seed(0)
     args, wrapper, plain, spec, tail, n_grad, plan = _single_setup(
-        kernel, dev, g, S, fitted)
+        kernel, dev, g, S, fitted, planar)
+    fitted = fitted or planar
+    if planar:
+        builds = {k: (src, False) for k, (src, _) in builds.items()}
     Bq, S = args[0].shape[0], args[1].shape[0]
     r64, r64_g = plain(*(a.double() for a in args), spec)
     ref, ref_g = (r64, r64_g) if fitted else plain(*args, spec)
@@ -412,11 +450,12 @@ def run_single(builds, kernel, S=None, fitted=False):
     return res
 
 
-def run(builds, classes=None, kernel='chain', S=None, fitted=False):
+def run(builds, classes=None, kernel='chain', S=None, fitted=False,
+        planar=False):
     """{name: (source, check)} timed against production (module
     docstring)."""
     if kernel in ('b1', 'b2', 'b3'):
-        return run_single(builds, kernel, S, fitted)
+        return run_single(builds, kernel, S, fitted, planar)
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
     classes = classes or KERNELS[kernel]['classes']
@@ -476,6 +515,8 @@ def main(argv=None):
                     help='S for b1, b2, b3 (default: the module docstring)')
     ap.add_argument('--fitted', action='store_true',
                     help="b1, b2: a fitted proxy's weights")
+    ap.add_argument('--planar', action='store_true',
+                    help="b2: the planar escape proxy's grid (F = 2)")
     ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)
     table = ablation_table(args.kernel)
@@ -489,7 +530,10 @@ def main(argv=None):
     if (args.supports or args.fitted) and args.kernel not in ('b1', 'b2',
                                                              'b3'):
         ap.error('--supports and --fitted take b1, b2 or b3')
-    res = run(builds, args.classes, args.kernel, args.supports, args.fitted)
+    if args.planar and args.kernel != 'b2':
+        ap.error('--planar takes b2')
+    res = run(builds, args.classes, args.kernel, args.supports, args.fitted,
+              args.planar)
     res.update(card_info(torch.device('cuda')))
     write_result(res, args.out or
                  _native._BUILD / f'ab_kernel-{args.kernel}.json')

@@ -14,6 +14,46 @@ def wrap2pi(theta):
     return torch.remainder(PI + theta, 2 * PI) - PI
 
 
+def se2_wrap2pi(x):
+    """Wrap only the angular (third) component of SE(2) configurations
+    [..., 3]."""
+    return torch.cat([x[..., :2], wrap2pi(x[..., 2:3])], dim=-1)
+
+
+def rot_2d(phi):
+    """Batched 2-D rotation matrices: phi [...] -> [..., 2, 2]."""
+    phi = torch.as_tensor(phi)
+    s, c = torch.sin(phi), torch.cos(phi)
+    return torch.stack([torch.stack([c, -s], -1),
+                        torch.stack([s, c], -1)], -2)
+
+
+def anglin(q1, q2, num: int = 50, endpoint: bool = True):
+    """Wrap-aware linspace between angle vectors q1, q2 [dof] ->
+    [num, dof], float32 (``jnp.linspace``'s arithmetic: start + i *
+    step, the end exactly with ``endpoint``)."""
+    q1 = torch.as_tensor(q1, dtype=torch.float32)
+    q2 = torch.as_tensor(q2, dtype=torch.float32, device=q1.device)
+    delta = wrap2pi(q2 - q1)
+    div = (num - 1) if endpoint else num
+    i = torch.arange(num, dtype=torch.float32, device=q1.device)[:, None]
+    dq = i * (delta / max(div, 1))
+    if endpoint and num > 1:
+        dq[-1] = delta
+    return wrap2pi(q1 + dq)
+
+
+def make_continue(q, max_gap=PI):
+    """Unwrap a path of joint angles [N, dof] so that adjacent waypoints
+    are numerically adjacent (for plotting)."""
+    q = torch.as_tensor(q)
+    diff = q[1:] - q[:-1]
+    sudden = torch.where(diff.abs() > max_gap, torch.sign(diff),
+                         torch.zeros_like(diff))
+    sudden = torch.cat([torch.zeros_like(q[:1]), sudden], dim=0)
+    return q - torch.cumsum(sudden, dim=0) * 2 * PI
+
+
 def axis_angle_mat(axis, angle):
     """Rodrigues rotation of ``angle`` about the unit ``axis``:
     axis [..., 3], angle [...] -> [..., 3, 3]."""

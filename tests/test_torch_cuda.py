@@ -139,17 +139,19 @@ def test_poly_score_kernel_matches_plain(cuda, B, S):
         _close(dx, ref_dx, 1e-3)
 
 
-# B2's instances FP = 8, 16, ..., 64, each at an F that pads to it (64:
-# the full row, where product 2 takes an extra column tile)
-POLY_FS = [5, 13, 21, 32, 37, 48, 53, 64]
+# B2's instances: fp64 at F <= 8 (2 and 14 are the planar path's widths:
+# the 2-DOF q-space proxies and the 7-DOF arm's joint positions; 4 beside
+# them), the tensor-core block at FP = 16, ..., 64, each at an F that pads
+# to it (64: the full row, where product 2 takes an extra column tile)
+POLY_FS = [2, 4, 5, 13, 14, 21, 32, 37, 48, 53, 64]
 
 
 @pytest.mark.parametrize('F', POLY_FS)
 def test_poly_score_kernel_at_every_fp(cuda, F):
-    """B2 at every FP instance against its twin, rows uniform in a box
-    off the origin and rows 0-11 on or near a support, with its launch
-    plan on the card as ops/_native.py::poly_tc_plan gives it: 16 warps
-    per SM."""
+    """B2 at every instance against its twin, rows uniform in a box off
+    the origin and rows 0-11 on or near a support, with its launch plan on
+    the card as ops/_native.py::poly_tc_plan gives it
+    (``poly_plan_holds``): 16 warps per SM at least."""
     g = torch.Generator().manual_seed(F)
     x = (torch.rand(4096 + 5, F, generator=g) * 1.2 - 0.3).to(cuda)
     sup = (torch.rand(128, F, generator=g) * 1.2 - 0.3).to(cuda)
@@ -159,7 +161,53 @@ def test_poly_score_kernel_at_every_fp(cuda, F):
     ref, ref_dx = fused_score._poly_score_grad_plain(x, sup, w)
     _close_near(score, dx, ref, ref_dx)
     plan = _native.poly_score_plan_on_card(F)
-    assert plan == _native.poly_tc_plan(F) and plan['warps_per_sm'] >= 16
+    assert _native.poly_plan_holds(plan, F) and plan['warps_per_sm'] >= 16
+
+
+def _planar_proxy(dof, dev):
+    """The planar path's fitted proxies (chip_smoke.py): the 2-DOF q-space
+    DiffCo of scripts/escape_2d.py in 1rect_1circle with its unified grid
+    (F = 2), and the 7-DOF FK-feature DiffCo of scripts/narrow_fk_study.py
+    in 7d_narrow with 65536 configurations' joint positions (F = 14).
+    Returns (x, supports, weights)."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import routines
+    from diffco_tpu_torch.envs.presets2d import get_env
+    g = torch.Generator().manual_seed(0)
+    if dof == 2:
+        robot = dc.RevolutePlanarRobot(3.5, link_width=0.3, dof=2)
+        env, n, target = '1rect_1circle', 4000, 'label'
+        p = dc.DiffCo(kernel_func=dc.kernels.RQKernel(10.0))
+    else:
+        robot = dc.RevolutePlanarRobot(1.0, link_width=0.3, dof=7)
+        env, n, target = '7d_narrow', 6000, 'dist'
+        p = dc.DiffCo(kernel_func=dc.kernels.RQKernel(0.1),
+                      transform=robot.fkine)
+    obs = dc.Obstacles2D.from_obstacle_list(get_env(env))
+    q = robot.rand_configs(n, g, dev)
+    dist = dc.planar_robot_signed_dist(robot, obs, q).amax(-1)
+    p.train(q, (dist > 0).float() * 2 - 1, max_iteration=3 * n,
+            distance=dist)
+    p.fit_poly(dc.kernels.Polyharmonic(1, 1), target=target)
+    x = (routines.generate_unified_grid(400, 400, device=dev) if dof == 2
+         else robot.fkine(robot.rand_configs(65536, g, dev)).reshape(
+             65536, -1))
+    w = p.rbf_nodes.reshape(-1) * p.valid_mask.float() / p.rbf_kernel.epsilon
+    return x.contiguous(), p.support_transformed.contiguous(), w.contiguous()
+
+
+@pytest.mark.parametrize('dof', [2, 7])
+def test_poly_score_kernel_on_fitted_planar_proxies(cuda, dof):
+    """B2 on the planar path's fitted proxies against its float64 twin:
+    score 1e-4, dx 1e-3. The 2-DOF proxy's weights cancel so hard (sum_j
+    |w_j| r_j ~ 1.4e4 against |score| <= 3.7) that a float32 r per pair
+    misses the score tolerance: B2's fp64 instance takes F <= 8."""
+    x, sup, w = _planar_proxy(dof, cuda)
+    score, dx = fused_score.poly_score_grad(x, sup, w)
+    ref, ref_dx = fused_score._poly_score_grad_plain(x.double(), sup.double(),
+                                                     w.double())
+    _close(score.double(), ref, 1e-4)
+    _close(dx.double(), ref_dx, 1e-3)
 
 
 @pytest.mark.parametrize('B,S', SHAPES)

@@ -456,11 +456,35 @@ int main(int argc, char** argv) {
 }
 '''
 
-# B2 (its measurement build, at the production threshold):
+# B2 (its measurement build, at the production threshold; at F <= 8 its
+# fp64 instance, kF64Rows threads a block, which has no guard):
 #   replay B S F IN OUT
 # IN holds x [B, F], s [S, F], w [S] (float32); `replay plan` prints
-# TcSmem<FP>::kBytes at FP = 8-64.
+# kF64Smem, then TcSmem<FP>::kBytes at FP = 16-64.
 POLY_RUNNER = TC_COMMON + r'''
+template <int F>
+void run_poly_f64(const std::vector<float>& x, const std::vector<float>& s,
+                  const std::vector<float>& w, std::vector<float>& score,
+                  std::vector<float>& dx, int B, int S) {
+  const int nblocks = (B + diffco::kF64Rows - 1) / diffco::kF64Rows;
+  for (int blk = 0; blk < nblocks; ++blk) {
+    std::fill(std::begin(diffco_tc_smem), std::end(diffco_tc_smem),
+              std::nanf(""));
+    std::barrier<> bar(diffco::kF64Rows);
+    g_barrier = &bar;
+    std::vector<std::thread> threads;
+    for (int t = 0; t < diffco::kF64Rows; ++t)
+      threads.emplace_back([&, t] {
+        threadIdx = Dim3{unsigned(t), 0u, 0u};
+        blockIdx = Dim3{unsigned(blk), 0u, 0u};
+        blockDim = Dim3{unsigned(diffco::kF64Rows), 1u, 1u};
+        diffco::poly_score_f64_kernel<F>(x.data(), s.data(), w.data(),
+                                         score.data(), dx.data(), B, S);
+      });
+    for (auto& th : threads) th.join();
+  }
+}
+
 template <int FP>
 void run_poly(const std::vector<float>& x, const std::vector<float>& s,
               const std::vector<float>& w, std::vector<float>& score,
@@ -475,7 +499,7 @@ void run_poly(const std::vector<float>& x, const std::vector<float>& s,
 
 int main(int argc, char** argv) {
   if (argc == 2 && std::string(argv[1]) == "plan") {
-    for (int b : {diffco::TcSmem<8>::kBytes, diffco::TcSmem<16>::kBytes,
+    for (int b : {diffco::kF64Smem, diffco::TcSmem<16>::kBytes,
                   diffco::TcSmem<24>::kBytes, diffco::TcSmem<32>::kBytes,
                   diffco::TcSmem<40>::kBytes, diffco::TcSmem<48>::kBytes,
                   diffco::TcSmem<56>::kBytes, diffco::TcSmem<64>::kBytes})
@@ -494,8 +518,9 @@ int main(int argc, char** argv) {
   std::vector<float> score(B, std::nanf("")), dx(size_t(B) * F,
                                                   std::nanf(""));
   unsigned long long guard = 0;
-  switch ((F + 7) / 8 * 8) {
-    case 8: run_poly<8>(x, s, w, score, dx, B, S, F, &guard); break;
+  switch (F <= diffco::kF64MaxF ? F : (F + 7) / 8 * 8) {
+    case 2: run_poly_f64<2>(x, s, w, score, dx, B, S); break;
+    case 5: run_poly_f64<5>(x, s, w, score, dx, B, S); break;
     case 24: run_poly<24>(x, s, w, score, dx, B, S, F, &guard); break;
     case 64: run_poly<64>(x, s, w, score, dx, B, S, F, &guard); break;
     default: return 4;
@@ -644,18 +669,18 @@ def _run_tc(exe, args, blobs, n_grad, tmp_path):
     return guard, out[:B], out[B:].reshape(B, n_grad)
 
 
-def _check_tc(guard, score, grad, ref, ref_grad):
+def _check_tc(guard, score, grad, ref, ref_grad, guarded=True):
     """Score 1e-4 on every row, the gradient 1e-3 of max on all but rows
     0-3: they sit exactly on a support, where the gradient is divided by
     a distance of ~1e-7 (ill-conditioned in kernel and twin alike) and
     only has to be finite. The near-pair guard must have recomputed
-    those."""
+    those (``guarded``: a kernel on the tensor-core block)."""
     ref, ref_grad = ref.numpy(), ref_grad.numpy()
     assert np.isfinite(score).all() and np.isfinite(grad).all()
     np.testing.assert_allclose(score, ref, rtol=1e-4, atol=1e-4)
     tol = 1e-3 * float(np.abs(ref_grad[4:]).max())
     np.testing.assert_allclose(grad[4:], ref_grad[4:], rtol=1e-3, atol=tol)
-    assert guard >= 4, guard
+    assert guard >= 4 if guarded else guard == 0, guard
 
 
 @pytest.mark.parametrize('robot_name', ['PandaFK', 'Baxter arm, 2 points',
@@ -679,15 +704,17 @@ def test_dh_tc_block_replay_matches_plain(tc_replay_bin, tmp_path,
         *(torch.from_numpy(a) for a in (q, sup, w)), spec))
 
 
-@pytest.mark.parametrize('F', [5, 21, 64])
+@pytest.mark.parametrize('F', [2, 5, 21, 64])
 def test_poly_tc_block_replay_matches_plain(tc_bins, tmp_path, F):
-    """B2 at FP = 8, 24 and 64 (F = 64 fills the row: product 2 takes its
-    extra column tile for the weights) against its plain twin, as B1's
-    replay: B = 128 + 5, whose second block holds 5 live rows and 123
-    copies of row B - 1, S = 70, shared memory filled with NaN. Rows and
-    supports are uniform in a box off the origin, so that the block's
-    centre matters; supports 0-11 sit on rows 0-3, 1e-3 from rows 4-7 and
-    1e-2 from rows 8-11."""
+    """B2 as the launch dispatches it: its fp64 instance at F = 2 and 5
+    (one block of 256 rows, no guard), the tensor-core block at FP = 24
+    and 64 (F = 64 fills the row: product 2 takes its extra column tile
+    for the weights), against its plain twin, as B1's replay: B = 128 +
+    5, whose second tensor-core block holds 5 live rows and 123 copies of
+    row B - 1, S = 70, shared memory filled with NaN. Rows and supports
+    are uniform in a box off the origin, so that the block's centre
+    matters; supports 0-11 sit on rows 0-3, 1e-3 from rows 4-7 and 1e-2
+    from rows 8-11."""
     rng = np.random.default_rng(F)
     x = rng.uniform(-0.3, 0.9, size=(B, F)).astype(np.float32)
     sup = rng.uniform(-0.3, 0.9, size=(S, F))
@@ -699,7 +726,8 @@ def test_poly_tc_block_replay_matches_plain(tc_bins, tmp_path, F):
     out = _run_tc(tc_bins['poly'], (B, S, F),
                   (x.tobytes(), sup.tobytes(), w.tobytes()), F, tmp_path)
     _check_tc(*out, *fused_score._poly_score_grad_plain(
-        *(torch.from_numpy(a) for a in (x, sup, w))))
+        *(torch.from_numpy(a) for a in (x, sup, w))),
+        guarded=F > _native.F64_MAX_F)
 
 
 def _chain_robot(name, tmp_path):
@@ -760,13 +788,16 @@ def _plan(exe):
 
 def test_poly_tc_plan_matches_the_block(tc_bins):
     """ops/_native.py::poly_tc_plan's shared bytes are B2's kernel's
-    (csrc/poly_score.cu: TcSmem<FP>) at every FP = 8-64, two blocks (16
-    warps) per SM at each (on the card, test_poly_score_kernel_at_every_fp
-    holds the plan to the occupancy calculator)."""
+    (csrc/poly_score.cu: kF64Smem for the fp64 instance at F <= 8,
+    TcSmem<FP> at every FP = 16-64), two blocks (16 warps) per SM on the
+    tensor-core block and at least three (24 warps) on the fp64 instance
+    (on the card, test_poly_score_kernel_at_every_fp holds the plan to the
+    occupancy calculator)."""
     got = [int(v) for v in _plan(tc_bins['poly'])]
     assert got == [_native.poly_tc_plan(F)['smem_bytes']
                    for F in range(8, 65, 8)]
-    assert all(_native.poly_tc_plan(F)['warps_per_sm'] == 16
+    assert all(_native.poly_tc_plan(F)['warps_per_sm']
+               == (24 if F <= _native.F64_MAX_F else 16)
                for F in range(1, 65))
 
 

@@ -2,9 +2,11 @@
 (a DH robot and a URDF robot, one class and two), training a small
 MultiDiffCo, running the roofline path's twins (every B7 mode, B6),
 importing the kernel-reading scripts, running the augmented
-Lagrangian, batched Adam and trust-constr on Baxter's arm, and a hybrid
-checker's fit, active-learning update, collision and path bands load
-neither JAX nor the JAX package."""
+Lagrangian, batched Adam and trust-constr on Baxter's arm, a hybrid
+checker's fit, active-learning update, collision and path bands, and the
+planar path (a 2-D dataset generated, saved and unpacked, the 2-D
+ground truth, the escape and manifold samplers, RRT-Connect and RRT*)
+load neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -78,6 +80,33 @@ from diffco_tpu_torch.sampler import path_band_samples
 band = path_band_samples([qs[:4].numpy()], dc.PandaFK().limits.numpy(),
                          np.random.default_rng(0), n_total=64)
 assert band.shape == (64, 7)
+import os, tempfile
+from diffco_tpu_torch import routines
+from diffco_tpu_torch.envs.presets2d import get_env
+arm = dc.RevolutePlanarRobot(3.5, link_width=0.3, dof=2)
+data = routines.autogenerate_2d_dataset(64, dof=2, link_length=3.5,
+                                        obstacles=get_env('2class_1'),
+                                        label_type='class', device='cpu')
+with tempfile.TemporaryDirectory() as d:
+    routines.save_dataset(data, os.path.join(d, 'd.npz'))
+    cfgs, labels, dists, obs, arm2 = routines.unpack_dataset(
+        os.path.join(d, 'd.npz'), device='cpu')
+assert labels.shape == (64, 2) and arm2.dof == 2
+world = dc.Obstacles2D.from_obstacle_list(get_env('1rect_1circle'))
+def sd(qq):
+    return dc.planar_robot_signed_dist(arm, world, qq).amax(-1)
+grid = routines.generate_unified_grid(8, 8, device='cpu')
+qe = dc.OptimSampler(arm, sd, lr=0.1, max_steps=3).optim_escape(grid[:4])
+from diffco_tpu_torch.sampler import uniform_sample_on_transformed_manifold
+qm = uniform_sample_on_transformed_manifold(
+    arm, lambda qq: arm.fkine(qq)[:, -1], 16, g, device='cpu')
+coll = lambda qq: sd(qq) > 0
+free = grid[~coll(grid)]
+path = dc.MotionPlanner(arm, coll, device='cpu').plan(
+    free[0].numpy(), free[-1].numpy(), max_iters=64)
+star = dc.RRTStar(arm, coll, score_fn=sd, device='cpu').plan(
+    free[0].numpy(), free[-1].numpy(), max_iters=20)
+assert qe.shape == (4, 2) and qm.shape == (16, 2)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'diffco_tpu'
              or m.startswith('diffco_tpu.'))
