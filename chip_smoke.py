@@ -10,7 +10,7 @@ instances, on Baxter's arm with 4 and 2 control points, and at FP = 32,
 B2 and B3 with rows whose points sit on a support or 1e-3 and 1e-2 from
 one; B1 on fitted proxies of 2048 and 4096 supports against its float64
 twin; B2 also at F = 2, 4 and 14, the first two on its fp64 instance),
-then drives eight paths through the entry points a user calls:
+then drives nine paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -51,6 +51,17 @@ then drives eight paths through the entry points a user calls:
   -> holdout -> a 65536 sweep with its gradient (B2 at F = 14, held to
   the float64 twin) -> FK-manifold sampling through the checker -> Adam
   on the staged pairs;
+- the rigid-body and scene-file path (scripts/trajopt_se3.py with the
+  probe body and with --mesh torus.stl, scripts/trajopt_se2.py, at their
+  own sizes; tests/test_moveit_scene_e2e.py's .scene journey): a DiffCo
+  over an SE(3) body's keypoints in the script's world -> holdout -> a
+  65536 sweep with its gradient (B2 at F = 9, and F = 24 for the torus,
+  whose world adds the lbracket mesh as an obstacle, held to the float64
+  twin) -> Adam -> the ground truth on the path; the same for the SE(2)
+  L-shape's q-space DiffCo (B2 at F = 3, its fp64 instance); the .scene
+  file -> load_moveit_scene -> FrankaPanda fit -> verify / the sweeps (B3,
+  B2) -> Adam; then se3's exp / log maps and geodesic interpolation on
+  the card against the float64 CPU results;
 - the roofline path at bench.py's primitive shape (PandaFK, B = 65536,
   S = 512): ``diffco_tpu_torch.scripts.roofline_fk_score.run`` (B1's
   bench step and kernel, the B7 ablation ladder, the B1 block-size sweep)
@@ -191,7 +202,7 @@ ACTIVE_RECHECK = 16384
 # Adam (PLANAR_TRAJ), and RRT* with the proxy's edge costs. The 7-DOF FK
 # features (scripts/narrow_fk_study.py's FK variant): 7d_narrow's 300
 # boxes, a DiffCo over the joint positions (F = 14) on NARROW_TRAIN
-# samples fitted to their distances, a holdout, a NARROW_SWEEP sweep (B2
+# samples fitted to their distances, a holdout, a FITTED_SWEEP sweep (B2
 # at F = 14), FK-manifold sampling and Adam on the staged pairs.
 PLANAR_LINK = 3.5
 PLANAR_WIDTH = 0.3
@@ -211,9 +222,77 @@ RRT_STAR = {'step_size': 0.5, 'radius': 1.0, 'max_iters': 600,
 NARROW_DOF = 7
 NARROW_TRAIN = 6000
 NARROW_HOLDOUT = 2000
-NARROW_SWEEP = 65536
+FITTED_SWEEP = 65536             # the planar narrow and rigid-body sweeps
 MANIFOLD_SAMPLES = 4096
 NARROW_CONFIGS = 'benchmarks/test_configs/test_configs_7d_narrow_7d.json'
+# The rigid-body path, at the reference scripts' own sizes. SE(3)
+# (scripts/trajopt_se3.py's defaults): the probe body (three spheres of
+# 0.18, keypoints their centres, F = 9) and, with --mesh torus.stl, the
+# torus (16 spheres of its mesh, keypoints its 8 bounding-box corners, F =
+# 24) in the script's four-shape world (the torus run adds the lbracket
+# mesh as a fifth obstacle), a DiffCo over the keypoints on RIGID_SAMPLES
+# distances, a RIGID_HOLDOUT holdout, a FITTED_SWEEP sweep (B2), Adam
+# (SE3_TRAJ). SE(2) (scripts/trajopt_se2.py's defaults): the L-shaped
+# RigidPlanarBody among three obstacles, a q-space DiffCo (F = 3) the same
+# way. The .scene file: tests/test_moveit_scene_e2e.py's text and options
+# at the README quick start's fit size (B3, B2). Then se3's maps on
+# SE3_TWISTS twists.
+RIGID_SAMPLES = 6000
+RIGID_HOLDOUT = 2000
+RIGID_MIN_ACC = 0.9
+SE3_LIMITS = [[-3, 3]] * 3 + [[-math.pi, math.pi]] * 3
+SE3_TRAJ = {'N_WAYPOINTS': 20, 'NUM_RE_TRIALS': 8, 'MAXITER': 300,
+            'history': False, 'safety_margin': -0.3, 'max_speed': 2.0,
+            'seed': 0, 'dense_sub': 4}
+PROBE = [[-0.3, 0, 0], [0, 0, 0], [0.3, 0, 0]]
+PROBE_RADIUS = 0.18
+TORUS = 'robot_data/generated/torus.stl'
+BRACKET = {'type': 'Mesh', 'params': {
+    'file_obj': 'robot_data/generated/lbracket.stl', 'scale': 2.0}}
+BRACKET_AT = (1.5, -1.5, -1.0)
+SE2_BODY = [((0.0, 0.0), (1.0, 0.25)), ((0.75, 0.0), (0.25, 0.75))]
+SE2_OBSTACLES = [('rect', (4, 4), (3, 3), 0), ('circle', (-4, -4), 2.0, 1),
+                 ('rect', (-4, 4), (2, 4), 1)]
+SE2_LIMITS = [[-8, 8], [-8, 8], [-math.pi, math.pi]]
+SE2_TRAJ = dict(SE3_TRAJ, safety_margin=-0.2)
+SCENE_FIT = 3000
+SCENE_TRAJ = {'N_WAYPOINTS': 8, 'NUM_RE_TRIALS': 2, 'MAXITER': 60,
+              'seed': 5, 'dense_sub': 3}
+SE3_TWISTS = 65536
+# tests/test_moveit_scene_e2e.py:17-49: a box, a sphere, an inline mesh
+MOVEIT_SCENE = """\
+panda_world
+* shelf
+1
+box
+0.25 0.5 0.03
+0.45 0.0 0.45
+0 0 0 1
+0 0 0 0
+* ball
+1
+sphere
+0.09
+0.35 -0.35 0.55
+0 0 0 1
+0 0 0 0
+* wedge
+1
+mesh
+4 4
+0 0 0
+0.12 0 0
+0 0.12 0
+0 0 0.12
+0 1 2
+0 1 3
+0 2 3
+1 2 3
+0.3 0.35 0.3
+0 0 0 1
+0 0 0 0
+.
+"""
 # B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
 # without dq, 1e-3 with it. In mv_bf16_full kernel and twin may round an r
 # or 1/r to neighbouring bf16 values (2^-8 of a term; on the H100 they
@@ -1561,6 +1640,49 @@ def _check_fitted_poly(tag, perceptron, x, score, dx):
     return dict(args=(x, sup, w), err=err)
 
 
+def _fitted_sweep(tag, robot, p, g, dev):
+    """A FITTED_SWEEP sweep of a fitted proxy with its gradient: the score
+    from q (through the transform and B2, or B2 on q itself for a q-space
+    proxy) and, for a proxy over FK features, from the points, held to the
+    float64 twin (_check_fitted_poly); dq also against the twin's dx
+    pulled back through the float64 FK. Returns B2's check."""
+    from diffco_tpu_torch.ops import fused_score
+    t0 = time.perf_counter()
+    n = FITTED_SWEEP
+    q = robot.rand_configs(n, g, dev).requires_grad_(True)
+    s_q = p.poly_score(q)
+    dq, = torch.autograd.grad(s_q.sum(), q)
+    s_q = s_q.detach().reshape(-1)
+    if p.transform is None:
+        x, s_x, dx = q.detach(), s_q, dq
+    else:
+        x = robot.fkine(q.detach()).reshape(n, -1).requires_grad_(True)
+        s_x = p.poly_score(transformed_point=x)
+        dx, = torch.autograd.grad(s_x.sum(), x)
+        s_x = s_x.detach().reshape(-1)
+        _check_close(f'{tag} sweep, from q vs from points', s_q, s_x, 1e-3)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(s_q).all())
+            and bool(torch.isfinite(dq).all())):
+        raise AssertionError(f'{tag} sweep: non-finite score or dq')
+    q64 = q.detach().double().requires_grad_(True)
+    x64 = q64 if p.transform is None else robot.fkine(q64).reshape(n, -1)
+    w64 = (p.rbf_nodes.reshape(-1) * p.valid_mask.to(p.rbf_nodes.dtype)
+           / p.rbf_kernel.epsilon).double()
+    with torch.no_grad():
+        _, ref_dx64 = fused_score._poly_score_grad_plain(
+            x64.detach(), p.support_transformed.double(), w64)
+    ref_dq, = torch.autograd.grad(x64, q64, ref_dx64)
+    _check_close(f'{tag} sweep dq vs the float64 twin', dq.double(), ref_dq,
+                 1e-3)
+    F = x.shape[1]
+    _phase(f'{tag} sweep (B2 at F = {F})', t0, configs=n, F=F,
+           supports=p.support_transformed.shape[0],
+           dq_max_abs_err_vs_float64=_max_err([(dq.double(), ref_dq)]),
+           max_abs_dq=float(ref_dq.abs().max()))
+    return _check_fitted_poly(f'{tag} sweep (F = {F})', p, x, s_x, dx)
+
+
 def _planar_escape(dev):
     """scripts/escape_2d.py at its defaults: the q-space proxy, its score
     map on the unified grid (B2 at F = 2) held to the float64 twin and
@@ -1727,7 +1849,7 @@ def _planar_trajopt(dev):
 def _planar_narrow(dev):
     """scripts/narrow_fk_study.py's FK variant: the 7-DOF arm in
     7d_narrow, a DiffCo over its joint positions fitted to the signed
-    distances; the holdout, the NARROW_SWEEP sweep with its gradient (B2
+    distances; the holdout, the FITTED_SWEEP sweep with its gradient (B2
     at F = 14, through the router's FK fallback and from points) held to
     the float64 twin, FK-manifold sampling through the checker, and Adam
     on the staged pairs."""
@@ -1770,36 +1892,7 @@ def _planar_narrow(dev):
            acc=float((pred_free == free).float().mean()),
            missed_col=float((pred_free & ~free).sum()) / n_col)
 
-    t0 = time.perf_counter()
-    q = robot.rand_configs(NARROW_SWEEP, g, dev).requires_grad_(True)
-    s_q = proxy.poly_score(q)
-    dq, = torch.autograd.grad(s_q.sum(), q)
-    x = robot.fkine(q.detach()).reshape(NARROW_SWEEP, -1).requires_grad_(True)
-    s_x = proxy.poly_score(transformed_point=x)
-    dx, = torch.autograd.grad(s_x.sum(), x)
-    torch.cuda.synchronize()
-    s_q, s_x = s_q.detach().reshape(-1), s_x.detach().reshape(-1)
-    if not (bool(torch.isfinite(s_q).all()) and bool(torch.isfinite(dq).all())):
-        raise AssertionError('planar narrow sweep: non-finite score or dq')
-    _check_close('planar narrow sweep, from q vs from points', s_q, s_x, 1e-3)
-    # dq against the float64 chain: the twin's dx pulled back through the
-    # float64 FK
-    q64 = q.detach().double().requires_grad_(True)
-    x64 = robot.fkine(q64).reshape(NARROW_SWEEP, -1)
-    from diffco_tpu_torch.ops import fused_score
-    p = proxy
-    w64 = (p.rbf_nodes.reshape(-1) * p.valid_mask.to(p.rbf_nodes.dtype)
-           / p.rbf_kernel.epsilon).double()
-    with torch.no_grad():
-        _, ref_dx64 = fused_score._poly_score_grad_plain(
-            x64.detach(), p.support_transformed.double(), w64)
-    ref_dq, = torch.autograd.grad(x64, q64, ref_dx64)
-    _phase('planar narrow, sweep (B2 at F = 14)', t0, configs=NARROW_SWEEP,
-           F=x.shape[1], supports=p.support_transformed.shape[0],
-           dq_max_abs_err_vs_float64=_max_err([(dq.double(), ref_dq)]),
-           max_abs_dq=float(ref_dq.abs().max()))
-    fitted = _check_fitted_poly('planar narrow sweep (F = 14)', proxy, x,
-                                s_x, dx)
+    fitted = _fitted_sweep('planar narrow', robot, proxy, g, dev)
 
     t0 = time.perf_counter()
     checker = dc.ForwardKinematicsDiffCo(robot=robot,
@@ -1860,6 +1953,245 @@ def planar_journey(dev):
     _planar_trajopt(dev)
     f14 = _planar_narrow(dev)
     return {'F2': f2, 'F14': f14}
+
+
+def rigid_world(mesh):
+    """scripts/trajopt_se3.py's four shapes, and the lbracket mesh (a
+    fifth obstacle) with ``mesh``."""
+    import diffco_tpu_torch as dc
+
+    def T(t):
+        m = np.eye(4)
+        m[:3, 3] = t
+        return m
+    shapes = {
+        'pillar1': {'type': 'Cylinder',
+                    'params': {'radius': 0.5, 'height': 6.0},
+                    'transform': T([1.2, 1.2, 0.0])},
+        'pillar2': {'type': 'Cylinder',
+                    'params': {'radius': 0.5, 'height': 6.0},
+                    'transform': T([-1.2, -1.2, 0.0])},
+        'shelf': {'type': 'Box', 'params': {'extents': [2.0, 0.4, 2.0]},
+                  'transform': T([0.0, 1.8, 0.0])},
+        'ball': {'type': 'Sphere', 'params': {'radius': 0.6},
+                 'transform': T([-1.5, 1.5, 1.0])}}
+    if mesh:
+        shapes['bracket'] = dict(BRACKET, transform=T(BRACKET_AT))
+    return dc.ShapeEnv(shapes)
+
+
+def rigid_body(mesh):
+    """scripts/trajopt_se3.py's build_body: (RigidBody, sphere centres
+    [P, 3], radii [P]) of the probe, or of the torus (its mesh's 16-sphere
+    decomposition, keypoints its bounding-box corners)."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.geometry.mesh import load_mesh, spheres_from_mesh
+    if mesh:
+        verts, faces = load_mesh(TORUS)
+        verts = verts - verts.mean(0)
+        centers, radii = spheres_from_mesh(verts, faces, n_spheres=16)
+        robot = dc.RigidBody.from_vertices(verts, limits=SE3_LIMITS)
+    else:
+        centers = np.asarray(PROBE, np.float32)
+        radii = np.full(len(PROBE), PROBE_RADIUS, np.float32)
+        robot = dc.RigidBody(centers, limits=SE3_LIMITS)
+    return robot, torch.as_tensor(centers), torch.as_tensor(radii)
+
+
+def rigid_ground_truth(centers, radii, env, dev):
+    """q [B, 6] -> the body's largest signed distance to the scene [B]
+    (> 0 in collision): its spheres moved by (xyz, rpy)."""
+    from diffco_tpu_torch.geometry.geometry3d import \
+        spheres_vs_scene_signed_dist
+    from diffco_tpu_torch.utils import euler2mat, transform_points
+    scene, c, r = env.scene.to(dev), centers.to(dev), radii.to(dev)
+
+    def signed(q):
+        world = transform_points(euler2mat(q[:, 3:]), q[:, :3], c)
+        return spheres_vs_scene_signed_dist(world, r, scene).amax(-1)
+    return signed
+
+
+def rigid_proxy(kind, dev):
+    """One rigid-body phase's fitted proxy, the scripts' route (3 N
+    greedy iterations on labels with their distances, fit_poly on the
+    distances): kind 'probe' (F = 9), 'mesh' (F = 24) or 'se2' (q-space,
+    F = 3). Returns dict(robot, proxy, signed, g, colliding)."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.geometry.geometry2d import rigid_body_signed_dist
+    g = torch.Generator().manual_seed(0)
+    if kind == 'se2':
+        robot = dc.RigidPlanarBody([('rect', c, (h[0] * 2, h[1] * 2))
+                                    for c, h in SE2_BODY], limits=SE2_LIMITS)
+        obs = dc.Obstacles2D.from_obstacle_list(SE2_OBSTACLES)
+
+        def signed(q):
+            return rigid_body_signed_dist(SE2_BODY, obs, q).amax(-1)
+        proxy = dc.DiffCo(kernel_func=dc.kernels.RQKernel(1.0))
+    else:
+        robot, centers, radii = rigid_body(kind == 'mesh')
+        signed = rigid_ground_truth(centers, radii,
+                                    rigid_world(kind == 'mesh'), dev)
+        proxy = dc.DiffCo(kernel_func=dc.kernels.RQKernel(10.0),
+                          transform=lambda x: robot.fkine(x))
+    q = robot.rand_configs(RIGID_SAMPLES, g, dev)
+    dist = signed(q)
+    proxy.train(q, (dist > 0).float() * 2 - 1,
+                max_iteration=3 * RIGID_SAMPLES, distance=dist)
+    proxy.fit_poly(dc.kernels.Polyharmonic(1, 1), target='dist')
+    return dict(robot=robot, proxy=proxy, signed=signed, g=g,
+                colliding=float((dist > 0).float().mean()))
+
+
+def _rigid_phase(tag, kind, dev):
+    """fit -> holdout -> sweep -> Adam on one problem -> the ground truth
+    on its dense path, as the scripts run them; fails below RIGID_MIN_ACC
+    or on a non-finite cost. Returns B2's check of the sweep."""
+    from diffco_tpu_torch import optim
+    from diffco_tpu_torch.utils import dense_path
+    t0 = time.perf_counter()
+    r = rigid_proxy(kind, dev)
+    robot, p, signed = r['robot'], r['proxy'], r['signed']
+    torch.cuda.synchronize()
+    _phase(f'{tag} fit', t0, samples=RIGID_SAMPLES,
+           colliding=r['colliding'], iterations=p.train_iterations,
+           supports=p.num_valid, F=p.support_transformed.shape[1])
+    t0 = time.perf_counter()
+    qt = robot.rand_configs(RIGID_HOLDOUT, r['g'], dev)
+    with torch.no_grad():
+        st = p.poly_score(qt).reshape(-1)
+    dt = signed(qt)
+    acc = float(((st > 0) == (dt > 0)).float().mean())
+    corr = float(np.corrcoef(st.cpu().numpy(), dt.cpu().numpy())[0, 1])
+    _phase(f'{tag} holdout', t0, configs=RIGID_HOLDOUT, acc=acc, corr=corr)
+    if not acc >= RIGID_MIN_ACC:
+        raise AssertionError(f'{tag}: holdout acc {acc} < {RIGID_MIN_ACC}')
+    fitted = _fitted_sweep(tag, robot, p, r['g'], dev)
+    free = torch.nonzero(dt <= (0.0 if kind == 'se2' else -0.1)).reshape(-1)
+    opts = SE2_TRAJ if kind == 'se2' else SE3_TRAJ
+    t0 = time.perf_counter()
+    rec = optim.adam_traj_optimize(
+        robot, lambda pp: p.poly_score(pp).reshape(-1), qt[free[0]],
+        qt[free[-1]], dict(opts))
+    sol = torch.as_tensor(rec['solution'], dtype=torch.float32, device=dev)
+    hits = int((signed(dense_path(sol, 8)) > 0).sum())
+    _phase(f'{tag} trajopt', t0, success=rec['success'],
+           cost=rec['cost'], seconds=round(rec['time'], 3),
+           cnt_check=rec['cnt_check'], gt_valid=hits == 0, gt_hits=hits)
+    if not math.isfinite(rec['cost']):
+        raise AssertionError(f'{tag} trajopt: non-finite cost')
+    return fitted
+
+
+def _scene_file(dev):
+    """tests/test_moveit_scene_e2e.py's journey: the .scene text (a box, a
+    sphere, an inline mesh) -> load_moveit_scene -> FrankaPanda (no
+    gripper, 12 spheres a link, ACM) -> fit (SCENE_FIT; TPR >= 0.9) ->
+    verify, the sweeps (B3, B2) against the float64 twin -> Adam with the
+    test's options; the dense path's ground-truth validity is printed, not
+    asserted (the reference's own path collides there)."""
+    import os
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import optim
+    from diffco_tpu_torch.ops import fk_score
+    from diffco_tpu_torch.utils import dense_path
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, 'build', 'chip_smoke', 'panda_world.scene')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, 'w') as f:
+        f.write(MOVEIT_SCENE)
+    t0 = time.perf_counter()
+    env = dc.load_moveit_scene(path, mesh_spheres=6)
+    robot = dc.FrankaPanda(load_gripper=False, setup_acm=True,
+                           link_spheres=12, device=dev)
+    checker = dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
+                                         seed=0, device=dev)
+    gt = checker.gt_check_func
+    _phase('scene file, load and robot', t0, scene=env.name,
+           objects=env.object_names, mesh_spheres=env.scene.msh_c.shape[0],
+           spheres=robot.link_sphere_centers.shape[0],
+           self_pairs=robot._self_pair_i.shape[0])
+    _fit(checker, SCENE_FIT, 'scene file')
+    cs = fk_score.robot_chain_statics(robot)
+    _sweeps(checker, robot, gt, dev,
+            lambda q, s, w: fk_score._chain_score_grad_plain(q, s, w, cs),
+            'scene file')
+    t0 = time.perf_counter()
+    q = robot.rand_configs(128, torch.Generator().manual_seed(11), dev)
+    free = q[~gt(q)]
+    rec = optim.adam_traj_optimize(
+        robot, checker.score_fn(bias=0.0), free[0], free[-1],
+        dict(SCENE_TRAJ, safety_margin=-float(checker.safety_bias)))
+    sol = torch.as_tensor(rec['solution'], dtype=torch.float32, device=dev)
+    hits = int(gt(dense_path(sol, 4)).sum())
+    _phase('scene file, trajopt', t0, success=rec['success'],
+           cost=rec['cost'], seconds=round(rec['time'], 3),
+           gt_valid=hits == 0, gt_hits=hits)
+    if not math.isfinite(rec['cost']):
+        raise AssertionError('scene file trajopt: non-finite cost')
+
+
+def _twists(rng, n, near_pi):
+    """4 n float32 twists: rotation angles uniform in (0, pi - 1e-2), below
+    1e-4, log-uniform in 1e-4 to 1e-2, and pi less ``near_pi``'s range."""
+    axis = rng.normal(size=(4 * n, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    theta = np.concatenate([rng.uniform(0, math.pi - 1e-2, n),
+                            rng.uniform(0, 1e-4, n),
+                            10 ** rng.uniform(-4, -2, n),
+                            math.pi - rng.uniform(*near_pi, n)])
+    return torch.from_numpy(np.concatenate(
+        [axis * theta[:, None], rng.normal(size=(4 * n, 3))], 1).astype(
+            np.float32))
+
+
+def _se3_on_card(dev):
+    """se3 on the card in float32 against the port's own float64 on the
+    CPU, same inputs, 1e-5: exp_se3 of SE3_TWISTS twists, log_se3 of the
+    result, the round trip, and se3_interpolate (8 points) from each pose
+    to the pose moved by another twist (relative angles up to pi -
+    1e-3)."""
+    from diffco_tpu_torch import se3
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    n = SE3_TWISTS // 4
+    xi = _twists(rng, n, (1e-5, 1e-3))
+    rel = _twists(rng, n, (1e-3, 1e-2))
+    ts = torch.linspace(0, 1, 8)
+    xg = xi.to(dev)
+    T = se3.exp_se3(xg)
+    L = se3.log_se3(T)
+    T1 = se3.matmul_f32(T, se3.exp_se3(rel.to(dev)))
+    path = se3.se3_interpolate(T, T1, ts.to(dev))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    T64, T1_64 = T.cpu().double(), T1.cpu().double()
+    errs = {}
+    for name, out, ref in (
+            ('exp_se3', T, se3.exp_se3(xi.double())),
+            ('log_se3', L, se3.log_se3(T64)),
+            ('round trip', L, se3.log_se3(se3.exp_se3(xi.double()))),
+            ('se3_interpolate', path,
+             se3.se3_interpolate(T64, T1_64, ts.double()))):
+        errs[name] = _max_err([(out.cpu().double(), ref)])
+        if not bool(torch.isfinite(out).all()) or errs[name] > 1e-5:
+            raise AssertionError(f'se3 on the card: {name} is '
+                                 f'{errs[name]} from float64')
+    _phase('se3 on the card (float32 vs float64)', t0, twists=SE3_TWISTS,
+           card_s=round(t_card, 4), max_abs_err=errs)
+
+
+def rigid_journey(dev):
+    """The rigid-body and scene-file path: SE(3) on the probe (B2 at F = 9)
+    and the torus among five obstacles, one a mesh (F = 24), SE(2) (F = 3,
+    B2's fp64 instance), the MoveIt .scene file on FrankaPanda (B3, B2),
+    and se3's maps. Returns B2's checks on the three fitted proxies."""
+    f9 = _rigid_phase('rigid SE(3) probe', 'probe', dev)
+    f24 = _rigid_phase('rigid SE(3) torus', 'mesh', dev)
+    f3 = _rigid_phase('rigid SE(2)', 'se2', dev)
+    _scene_file(dev)
+    _se3_on_card(dev)
+    return {'F3': f3, 'F9': f9, 'F24': f24}
 
 
 def _time_ms(fn, warmup, iters):
@@ -1936,16 +2268,17 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
                     plain_ms=_time_ms(plain, 1, 3), bound_ms=b, bound_by=by,
                     library_ms=None)
 
-    def poly_at(key):
-        """B2 on the planar path's fitted proxies (F = 2 and 14), at the
-        sweep's shape, with its error against the float64 twin."""
-        xp, sp, wp = b2['planar'][key]['args']
+    def poly_at(fitted):
+        """B2 on a fitted proxy of the planar path (F = 2 and 14) or the
+        rigid-body path (F = 3, 9, 24), at the sweep's shape, with its
+        error against the float64 twin."""
+        xp, sp, wp = fitted['args']
         Bp, Sp, Fp = xp.shape[0], sp.shape[0], xp.shape[1]
         bp, byp = poly_tc_bound(Bp, Sp, Fp)
         bp32, byp32 = bound(poly_bytes(Bp, Sp, Fp), score_ops(Bp, Sp, Fp))
         return dict(
             shape=[Bp, Sp, Fp], bound_fp32_ms=bp32, bound_fp32_by=byp32,
-            max_abs_err_vs_float64=b2['planar'][key]['err'],
+            max_abs_err_vs_float64=fitted['err'],
             ms=_time_ms(lambda: fused_score.poly_score_grad(xp, sp, wp), 5,
                         50),
             plain_ms=_time_ms(
@@ -1984,7 +2317,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             bound2, by2, bound_fp32_ms=bound2_fp32, bound_fp32_by=by2_fp32,
             bound_times_ms=tc_times(B, S, F, poly_bytes(B, S, F), 2 * F),
             plan=b2['plan'], warps_per_sm=b2['plan']['warps_per_sm'],
-            planar_proxies={k: poly_at(k) for k in b2['planar']}),
+            planar_proxies={k: poly_at(v) for k, v in b2['planar'].items()},
+            rigid_proxies={k: poly_at(v) for k, v in b2['rigid'].items()}),
         # its launches include the roofline path's block-size sweep, so its
         # error is the largest of the production and the sweep instances
         row('dh_score_grad', 'diffco_tpu_torch/csrc/dh_score.cu',
@@ -2103,7 +2437,7 @@ def main():
     b67 = check_roofline_kernels(robot, dev)
 
     # count only each main path's own launches
-    launches, planar = {}, {}
+    launches, planar, rigid = {}, {}, {}
     for path, run in (('PandaFK', lambda: journey(robot, dev)),
                       ('FrankaPanda', lambda: urdf_journey(dev)),
                       ('PandaFK multi-class', lambda: multi_journey(robot,
@@ -2113,6 +2447,7 @@ def main():
                       ('Baxter', lambda: baxter_journey(dev)),
                       ('PandaFK active', lambda: active_journey(robot, dev)),
                       ('planar', lambda: planar.update(planar_journey(dev))),
+                      ('rigid body', lambda: rigid.update(rigid_journey(dev))),
                       ('roofline', lambda: roofline_path(dev))):
         _zero_launches()
         run()
@@ -2129,6 +2464,8 @@ def main():
                     ('PandaFK active', 'dh_score_grad'),
                     ('PandaFK active', 'poly_score_grad'),
                     ('planar', 'poly_score_grad'),
+                    ('rigid body', 'poly_score_grad'),
+                    ('rigid body', 'chain_score_grad'),
                     ('roofline', 'dh_score_grad'),
                     ('roofline', 'dh_dual_score_grad'),
                     ('roofline', 'dh_ablation'),
@@ -2140,7 +2477,7 @@ def main():
                                  'path')
 
     t0 = time.perf_counter()
-    b2['planar'] = planar
+    b2['planar'], b2['rigid'] = planar, rigid
     rows = kernel_table(b2, b1, b3, b4, b5, b67, launches)
     _phase('kernel timing', t0)
     print(json.dumps({'kernels': rows}), flush=True)

@@ -23,6 +23,12 @@ truth (``geometry.geometry2d``: ``Obstacles2D``,
 dataset and checkpoint I/O (``routines``), the escape and FK-manifold
 samplers (``sampler``: ``OptimSampler``) and the RRT-Connect and RRT*
 planners (``planning``: ``MotionPlanner``, ``RRTStar``).
+The rigid-body and scene-file path: the SE(3) free flyer ``RigidBody``,
+the exp / log maps, quaternions and geodesic interpolation of ``se3``,
+mesh obstacles in a ``ShapeEnv`` (sphere decompositions), the point-cloud
+world ``PCDEnv``, the MoveIt ``.scene`` loader (``load_moveit_scene``)
+and the tutorial Panda environments on the ``CollisionEnv`` template
+(``envs.panda_envs``).
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; they
 raise rather than fall back when no card is present. Nothing here imports
@@ -33,15 +39,16 @@ from . import utils
 from . import kernels
 from . import optim
 from . import routines
+from . import se3
 from .device import resolve_device
-from .robots import (Model, RevolutePlanarRobot, RigidPlanarBody,
+from .robots import (Model, RevolutePlanarRobot, RigidPlanarBody, RigidBody,
                      DHParameters, DHChainRobot, PandaFK,
                      DualPandaFK, BaxterLeftArmFK, BaxterRightArmFK,
                      BaxterFK, BaxterDualArmFK)
 from .robots.capsule_chain import CapsuleChainCollision
 from .robots.urdf import (URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot,
                           TrifingerEdu, parse_urdf, robot_description_folder)
-from .envs import ShapeEnv
+from .envs import ShapeEnv, PCDEnv, CollisionEnv, load_moveit_scene
 from .geometry.geometry2d import (Obstacles2D, planar_robot_signed_dist,
                                   planar_robot_collision)
 from .sampler import OptimSampler
@@ -58,12 +65,14 @@ from .optim import (adam_traj_optimize, adam_traj_optimize_batch,
                     TrajOptimizer, Weighted)
 
 __all__ = [
-    'utils', 'kernels', 'optim', 'routines', 'resolve_device', 'Model',
-    'RevolutePlanarRobot', 'RigidPlanarBody', 'DHParameters',
+    'utils', 'kernels', 'optim', 'routines', 'se3', 'resolve_device',
+    'Model', 'RevolutePlanarRobot', 'RigidPlanarBody', 'RigidBody',
+    'DHParameters',
     'DHChainRobot', 'PandaFK', 'DualPandaFK', 'BaxterLeftArmFK',
     'BaxterRightArmFK', 'BaxterFK', 'BaxterDualArmFK', 'CapsuleChainCollision', 'URDFRobot',
     'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu', 'parse_urdf',
-    'robot_description_folder', 'ShapeEnv', 'Obstacles2D',
+    'robot_description_folder', 'ShapeEnv', 'PCDEnv', 'CollisionEnv',
+    'load_moveit_scene', 'Obstacles2D',
     'planar_robot_signed_dist', 'planar_robot_collision', 'OptimSampler',
     'MotionPlanner', 'RRTStar',
     'Perceptron', 'DiffCo', 'DiffCoBeta', 'MultiDiffCo', 'MultiDimDiffCo',

@@ -5,7 +5,10 @@ perceptron (``np.asarray`` of each attribute), so this module needs
 nothing of JAX. Once loaded, both packages compute the same scores. It
 carries the state of a ``DiffCo``, a ``MultiDiffCo`` ([S, C] gains and
 nodes), a ``DiffCoBeta`` (with its regressed distances) and a
-``MultiDimDiffCo`` ([S, M, d] supports, [S, S, C] kernel matrix).
+``MultiDimDiffCo`` ([S, M, d] supports, [S, S, C] kernel matrix). The
+target keeps its own transform: a q-space proxy (a ``RigidPlanarBody``'s
+configurations) or one over any callable's features (a ``RigidBody``'s
+``fkine`` behind a lambda) takes the same arrays.
 """
 from __future__ import annotations
 

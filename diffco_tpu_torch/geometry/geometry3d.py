@@ -8,6 +8,7 @@ for separation.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -58,8 +59,10 @@ def _to_local(p, rot, trans):
 @dataclasses.dataclass
 class SceneArrays:
     """Per-type obstacle arrays; object order: spheres, boxes, cylinders,
-    capsules. (Mesh obstacles, represented by sphere decompositions in the
-    JAX package, are not ported yet.)"""
+    capsules, meshes. A mesh obstacle is its sphere decomposition: the
+    spheres of every mesh in one list, each with its object's index in
+    ``msh_obj``, so that per-object distances take the minimum over that
+    object's spheres."""
     sph_c: torch.Tensor   # [Ns, 3]
     sph_r: torch.Tensor   # [Ns]
     box_t: torch.Tensor   # [Nb, 3]
@@ -73,15 +76,21 @@ class SceneArrays:
     cap_R: torch.Tensor
     cap_r: torch.Tensor
     cap_h: torch.Tensor
+    msh_c: torch.Tensor   # [Nm, 3] mesh sphere centers
+    msh_r: torch.Tensor   # [Nm]
+    msh_obj: torch.Tensor  # [Nm] int64, the mesh object of each sphere
+    n_mesh_objects: int
 
     @property
     def n_objects(self) -> int:
         return (self.sph_c.shape[0] + self.box_t.shape[0]
-                + self.cyl_t.shape[0] + self.cap_t.shape[0])
+                + self.cyl_t.shape[0] + self.cap_t.shape[0]
+                + self.n_mesh_objects)
 
     def to(self, device) -> 'SceneArrays':
-        return SceneArrays(**{f.name: getattr(self, f.name).to(device)
-                              for f in dataclasses.fields(self)})
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self) if f.name != 'n_mesh_objects'})
 
     def point_sdf_per_object(self, p):
         """SDF of world points p [..., 3] to every object:
@@ -98,18 +107,57 @@ class SceneArrays:
         if self.cap_t.shape[0]:
             outs.append(capsule_sdf(_to_local(p, self.cap_R, self.cap_t),
                                     self.cap_r, self.cap_h))
+        if self.msh_c.shape[0]:
+            per_sphere = sphere_sdf(p[..., None, :] - self.msh_c,
+                                    self.msh_r)                  # [..., Nm]
+            # each mesh object's minimum over its own spheres
+            mine = self.msh_obj[:, None] == torch.arange(
+                self.n_mesh_objects, device=self.msh_obj.device)
+            outs.append(torch.amin(torch.where(
+                mine, per_sphere[..., :, None], math.inf), dim=-2))
         if not outs:
             return torch.zeros(p.shape[:-1] + (0,), dtype=p.dtype,
                                device=p.device)
         return torch.cat(outs, dim=-1)
 
 
-def scene_from_dict(shapes: Dict[str, dict], dtype=torch.float32
-                    ) -> Tuple[SceneArrays, List[str]]:
-    """Build CPU SceneArrays from a ShapeEnv-style dict. Returns
-    (scene, object_names in object order)."""
-    sph, box, cyl, cap = [], [], [], []
-    sph_n, box_n, cyl_n, cap_n = [], [], [], []
+# local-frame (centers, radii) per mesh source, scale and sphere count: a
+# ShapeEnv rebuilds its scene at every update_transform, and moving an
+# obstacle should not re-read and re-cluster its mesh
+_mesh_sphere_cache = {}
+
+
+def _mesh_spheres_local(params, mesh_spheres: int):
+    """A Mesh shape's sphere decomposition in its own frame, scaled:
+    inline ``vertices`` / ``faces``, or a file (``file_obj``, ``file_stl``
+    or ``path``)."""
+    from .mesh import load_mesh, spheres_from_mesh
+    scale = float(params.get('scale', 1.0))
+    if 'vertices' in params:
+        verts = np.asarray(params['vertices'], np.float32)
+        faces = np.asarray(params['faces'], np.int32)
+        key = ('inline', verts.tobytes(), faces.tobytes(), scale,
+               mesh_spheres)
+    else:
+        path = params.get('file_obj') or params.get('file_stl') \
+            or params.get('path')
+        key = (path, scale, mesh_spheres)
+    hit = _mesh_sphere_cache.get(key)
+    if hit is None:
+        if 'vertices' not in params:
+            verts, faces = load_mesh(path)
+        hit = spheres_from_mesh(verts * scale, faces, n_spheres=mesh_spheres)
+        _mesh_sphere_cache[key] = hit
+    return hit
+
+
+def scene_from_dict(shapes: Dict[str, dict], mesh_spheres: int = 16,
+                    dtype=torch.float32) -> Tuple[SceneArrays, List[str]]:
+    """Build CPU SceneArrays from a ShapeEnv-style dict; a Mesh shape
+    becomes ``mesh_spheres`` spheres. Returns (scene, object_names in
+    object order)."""
+    sph, box, cyl, cap, msh = [], [], [], [], []
+    sph_n, box_n, cyl_n, cap_n, msh_n = [], [], [], [], []
     for name, spec in shapes.items():
         T = np.asarray(spec.get('transform', np.eye(4)), np.float32)
         R, t = T[:3, :3], T[:3, 3]
@@ -130,9 +178,9 @@ def scene_from_dict(shapes: Dict[str, dict], dtype=torch.float32
                         float(params['height']) / 2))
             cap_n.append(name)
         elif kind == 'Mesh':
-            raise NotImplementedError(
-                'Mesh obstacles are not ported yet (ROADMAP A6, mesh '
-                'obstacles)')
+            centers, radii = _mesh_spheres_local(params, mesh_spheres)
+            msh.append((centers @ R.T + t, radii))
+            msh_n.append(name)
         else:
             raise ValueError(f'unknown shape type {kind}')
 
@@ -154,8 +202,13 @@ def scene_from_dict(shapes: Dict[str, dict], dtype=torch.float32
         cap_R=arr([c[1] for c in cap], (-1, 3, 3)),
         cap_r=arr([c[2] for c in cap], (-1,)),
         cap_h=arr([c[3] for c in cap], (-1,)),
+        msh_c=arr([c for m in msh for c in m[0]], (-1, 3)),
+        msh_r=arr([r for m in msh for r in m[1]], (-1,)),
+        msh_obj=torch.as_tensor([i for i, m in enumerate(msh)
+                                 for _ in m[1]], dtype=torch.int64),
+        n_mesh_objects=len(msh),
     )
-    return scene, sph_n + box_n + cyl_n + cap_n
+    return scene, sph_n + box_n + cyl_n + cap_n + msh_n
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Analytic (closed-form) robot models, batched and differentiable
 (PyTorch counterpart of ``diffco_tpu/robots/analytic.py``: ``Model``,
-the planar ``RevolutePlanarRobot`` and ``RigidPlanarBody``,
+the planar ``RevolutePlanarRobot`` and ``RigidPlanarBody``, the SE(3)
+free flyer ``RigidBody``,
 ``DHParameters``, ``DHChainRobot``, ``PandaFK``, ``DualPandaFK`` and the
 Baxter arms ``BaxterLeftArmFK``, ``BaxterRightArmFK``, ``BaxterFK`` and
 ``BaxterDualArmFK``).
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..utils import rot_2d, rotz, wrap2pi
+from ..utils import euler2mat, rot_2d, rotz, wrap2pi
 from .soa import (vec_add, transform_compose, dh_rot_trans, rot_from_static,
                   stack_points)
 from .fk_jvp import make_dh_fkine
@@ -148,6 +149,48 @@ class RigidPlanarBody(Model):
 
     def wrap(self, q):
         return torch.cat([q[..., :2], wrap2pi(q[..., 2:])], dim=-1)
+
+
+class RigidBody(Model):
+    """SE(3) free-flying rigid body, configuration (x, y, z, roll, pitch,
+    yaw), with keypoints [3, M] (given as [M, 3] or [3, M]; a 3 x 3 array
+    reads as [M, 3]). ``fkine`` returns the keypoints in the world,
+    [B, M, 3]."""
+
+    def __init__(self, keypoints, limits=None):
+        self.dof = 6
+        self.limits = torch.as_tensor(np.asarray(
+            limits if limits is not None else
+            [[-10, 10]] * 3 + [[-PI, PI]] * 3), dtype=torch.float32)
+        kp = torch.as_tensor(np.asarray(keypoints), dtype=torch.float32)
+        self.keypoints = kp.T if kp.shape[-1] == 3 else kp    # [3, M]
+        self._keypoints = {}
+
+    @classmethod
+    def from_vertices(cls, vertices: np.ndarray, limits=None, center=True):
+        """Keypoints = the mesh's bounding-box corners, scaled so that the
+        farthest lies at distance 1 (from the vertices' mean with
+        ``center``)."""
+        v = np.asarray(vertices, np.float32)
+        if center:
+            v = v - v.mean(0)
+        lo, hi = v.min(0), v.max(0)
+        corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                            for y in (lo[1], hi[1]) for z in (lo[2], hi[2])],
+                           np.float32)
+        corners = corners / np.linalg.norm(corners, axis=1).max()
+        return cls(corners, limits=limits)
+
+    def fkine(self, q):
+        q = torch.reshape(q, (-1, 6))
+        kp = _on(self._keypoints, self.keypoints, q)           # [3, M]
+        R = euler2mat(q[:, 3:])                                # [B, 3, 3]
+        # R @ keypoints as explicit sums: no TF32 product on the card
+        pts = torch.sum(R[:, None, :, :] * kp.T[None, :, None, :], dim=-1)
+        return pts + q[:, None, :3]
+
+    def wrap(self, q):
+        return torch.cat([q[..., :3], wrap2pi(q[..., 3:])], dim=-1)
 
 
 class DHParameters:

@@ -1,6 +1,6 @@
-"""Convenience routines: 2-D dataset generation and I/O, and training,
-fitting, testing and checkpointing a proxy (PyTorch counterpart of
-``diffco_tpu/routines.py``).
+"""Convenience routines: 2-D dataset generation and I/O, training,
+fitting, testing and checkpointing a proxy, and a view of an SE(3) path
+(PyTorch counterpart of ``diffco_tpu/routines.py``).
 
 A dataset is a dict {'data', 'label', 'dist', 'obs', 'robot', 'rparam',
 'label_type'} stored as .npz: the arrays as npz members, the other
@@ -243,3 +243,33 @@ def save_ompl_path(path_file: str, path, times=None):
             if times is not None:
                 cols = [times[i]] + cols
             f.write(' '.join(f'{v:.8f}' for v in cols) + '\n')
+
+
+def view_se3_path(path, keypoints=None, save_to=None):
+    """An SE(3) path [N, 6] (x, y, z, roll, pitch, yaw) as a matplotlib 3-D
+    figure (Agg backend), saved to ``save_to`` when given: the positions,
+    start and goal, and with ``keypoints`` [M, 3] the body's keypoints at
+    about eight of the waypoints. Returns the figure."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    from .utils import euler2mat
+    arr = path.detach().cpu().numpy() if torch.is_tensor(path) \
+        else np.asarray(path)
+    fig = plt.figure(figsize=(6, 6))
+    ax = fig.add_subplot(projection='3d')
+    ax.plot(arr[:, 0], arr[:, 1], arr[:, 2], '-o', ms=2)
+    ax.scatter(*arr[0, :3], c='g', s=40, label='start')
+    ax.scatter(*arr[-1, :3], c='r', s=40, label='goal')
+    if keypoints is not None:
+        kp = keypoints.detach().cpu().numpy() if torch.is_tensor(keypoints) \
+            else np.asarray(keypoints)
+        for i in range(0, len(arr), max(1, len(arr) // 8)):
+            R = euler2mat(torch.as_tensor(arr[i, 3:6],
+                                          dtype=torch.float32)).numpy()
+            pts = kp @ R.T + arr[i, :3]
+            ax.scatter(pts[:, 0], pts[:, 1], pts[:, 2], s=4, alpha=0.4)
+    ax.legend()
+    if save_to:
+        fig.savefig(save_to, dpi=110)
+    return fig

@@ -115,6 +115,57 @@ def rotz(phi):
                         torch.stack([z, z, o], -1)], -2)
 
 
+def roty(phi):
+    """Batched rotation about y: phi [...] -> [..., 3, 3]."""
+    phi = torch.as_tensor(phi)
+    s, c = torch.sin(phi), torch.cos(phi)
+    z, o = torch.zeros_like(phi), torch.ones_like(phi)
+    return torch.stack([torch.stack([c, z, s], -1),
+                        torch.stack([z, o, z], -1),
+                        torch.stack([-s, z, c], -1)], -2)
+
+
+def rotx(phi):
+    """Batched rotation about x: phi [...] -> [..., 3, 3]."""
+    phi = torch.as_tensor(phi)
+    s, c = torch.sin(phi), torch.cos(phi)
+    z, o = torch.zeros_like(phi), torch.ones_like(phi)
+    return torch.stack([torch.stack([o, z, z], -1),
+                        torch.stack([z, c, -s], -1),
+                        torch.stack([z, s, c], -1)], -2)
+
+
+def matmul_f32(a, b):
+    """a [..., n, k] @ b [..., k, m] as explicit products summed over k,
+    for the small rotation and transform compositions: full float32 on
+    every device, where a CUDA matrix product may round its operands to
+    TF32 (the JAX package's ``precision='highest'``)."""
+    return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
+
+
+def euler2mat(phi):
+    """Roll-pitch-yaw (x, y, z) Euler angles -> rotation matrices:
+    phi [..., 3] -> Rz(yaw) @ Ry(pitch) @ Rx(roll) [..., 3, 3]."""
+    return matmul_f32(matmul_f32(rotz(phi[..., 2]), roty(phi[..., 1])),
+                      rotx(phi[..., 0]))
+
+
+def transform_points(rot, trans, points):
+    """Rigid transform(s) of points: rot [..., 3, 3] @ p + trans [..., 3],
+    points [..., M, 3] -> [..., M, 3]."""
+    return (torch.sum(rot[..., None, :, :] * points[..., :, None, :], dim=-1)
+            + trans[..., None, :])
+
+
+def look_mat4(rot, trans):
+    """Pack (rot [..., 3, 3], trans [..., 3]) into homogeneous
+    transforms [..., 4, 4]."""
+    bottom = rot.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(
+        rot.shape[:-2] + (1, 4))
+    return torch.cat([torch.cat([rot, trans[..., :, None]], dim=-1), bottom],
+                     dim=-2)
+
+
 def _segment_scores(scores, batch_dims: int, xp):
     """Scores as ``[*batch, M]``: a multi-output ``[*batch, M, C...]``
     collapses with max over its trailing dimensions."""

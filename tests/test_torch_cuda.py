@@ -210,6 +210,39 @@ def test_poly_score_kernel_on_fitted_planar_proxies(cuda, dof):
     _close(dx.double(), ref_dx, 1e-3)
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module: the rigid-body path's proxies."""
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize('kind', ['se2', 'probe', 'mesh'])
+def test_poly_score_kernel_on_fitted_rigid_proxies(cuda, kind):
+    """B2 on the rigid-body path's fitted proxies (chip_smoke.rigid_proxy:
+    the SE(2) q-space proxy, F = 3, on the fp64 instance; the SE(3) probe
+    and torus over their keypoints, F = 9 and 24, on the tensor-core
+    block) at a 65536 sweep against its float64 twin: score 1e-4, dx
+    1e-3."""
+    r = _chip_smoke().rigid_proxy(kind, cuda)
+    p, robot = r['proxy'], r['robot']
+    q = robot.rand_configs(65536, r['g'], cuda)
+    x = (q if p.transform is None else robot.fkine(q).reshape(65536, -1))
+    x = x.contiguous()
+    assert x.shape[1] == {'se2': 3, 'probe': 9, 'mesh': 24}[kind]
+    w = (p.rbf_nodes.reshape(-1) * p.valid_mask.float()
+         / p.rbf_kernel.epsilon).contiguous()
+    sup = p.support_transformed.contiguous()
+    score, dx = fused_score.poly_score_grad(x, sup, w)
+    ref, ref_dx = fused_score._poly_score_grad_plain(x.double(), sup.double(),
+                                                     w.double())
+    _close(score.double(), ref, 1e-4)
+    _close(dx.double(), ref_dx, 1e-3)
+
+
 @pytest.mark.parametrize('B,S', SHAPES)
 def test_dh_score_kernel_matches_plain(cuda, B, S):
     """B1 against its twin; at S >= 12 configurations 0-11 sit on a

@@ -71,5 +71,12 @@ def test_signed_dist_matches(scene, link_radius):
 
 
 def test_mesh_obstacles_raise():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    """A Mesh shape builds its sphere decomposition (one object); one whose
+    file is missing raises, as in the JAX package."""
+    with pytest.raises(FileNotFoundError):
         tdc.ShapeEnv({'m': {'type': 'Mesh', 'params': {'file_obj': 'x.obj'}}})
+    with pytest.raises(FileNotFoundError):
+        jdc.ShapeEnv({'m': {'type': 'Mesh', 'params': {'file_obj': 'x.obj'}}})
+    env = tdc.ShapeEnv({'m': {'type': 'Mesh', 'params': {
+        'file_obj': 'robot_data/generated/torus.stl'}}}, mesh_spheres=4)
+    assert env.n_objects == 1 and env.scene.msh_c.shape == (4, 3)

@@ -6,7 +6,9 @@ Lagrangian, batched Adam and trust-constr on Baxter's arm, a hybrid
 checker's fit, active-learning update, collision and path bands, and the
 planar path (a 2-D dataset generated, saved and unpacked, the 2-D
 ground truth, the escape and manifold samplers, RRT-Connect and RRT*)
-load neither JAX nor the JAX package."""
+and the rigid-body path (se3, a RigidBody proxy scored, a mesh scene, a
+.scene text parsed, a point-cloud world) load neither JAX nor the JAX
+package."""
 import os
 import subprocess
 import sys
@@ -107,6 +109,26 @@ path = dc.MotionPlanner(arm, coll, device='cpu').plan(
 star = dc.RRTStar(arm, coll, score_fn=sd, device='cpu').plan(
     free[0].numpy(), free[-1].numpy(), max_iters=20)
 assert qe.shape == (4, 2) and qm.shape == (16, 2)
+from diffco_tpu_torch import se3
+from diffco_tpu_torch.envs import panda_envs, moveit_scene, collision_env
+from diffco_tpu_torch.geometry.mesh import load_mesh
+body = dc.RigidBody.from_vertices(
+    load_mesh('robot_data/generated/torus.stl')[0])
+qb = body.rand_configs(64, g, 'cpu')
+rp = dc.DiffCo(kernel_func=dc.kernels.RQKernel(10.0),
+               transform=lambda x: body.fkine(x))
+rp.train(qb, (qb[:, 0] > 0).float() * 2 - 1, max_iteration=192)
+rp.fit_poly(target='label')
+assert rp.poly_score(qb[:8]).shape == (8, 1)
+assert se3.log_se3(se3.exp_se3(qb)).shape == (64, 6)
+menv = dc.ShapeEnv({'torus': {'type': 'Mesh', 'params': {
+    'file_obj': 'robot_data/generated/torus.stl', 'scale': 0.5}}},
+    mesh_spheres=4)
+assert menv.scene.point_sdf_per_object(qb[:, :3]).shape == (64, 1)
+name, shapes = moveit_scene.parse_scene_text(
+    'w\n* b\n1\nsphere\n0.1\n0 0 0\n0 0 0 1\n0 0 0 0\n.\n')
+assert name == 'w' and shapes['b']['type'] == 'Sphere'
+assert dc.PCDEnv(np.zeros((5, 3))).scene.n_objects == 5
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'diffco_tpu'
              or m.startswith('diffco_tpu.'))
