@@ -9,8 +9,11 @@ instances, on Baxter's arm with 4 and 2 control points, and at FP = 32,
 40 and 48 on PandaFK's chain with more points, B2 at every FP = 8-64; B1,
 B2 and B3 with rows whose points sit on a support or 1e-3 and 1e-2 from
 one; B1 on fitted proxies of 2048 and 4096 supports against its float64
-twin; B2 also at F = 2, 4 and 14, the first two on its fp64 instance),
-then drives nine paths through the entry points a user calls:
+twin; B2 also at F = 2, 4 and 14, the first two on its fp64 instance,
+and at F = 72, 102, 150 and 192 on its wide instance; the FK kernels'
+wide instance, for chains past their own bounds, as B1 and B4 launch it
+on a 9-joint DH chain and B3 and B5 on the 35-link rope), then drives
+ten paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -62,6 +65,17 @@ then drives nine paths through the entry points a user calls:
   file -> load_moveit_scene -> FrankaPanda fit -> verify / the sweeps (B3,
   B2) -> Adam; then se3's exp / log maps and geodesic interpolation on
   the card against the float64 CPU results;
+- the multi-robot, temporal and rope path: two FrankaPandas as one
+  MultiURDFRobot around a post -> fit -> verify -> a 65536 sweep with its
+  gradient (B2 at F = 48, held to the float64 twin) -> Adam on one problem
+  -> its dense path's ground truth on the card against the native host
+  oracle -> Adam steps inside profiling.trace (the card's busy share);
+  scripts/temporal_1d.py (PointRobot1D among two moving intervals, a
+  TemporalFKKernel DiffCo) -> holdout -> its space-time grid (B2 at F =
+  2) -> the legacy Simple1DDynamicChecker; the 35-link rope -> fit on
+  10000 -> the 65536 sweeps: from configurations through B3's wide
+  instance (35 moving joints, 34 points), from points through B2's wide
+  instance at F = 102, each held to the float64 twin;
 - the roofline path at bench.py's primitive shape (PandaFK, B = 65536,
   S = 512): ``diffco_tpu_torch.scripts.roofline_fk_score.run`` (B1's
   bench step and kernel, the B7 ablation ladder, the B1 block-size sweep)
@@ -101,7 +115,7 @@ from diffco_tpu_torch.ops.bounds import (ablation_work, bound, chain_ops,
                                          chain_tc_bound, dh_ops, dh_tc_bound,
                                          dh_tc_times, fk_score_bytes,
                                          poly_bytes, poly_tc_bound, score_ops,
-                                         tc_times)
+                                         tc_bound, tc_times)
 from diffco_tpu_torch.robots.analytic import baxter_arm
 
 # the main path's shapes (bench.py's primitive: B = 65536, S = 512)
@@ -120,10 +134,12 @@ BAXTER_MASKS = {16: (True, False, True, False, True, False, True),
 # PandaFK's chain with 10, 13 and 16 control points
 WIDE_POINTS = (10, 13, 16)
 # B2 at each of its FP instances (8, 16, ..., 64), at an F that pads to it
-# (64: the full row, where product 2 takes an extra column tile), and at
-# the planar path's widths: F = 2 (the 2-DOF q-space proxies) and 14 (the
-# 7-DOF arm's joint positions), with 4 beside them
-POLY_FS = (2, 4, 5, 13, 14, 21, 32, 37, 48, 53, 64)
+# (64: the full row, where product 2 takes an extra column tile), at the
+# planar path's widths: F = 2 (the 2-DOF q-space proxies) and 14 (the
+# 7-DOF arm's joint positions), with 4 beside them, and on its wide
+# instance at F = 72 (three Panda arms), 102 (the 35-link rope) and 192
+# (its bound)
+POLY_FS = (2, 4, 5, 13, 14, 21, 32, 37, 48, 53, 64, 72, 102, 150, 192)
 # the near-pair guard's thresholds measured on the fitted PandaFK and
 # FrankaPanda sweeps, from q and from points (csrc/tc_score_block.cuh;
 # ops/_native.py::TC_GUARD, its kTcGuard, is the production one)
@@ -259,6 +275,32 @@ SCENE_FIT = 3000
 SCENE_TRAJ = {'N_WAYPOINTS': 8, 'NUM_RE_TRIALS': 2, 'MAXITER': 60,
               'seed': 5, 'dense_sub': 3}
 SE3_TWISTS = 65536
+# The multi-robot, temporal and rope path. Dual arm: two FrankaPandas
+# (gripper, ACM), the second base DUAL_BASE_X along x and turned pi about
+# z, a post of DUAL_POST between the bases; fit DUAL_FIT (limit TPR >=
+# DUAL_MIN_TPR, tests/test_checkers2.py:156's), verify, a FITTED_SWEEP
+# sweep (B2 at F = 48), Adam on one problem at TRAJ_OPTIONS, the dense
+# path against the native oracle, DUAL_TRACE_STEPS steps inside
+# profiling.trace. Temporal (scripts/temporal_1d.py at its sizes):
+# TEMPORAL_SAMPLES samples, 3 N greedy iterations, acc on TEMPORAL_TEST (limit
+# TEMPORAL_MIN_ACC, tests/test_dynamics_profiling.py:48's), the
+# TEMPORAL_GRID^2 space-time grid (B2 at F = 2). Rope: the 35-link rope of
+# robot_data.generate_rope_urdf in tests/test_rope.py's two obstacles, fit
+# ROPE_FIT (the reference's 10000; limit TPR >= 0.9), the B_BENCH sweeps
+# (B3's wide instance from q, B2 at F = 102 from the points).
+DUAL_BASE_X = 1.0
+DUAL_POST = {'radius': 0.1, 'height': 1.0, 'at': (0.5, 0.0, 0.5)}
+DUAL_FIT = 3000
+DUAL_MIN_TPR = 0.85
+DUAL_TRACE_STEPS = 5
+NATIVE_TOL = 1e-4                 # tests/test_native.py's
+TEMPORAL_LIMITS = [[0.0, 10.0], [0.0, 10.0]]
+TEMPORAL_SAMPLES = 4000
+TEMPORAL_TEST = 2000
+TEMPORAL_MIN_ACC = 0.9
+TEMPORAL_GRID = 200
+ROPE_LINKS = 35
+ROPE_FIT = 10000
 # tests/test_moveit_scene_e2e.py:17-49: a box, a sphere, an inline mesh
 MOVEIT_SCENE = """\
 panda_world
@@ -318,7 +360,9 @@ def _ptxas_report(log):
     for ln in log.splitlines():
         m = re.search(r'((?:poly|dh|chain)(?:_multi|_dual)?_score_grad_kernel'
                       r'|dh_ablation_kernel|(?:dh|poly|chain)_score_tc_kernel'
-                      r'|poly_score_f64_kernel)I((?:L[ib]\d+E)+)E', ln)
+                      r'|poly_score_(?:f64|wide)_kernel'
+                      r'|chain_wide_score_kernel)I((?:L[ib]\d+E)+)E',
+                      ln)
         if 'Compiling entry function' in ln and m:
             args = re.findall(r'L[ib](\d+)E', m.group(2))
             if m.group(1) == 'dh_ablation_kernel':
@@ -352,22 +396,29 @@ def _check_multi_ptxas(regs):
 
 # the production instances of the kernels on the tensor-core block: B1 at
 # FP = 8-48, B2 at FP = 16-64 (its fp64 instance at F = 1-8,
-# poly_score_f64_kernel<F>), B3 at FP = 8-64
+# poly_score_f64_kernel<F>, and its wide one at K = ceil(F / 32) = 3-6,
+# poly_score_wide_kernel<K>), B3 at FP = 8-64; the FK kernels' wide
+# instance, chain_wide_score_kernel<K>, at K = ceil(3P / 32) = 1-6
 TC_INSTANCES = {'dh_score_tc_kernel': set(range(8, 49, 8)),
                 'poly_score_tc_kernel': set(range(16, 65, 8)),
                 'chain_score_tc_kernel': set(range(8, 65, 8))}
 F64_INSTANCES = set(range(1, 9))
+WIDE_INSTANCES = set(range(3, 7))
+CHAIN_WIDE_INSTANCES = set(range(1, 7))
 
 
 def _check_tc_ptxas(regs):
     """Every production instance of B1, B2 and B3 (<FP, 0>: TC_INSTANCES)
     within the launch bound's 128 registers and unspilled, and B2's fp64
-    instances (F64_INSTANCES) within theirs (65536 over the threads of
-    their least blocks per SM) and unspilled, or fail."""
+    (F64_INSTANCES) and wide (WIDE_INSTANCES) instances and the FK
+    kernels' wide one (CHAIN_WIDE_INSTANCES, built into each of B1, B3,
+    B4 and B5) within theirs (65536 over the threads of their least blocks
+    per SM) and unspilled, or fail."""
     from diffco_tpu_torch.ops import _native
     f64_regs = 65536 // (_native.F64_ROWS * _native.F64_MIN_BLOCKS)
+    wide_regs = 65536 // (_native.WIDE_THREADS * _native.WIDE_MIN_BLOCKS)
     found = {k: set() for k in TC_INSTANCES}
-    f64 = set()
+    f64, wide, chain_wide = set(), set(), set()
     for line in regs:
         m = re.match(r'((?:dh|poly|chain)_score_tc_kernel)<(\d+),0>: (\d+) '
                      r'regs/(\d+) B spilled', line)
@@ -381,9 +432,20 @@ def _check_tc_ptxas(regs):
             f64.add(int(m.group(1)))
             if int(m.group(2)) > f64_regs or int(m.group(3)) != 0:
                 raise AssertionError(f'ptxas: {line}')
-    if found != TC_INSTANCES or f64 != F64_INSTANCES:
+        m = re.match(r'(poly_score_wide|chain_wide_score)_kernel<(\d+)>: '
+                     r'(\d+) regs/(\d+) B spilled', line)
+        if m:
+            (wide if m.group(1) == 'poly_score_wide' else chain_wide).add(
+                int(m.group(2)))
+            if int(m.group(3)) > wide_regs or int(m.group(4)) != 0:
+                raise AssertionError(f'ptxas: {line}')
+    if (found != TC_INSTANCES or f64 != F64_INSTANCES
+            or wide != WIDE_INSTANCES
+            or chain_wide != CHAIN_WIDE_INSTANCES):
         raise AssertionError(f'ptxas: tensor-core instances found {found}, '
-                             f'fp64 instances {sorted(f64)}')
+                             f'fp64 instances {sorted(f64)}, wide '
+                             f'instances {sorted(wide)}, the FK kernels\' '
+                             f'wide instances {sorted(chain_wide)}')
 
 
 def _max_err(pairs):
@@ -456,7 +518,8 @@ def check_poly_kernel(robot, dev):
         err = _max_err([(score, ref), (dx[4:], ref_dx[4:])])
         out['err'] = max(out['err'], err)
         inst = ('the fp64 instance' if F <= _native.F64_MAX_F
-                else f'FP = {plans[F]["fp"]}')
+                else f'the wide instance, K = {plans[F]["fp"] // 32}'
+                if F > _native.TC_MAX_F else f'FP = {plans[F]["fp"]}')
         _phase(f'B2 poly_score_grad vs plain, F = {F}, {inst}', t0,
                B=B_CHAIN_SMALL, S=S_CHAIN_SMALL,
                max_abs_err=err, warps_per_sm=plans[F]['warps_per_sm'],
@@ -689,6 +752,98 @@ def check_chain_kernel(dev):
                          '(FrankaPanda)', g, dq, 1e-6)
             out = dict(args=(q, sup, w, cs), plan=card)
     out['err'] = max(errs)
+    return out
+
+
+def _wide_robot(name, dev):
+    """The robots past the tensor-core and multi-class kernels' bounds that
+    check_wide_kernels takes: a 9-joint DH chain with a point on every
+    frame, and the 35-link rope (35 moving joints, 34 points)."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import robot_data
+    from diffco_tpu_torch.robots.analytic import DHChainRobot, DHParameters
+    if name == 'DH, 9 joints':
+        n = 9
+        return DHChainRobot(DHParameters(a=[0.1] * n, alpha=[0.5] * n,
+                                         d=[0.05] * n, theta=[0.3] * n),
+                            [[-math.pi, math.pi]] * n, [True] * n)
+    return dc.URDFRobot(robot_data.generate_rope_urdf(n_links=ROPE_LINKS),
+                        setup_acm=False, link_spheres=1, device=dev)
+
+
+# (robot, C) of check_wide_kernels: B1, B4 on the DH chain, B3, B5 on the
+# rope
+WIDE_CASES = (('DH, 9 joints', 1), ('DH, 9 joints', 2), ('rope', 1),
+              ('rope', 3))
+
+
+def check_wide_kernels(dev):
+    """The wide instance of the FK kernels (csrc/chain_wide.cuh) as B1, B4,
+    B3 and B5 launch it for a chain past their bounds (WIDE_CASES), against
+    the plain twins at B = 65536 + 37, S = 512, configurations 0-11 on or
+    near a support; with its launch plan from the card (fails unless
+    ops/_native.py::chain_wide_plan's shared bytes, threads and rows, with
+    16 warps per SM at least). Returns per case the error and the
+    arguments for the timing table."""
+    from diffco_tpu_torch.ops import _native, fk_score
+    out = {}
+    for seed, (name, C) in enumerate(WIDE_CASES, start=21):
+        t0 = time.perf_counter()
+        robot = _wide_robot(name, dev)
+        dh = name.startswith('DH')
+        g = torch.Generator().manual_seed(seed)
+        q = robot.rand_configs(B_RAGGED, g, dev)
+        sup = robot.fkine(robot.rand_configs(S_BENCH, g, dev)).reshape(
+            S_BENCH, -1)
+        sup = _near_supports(robot, q, sup, seed=seed)
+        W = _class_weights(S_BENCH, C, dev, seed)
+        w = W[:, 0].contiguous() if C == 1 else W
+        spec = (fk_score.robot_spec(robot) if dh
+                else fk_score.robot_chain_statics(robot))
+        c = fk_score._c_spec(spec) if dh else fk_score._c_chain_spec(spec)
+        if not isinstance(c, _native.ChainSpecWide):
+            raise AssertionError(f'{name} takes the narrow instance')
+        kernel, plain = {
+            (True, 1): (fk_score.dh_score_grad, fk_score._dh_score_grad_plain),
+            (True, 2): (fk_score.dh_multi_score_grad,
+                        fk_score._dh_multi_score_grad_plain),
+            (False, 1): (fk_score.chain_score_grad,
+                         fk_score._chain_score_grad_plain),
+            (False, 3): (fk_score.chain_multi_score_grad,
+                         fk_score._chain_multi_score_grad_plain)}[dh, C]
+        counter = f'{kernel.__name__}_launches'
+        before = getattr(fk_score, counter)
+        score, dq = kernel(q, sup, w, spec)
+        torch.cuda.synchronize()
+        if getattr(fk_score, counter) != before + 1:
+            raise AssertionError(f'{kernel.__name__} ({name}) not counted')
+        ref, ref_dq = plain(q, sup, w, spec)
+        if C == 1:
+            _check_near(f'{kernel.__name__} wide ({name})', score, dq, ref,
+                        ref_dq)
+            err = _max_err([(score, ref), (dq[4:], ref_dq[4:])])
+        else:
+            _check_close(f'{kernel.__name__} wide ({name}) score', score,
+                         ref, 1e-4)
+            _check_close(f'{kernel.__name__} wide ({name}) dq', dq[:, 4:],
+                         ref_dq[:, 4:], 1e-3)
+            err = _max_err([(score, ref), (dq[:, 4:], ref_dq[:, 4:])])
+        card = _native.chain_wide_plan_on_card(c.P, c.M)
+        plan = _native.chain_wide_plan(c.P, c.M)
+        if (any(card[k] != plan[k] for k in ('smem_bytes', 'threads',
+                                              'rows'))
+                or card['warps_per_sm'] < 16):
+            raise AssertionError(f'wide plan {card} on the card for {name}, '
+                                 f'{plan} in ops/_native.py::'
+                                 'chain_wide_plan (16 warps per SM at '
+                                 'least)')
+        _phase(f'wide {kernel.__name__} vs plain, {name}', t0, B=B_RAGGED,
+               S=S_BENCH, C=C, D=c.D, moving_joints=c.M, points=c.P,
+               max_abs_err=err, plan=card,
+               near_support_rows='0-3 on, 4-7 at 1e-3, 8-11 at 1e-2')
+        out[kernel.__name__] = dict(args=(q, sup, w, spec), c=c, err=err,
+                                    plan=card, robot=name, kernel=kernel,
+                                    plain=plain)
     return out
 
 
@@ -992,7 +1147,7 @@ def _problems(robot, gt, dev, n, seed=7):
     raise AssertionError(f'found only {len(pairs)} colliding straight lines')
 
 
-def _fit(checker, num_samples, tag, verify=True):
+def _fit(checker, num_samples, tag, verify=True, min_tpr=0.9):
     t0 = time.perf_counter()
     acc, tpr, tnr = checker.fit(num_samples=num_samples)
     torch.cuda.synchronize()
@@ -1000,8 +1155,8 @@ def _fit(checker, num_samples, tag, verify=True):
     _phase(f'{tag} fit', t0, samples=num_samples,
            iterations=p.train_iterations, supports=p.num_valid, acc=acc,
            tpr=tpr, tnr=tnr, safety_bias=checker.safety_bias)
-    if not tpr >= 0.9:
-        raise AssertionError(f'{tag} fit TPR {tpr} < 0.9')
+    if not tpr >= min_tpr:
+        raise AssertionError(f'{tag} fit TPR {tpr} < {min_tpr}')
     if not verify:
         return
     t0 = time.perf_counter()
@@ -1075,7 +1230,8 @@ def _sweeps(checker, robot, gt, dev, kernel_plain, tag):
           f'{_rel_err(pq[:1])} grad {_rel_err(pq[1:])}', flush=True)
     return dict(q=q, sup=sup, w=w, ref_q=ref_q, ref_dq=ref_dq,
                 x=robot.fkine(q).reshape(B_BENCH, -1).contiguous(),
-                ref_p=ref_p, ref_dx=ref_dx)
+                ref_p=ref_p, ref_dx=ref_dx, err_q=_max_err(pq),
+                err_p=_max_err(pp))
 
 
 def _guard_share(fitted, tag, kernels):
@@ -2113,9 +2269,9 @@ def _scene_file(dev):
            self_pairs=robot._self_pair_i.shape[0])
     _fit(checker, SCENE_FIT, 'scene file')
     cs = fk_score.robot_chain_statics(robot)
-    _sweeps(checker, robot, gt, dev,
-            lambda q, s, w: fk_score._chain_score_grad_plain(q, s, w, cs),
-            'scene file')
+    fitted = _sweeps(checker, robot, gt, dev,
+                     lambda q, s, w: fk_score._chain_score_grad_plain(
+                         q, s, w, cs), 'scene file')
     t0 = time.perf_counter()
     q = robot.rand_configs(128, torch.Generator().manual_seed(11), dev)
     free = q[~gt(q)]
@@ -2129,6 +2285,11 @@ def _scene_file(dev):
            gt_valid=hits == 0, gt_hits=hits)
     if not math.isfinite(rec['cost']):
         raise AssertionError('scene file trajopt: non-finite cost')
+    w = fitted['w'].reshape(-1).contiguous()
+    sup = fitted['sup'].contiguous()
+    return dict(q=fitted['q'], sup=sup, w=w, cs=cs,
+                args=(fitted['x'], sup, w), err=fitted['err_p'],
+                err_q=fitted['err_q'])
 
 
 def _twists(rng, n, near_pi):
@@ -2185,13 +2346,321 @@ def rigid_journey(dev):
     """The rigid-body and scene-file path: SE(3) on the probe (B2 at F = 9)
     and the torus among five obstacles, one a mesh (F = 24), SE(2) (F = 3,
     B2's fp64 instance), the MoveIt .scene file on FrankaPanda (B3, B2),
-    and se3's maps. Returns B2's checks on the three fitted proxies."""
+    and se3's maps. Returns B2's checks on the three fitted proxies and the
+    .scene file's sweep (its inputs for B2 and B3 at F = 18)."""
     f9 = _rigid_phase('rigid SE(3) probe', 'probe', dev)
     f24 = _rigid_phase('rigid SE(3) torus', 'mesh', dev)
     f3 = _rigid_phase('rigid SE(2)', 'se2', dev)
-    _scene_file(dev)
+    scene = _scene_file(dev)
     _se3_on_card(dev)
-    return {'F3': f3, 'F9': f9, 'F24': f24}
+    return {'F3': f3, 'F9': f9, 'F24': f24, 'scene F18': scene}
+
+
+def _T(t, yaw=0.0):
+    m = np.eye(4)
+    m[:2, :2] = [[math.cos(yaw), -math.sin(yaw)],
+                 [math.sin(yaw), math.cos(yaw)]]
+    m[:3, 3] = t
+    return m
+
+
+def dual_arm_world(dev):
+    """The dual FrankaPanda (gripper, ACM; the second base DUAL_BASE_X
+    along x, turned pi about z) and its post between the bases:
+    (MultiURDFRobot, ShapeEnv)."""
+    import diffco_tpu_torch as dc
+    arms = [dc.FrankaPanda(load_gripper=True, setup_acm=True, device=dev,
+                           base_transform=base)
+            for base in (None, _T([DUAL_BASE_X, 0.0, 0.0], math.pi))]
+    post = {'type': 'Cylinder',
+            'params': {k: DUAL_POST[k] for k in ('radius', 'height')},
+            'transform': _T(DUAL_POST['at'])}
+    return dc.MultiURDFRobot(arms), dc.ShapeEnv({'post': post})
+
+
+def dual_signed(multi, env, q):
+    """The dual arm's ground truth as signed distances on the card, and the
+    same from the native host oracle on the same sphere centres in float64:
+    each arm's environment and self distances and the inter-robot overlap,
+    the largest per configuration ([B] each, > 0 in collision)."""
+    from diffco_tpu_torch import native
+    qs = multi.split_q(q)
+    with torch.no_grad():
+        card = [multi._inter_robot_overlap(qs)]
+        for r, qq in zip(multi.robots, qs):
+            env_sd, self_sd = r.collision_signed_dist(qq, env)
+            card += [env_sd.amax(-1), self_sd]
+        card = torch.stack(card, -1).amax(-1)
+        centers = [r.sphere_centers_world(qq)
+                   for r, qq in zip(multi.robots, qs)]
+    scene = native.NativeScene(env.scene)
+    host = []
+    for r, c in zip(multi.robots, centers):
+        host.append(native.spheres_vs_scene(c, r.link_sphere_radii, scene))
+        host.append(native.self_collision(c, r.link_sphere_radii,
+                                          r._self_pair_i, r._self_pair_j))
+    a, b = multi.robots
+    pa, pb = a.link_sphere_radii.shape[0], b.link_sphere_radii.shape[0]
+    ii, jj = np.meshgrid(np.arange(pa), pa + np.arange(pb), indexing='ij')
+    host.append(native.self_collision(
+        torch.cat(centers, 1), torch.cat([a.link_sphere_radii,
+                                          b.link_sphere_radii]),
+        ii.ravel(), jj.ravel()))
+    return card.double().cpu().numpy(), np.max(np.stack(host, -1), -1)
+
+
+def _busy_share(prof, wall_s):
+    """The share of ``wall_s`` seconds in which the card ran a kernel, a
+    copy or a fill: the union of those intervals of the profiler's trace
+    over the wall time, read off its raw events (building the profiler's
+    event tree for some 10^5 device events takes a minute). Returns
+    (share, busy seconds, the number of device events)."""
+    spans = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, -math.inf
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy * 1e-9 / wall_s, busy * 1e-9, len(spans)
+
+
+def _dual_arm(dev, timers):
+    """The dual FrankaPanda: fit -> verify -> sweep (B2 at F = 48, held to
+    the float64 twin) -> Adam on one problem -> the dense path against the
+    native oracle -> DUAL_TRACE_STEPS steps traced.
+    Returns B2's check of the sweep."""
+    import os
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import optim, profiling
+    from diffco_tpu_torch.utils import dense_path
+    with timers.span('dual arm, robots and scene', block=True):
+        t0 = time.perf_counter()
+        multi, env = dual_arm_world(dev)
+        checker = dc.ForwardKinematicsDiffCo(robot=multi, environment=env,
+                                             seed=0, device=dev)
+        gt = checker.gt_check_func
+        q = multi.rand_configs(2000, torch.Generator().manual_seed(5), dev)
+        qs = multi.split_q(q)
+        _phase('dual arm, robots and scene', t0, dof=multi.dof,
+               control_points=multi.fkine(q[:1]).shape[1],
+               spheres=[r.link_sphere_radii.shape[0] for r in multi.robots],
+               colliding=float(gt(q).float().mean()),
+               inter_robot=float(multi._inter_robot_hit(qs).float().mean()),
+               each_arm=[float(r.collision(qq).float().mean())
+                         for r, qq in zip(multi.robots, qs)],
+               post_hits=[float((r.collision_signed_dist(qq, env)[0] > 0)
+                                .any(-1).float().mean())
+                          for r, qq in zip(multi.robots, qs)])
+    with timers.span('dual arm, fit and verify', block=True):
+        _fit(checker, DUAL_FIT, 'dual arm', min_tpr=DUAL_MIN_TPR)
+    with timers.span('dual arm, sweep', block=True):
+        fitted = _fitted_sweep('dual arm', multi, checker.perceptron,
+                               torch.Generator().manual_seed(6), dev)
+    start, target = _problems(multi, gt, dev, 1)[0]
+    opts = dict(TRAJ_OPTIONS, seed=0,
+                safety_margin=-checker.safety_bias)
+
+    def dist_est(pp):
+        return checker.collision_score(pp, bias=0).reshape(-1)
+    with timers.span('dual arm, Adam', block=True):
+        t0 = time.perf_counter()
+        rec = optim.adam_traj_optimize(multi, dist_est, start, target, opts)
+        sol = torch.as_tensor(rec['solution'], device=dev)
+        path = dense_path(sol, 10)
+        hits = int(gt(path).sum())
+        _phase('dual arm trajopt', t0, steps=opts['MAXITER'],
+               success=rec['success'], cost=rec['cost'],
+               seconds=round(rec['time'], 3), gt_valid=hits == 0,
+               gt_hits_of=[hits, path.shape[0]])
+        if not math.isfinite(rec['cost']):
+            raise AssertionError('dual arm trajopt: non-finite cost')
+    with timers.span('dual arm, native check', block=True):
+        t0 = time.perf_counter()
+        card, host = dual_signed(multi, env, path)
+        err = float(np.abs(card - host).max())
+        away = np.abs(host) > NATIVE_TOL
+        agree = int(((card > 0) == (host > 0))[away].sum())
+        _phase('dual arm dense path: card vs native ground truth', t0,
+               configs=len(host), max_abs_err=err,
+               labels_agree=f'{agree} of {int(away.sum())} with |d| > '
+                            f'{NATIVE_TOL}',
+               gt_labels_match=bool(((card > 0) == gt(path).cpu().numpy())
+                                    .all()))
+        if not err <= NATIVE_TOL or agree != int(away.sum()):
+            raise AssertionError(f'dual arm: card and native ground truth '
+                                 f'differ by {err}, or labels disagree')
+    short = dict(opts, MAXITER=DUAL_TRACE_STEPS)
+    with timers.span('dual arm, traced Adam steps', block=True):
+        log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               'build', 'chip_smoke', 'trace_dual_arm_adam')
+        with profiling.trace(log_dir) as prof:
+            t0 = time.perf_counter()
+            optim.adam_traj_optimize(multi, dist_est, start, target, short)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        share, busy_s, n_events = _busy_share(prof, traced_s)
+        # the untraced step's time from the Adam phase above, for the
+        # tracer's cost
+        _phase('dual arm, Adam steps in profiling.trace', t0,
+               steps=DUAL_TRACE_STEPS,
+               untraced_s_per_step=rec['time'] / opts['MAXITER'],
+               traced_s_per_step=traced_s / DUAL_TRACE_STEPS,
+               traced_s=round(traced_s, 4), device_busy_s=round(busy_s, 5),
+               device_busy_share=share, device_events=n_events,
+               device_events_per_step=n_events / DUAL_TRACE_STEPS,
+               trace=os.path.join(log_dir, 'trace.json'))
+        if n_events == 0:
+            raise AssertionError('profiling.trace saw no device event')
+    return fitted
+
+
+def _temporal(dev, timers):
+    """scripts/temporal_1d.py at its sizes: the two moving intervals on
+    PointRobot1D, a DiffCo with TemporalFKKernel over normalized (x, t),
+    acc on a held-out set, the space-time grid scored (B2 at F = 2, its
+    fp64 instance, held to the float64 twin), and legacy's
+    Simple1DDynamicChecker against Dynamic1DChecker. Returns B2's check."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import kernels, legacy
+    with timers.span('temporal, fit', block=True):
+        t0 = time.perf_counter()
+        motions = [(dc.LinearMotion(0.5, 2.0), 0.6),
+                   (dc.SineMotion(2.0, 0.8, 0.0, 7.0), 0.5)]
+        gt = dc.Dynamic1DChecker(motions, device=dev)
+        robot = dc.PointRobot1D(TEMPORAL_LIMITS)
+        g = torch.Generator().manual_seed(0)
+        xt, labels, dists = dc.temporal_dataset(gt, TEMPORAL_LIMITS,
+                                                TEMPORAL_SAMPLES, g, dev)
+        kern = kernels.TemporalFKKernel(
+            fkine=lambda x: x, rqkernel=kernels.RQKernel(100.0),
+            t_rqkernel=kernels.RQKernel(100.0), alpha=3.0)
+        p = dc.DiffCo(kernel_func=kern)
+        p.train(robot.normalize(xt), labels,
+                max_iteration=3 * TEMPORAL_SAMPLES, distance=dists)
+        p.fit_poly(kernels.Polyharmonic(1, 1), target='label')
+        torch.cuda.synchronize()
+        _phase('temporal fit', t0, samples=TEMPORAL_SAMPLES,
+               colliding=float((labels > 0).float().mean()),
+               iterations=p.train_iterations, supports=p.num_valid)
+    with timers.span('temporal, holdout and grid', block=True):
+        t0 = time.perf_counter()
+        xt_t, y_t, _ = dc.temporal_dataset(gt, TEMPORAL_LIMITS,
+                                           TEMPORAL_TEST, g, dev)
+        with torch.no_grad():
+            pred = (p.poly_score(robot.normalize(xt_t)).reshape(-1) > 0)
+        y = y_t > 0
+        acc = float((pred == y).float().mean())
+        _phase('temporal holdout', t0, configs=TEMPORAL_TEST, acc=acc,
+               tpr=float(pred[y].float().mean()),
+               tnr=float((~pred[~y]).float().mean()))
+        if not acc > TEMPORAL_MIN_ACC:
+            raise AssertionError(f'temporal acc {acc} <= {TEMPORAL_MIN_ACC}')
+        n = TEMPORAL_GRID
+        axis = torch.linspace(0, 10, n, device=dev)
+        grid = torch.stack(torch.meshgrid(axis, axis, indexing='xy'),
+                           -1).reshape(-1, 2)
+        x = robot.normalize(grid).requires_grad_(True)
+        s = p.poly_score(x)
+        dx, = torch.autograd.grad(s.sum(), x)
+        torch.cuda.synchronize()
+        fitted = _check_fitted_poly(f'temporal grid (F = 2, {n} x {n})', p,
+                                    x, s.detach().reshape(-1), dx)
+        agree = float(((s.detach().reshape(-1) > 0) == gt.collision(grid))
+                      .float().mean())
+        _phase('temporal grid (B2 at F = 2)', t0, rows=n * n,
+               gt_agreement=agree, max_abs_err_vs_float64=fitted['err'])
+    with timers.span('temporal, legacy checker', block=True):
+        t0 = time.perf_counter()
+        old = legacy.Simple1DDynamicChecker(
+            [legacy.Simple1DDynamicObstacle(2 * h, m) for m, h in motions],
+            robot, device=dev)
+        lab, _ = old.predict(robot.normalize(xt_t))
+        same = int((lab.reshape(-1) == gt.predict(xt_t)).sum())
+        _phase('temporal legacy Simple1DDynamicChecker', t0,
+               labels_equal=f'{same} of {TEMPORAL_TEST}')
+        if same != TEMPORAL_TEST:
+            raise AssertionError('legacy Simple1DDynamicChecker labels '
+                                 'differ from Dynamic1DChecker\'s')
+    return fitted
+
+
+def rope_world(dev):
+    """The 35-link rope (robot_data.generate_rope_urdf, 4 spheres a link)
+    in tests/test_rope.py's box and sphere: (URDFRobot, ShapeEnv)."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import robot_data
+    robot = dc.URDFRobot(robot_data.generate_rope_urdf(n_links=ROPE_LINKS),
+                         setup_acm=False, link_spheres=4, device=dev)
+    env = dc.ShapeEnv({
+        'box1': {'type': 'Box', 'params': {'extents': [0.25, 0.25, 0.25]},
+                 'transform': _T([0.18, 0.0, 0.05])},
+        'sphere1': {'type': 'Sphere', 'params': {'radius': 0.15},
+                    'transform': _T([-0.15, 0.15, -0.05])}})
+    return robot, env
+
+
+def _rope(dev, timers):
+    """The rope: fit ROPE_FIT (TPR >= 0.9), verify, and both B_BENCH sweeps
+    (_sweeps): from configurations through B3's wide instance (35 moving
+    joints and 34 points lie past its tensor-core instance's bounds; it
+    fails unless B3 launched there), from the points through B2's wide one
+    (F = 102), each held to the float64 twin. Returns both checks."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.ops import _native, fk_score
+    with timers.span('rope, fit and verify', block=True):
+        t0 = time.perf_counter()
+        robot, env = rope_world(dev)
+        checker = dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
+                                             seed=0, device=dev)
+        q = robot.rand_configs(FITTED_SWEEP, torch.Generator().manual_seed(8),
+                               dev)
+        cs = fk_score.robot_chain_statics(robot)
+        c = fk_score._c_chain_spec(cs)
+        F = robot.fkine(q[:1]).numel()
+        _phase('rope, robot and scene', t0, dof=robot.dof,
+               control_points=robot.fkine(q[:1]).shape[1],
+               spheres=robot.link_sphere_radii.shape[0],
+               colliding=float(checker.gt_check_func(q).float().mean()),
+               route=f'one pass (B3, the wide instance: {c.M} moving joints, '
+                     f'{c.P} points, plan '
+                     f'{_native.chain_wide_plan(c.P, c.M)}) from q; '
+                     f'poly_score_grad (B2, F = {F}, plan '
+                     f'{_native.poly_tc_plan(F)}) from points')
+        if not (fk_score.chain_score_grad_available(robot, q)
+                and isinstance(c, _native.ChainSpecWide)):
+            raise AssertionError('the rope does not take B3\'s wide instance')
+        _fit(checker, ROPE_FIT, 'rope')
+    with timers.span('rope, sweeps', block=True):
+        before = fk_score.chain_score_grad_launches
+        fitted = _sweeps(checker, robot, checker.gt_check_func, dev,
+                         lambda q, s, w: fk_score._chain_score_grad_plain(
+                             q, s, w, cs), 'rope')
+        if fk_score.chain_score_grad_launches == before:
+            raise AssertionError('B3 did not launch on the rope\'s sweep')
+    w = fitted['w'].reshape(-1).contiguous()
+    sup = fitted['sup'].contiguous()
+    return dict(q=fitted['q'], sup=sup, w=w, cs=cs,
+                args=(fitted['x'], sup, w), err=fitted['err_p'],
+                err_q=fitted['err_q'])
+
+
+def multi_robot_journey(dev):
+    """The multi-robot, temporal and rope path, its phases in
+    profiling.Timers spans (every device synchronized at each end):
+    the dual FrankaPanda (B2 at F = 48), the temporal 1-D proxy (B2 at
+    F = 2) and the 35-link rope (B3's wide instance, B2 at F = 102).
+    Prints the spans and returns the checks of the three sweeps."""
+    from diffco_tpu_torch import profiling
+    timers = profiling.Timers()
+    out = {'F48 dual arm': _dual_arm(dev, timers),
+           'F2 temporal': _temporal(dev, timers),
+           'F102 rope': _rope(dev, timers)}
+    print(f'multi-robot path spans: {json.dumps(timers.summary())}',
+          flush=True)
+    return out
 
 
 def _time_ms(fn, warmup, iters):
@@ -2207,7 +2676,7 @@ def _time_ms(fn, warmup, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def kernel_table(b2, b1, b3, b4, b5, b67, launches):
+def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
     """Time each kernel and its plain twin at the checked shapes; the bound
     counts each input read once and each output written once, and
     ``score_ops`` for the score block (with C weight columns for B4, B5),
@@ -2269,9 +2738,10 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
                     library_ms=None)
 
     def poly_at(fitted):
-        """B2 on a fitted proxy of the planar path (F = 2 and 14) or the
-        rigid-body path (F = 3, 9, 24), at the sweep's shape, with its
-        error against the float64 twin."""
+        """B2 on a fitted proxy of the planar path (F = 2 and 14), the
+        rigid-body path (F = 3, 9, 24; the .scene file's points, F = 18)
+        or the multi-robot path (F = 48, 2, 102), at the sweep's shape,
+        with its error against the float64 twin."""
         xp, sp, wp = fitted['args']
         Bp, Sp, Fp = xp.shape[0], sp.shape[0], xp.shape[1]
         bp, byp = poly_tc_bound(Bp, Sp, Fp)
@@ -2284,6 +2754,48 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             plain_ms=_time_ms(
                 lambda: fused_score._poly_score_grad_plain(xp, sp, wp), 1, 3),
             bound_ms=bp, bound_by=byp)
+
+    def chain_at(fitted):
+        """B3 on the .scene file's FrankaPanda sweep (F = 18) or the 35-link
+        rope's (its wide instance, F = 102), with its error against the
+        float64 twin."""
+        qs, ss, ws = fitted['q'], fitted['sup'], fitted['w']
+        cs = fitted['cs']
+        Bs, Ds = qs.shape
+        Ss, Fs = ss.shape
+        cc = fk_score._c_chain_spec(cs)
+        bs, bys = chain_tc_bound(Bs, Ss, Fs, Ds, cc)
+        return dict(
+            shape=[Bs, Ss, Ds], F=Fs, max_abs_err_vs_float64=fitted['err_q'],
+            ms=_time_ms(lambda: fk_score.chain_score_grad(qs, ss, ws, cs), 5,
+                        50),
+            plain_ms=_time_ms(lambda: fk_score._chain_score_grad_plain(
+                qs, ss, ws, cs), 1, 3), bound_ms=bs, bound_by=bys)
+
+    def wide_at(case):
+        """The wide instance at check_wide_kernels' shape, with its error
+        against the plain twin; the bound is the function's (B1's or B3's
+        tensor-core route at one class, the fp32 one at several), with
+        the DH chain's FK counted as dh_ops."""
+        qw, sw, ww, specw = case['args']
+        c = case['c']
+        Bw, Dw = qw.shape
+        Sw, Fw = sw.shape
+        Cw = 1 if ww.dim() == 1 else ww.shape[1]
+        fk_ops = (dh_ops(Dw, c.P, Cw) if case['robot'].startswith('DH')
+                  else chain_ops(c, Cw))
+        bw, byw = (tc_bound(Bw, Sw, Fw, fk_score_bytes(Bw, Sw, Fw, Dw),
+                            fk_ops) if Cw == 1 else
+                   bound(fk_score_bytes(Bw, Sw, Fw, Dw, Cw),
+                         score_ops(Bw, Sw, Fw, Cw) + fk_ops * Bw))
+        return dict(
+            robot=case['robot'], shape=[Bw, Sw, Dw, Cw], F=Fw,
+            moving_joints=c.M, points=c.P, plan=case['plan'],
+            max_abs_err=case['err'],
+            ms=_time_ms(lambda: case['kernel'](qw, sw, ww, specw), 5, 50),
+            plain_ms=_time_ms(lambda: case['plain'](qw, sw, ww, specw), 1,
+                              3), bound_ms=bw, bound_by=byw,
+            library_ms=None)
 
     q6, sup6, w6, spec6 = b67['args']
     B6, J6 = q6.shape
@@ -2318,7 +2830,9 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             bound_times_ms=tc_times(B, S, F, poly_bytes(B, S, F), 2 * F),
             plan=b2['plan'], warps_per_sm=b2['plan']['warps_per_sm'],
             planar_proxies={k: poly_at(v) for k, v in b2['planar'].items()},
-            rigid_proxies={k: poly_at(v) for k, v in b2['rigid'].items()}),
+            rigid_proxies={k: poly_at(v) for k, v in b2['rigid'].items()},
+            multi_robot_proxies={k: poly_at(v)
+                                 for k, v in b2['multi'].items()}),
         # its launches include the roofline path's block-size sweep, so its
         # error is the largest of the production and the sweep instances
         row('dh_score_grad', 'diffco_tpu_torch/csrc/dh_score.cu',
@@ -2329,7 +2843,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             bound1, by1, bound_fp32_ms=bound1_fp32, bound_fp32_by=by1_fp32,
             bound_times_ms=dh_tc_times(B1, S1, F1, J, len(spec[1])),
             plan=b1['plan'], warps_per_sm=b1['plan']['warps_per_sm'],
-            large_s_vs_float64=b1['large_s']['cases']),
+            large_s_vs_float64=b1['large_s']['cases'],
+            wide=wide_at(wide['dh_score_grad'])),
         row('chain_score_grad', 'diffco_tpu_torch/csrc/chain_score.cu',
             'diffco_tpu/ops/fk_score.py:587', [B3, S3, D], b3,
             lambda: fk_score.chain_score_grad(q3, sup3, w3, cs),
@@ -2337,7 +2852,10 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             bound3, by3, bound_fp32_ms=bound3_fp32, bound_fp32_by=by3_fp32,
             bound_times_ms=tc_times(B3, S3, F3, fk_score_bytes(B3, S3, F3, D),
                                     chain_ops(c3)),
-            plan=b3['plan'], warps_per_sm=b3['plan']['warps_per_sm']),
+            plan=b3['plan'], warps_per_sm=b3['plan']['warps_per_sm'],
+            scene_file=chain_at(b2['rigid']['scene F18']),
+            wide=wide_at(wide['chain_score_grad']),
+            rope_wide=chain_at(b2['multi']['F102 rope'])),
         row('dh_multi_score_grad', 'diffco_tpu_torch/csrc/dh_multi_score.cu',
             'diffco_tpu/ops/fk_score.py:255', [B4, S4, J4, C4], b4,
             lambda: fk_score.dh_multi_score_grad(q4, sup4, W4, spec4),
@@ -2349,7 +2867,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
             **{f'bound_ms_at_C{C}': bound_b4(C)[0]
                for C in DH_MULTI_CLASSES},
             plans={C: b4[f'plan_c{C}'] for C in DH_MULTI_CLASSES},
-            warps_per_sm=b4[f'plan_c{C4}']['warps_per_sm']),
+            warps_per_sm=b4[f'plan_c{C4}']['warps_per_sm'],
+            wide=wide_at(wide['dh_multi_score_grad'])),
         row('chain_multi_score_grad',
             'diffco_tpu_torch/csrc/chain_multi_score.cu',
             'diffco_tpu/ops/fk_score.py:405', [B5, S5, D5, C5], b5,
@@ -2360,7 +2879,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, launches):
                 lambda C=C: fk_score.chain_multi_score_grad(
                     *b5[f'args_c{C}']), 5, 50) for C in (1, 2, 8)},
             plans={C: b5[f'plan_c{C}'] for C in (1, 2, 5, 8)},
-            warps_per_sm=b5['plan_c5']['warps_per_sm']),
+            warps_per_sm=b5['plan_c5']['warps_per_sm'],
+            wide=wide_at(wide['chain_multi_score_grad'])),
     ] + dual_rows + mode_rows
 
 
@@ -2432,12 +2952,13 @@ def main():
     b1 = check_dh_kernel(robot, dev)
     b1['large_s'] = check_dh_large_s(dev)
     b3 = check_chain_kernel(dev)
+    wide = check_wide_kernels(dev)
     b4 = check_dh_multi_kernel(robot, dev)
     b5 = check_chain_multi_kernel(dev)
     b67 = check_roofline_kernels(robot, dev)
 
     # count only each main path's own launches
-    launches, planar, rigid = {}, {}, {}
+    launches, planar, rigid, multi = {}, {}, {}, {}
     for path, run in (('PandaFK', lambda: journey(robot, dev)),
                       ('FrankaPanda', lambda: urdf_journey(dev)),
                       ('PandaFK multi-class', lambda: multi_journey(robot,
@@ -2448,6 +2969,8 @@ def main():
                       ('PandaFK active', lambda: active_journey(robot, dev)),
                       ('planar', lambda: planar.update(planar_journey(dev))),
                       ('rigid body', lambda: rigid.update(rigid_journey(dev))),
+                      ('multi-robot', lambda: multi.update(
+                          multi_robot_journey(dev))),
                       ('roofline', lambda: roofline_path(dev))):
         _zero_launches()
         run()
@@ -2466,6 +2989,8 @@ def main():
                     ('planar', 'poly_score_grad'),
                     ('rigid body', 'poly_score_grad'),
                     ('rigid body', 'chain_score_grad'),
+                    ('multi-robot', 'poly_score_grad'),
+                    ('multi-robot', 'chain_score_grad'),
                     ('roofline', 'dh_score_grad'),
                     ('roofline', 'dh_dual_score_grad'),
                     ('roofline', 'dh_ablation'),
@@ -2477,8 +3002,8 @@ def main():
                                  'path')
 
     t0 = time.perf_counter()
-    b2['planar'], b2['rigid'] = planar, rigid
-    rows = kernel_table(b2, b1, b3, b4, b5, b67, launches)
+    b2['planar'], b2['rigid'], b2['multi'] = planar, rigid, multi
+    rows = kernel_table(b2, b1, b3, b4, b5, b67, wide, launches)
     _phase('kernel timing', t0)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.perf_counter() - t_start:.1f}s', flush=True)

@@ -29,6 +29,15 @@ mesh obstacles in a ``ShapeEnv`` (sphere decompositions), the point-cloud
 world ``PCDEnv``, the MoveIt ``.scene`` loader (``load_moveit_scene``)
 and the tutorial Panda environments on the ``CollisionEnv`` template
 (``envs.panda_envs``).
+The multi-robot, temporal and host-side pieces: ``MultiURDFRobot``
+(several URDF robots with concatenated configurations and inter-robot
+checks), the space-time ``PointRobot1D`` with the moving-obstacle ground
+truth of ``dynamics`` (``LinearMotion``, ``SineMotion``,
+``Dynamic1DChecker``, ``temporal_dataset``), the reference's legacy
+obstacle-list API (``legacy``: ``Obstacle``, ``FCLObstacle``,
+``FCLChecker``, ``Simple1DDynamicObstacle``, ``Simple1DDynamicChecker``),
+the timers, check counter and trace capture of ``profiling``, and the
+float64 host oracle ``native`` (g++ at first use).
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; they
 raise rather than fall back when no card is present. Nothing here imports
@@ -44,10 +53,11 @@ from .device import resolve_device
 from .robots import (Model, RevolutePlanarRobot, RigidPlanarBody, RigidBody,
                      DHParameters, DHChainRobot, PandaFK,
                      DualPandaFK, BaxterLeftArmFK, BaxterRightArmFK,
-                     BaxterFK, BaxterDualArmFK)
+                     BaxterFK, BaxterDualArmFK, PointRobot1D, ChainSpec)
 from .robots.capsule_chain import CapsuleChainCollision
-from .robots.urdf import (URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot,
-                          TrifingerEdu, parse_urdf, robot_description_folder)
+from .robots.urdf import (URDFRobot, MultiURDFRobot, KUKAiiwa, FrankaPanda,
+                          TwoLinkRobot, TrifingerEdu, parse_urdf,
+                          robot_description_folder)
 from .envs import ShapeEnv, PCDEnv, CollisionEnv, load_moveit_scene
 from .geometry.geometry2d import (Obstacles2D, planar_robot_signed_dist,
                                   planar_robot_collision)
@@ -59,6 +69,14 @@ from .checkers import (CollisionChecker, RBFDiffCo, ForwardKinematicsDiffCo,
                        HybridForwardKinematicsDiffCo, OptimisticChecker,
                        corridor_update)
 from .convert import load_reference_state
+from . import profiling
+from .dynamics import (ObstacleMotion, LinearMotion, SineMotion,
+                       Dynamic1DChecker, temporal_dataset)
+# the reference's legacy obstacle-list names, which its experiment scripts
+# still import
+from . import legacy
+from .legacy import (Obstacle, FCLObstacle, FCLChecker,
+                     Simple1DDynamicObstacle, Simple1DDynamicChecker)
 from .optim import (adam_traj_optimize, adam_traj_optimize_batch,
                     al_traj_optimize, givengrad_traj_optimize,
                     gradient_free_traj_optimize, trustconstr_traj_optimize,
@@ -67,7 +85,7 @@ from .optim import (adam_traj_optimize, adam_traj_optimize_batch,
 __all__ = [
     'utils', 'kernels', 'optim', 'routines', 'se3', 'resolve_device',
     'Model', 'RevolutePlanarRobot', 'RigidPlanarBody', 'RigidBody',
-    'DHParameters',
+    'DHParameters', 'PointRobot1D', 'ChainSpec', 'MultiURDFRobot',
     'DHChainRobot', 'PandaFK', 'DualPandaFK', 'BaxterLeftArmFK',
     'BaxterRightArmFK', 'BaxterFK', 'BaxterDualArmFK', 'CapsuleChainCollision', 'URDFRobot',
     'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu', 'parse_urdf',
@@ -83,4 +101,8 @@ __all__ = [
     'adam_traj_optimize', 'adam_traj_optimize_batch', 'al_traj_optimize',
     'givengrad_traj_optimize', 'gradient_free_traj_optimize',
     'trustconstr_traj_optimize', 'TrajOptimizer', 'Weighted',
+    'profiling', 'ObstacleMotion', 'LinearMotion', 'SineMotion',
+    'Dynamic1DChecker', 'temporal_dataset', 'legacy', 'Obstacle',
+    'FCLObstacle', 'FCLChecker', 'Simple1DDynamicObstacle',
+    'Simple1DDynamicChecker',
 ]

@@ -17,7 +17,8 @@
 // offset poff[k] in the frame of moving joint pframe[k], or is the
 // constant world point poff[k] when pframe[k] = -1 (an all-fixed subtree).
 // One build serves every chain within kMaxM moving joints, kMaxD dofs and
-// kMaxCP points.
+// kMaxCP points (ChainSpec), and the wide instances every chain within
+// kWideMaxM, kWideMaxD and kWideMaxCP (ChainSpecWide).
 #pragma once
 
 #include "score_block.cuh"
@@ -27,34 +28,45 @@ namespace diffco {
 constexpr int kMaxM = 16;   // moving joints
 constexpr int kMaxD = 16;   // dofs
 constexpr int kMaxCP = 21;  // control points (F = 3P <= 64)
+// the wide instances (chain_wide.cuh): F = 3P <= 192, B2's kWideMaxF
+constexpr int kWideMaxM = 64;
+constexpr int kWideMaxD = 64;
+constexpr int kWideMaxCP = 64;
 constexpr int kRevolute = 1;
 constexpr int kPrismatic = 2;
 
-// Layout mirrored by diffco_tpu_torch/ops/_native.py::ChainSpec (ctypes).
-struct ChainSpec {
+// Layout mirrored by diffco_tpu_torch/ops/_native.py::ChainSpec and
+// ChainSpecWide (ctypes), at (MM, MD, MCP) = (kMaxM, kMaxD, kMaxCP) and
+// (kWideMaxM, kWideMaxD, kWideMaxCP).
+template <int MM, int MD, int MCP>
+struct ChainSpecT {
+  static constexpr int kM = MM, kD = MD, kCP = MCP;
   int M;                      // moving joints
   int P;                      // control points
   int D;                      // dofs (columns of q and dq)
-  int mparent[kMaxM];         // moving parent, < m; -1 = the base
-  int jtype[kMaxM];           // kRevolute or kPrismatic
-  int dof[kMaxM];             // column of q driving the joint
-  float mult[kMaxM];          // mimic multiplier (1 for a plain joint)
-  float off[kMaxM];           // mimic offset (0 for a plain joint)
-  float axis[kMaxM][3];       // unit joint axis in the joint frame
-  float pre_r[kMaxM][9];      // row-major rotation in front of the motion
-  float pre_t[kMaxM][3];      // translation in front of the motion
-  int pframe[kMaxCP];         // moving joint carrying point k, -1 = fixed
-  float poff[kMaxCP][3];      // offset in that frame (world if fixed)
+  int mparent[MM];            // moving parent, < m; -1 = the base
+  int jtype[MM];              // kRevolute or kPrismatic
+  int dof[MM];                // column of q driving the joint
+  float mult[MM];             // mimic multiplier (1 for a plain joint)
+  float off[MM];              // mimic offset (0 for a plain joint)
+  float axis[MM][3];          // unit joint axis in the joint frame
+  float pre_r[MM][9];         // row-major rotation in front of the motion
+  float pre_t[MM][3];         // translation in front of the motion
+  int pframe[MCP];            // moving joint carrying point k, -1 = fixed
+  float poff[MCP][3];         // offset in that frame (world if fixed)
 };
+using ChainSpec = ChainSpecT<kMaxM, kMaxD, kMaxCP>;
+using ChainSpecWide = ChainSpecT<kWideMaxM, kWideMaxD, kWideMaxCP>;
 // passed by value as a __grid_constant__ kernel argument
 static_assert(sizeof(ChainSpec) <= 4096,
               "ChainSpec must fit the 4 KB kernel-parameter space");
 
 // The indices the kernel follows must stay in range and the moving-parent
 // walk must end: mparent[m] < m, and every dof and frame id in bounds.
-inline bool spec_ok(const ChainSpec& sp) {
-  if (sp.M < 1 || sp.M > kMaxM || sp.D < 1 || sp.D > kMaxD || sp.P < 1 ||
-      sp.P > kMaxCP)
+template <class Spec>
+inline bool spec_ok(const Spec& sp) {
+  if (sp.M < 1 || sp.M > Spec::kM || sp.D < 1 || sp.D > Spec::kD ||
+      sp.P < 1 || sp.P > Spec::kCP)
     return false;
   for (int m = 0; m < sp.M; ++m) {
     if (sp.mparent[m] < -1 || sp.mparent[m] >= m) return false;
@@ -73,8 +85,8 @@ inline bool spec_ok(const ChainSpec& sp) {
 // x[3k..3k+2] for k < min(P, KP). The point loop unrolls over KP so x
 // keeps constant indices (registers); fr and zo are indexed by data, so
 // they live in local memory (chain_score.cu passes zo in shared memory).
-template <int KP>
-DIFFCO_HD void chain_fk(const float* qb, bool live, const ChainSpec& sp,
+template <int KP, class Spec>
+DIFFCO_HD void chain_fk(const float* qb, bool live, const Spec& sp,
                         float (*fr)[12], float (*zo)[6], float* x) {
   for (int m = 0; m < sp.M; ++m) {
     const int p = sp.mparent[m];
@@ -130,7 +142,9 @@ DIFFCO_HD void chain_fk(const float* qb, bool live, const ChainSpec& sp,
     zo[m][4] = fr[m][10];
     zo[m][5] = fr[m][11];
   }
-#pragma unroll
+  // fully unrolled within kMaxCP (x in registers); a loop for the wide
+  // instance, whose x lies in shared memory
+#pragma unroll(KP <= kMaxCP ? KP : 1)
   for (int k = 0; k < KP; ++k) {
     if (k < sp.P) {
       const int m = sp.pframe[k];
@@ -154,8 +168,8 @@ DIFFCO_HD void chain_fk(const float* qb, bool live, const ChainSpec& sp,
 //   dq[dof_m] += mult_m * z_m . g_k                   (prismatic m)
 // over every moving ancestor m of point k (its pframe and that joint's
 // chain of moving parents), as the TPU kernel accumulates per point.
-template <int KP>
-DIFFCO_HD void chain_backward(const ChainSpec& sp, const float (*zo)[6],
+template <int KP, class Spec>
+DIFFCO_HD void chain_backward(const Spec& sp, const float (*zo)[6],
                               const float* x, float rowsum, const float* su,
                               float* dq) {
   for (int d = 0; d < sp.D; ++d) dq[d] = 0.f;

@@ -41,11 +41,13 @@
 // warps) stay resident per SM. W arrives as a device pointer (row-major
 // [S, C]): the folded ChainSpec already takes 1628 B of the 4 KB
 // kernel-parameter space. One build serves every chain with M <= 16
-// moving joints, D <= 16 dofs, P <= 21 points and every C <= kMaxC = 8;
-// the wrapper raises beyond.
+// moving joints, D <= 16 dofs, P <= 21 points and every C <= kMaxC = 8.
+// A chain past those bounds launches the wide instance
+// (chain_multi_score_grad_wide, chain_wide.cuh) up to 64 of each; the
+// wrapper raises beyond.
 #include <cuda_runtime.h>
 
-#include "chain_fk.cuh"
+#include "chain_wide.cuh"
 #include "multi_score_block.cuh"
 
 extern __shared__ __align__(16) float diffco_multi_smem[];
@@ -152,6 +154,8 @@ auto kernel_of() {
 }  // namespace
 }  // namespace diffco
 
+#include "chain_wide_launch.cuh"
+
 #define DIFFCO_FP_SWITCH(FPV, CALL) \
   switch (FPV) {                    \
     case 8: return CALL(8);         \
@@ -194,4 +198,16 @@ extern "C" int chain_multi_score_plan(int P, int C, int* out) {
   diffco::multi_launch_plan<FPV>(C, out, diffco::kernel_of<FPV>())
   DIFFCO_FP_SWITCH((3 * P + 7) / 8 * 8, DIFFCO_PLAN)
 #undef DIFFCO_PLAN
+}
+
+// The wide instance (chain_wide.cuh) for a chain past the multi-class
+// block's bounds, W [S, C]: `host` is the ChainSpecWide as the host built
+// it, `dev` its copy in device memory. Returns the cudaError_t of the
+// launch.
+extern "C" int chain_multi_score_grad_wide(
+    const float* q, const float* s, const float* W, float* score,
+    float* dq, int B, int S, int C, const diffco::ChainSpecWide* host,
+    const diffco::ChainSpecWide* dev, void* stream) {
+  return diffco::chain_wide_launch(q, s, W, score, dq, B, S, C, host,
+                                   dev, static_cast<cudaStream_t>(stream));
 }

@@ -45,10 +45,12 @@
 // kernel-parameter limit (static_assert in chain_fk.cuh); and a by-value
 // argument needs no device buffer, no upload and no cache per robot. One
 // build serves every chain with M <= 16 moving joints, D <= 16 dofs and
-// P <= 21 control points; the wrapper raises beyond them.
+// P <= 21 control points. A chain past those bounds (a 35-link rope)
+// launches the wide instance (chain_score_grad_wide, chain_wide.cuh) up
+// to 64 of each; the wrapper raises beyond.
 #include <cuda_runtime.h>
 
-#include "chain_fk.cuh"
+#include "chain_wide.cuh"
 #include "tc_score_block.cuh"
 
 extern __shared__ __align__(16) float diffco_tc_smem[];
@@ -116,6 +118,8 @@ chain_score_tc_kernel(const float* __restrict__ q, const float* __restrict__ s,
 }  // namespace diffco
 
 // ---- launch code (the CPU replay test compiles the file up to here)
+
+#include "chain_wide_launch.cuh"
 
 namespace diffco {
 namespace {
@@ -217,4 +221,21 @@ extern "C" int chain_score_plan(int P, int M, int* out) {
 #define DIFFCO_PLAN(FPV) diffco::chain_plan<FPV>(M, out)
   DIFFCO_CHAIN_SWITCH((3 * P + 7) / 8 * 8, DIFFCO_PLAN)
 #undef DIFFCO_PLAN
+}
+
+// The wide instance (chain_wide.cuh) for a chain past the tensor-core
+// kernel's bounds: `host` is the ChainSpecWide as the host built it,
+// `dev` its copy in device memory. Returns the cudaError_t of the launch.
+extern "C" int chain_score_grad_wide(
+    const float* q, const float* s, const float* w, float* score,
+    float* dq, int B, int S, const diffco::ChainSpecWide* host,
+    const diffco::ChainSpecWide* dev, void* stream) {
+  return diffco::chain_wide_launch(q, s, w, score, dq, B, S, 1, host,
+                                   dev, static_cast<cudaStream_t>(stream));
+}
+
+// The wide instance's launch plan for P control points and M moving
+// joints (chain_wide_plan).
+extern "C" int chain_score_wide_plan(int P, int M, int* out) {
+  return diffco::chain_wide_plan(P, M, out);
 }

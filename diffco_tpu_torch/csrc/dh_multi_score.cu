@@ -35,9 +35,11 @@
 // registers, and the points are read back from shared memory. W arrives
 // as a device pointer (row-major [S, C]), the chain constants by value in
 // the DHSpec kernel argument: one build serves every DH robot with
-// J <= 8, P <= 16 and every C <= kMaxC = 8.
+// J <= 8, P <= 16 and every C <= kMaxC = 8 (past them, the wide
+// instance of chain_wide.cuh: dh_multi_score_grad_wide).
 #include <cuda_runtime.h>
 
+#include "chain_wide.cuh"
 #include "dh_chain.cuh"
 #include "multi_score_block.cuh"
 
@@ -148,6 +150,8 @@ auto kernel_of() {
 }  // namespace
 }  // namespace diffco
 
+#include "chain_wide_launch.cuh"
+
 #define DIFFCO_FP_SWITCH(FPV, CALL) \
   switch (FPV) {                    \
     case 8: return CALL(8);         \
@@ -187,4 +191,16 @@ extern "C" int dh_multi_score_plan(int P, int C, int* out) {
   diffco::multi_launch_plan<FPV>(C, out, diffco::kernel_of<FPV>())
   DIFFCO_FP_SWITCH((3 * P + 7) / 8 * 8, DIFFCO_PLAN)
 #undef DIFFCO_PLAN
+}
+
+// The wide instance (chain_wide.cuh) for a chain past the multi-class
+// block's bounds, W [S, C]: `host` is the ChainSpecWide as the host built
+// it, `dev` its copy in device memory. Returns the cudaError_t of the
+// launch.
+extern "C" int dh_multi_score_grad_wide(
+    const float* q, const float* s, const float* W, float* score,
+    float* dq, int B, int S, int C, const diffco::ChainSpecWide* host,
+    const diffco::ChainSpecWide* dev, void* stream) {
+  return diffco::chain_wide_launch(q, s, W, score, dq, B, S, C, host,
+                                   dev, static_cast<cudaStream_t>(stream));
 }

@@ -28,7 +28,9 @@
 // joint axes and origins for the backward, which the same thread runs
 // after the supports from the row's sums in shared memory. The DH
 // constants and point specs arrive by value in a DHSpec kernel argument,
-// so one build serves every DH robot with J <= 8, P <= 16. Product 2
+// so one build serves every DH robot with J <= 8, P <= 16 (past them,
+// the wide instance of chain_wide.cuh on the chain folded into chain
+// form: dh_score_grad_wide, up to 64 of each). Product 2
 // sums each chunk of supports into a fresh accumulator (kDhSums): one
 // accumulator over all of them took the dq of fitted proxies of 4096
 // supports past half the 1e-3 tolerance (PERF.md section 6).
@@ -41,6 +43,7 @@
 // that design.
 #include <cuda_runtime.h>
 
+#include "chain_wide.cuh"
 #include "dh_chain.cuh"
 #include "tc_score_block.cuh"
 
@@ -173,6 +176,8 @@ dh_score_tc_kernel(const float* __restrict__ q, const float* __restrict__ s,
 
 // ---- launch code (the CPU replay test compiles the file up to here)
 
+#include "chain_wide_launch.cuh"
+
 namespace diffco {
 namespace {
 
@@ -303,4 +308,15 @@ extern "C" int dh_score_grad_threads(const float* q, const float* s,
       return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide instance (chain_wide.cuh) for a chain past the tensor-core
+// kernel's bounds: `host` is the ChainSpecWide as the host built it,
+// `dev` its copy in device memory. Returns the cudaError_t of the launch.
+extern "C" int dh_score_grad_wide(
+    const float* q, const float* s, const float* w, float* score,
+    float* dq, int B, int S, const diffco::ChainSpecWide* host,
+    const diffco::ChainSpecWide* dev, void* stream) {
+  return diffco::chain_wide_launch(q, s, w, score, dq, B, S, 1, host,
+                                   dev, static_cast<cudaStream_t>(stream));
 }

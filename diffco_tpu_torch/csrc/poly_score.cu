@@ -4,7 +4,7 @@
 // _make_fwdgrad_kernel), the TPU kernel behind polyharmonic_score at
 // batch >= 16384.
 //
-// Computes, for x [B, F], s [S, F], w [S] (fp32, row-major, F <= 64):
+// Computes, for x [B, F], s [S, F], w [S] (fp32, row-major, F <= 192):
 //   score[b] = sum_j w_j ||x_b - s_j||,  dx[b] = x_b * sum_j w_j / r_bj
 //                                               - sum_j s_j w_j / r_bj.
 //
@@ -43,9 +43,21 @@
 // (relative error ~1e-14), then score += w d2 rinv and dx += w rinv d,
 // all in fp64, rounded to float32 once at the end. At F <= 8 a pair is
 // ~4F + 12 fp64 operations, against the H100's 1:2 fp64 rate.
+//
+// At F = 65-192 (poly_score_wide_kernel<K>, K = ceil(F / 32)) the pairs
+// run on the wide score block of wide_score_block.cuh: one warp takes
+// wide_rows_per_warp<K>() rows, each lane K components of each row, the
+// pairs in fp64 from direct differences with the warp's shuffles summing
+// |x - s|^2, chunk by chunk: control-point rows of 22-64 points (three
+// Panda arms, a rigid body of many keypoints), which the JAX kernel takes
+// at any F and the tensor-core block's shared memory and registers do
+// not. Score and dx are the fp64 instance's arithmetic, with no expanded
+// square and no cancelling x rowsum - su; the kernel is bound by fp64
+// issue and shuffles, not by the bytes it moves.
 #include <cuda_runtime.h>
 
 #include "tc_score_block.cuh"
+#include "wide_score_block.cuh"
 
 extern __shared__ __align__(16) float diffco_tc_smem[];
 
@@ -99,14 +111,6 @@ constexpr int kF64Chunk = 256;
 constexpr int kF64MinBlocks = 3;   // __launch_bounds__: <= 85 registers
 constexpr int kF64Smem = 4 * kF64Chunk * (kF64MaxF + 1);
 
-// 1 / sqrt(v) for v >= 1e-12 in fp64: the fp32 rsqrt as the seed, one
-// Newton step y (3 - v y^2) / 2 in fp64 (the seed's ~1e-7 relative error
-// squared)
-__device__ __forceinline__ double f64_rsqrt(double v) {
-  const double y = static_cast<double>(rsqrtf(static_cast<float>(v)));
-  return y * fma(-0.5 * v * y, y, 1.5);
-}
-
 template <int F>
 __global__ void __launch_bounds__(kF64Rows, kF64MinBlocks)
 poly_score_f64_kernel(const float* __restrict__ x,
@@ -154,6 +158,43 @@ poly_score_f64_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int f = 0; f < F; ++f)
       dx[static_cast<size_t>(b) * F + f] = static_cast<float>(g[f]);
+  }
+}
+
+// B2 at F = 65-kWideMaxF (file comment): kWideThreads threads, 8 warps of
+// wide_rows_per_warp<K>() rows each, on wide_pairs.
+template <int K>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
+poly_score_wide_kernel(const float* __restrict__ x,
+                       const float* __restrict__ s,
+                       const float* __restrict__ w, float* __restrict__ score,
+                       float* __restrict__ dx, int B, int S, int F) {
+  constexpr int R = wide_rows_per_warp<K>();
+  const int lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * wide_rows<K>() + threadIdx.x / 32 * R;
+  // the warp's rows, a row past B read as row B - 1 (never written)
+  double xr[R][K], g[R][K], sc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t b = min(r0 + r, B - 1);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int f = lane + 32 * k;
+      xr[r][k] = f < F ? static_cast<double>(x[b * F + f]) : 0.0;
+    }
+  }
+  wide_pairs<K, R>(s, w, 1, S, F, diffco_tc_smem, xr, g, sc);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int b = r0 + r;
+    if (b >= B) continue;
+    if (lane == 0) score[b] = static_cast<float>(sc[r]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int f = lane + 32 * k;
+      if (f < F)
+        dx[static_cast<size_t>(b) * F + f] = static_cast<float>(g[r][k]);
+    }
   }
 }
 
@@ -206,6 +247,52 @@ int poly_f64_dispatch(const float* x, const float* s, const float* w,
   }
 }
 
+// B2's wide instance (F = 65-kWideMaxF) over B rows on `st`.
+template <int K>
+int poly_wide_launch(const float* x, const float* s, const float* w,
+                     float* score, float* dx, int B, int S, int F,
+                     cudaStream_t st) {
+  poly_score_wide_kernel<K><<<(B + wide_rows<K>() - 1) / wide_rows<K>(),
+                              kWideThreads, wide_smem_bytes<K>(), st>>>(
+      x, s, w, score, dx, B, S, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int poly_wide_dispatch(const float* x, const float* s, const float* w,
+                       float* score, float* dx, int B, int S, int F,
+                       cudaStream_t st) {
+  switch ((F + 31) / 32) {
+    case 3: return poly_wide_launch<3>(x, s, w, score, dx, B, S, F, st);
+    case 4: return poly_wide_launch<4>(x, s, w, score, dx, B, S, F, st);
+    case 5: return poly_wide_launch<5>(x, s, w, score, dx, B, S, F, st);
+    case 6: return poly_wide_launch<6>(x, s, w, score, dx, B, S, F, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The wide instance's plan for K = ceil(F / 32), as poly_plan's.
+template <int K>
+int poly_wide_plan(int* out) {
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, poly_score_wide_kernel<K>, kWideThreads, wide_smem_bytes<K>());
+  out[0] = wide_smem_bytes<K>();
+  out[1] = blocks;
+  out[2] = kWideThreads;
+  out[3] = wide_rows<K>();
+  return static_cast<int>(e);
+}
+
+int poly_wide_plan_dispatch(int F, int* out) {
+  switch ((F + 31) / 32) {
+    case 3: return poly_wide_plan<3>(out);
+    case 4: return poly_wide_plan<4>(out);
+    case 5: return poly_wide_plan<5>(out);
+    case 6: return poly_wide_plan<6>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // The fp64 instance's plan, as poly_plan's (its F does not change it:
 // the widest instance's occupancy).
 int poly_f64_plan(int* out) {
@@ -242,7 +329,7 @@ int poly_plan(int* out) {
 }  // namespace
 }  // namespace diffco
 
-// the tensor-core instances, F = 9-64
+// the tensor-core instances, F = 9-64 (FP = 16-64)
 #define DIFFCO_POLY_SWITCH(FPV, CALL)        \
   switch (FPV) {                             \
     case 16: return CALL(16);                \
@@ -260,10 +347,13 @@ int poly_plan(int* out) {
 extern "C" int poly_score_grad(const float* x, const float* s, const float* w,
                                float* score, float* dx, int B, int S, int F,
                                void* stream) {
-  if (B <= 0 || F <= 0 || F > 64 || S < 0) return cudaErrorInvalidValue;
+  if (B <= 0 || F <= 0 || F > diffco::kWideMaxF || S < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F <= diffco::kF64MaxF)
     return diffco::poly_f64_dispatch(x, s, w, score, dx, B, S, F, st);
+  if (F > 64)
+    return diffco::poly_wide_dispatch(x, s, w, score, dx, B, S, F, st);
 #define DIFFCO_LAUNCH(FPV)                                                 \
   diffco::poly_launch<FPV, false>(x, s, w, score, dx, B, S, F,             \
                                   diffco::kTcGuard, nullptr, st)
@@ -274,17 +364,20 @@ extern "C" int poly_score_grad(const float* x, const float* s, const float* w,
 // poly_score_grad's kernel in its measurement build: the near-pair guard
 // at threshold `kappa`, its recomputations added to the device counter
 // *guard_pairs (a measurement entry; production launches go through
-// poly_score_grad). The fp64 instance (F <= 8) has no guard and adds
-// nothing.
+// poly_score_grad). The fp64 instance (F <= 8) and the wide one (F > 64)
+// have no guard and add nothing.
 extern "C" int poly_score_grad_guard(const float* x, const float* s,
                                      const float* w, float* score, float* dx,
                                      int B, int S, int F, float kappa,
                                      unsigned long long* guard_pairs,
                                      void* stream) {
-  if (B <= 0 || F <= 0 || F > 64 || S < 0) return cudaErrorInvalidValue;
+  if (B <= 0 || F <= 0 || F > diffco::kWideMaxF || S < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F <= diffco::kF64MaxF)
     return diffco::poly_f64_dispatch(x, s, w, score, dx, B, S, F, st);
+  if (F > 64)
+    return diffco::poly_wide_dispatch(x, s, w, score, dx, B, S, F, st);
 #define DIFFCO_LAUNCH(FPV)                                                 \
   diffco::poly_launch<FPV, true>(x, s, w, score, dx, B, S, F, kappa,       \
                                  guard_pairs, st)
@@ -294,8 +387,9 @@ extern "C" int poly_score_grad_guard(const float* x, const float* s,
 
 // poly_score_grad's launch plan for F components (poly_plan).
 extern "C" int poly_score_plan(int F, int* out) {
-  if (F <= 0 || F > 64) return cudaErrorInvalidValue;
+  if (F <= 0 || F > diffco::kWideMaxF) return cudaErrorInvalidValue;
   if (F <= diffco::kF64MaxF) return diffco::poly_f64_plan(out);
+  if (F > 64) return diffco::poly_wide_plan_dispatch(F, out);
 #define DIFFCO_PLAN(FPV) diffco::poly_plan<FPV>(out)
   DIFFCO_POLY_SWITCH((F + 7) / 8 * 8, DIFFCO_PLAN)
 #undef DIFFCO_PLAN

@@ -31,10 +31,14 @@ _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 MAX_J = 8    # dh_chain.cuh kMaxJ
 MAX_P = 16   # dh_chain.cuh kMaxP
-MAX_F = 64   # poly_score.cu: F padded to a multiple of 8, at most 64
+MAX_F = 192  # poly_score.cu kWideMaxF (the tensor-core block up to 64)
 MAX_M = 16   # chain_fk.cuh kMaxM (moving joints)
 MAX_D = 16   # chain_fk.cuh kMaxD (dofs)
 MAX_CP = 21  # chain_fk.cuh kMaxCP (control points)
+# chain_fk.cuh kWideMaxM, kWideMaxD, kWideMaxCP: the wide instances of the
+# FK kernels (chain_wide.cuh), which take the chains past the bounds above
+# (a DH chain folded into chain form) up to F = 3P = MAX_F
+WIDE_MAX_M = WIDE_MAX_D = WIDE_MAX_CP = 64
 MAX_C = 8    # score_block.cuh kMaxC (classes of the multi-class kernels)
 
 # csrc/multi_score_block.cuh's block (kMultiRows, kMultiThreads,
@@ -138,29 +142,41 @@ def dh_tc_plan(P: int) -> dict:
 # kF64Rows threads and rows a block, kF64Chunk supports of F64_MAX_F + 1
 # floats in shared memory, __launch_bounds__ minimum kF64MinBlocks)
 F64_MAX_F, F64_ROWS, F64_CHUNK, F64_MIN_BLOCKS = 8, 256, 256, 3
+# its wide instance at TC_MAX_F < F <= MAX_F (poly_score_wide_kernel<K>,
+# K = ceil(F / 32): kWideThreads threads, two rows a warp up to K = 4 and
+# one above, kWideChunk supports of 32 K + 1 floats, kWideMinBlocks)
+TC_MAX_F = 64
+WIDE_THREADS, WIDE_CHUNK, WIDE_MIN_BLOCKS = 256, 32, 2
 
 
 def poly_tc_plan(F: int) -> dict:
     """B2's launch plan (``csrc/poly_score.cu``) for F components: the
-    tensor-core block's shared memory alone (F > F64_MAX_F), or the fp64
-    instance's chunk, with the blocks per SM its launch bound guarantees
-    (its registers, which only the build knows, may allow more:
-    ``poly_plan_holds``)."""
+    tensor-core block's shared memory alone (F64_MAX_F < F <= TC_MAX_F),
+    or the fp64 or the wide instance's chunk, with the blocks per SM
+    their launch bounds guarantee (their registers, which only the build
+    knows, may allow more: ``poly_plan_holds``)."""
     if F <= F64_MAX_F:
         return dict(fp=8, smem_bytes=4 * F64_CHUNK * (F64_MAX_F + 1),
                     blocks_per_sm=F64_MIN_BLOCKS,
                     warps_per_sm=F64_MIN_BLOCKS * F64_ROWS // 32,
                     threads=F64_ROWS, rows=F64_ROWS)
+    if F > TC_MAX_F:
+        K = -(-F // 32)
+        return dict(fp=32 * K, smem_bytes=4 * WIDE_CHUNK * (32 * K + 1),
+                    blocks_per_sm=WIDE_MIN_BLOCKS,
+                    warps_per_sm=WIDE_MIN_BLOCKS * WIDE_THREADS // 32,
+                    threads=WIDE_THREADS,
+                    rows=WIDE_THREADS // 32 * (2 if K <= 4 else 1))
     return _tc_plan((F + 7) // 8 * 8, 0)
 
 
 def poly_plan_holds(card: dict, F: int) -> bool:
     """B2's plan as the card gives it (``poly_score_plan_on_card``) is
     ``poly_tc_plan``'s: equal for the tensor-core instances; for the fp64
-    instance the same shared bytes, threads and rows, and at least the
-    blocks per SM of its launch bound."""
+    and the wide instance the same shared bytes, threads and rows, and at
+    least the blocks per SM of their launch bounds."""
     plan = poly_tc_plan(F)
-    if F > F64_MAX_F:
+    if F64_MAX_F < F <= TC_MAX_F:
         return card == plan
     return (all(card[k] == plan[k]
                 for k in ('fp', 'smem_bytes', 'threads', 'rows'))
@@ -174,6 +190,27 @@ def chain_tc_plan(P: int, M: int) -> dict:
     return _tc_plan((3 * P + 7) // 8 * 8, 6 * M + 1)
 
 
+def chain_wide_plan(P: int, M: int) -> dict:
+    """The wide FK instances' launch plan (``csrc/chain_wide.cuh``,
+    K = ceil(3P / 32)) for P control points and M moving joints: B2's
+    wide chunk, the spec (``ChainSpecWide``, in whole 16-byte words), the
+    points' ancestor masks (2 WIDE_MAX_CP floats) and per row its points
+    and gradient (32 K floats each), moving frames (12 M), axes and
+    origins (6 M) and the joints' values (M); WIDE_THREADS
+    threads, two rows a warp up to K = 4 and one above, and the blocks per
+    SM of the launch bound (the card's calculator may allow more:
+    ``chain_wide_plan_on_card``)."""
+    K = -(-3 * P // 32)
+    rows = WIDE_THREADS // 32 * (2 if K <= 4 else 1)
+    spec = (ctypes.sizeof(ChainSpecWide) // 4 + 3) // 4 * 4
+    return dict(fp=32 * K, smem_bytes=4 * (WIDE_CHUNK * (32 * K + 1) + spec
+                                           + 2 * WIDE_MAX_CP
+                                           + rows * (64 * K + 19 * M)),
+                blocks_per_sm=WIDE_MIN_BLOCKS,
+                warps_per_sm=WIDE_MIN_BLOCKS * WIDE_THREADS // 32,
+                threads=WIDE_THREADS, rows=rows)
+
+
 class DHSpec(ctypes.Structure):
     """Mirror of ``struct DHSpec`` in csrc/dh_chain.cuh."""
     _fields_ = [('J', ctypes.c_int),
@@ -185,21 +222,33 @@ class DHSpec(ctypes.Structure):
                 ('base_t', ctypes.c_float * 3)]
 
 
+def _chain_spec_fields(mm, mcp):
+    return [('M', ctypes.c_int),
+            ('P', ctypes.c_int),
+            ('D', ctypes.c_int),
+            ('mparent', ctypes.c_int * mm),
+            ('jtype', ctypes.c_int * mm),
+            ('dof', ctypes.c_int * mm),
+            ('mult', ctypes.c_float * mm),
+            ('off', ctypes.c_float * mm),
+            ('axis', (ctypes.c_float * 3) * mm),
+            ('pre_r', (ctypes.c_float * 9) * mm),
+            ('pre_t', (ctypes.c_float * 3) * mm),
+            ('pframe', ctypes.c_int * mcp),
+            ('poff', (ctypes.c_float * 3) * mcp)]
+
+
 class ChainSpec(ctypes.Structure):
-    """Mirror of ``struct ChainSpec`` in csrc/chain_fk.cuh."""
-    _fields_ = [('M', ctypes.c_int),
-                ('P', ctypes.c_int),
-                ('D', ctypes.c_int),
-                ('mparent', ctypes.c_int * MAX_M),
-                ('jtype', ctypes.c_int * MAX_M),
-                ('dof', ctypes.c_int * MAX_M),
-                ('mult', ctypes.c_float * MAX_M),
-                ('off', ctypes.c_float * MAX_M),
-                ('axis', (ctypes.c_float * 3) * MAX_M),
-                ('pre_r', (ctypes.c_float * 9) * MAX_M),
-                ('pre_t', (ctypes.c_float * 3) * MAX_M),
-                ('pframe', ctypes.c_int * MAX_CP),
-                ('poff', (ctypes.c_float * 3) * MAX_CP)]
+    """Mirror of ``ChainSpec`` (``ChainSpecT<kMaxM, kMaxD, kMaxCP>``) in
+    csrc/chain_fk.cuh."""
+    _fields_ = _chain_spec_fields(MAX_M, MAX_CP)
+
+
+class ChainSpecWide(ctypes.Structure):
+    """Mirror of ``ChainSpecWide`` (``ChainSpecT<kWideMaxM, kWideMaxD,
+    kWideMaxCP>``) in csrc/chain_fk.cuh: the wide instances' chain, passed
+    as a device copy."""
+    _fields_ = _chain_spec_fields(WIDE_MAX_M, WIDE_MAX_CP)
 
 
 _libs = {}
@@ -305,6 +354,19 @@ def _bind(libs):
     fn = libs['chain_score'].chain_score_plan
     fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
     fn.restype = cint
+    # the wide instances (csrc/chain_wide.cuh): host spec, device copy
+    wide = ctypes.POINTER(ChainSpecWide)
+    for lib, name, n_int in (('dh_score', 'dh_score_grad', 2),
+                             ('chain_score', 'chain_score_grad', 2),
+                             ('dh_multi_score', 'dh_multi_score_grad', 3),
+                             ('chain_multi_score', 'chain_multi_score_grad',
+                              3)):
+        fn = getattr(libs[lib], f'{name}_wide')
+        fn.argtypes = [ptr] * 5 + [cint] * n_int + [wide, ptr, ptr]
+        fn.restype = cint
+    fn = libs['chain_score'].chain_score_wide_plan
+    fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
+    fn.restype = cint
     fn = libs['dh_multi_score'].dh_multi_score_grad
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
                    ctypes.POINTER(DHSpec), ptr]
@@ -373,7 +435,7 @@ def poly_score_plan_on_card(F: int) -> dict:
     """``poly_tc_plan``'s numbers as B2's build and the card's occupancy
     calculator give them (needs the card)."""
     return _tc_plan_on_card('poly_score', 'poly_score_plan',
-                            (F + 7) // 8 * 8, F)
+                            poly_tc_plan(F)['fp'], F)
 
 
 def chain_score_plan_on_card(P: int, M: int) -> dict:
@@ -381,6 +443,13 @@ def chain_score_plan_on_card(P: int, M: int) -> dict:
     calculator give them (needs the card)."""
     return _tc_plan_on_card('chain_score', 'chain_score_plan',
                             (3 * P + 7) // 8 * 8, P, M)
+
+
+def chain_wide_plan_on_card(P: int, M: int) -> dict:
+    """``chain_wide_plan``'s numbers as B3's build and the card's occupancy
+    calculator give them (needs the card)."""
+    return _tc_plan_on_card('chain_score', 'chain_score_wide_plan',
+                            chain_wide_plan(P, M)['fp'], P, M)
 
 
 def check_cuda_inputs(name, *tensors):

@@ -14,9 +14,12 @@ hand-written CUDA kernel:
   multi-class proxy, weight columns W [S, C] -> score [B, C] and
   dq [C, B, D].
 
-Each has a plain twin (``_<name>_plain``) that a CPU tensor runs. Below
-the gate, on the CPU, in float64 and for other robots, it is FK + the
-plain score route.
+Each takes any chain up to 64 moving joints, dofs and control points:
+within its own block's bounds on its by-value spec, past them on the wide
+instance (``csrc/chain_wide.cuh``), which every one of the four sources
+builds. Each has a plain twin (``_<name>_plain``) that a CPU tensor runs.
+Below the gate, on the CPU, in float64 and for other robots, it is FK +
+the plain score route.
 """
 from __future__ import annotations
 
@@ -77,16 +80,20 @@ def _statics(spec) -> DHStatics:
 
 
 @functools.lru_cache(maxsize=64)
-def _c_spec(spec) -> _native.DHSpec:
-    """The kernel's by-value DHSpec argument for a spec (cached per spec)."""
+def _c_spec(spec):
+    """The kernel's argument for a DH spec (cached per spec): the by-value
+    DHSpec of the tensor-core and multi-class kernels, or for a chain past
+    their bounds (J > ``_native.MAX_J`` or P > ``_native.MAX_P``) the
+    ChainSpecWide of the wide instance (``csrc/chain_wide.cuh``), the DH
+    chain folded into chain form (``_fold_dh``). Raises beyond the wide
+    instance's bounds."""
     dh_const, point_specs, base = spec
     st = _statics(spec)
     J, P = len(dh_const), len(point_specs)
-    if J > _native.MAX_J or P > _native.MAX_P:
-        raise ValueError(f'dh_score_grad: J = {J} (max {_native.MAX_J}), '
-                         f'P = {P} (max {_native.MAX_P})')
     if not all(1 <= fi <= J for fi, _ in point_specs):
         raise ValueError('dh_score_grad: point frame ids must lie in 1..J')
+    if J > _native.MAX_J or P > _native.MAX_P:
+        return _chain_struct(*_fold_dh(st), J, 'dh_score_grad', narrow=False)
     c = _native.DHSpec()
     c.J, c.P = J, P
     for j, row in enumerate(dh_const):
@@ -97,6 +104,25 @@ def _c_spec(spec) -> _native.DHSpec:
     c.base_r[:] = st.base_rot
     c.base_t[:] = st.base_trans
     return c
+
+
+def _fold_dh(st: DHStatics):
+    """A DH chain in ``_fold_chain``'s form: joint j a revolute about its
+    frame's z (theta = q_j + offset) behind the constant transform that
+    ends joint j - 1, (Rx(alpha), (a, 0, d)), or the base for j = 0; a
+    point on frame fi at that transform of its offset, in the frame of
+    joint fi - 1. The joint transform Rz(theta) Rx(alpha), (a cos theta,
+    a sin theta, d) of ``dh_rot_trans`` is Rz(theta) followed by it."""
+    pre = [(np.asarray(st.base_rot, np.float64).reshape(3, 3),
+            np.asarray(st.base_trans, np.float64))]
+    for a, d, sa, ca, _ in st.dh_const:
+        pre.append((np.array([[1.0, 0.0, 0.0], [0.0, ca, -sa],
+                              [0.0, sa, ca]]), np.array([a, 0.0, d])))
+    joints = [(j - 1, 1, j, 1.0, th, (0.0, 0.0, 1.0), *pre[j])
+              for j, (_, _, _, _, th) in enumerate(st.dh_const)]
+    points = [(fi - 1, pre[fi][0] @ np.asarray(off, np.float64)
+               + pre[fi][1]) for fi, off in st.point_specs]
+    return joints, points
 
 
 def _dh_score_grad_plain(q, s, w, spec):
@@ -110,6 +136,13 @@ def _dh_score_grad_plain(q, s, w, spec):
     return score, dh_vjp(st, axes, pts, dx)
 
 
+@functools.lru_cache(maxsize=64)
+def _on_device(blob: bytes, device: torch.device) -> torch.Tensor:
+    """A spec's bytes copied to ``device`` once (cached per spec and
+    device)."""
+    return torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
+
+
 def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
             dq=True):
     """Check the inputs of a one-pass FK kernel, allocate its outputs and
@@ -117,7 +150,9 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
     ``ints`` after B and S, counting the launch in ``<name>_launches`` of
     the namespace ``counts`` (default this module's): weights w [S] give
     (score [B], dq [B, D]), weight columns W [S, C] give
-    (score [B, C], dq [C, B, D]); ``dq=False`` gives score [B] alone."""
+    (score [B, C], dq [C, B, D]); ``dq=False`` gives score [B] alone. A
+    ``_native.ChainSpecWide`` ``c`` launches the wide instance,
+    ``<name>_wide``, with the spec's device copy."""
     _native.check_cuda_inputs(name, q, s, w)
     B, S = q.shape[0], s.shape[0]
     multi = w.dim() == 2
@@ -134,11 +169,18 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
     outs = [q.new_empty((B, C) if multi else (B,))]
     if dq:
         outs.append(q.new_empty((C, B, D) if multi else (B, D)))
+    # the wide instance reads its spec from a device copy
+    wide = isinstance(c, _native.ChainSpecWide)
+    if wide and entry is not None:
+        raise ValueError(f'{name}: the wide instance has no entry {entry}')
     if B > 0:
-        fn = getattr(_native.build()[lib], entry or name)
+        fn = getattr(_native.build()[lib],
+                     entry or (f'{name}_wide' if wide else name))
         rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
                 *(t.data_ptr() for t in outs), B, S,
                 *((C,) if multi else ()), *ints, ctypes.byref(c),
+                *((_on_device(bytes(c), q.device).data_ptr(),) if wide
+                  else ()),
                 torch.cuda.current_stream(q.device).cuda_stream)
         _native.raise_on_error(name, rc)
         (globals() if counts is None else counts)[f'{name}_launches'] += 1
@@ -148,12 +190,13 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
 def dh_score_grad(q, s, w, spec):
     """Score and configuration gradient in one pass: q [B, J] ->
     (score [B], dq [B, J]). A CUDA tensor launches ``csrc/dh_score.cu``
-    (the tensor-core kernel, ``csrc/tc_score_block.cuh``) or raises; a CPU
-    tensor runs the plain twin."""
+    (the tensor-core kernel, ``csrc/tc_score_block.cuh``; past its bounds
+    the wide instance, ``csrc/chain_wide.cuh``) or raises; a CPU tensor
+    runs the plain twin."""
     if q.device.type == 'cpu':
         return _dh_score_grad_plain(q, s, w, spec)
-    c = _c_spec(spec)
-    return _launch('dh_score_grad', 'dh_score', q, s, w, c, c.J, c.P)
+    return _launch('dh_score_grad', 'dh_score', q, s, w, _c_spec(spec),
+                   len(spec[0]), len(spec[1]))
 
 
 def dh_score_guard_pairs(q, s, w, spec, kappa):
@@ -164,9 +207,9 @@ def dh_score_guard_pairs(q, s, w, spec, kappa):
     (configuration, support) pairs the guard recomputed). A measurement
     entry for float32 CUDA tensors; production launches go through
     ``dh_score_grad`` and are the only ones counted."""
-    c = _c_spec(spec)
     pairs = torch.zeros(1, dtype=torch.int64, device=q.device)
-    score, dq = _launch('dh_score_grad', 'dh_score', q, s, w, c, c.J, c.P,
+    score, dq = _launch('dh_score_grad', 'dh_score', q, s, w, _c_spec(spec),
+                        len(spec[0]), len(spec[1]),
                         ctypes.c_float(kappa), pairs.data_ptr(),
                         entry='dh_score_grad_guard', counts={
                             'dh_score_grad_launches': 0})
@@ -202,9 +245,8 @@ def dh_multi_score_grad(q, s, W, spec):
     plain twin."""
     if q.device.type == 'cpu':
         return _dh_multi_score_grad_plain(q, s, W, spec)
-    c = _c_spec(spec)
-    return _launch('dh_multi_score_grad', 'dh_multi_score', q, s, W, c,
-                   c.J, c.P)
+    return _launch('dh_multi_score_grad', 'dh_multi_score', q, s, W,
+                   _c_spec(spec), len(spec[0]), len(spec[1]))
 
 
 class _FKPolyScore(torch.autograd.Function):
@@ -293,30 +335,45 @@ def _fold_chain(cs: ChainStatics):
     return joints, points
 
 
-@functools.lru_cache(maxsize=64)
-def _c_chain_spec(cs: ChainStatics) -> _native.ChainSpec:
-    """The kernel's by-value ChainSpec argument for a chain (cached per
-    chain). Raises beyond the kernel's compile-time bounds."""
-    joints, points = _fold_chain(cs)
-    M, P, D = len(joints), len(points), cs.n_dofs
-    for what, n, bound in (('moving joints', M, _native.MAX_M),
-                           ('dofs', D, _native.MAX_D),
-                           ('control points', P, _native.MAX_CP)):
+def _chain_struct(joints, points, D, name, narrow=True):
+    """The kernel's spec of a folded chain (``_fold_chain``'s form): the
+    by-value ChainSpec within 1 to ``_native.MAX_M`` moving joints,
+    ``MAX_D`` dofs and ``MAX_CP`` points (``narrow``), else the wide
+    instance's ChainSpecWide within ``WIDE_MAX_M``, ``WIDE_MAX_D`` and
+    ``WIDE_MAX_CP``; raises beyond those. The one place the kernels' bounds
+    are read."""
+    counts = (('moving joints', len(joints), _native.MAX_M,
+               _native.WIDE_MAX_M), ('dofs', D, _native.MAX_D,
+                                     _native.WIDE_MAX_D),
+              ('control points', len(points), _native.MAX_CP,
+               _native.WIDE_MAX_CP))
+    for what, n, _, bound in counts:
         if not 1 <= n <= bound:
-            raise ValueError(f'chain_score_grad: {n} {what}, the kernel '
-                             f'takes 1 to {bound}')
-    c = _native.ChainSpec()
-    c.M, c.P, c.D = M, P, D
+            raise ValueError(f'{name}: {n} {what}, the kernel takes 1 to '
+                             f'{bound}')
+    wide = not (narrow and all(n <= b for _, n, b, _ in counts))
+    c = (_native.ChainSpecWide if wide else _native.ChainSpec)()
+    c.M, c.P, c.D = len(joints), len(points), D
     for m, (mp, jt, dof, mult, off, axis, r, t) in enumerate(joints):
         c.mparent[m], c.jtype[m], c.dof[m] = mp, jt, dof
         c.mult[m], c.off[m] = mult, off
         c.axis[m][:] = axis
-        c.pre_r[m][:] = r.reshape(-1).tolist()
-        c.pre_t[m][:] = t.tolist()
+        c.pre_r[m][:] = np.asarray(r).reshape(-1).tolist()
+        c.pre_t[m][:] = np.asarray(t).tolist()
     for k, (m, off) in enumerate(points):
         c.pframe[k] = m
         c.poff[k][:] = off.tolist()
     return c
+
+
+@functools.lru_cache(maxsize=64)
+def _c_chain_spec(cs: ChainStatics):
+    """The kernel's spec for a chain (cached per chain): the by-value
+    ChainSpec of the tensor-core and multi-class kernels, or for a chain
+    past their bounds the wide instance's ChainSpecWide
+    (``_chain_struct``)."""
+    joints, points = _fold_chain(cs)
+    return _chain_struct(joints, points, cs.n_dofs, 'chain_score_grad')
 
 
 def _chain_score_grad_plain(q, s, w, cs: ChainStatics):
@@ -331,8 +388,9 @@ def _chain_score_grad_plain(q, s, w, cs: ChainStatics):
 def chain_score_grad(q, s, w, cs: ChainStatics):
     """Score and configuration gradient in one pass: q [B, D] ->
     (score [B], dq [B, D]). A CUDA tensor launches ``csrc/chain_score.cu``
-    (the tensor-core kernel, ``csrc/tc_score_block.cuh``) or raises; a CPU
-    tensor runs the plain twin."""
+    (the tensor-core kernel, ``csrc/tc_score_block.cuh``; past its bounds
+    the wide instance, ``csrc/chain_wide.cuh``) or raises; a CPU tensor
+    runs the plain twin."""
     if q.device.type == 'cpu':
         return _chain_score_grad_plain(q, s, w, cs)
     c = _c_chain_spec(cs)
@@ -397,10 +455,20 @@ def _one_pass(q) -> bool:
 
 
 def dh_score_grad_available(robot, q) -> bool:
+    """Whether ``q`` of this robot takes the one-pass DH route (B1, or B4
+    for several classes): a DH robot and ``_one_pass``, at any shape, as
+    the JAX package takes its kernel at every size
+    (``diffco_tpu/ops/fk_score.py:704-714``). A chain past the tensor-core
+    and multi-class blocks' bounds launches their wide instance; past
+    that one's (``_native.WIDE_MAX_*``) the kernel raises."""
     return isinstance(robot, DHChainRobot) and _one_pass(q)
 
 
 def chain_score_grad_available(robot, q) -> bool:
+    """Whether ``q`` of this robot takes the one-pass URDF-chain route (B3,
+    or B5 for several classes), at any shape, as
+    ``dh_score_grad_available``: a chain past the kernels' own bounds (a
+    35-link rope) launches their wide instance."""
     return (isinstance(robot, URDFRobot) and _one_pass(q)
             and robot._fkine_sel is not None)
 

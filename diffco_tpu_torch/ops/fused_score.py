@@ -6,9 +6,9 @@ query gradient ``dx = x * sum_j w_j / r_j - sum_j s_j w_j / r_j``. A
 float32 CUDA batch >= ``_FUSED_MIN_BATCH`` runs through
 ``poly_score_grad``, one pass that computes score and dx together (the
 hand-written CUDA kernel ``csrc/poly_score.cu``, on the tensor-core score
-block ``csrc/tc_score_block.cuh`` at F > 8 and in fp64 on the CUDA cores
-at F <= 8, for a CUDA tensor, its plain twin ``_poly_score_grad_plain``
-for a CPU tensor); the autograd
+block ``csrc/tc_score_block.cuh`` at F = 9-64 and in fp64 on the CUDA
+cores at F <= 8 and at F = 65-192, for a CUDA tensor, its plain twin
+``_poly_score_grad_plain`` for a CPU tensor); the autograd
 Function saves dx so the backward is a broadcast multiply. Everywhere
 else (below the gate, on the CPU, in float64, as the JAX package off its
 accelerator) the plain expanded-square formulation ``_poly_score_xla``
@@ -79,8 +79,9 @@ def poly_score_grad(x, s, w):
     """Score and gradient in one pass: x [B, F] -> (score [B], dx [B, F]).
 
     A CUDA tensor launches ``csrc/poly_score.cu`` (the tensor-core kernel,
-    ``csrc/tc_score_block.cuh``, or at F <= 8 its fp64 instance) or
-    raises; a CPU tensor runs the plain twin."""
+    ``csrc/tc_score_block.cuh``, or at F <= 8 its fp64 instance and at
+    F = 65-192 its wide one) or raises; a CPU tensor runs the plain
+    twin."""
     global poly_score_grad_launches
     if x.device.type == 'cpu':
         return _poly_score_grad_plain(x, s, w)

@@ -1,12 +1,14 @@
 from .analytic import (Model, RevolutePlanarRobot, RigidPlanarBody,
                        RigidBody, DHParameters, DHChainRobot, PandaFK,
                        DualPandaFK, BaxterLeftArmFK, BaxterRightArmFK,
-                       BaxterFK, BaxterDualArmFK)
+                       BaxterFK, BaxterDualArmFK, PointRobot1D)
 from .kinematics import ChainSpec
-from .urdf import URDFRobot, KUKAiiwa, FrankaPanda, TwoLinkRobot, TrifingerEdu
+from .urdf import (URDFRobot, MultiURDFRobot, KUKAiiwa, FrankaPanda,
+                   TwoLinkRobot, TrifingerEdu)
 
 __all__ = ['Model', 'RevolutePlanarRobot', 'RigidPlanarBody', 'RigidBody',
            'DHParameters', 'DHChainRobot', 'PandaFK', 'DualPandaFK',
            'BaxterLeftArmFK', 'BaxterRightArmFK', 'BaxterFK',
-           'BaxterDualArmFK', 'ChainSpec', 'URDFRobot', 'KUKAiiwa',
-           'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu']
+           'BaxterDualArmFK', 'PointRobot1D', 'ChainSpec', 'URDFRobot',
+           'MultiURDFRobot', 'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot',
+           'TrifingerEdu']

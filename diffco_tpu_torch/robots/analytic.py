@@ -2,9 +2,9 @@
 (PyTorch counterpart of ``diffco_tpu/robots/analytic.py``: ``Model``,
 the planar ``RevolutePlanarRobot`` and ``RigidPlanarBody``, the SE(3)
 free flyer ``RigidBody``,
-``DHParameters``, ``DHChainRobot``, ``PandaFK``, ``DualPandaFK`` and the
+``DHParameters``, ``DHChainRobot``, ``PandaFK``, ``DualPandaFK``, the
 Baxter arms ``BaxterLeftArmFK``, ``BaxterRightArmFK``, ``BaxterFK`` and
-``BaxterDualArmFK``).
+``BaxterDualArmFK``, and the space-time ``PointRobot1D``).
 
 Robots are device-agnostic: their constants are Python floats or CPU
 tensors copied next to ``q`` once per device, so ``fkine`` runs wherever
@@ -449,3 +449,42 @@ class DualPandaFK(Model):
 
     def wrap(self, q):
         return wrap2pi(q)
+
+
+class PointRobot1D(Model):
+    """1-DOF point robot with time as an extra dimension: configurations
+    are (x, t) pairs in normalized [0, 1] coordinates, ``limits`` [dof + 1,
+    2] the raw ranges of x and t."""
+
+    def __init__(self, limits):
+        self.limits = torch.as_tensor(np.asarray(limits),
+                                      dtype=torch.float32)
+        self.dof = 1
+
+    def rand_configs(self, num_cfgs: int, generator: Optional[
+            torch.Generator] = None, device=None) -> torch.Tensor:
+        """Normalized space-time samples [num_cfgs, dof + 1], uniform in
+        [0, 1], on ``device`` (default CUDA); the inherited sampler would
+        broadcast a [N, 1] draw against the raw [2, 2] limits."""
+        dev = resolve_device(device)
+        gdev = generator.device if generator is not None else 'cpu'
+        return torch.rand((num_cfgs, self.limits.shape[0]),
+                          generator=generator, device=gdev).to(dev)
+
+    def fkine(self, q):
+        """The spatial coordinate unnormalized: q [..., dof] -> [B, dof]."""
+        q = torch.reshape(q, (-1, self.dof))
+        lims = self.limits.to(q.device, q.dtype)
+        lo, hi = lims[:-1, 0], lims[:-1, 1]
+        return q * (hi - lo) + lo
+
+    def normalize(self, q):
+        lims = self.limits.to(q.device, q.dtype)
+        return (q - lims[:, 0]) / (lims[:, 1] - lims[:, 0])
+
+    def unnormalize(self, q):
+        lims = self.limits.to(q.device, q.dtype)
+        return q * (lims[:, 1] - lims[:, 0]) + lims[:, 0]
+
+    def wrap(self, q):
+        return q

@@ -1,6 +1,6 @@
 """URDF robot interface: parse -> flattened chain -> batched FK + collision
 (PyTorch counterpart of ``diffco_tpu/robots/urdf.py``: ``parse_urdf``,
-``URDFRobot`` and the convenience robots).
+``URDFRobot``, ``MultiURDFRobot`` and the convenience robots).
 
 The URDF XML is parsed with the stdlib (host, build time) into a
 ``ChainSpec``; each link's collision geometry becomes a sphere
@@ -464,6 +464,101 @@ class URDFRobot:
         meters."""
         return torch.where(self._revolute_dof_mask.to(q.device), wrap2pi(q),
                            q)
+
+
+class MultiURDFRobot:
+    """Several URDF robots with concatenated configuration vectors. The
+    collision check is each robot's own (environment and self) or any
+    overlap of one robot's spheres with another's. The robots share one
+    device, on which the robot runs."""
+
+    # elements of an inter-robot block [rows, Pa, Pb] at most
+    _PAIR_ELEMENTS = 1 << 24
+
+    def __init__(self, urdf_robots: List[URDFRobot]):
+        self.robots = list(urdf_robots)
+        devices = {r.device for r in self.robots}
+        if len(devices) != 1:
+            raise ValueError(f'MultiURDFRobot: robots on {devices}, '
+                             'not on one device')
+        self.device = self.robots[0].device
+        self.name = 'multi_' + '_'.join(r.name for r in self.robots)
+        self._n_dofs = sum(r._n_dofs for r in self.robots)
+        self.dof = self._n_dofs
+        self.joint_limits = torch.cat([r.joint_limits for r in self.robots],
+                                      dim=0)
+        self.limits = self.joint_limits
+        self._sizes = [r._n_dofs for r in self.robots]
+
+    def split_q(self, q):
+        """q [B, dof] -> each robot's part [B, dof_i]."""
+        return list(torch.split(torch.atleast_2d(q), self._sizes, dim=-1))
+
+    def rand_configs(self, num_cfgs: int, generator: Optional[
+            torch.Generator] = None, device=None) -> torch.Tensor:
+        """Each robot's part drawn in turn from ``generator``, on
+        ``device`` (default: the robots')."""
+        return torch.cat([r.rand_configs(num_cfgs, generator, device)
+                          for r in self.robots], dim=-1)
+
+    def fkine(self, q, return_collision=False):
+        """The robots' control points, concatenated: [B, sum n_sel, 3]."""
+        return torch.cat([r.fkine(qq, return_collision)
+                          for r, qq in zip(self.robots, self.split_q(q))],
+                         dim=1)
+
+    def compute_forward_kinematics_all_links(self, q, return_collision=False):
+        return [r.compute_forward_kinematics_all_links(qq, return_collision)
+                for r, qq in zip(self.robots, self.split_q(q))]
+
+    def _inter_robot_overlap(self, qs):
+        """The deepest overlap of two robots' spheres (radius sum less
+        centre distance) per configuration [B], -inf where no pair of
+        robots has spheres; > 0 is a collision. One pass of tensor ops,
+        in row chunks of at most ``_PAIR_ELEMENTS`` sphere pairs."""
+        B = qs[0].shape[0]
+        out = qs[0].new_full((B,), -math.inf)
+        if B == 0:
+            return out
+        centers = [r.sphere_centers_world(qq)
+                   for r, qq in zip(self.robots, qs)]
+        for a in range(len(self.robots)):
+            for b in range(a + 1, len(self.robots)):
+                ca, cb = centers[a], centers[b]
+                if ca.shape[1] == 0 or cb.shape[1] == 0:
+                    continue
+                rsum = (self.robots[a].link_sphere_radii[:, None]
+                        + self.robots[b].link_sphere_radii[None, :])
+                rows = max(1, self._PAIR_ELEMENTS
+                           // (ca.shape[1] * cb.shape[1]))
+                deepest = []
+                for i in range(0, B, rows):
+                    d = torch.sqrt(torch.sum(
+                        (ca[i:i + rows, :, None, :]
+                         - cb[i:i + rows, None, :, :]) ** 2, dim=-1)
+                        + 1e-12)
+                    deepest.append(torch.amax((rsum - d).flatten(1), dim=-1))
+                out = torch.maximum(out, torch.cat(deepest))
+        return out
+
+    def _inter_robot_hit(self, qs):
+        """Inter-robot sphere overlap per configuration [B] (bool)."""
+        return self._inter_robot_overlap(qs) > 0
+
+    def collision(self, q, other=None, show=False):
+        """Boolean labels [B]: any robot's environment or self collision,
+        or an overlap between two robots."""
+        del show
+        qs = self.split_q(q)
+        hit = self._inter_robot_hit(qs)
+        for r, qq in zip(self.robots, qs):
+            hit = hit | r.collision(qq, other)
+        return hit
+
+    def wrap(self, q):
+        """Angle-wrap each robot's revolute dofs only."""
+        mask = torch.cat([r._revolute_dof_mask for r in self.robots])
+        return torch.where(mask.to(q.device), wrap2pi(q), q)
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,7 @@ from pathlib import Path
 import torch
 
 from ..device import resolve_device
-from ..ops import bounds, fk_score
+from ..ops import _native, bounds, fk_score
 from ..ops.fused_score import _PLAIN_ROWS, _poly_score_grad_plain
 from ..robots.analytic import PandaFK
 from ..robots.fk_jvp import dh_chain, dh_vjp
@@ -87,12 +87,14 @@ def flagship_score_setup(n_supports=S, seed=0, device='cuda'):
 
 def fp24_spec(name, spec):
     """The kernel's DHSpec argument for a spec whose P points pad to the
-    FP_BUILT components that the B6 and B7 kernels are built for; raises
-    otherwise."""
+    FP_BUILT components that the B6 and B7 kernels are built for, on at
+    most MAX_J joints; raises otherwise."""
     c = fk_score._c_spec(spec)
-    if (3 * c.P + 7) // 8 * 8 != FP_BUILT:
+    J, P = len(spec[0]), len(spec[1])
+    if J > _native.MAX_J or (3 * P + 7) // 8 * 8 != FP_BUILT:
         raise ValueError(f'{name}: built for {FP_BUILT} padded point '
-                         f'components (6 to 8 points), got {c.P} points')
+                         f'components (6 to 8 points) on at most '
+                         f'{_native.MAX_J} joints, got {P} points on {J}')
     return c
 
 

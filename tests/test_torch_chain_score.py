@@ -229,15 +229,23 @@ def test_folded_kernel_spec_matches_plain_twin(name):
 
 def test_kernel_spec_layout_and_bounds(tmp_path):
     """The ctypes ChainSpec mirrors csrc/chain_fk.cuh (1628 bytes, inside
-    the 4 KB kernel-parameter space); a chain beyond the kernel's
-    compile-time bounds raises, naming the bound."""
+    the 4 KB kernel-parameter space); a chain beyond the tensor-core
+    kernel's compile-time bounds (the 20-link rope's 20 moving joints)
+    takes the wide instance's ChainSpecWide (6156 bytes, passed as a
+    device copy), and a chain beyond that one's raises, naming the
+    bound."""
     assert ctypes.sizeof(_native.ChainSpec) == 1628
-    path = robot_data.generate_rope_urdf(
-        n_links=20, path=str(tmp_path / 'rope_20.urdf'))
-    rope = turdf.URDFRobot(path, device='cpu', setup_acm=False,
-                           link_spheres=1)
-    with pytest.raises(ValueError, match='20 moving joints.*1 to 16'):
-        tfk._c_chain_spec(tfk.robot_chain_statics(rope))
+    assert ctypes.sizeof(_native.ChainSpecWide) == 6156
+    ropes = {}
+    for n in (20, 70):
+        path = robot_data.generate_rope_urdf(
+            n_links=n, path=str(tmp_path / f'rope_{n}.urdf'))
+        ropes[n] = turdf.URDFRobot(path, device='cpu', setup_acm=False,
+                                   link_spheres=1)
+    c = tfk._c_chain_spec(tfk.robot_chain_statics(ropes[20]))
+    assert isinstance(c, _native.ChainSpecWide) and c.M == 20
+    with pytest.raises(ValueError, match='70 moving joints.*1 to 64'):
+        tfk._c_chain_spec(tfk.robot_chain_statics(ropes[70]))
 
 
 def test_wrapper_uses_plain_twin_on_cpu_without_counting():

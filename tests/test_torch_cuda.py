@@ -142,8 +142,10 @@ def test_poly_score_kernel_matches_plain(cuda, B, S):
 # B2's instances: fp64 at F <= 8 (2 and 14 are the planar path's widths:
 # the 2-DOF q-space proxies and the 7-DOF arm's joint positions; 4 beside
 # them), the tensor-core block at FP = 16, ..., 64, each at an F that pads
-# to it (64: the full row, where product 2 takes an extra column tile)
-POLY_FS = [2, 4, 5, 13, 14, 21, 32, 37, 48, 53, 64]
+# to it (64: the full row, where product 2 takes an extra column tile),
+# the wide instance at F = 72 (three Panda arms), 102 (the 35-link rope),
+# 150 (K = 5) and 192 (its bound)
+POLY_FS = [2, 4, 5, 13, 14, 21, 32, 37, 48, 53, 64, 72, 102, 150, 192]
 
 
 @pytest.mark.parametrize('F', POLY_FS)
@@ -241,6 +243,131 @@ def test_poly_score_kernel_on_fitted_rigid_proxies(cuda, kind):
                                                      w.double())
     _close(score.double(), ref, 1e-4)
     _close(dx.double(), ref_dx, 1e-3)
+
+
+def test_poly_score_kernel_on_the_fitted_rope_proxy(cuda):
+    """B2's wide instance on chip_smoke's fitted 35-link rope proxy (34
+    control points, F = 102, fit on 10000 samples) at a 65536 sweep
+    against its float64 twin: score 1e-4, dx 1e-3."""
+    import diffco_tpu_torch as dc
+    cs = _chip_smoke()
+    robot, env = cs.rope_world(cuda)
+    ck = dc.ForwardKinematicsDiffCo(robot=robot, environment=env, seed=0,
+                                    device=cuda)
+    ck.fit(num_samples=cs.ROPE_FIT)
+    p = ck.perceptron
+    q = robot.rand_configs(65536, torch.Generator().manual_seed(9), cuda)
+    x = robot.fkine(q).reshape(65536, -1).contiguous()
+    assert x.shape[1] == 102
+    w = (p.rbf_nodes.reshape(-1) * p.valid_mask.float()
+         / p.rbf_kernel.epsilon).contiguous()
+    sup = p.support_transformed.contiguous()
+    before = fused_score.poly_score_grad_launches
+    score, dx = fused_score.poly_score_grad(x, sup, w)
+    assert fused_score.poly_score_grad_launches == before + 1
+    ref, ref_dx = fused_score._poly_score_grad_plain(x.double(), sup.double(),
+                                                     w.double())
+    _close(score.double(), ref, 1e-4)
+    _close(dx.double(), ref_dx, 1e-3)
+
+
+def test_rope_sweeps_through_the_wide_b3_instance(cuda, tmp_path):
+    """A ForwardKinematicsDiffCo on a 20-link rope (20 moving joints, past
+    the tensor-core kernel's 16) sweeps on the card through B3's wide
+    instance at B = 8192 and 65536, as the JAX package takes its kernel at
+    every size: one B3 launch a sweep, and the score and dq of the float64
+    twin (1e-4, 1e-3)."""
+    import diffco_tpu_torch as dc
+    rope = URDFRobot(robot_data.generate_rope_urdf(
+        n_links=20, path=str(tmp_path / 'rope_20.urdf')), device=cuda,
+        setup_acm=False, link_spheres=2)
+    cs = fk_score.robot_chain_statics(rope)
+    assert isinstance(fk_score._c_chain_spec(cs), _native.ChainSpecWide)
+    env = dc.ShapeEnv({'ball': {'type': 'Sphere', 'params': {'radius': 0.2},
+                                'transform': [[1, 0, 0, 0.2], [0, 1, 0, 0],
+                                              [0, 0, 1, 0.1], [0, 0, 0, 1]]}})
+    ck = dc.ForwardKinematicsDiffCo(robot=rope, environment=env, seed=0,
+                                    device=cuda)
+    ck.fit(num_samples=2000)
+    p = ck.perceptron
+    w = p.rbf_nodes.reshape(-1) * p.valid_mask.float() / p.rbf_kernel.epsilon
+    g = torch.Generator().manual_seed(1)
+    for B in (8192, 65536):
+        before = fk_score.chain_score_grad_launches
+        q = rope.rand_configs(B, g, cuda).requires_grad_(True)
+        s = ck.collision_score(q)
+        dq, = torch.autograd.grad(s.sum(), q)
+        torch.cuda.synchronize()
+        assert fk_score.chain_score_grad_launches == before + 1
+        ref, ref_dq = fk_score._chain_score_grad_plain(
+            q.detach().double(), p.support_transformed.double(), w.double(),
+            cs)
+        _close((s.detach()[:, 0] - ck.safety_bias).double(), ref, 1e-4)
+        _close(dq.double(), ref_dq, 1e-3)
+
+
+def _wide_robot(name, dev, tmp_path):
+    """A robot past B1's / B3's bounds: the 9-joint DH chain, PandaFK's
+    chain with 17 points, or the 35-link rope."""
+    from diffco_tpu_torch.robots.analytic import DHChainRobot, DHParameters
+    if name == 'dh9':
+        n = 9
+        return DHChainRobot(DHParameters(a=[0.1] * n, alpha=[0.5] * n,
+                                         d=[0.05] * n, theta=[0.3] * n),
+                            [[-np.pi, np.pi]] * n, [True] * n)
+    if name == 'panda17':
+        return panda_with_points(17)
+    return URDFRobot(robot_data.generate_rope_urdf(
+        n_links=35, path=str(tmp_path / 'rope_35.urdf')), device=dev,
+        setup_acm=False, link_spheres=1)
+
+
+@pytest.mark.parametrize('name,C', [('dh9', 1), ('dh9', 2), ('panda17', 1),
+                                    ('panda17', 5), ('rope35', 1),
+                                    ('rope35', 3)])
+def test_wide_instances_match_plain(cuda, tmp_path, name, C):
+    """The wide instance (csrc/chain_wide.cuh) as B1 and B4 launch it on a
+    DH chain past their bounds and B3 and B5 on the 35-link rope, against
+    the plain twins at B = 4096 + 5, S = 128 (configurations 0-11 on or
+    near a support), each launch counted on its own kernel; the launch
+    plan on the card is ops/_native.py::chain_wide_plan's."""
+    robot = _wide_robot(name, cuda, tmp_path)
+    g = torch.Generator().manual_seed(C)
+    q = robot.rand_configs(4096 + 5, g, cuda)
+    sup = robot.fkine(robot.rand_configs(128, g, cuda)).reshape(128, -1)
+    sup = _near_supports(robot, q, sup, seed=C)
+    W = _weights(128, C, cuda, seed=C)
+    if name == 'rope35':
+        spec = fk_score.robot_chain_statics(robot)
+        kernel = (fk_score.chain_score_grad if C == 1
+                  else fk_score.chain_multi_score_grad)
+        plain = (fk_score._chain_score_grad_plain if C == 1
+                 else fk_score._chain_multi_score_grad_plain)
+        c = fk_score._c_chain_spec(spec)
+    else:
+        spec = fk_score.robot_spec(robot)
+        kernel = (fk_score.dh_score_grad if C == 1
+                  else fk_score.dh_multi_score_grad)
+        plain = (fk_score._dh_score_grad_plain if C == 1
+                 else fk_score._dh_multi_score_grad_plain)
+        c = fk_score._c_spec(spec)
+    assert isinstance(c, _native.ChainSpecWide)
+    w = W[:, 0].contiguous() if C == 1 else W
+    counter = f'{kernel.__name__}_launches'
+    before = getattr(fk_score, counter)
+    score, dq = kernel(q, sup, w, spec)
+    torch.cuda.synchronize()
+    assert getattr(fk_score, counter) == before + 1
+    ref, ref_dq = plain(q, sup, w, spec)
+    if C == 1:
+        _close_near(score, dq, ref, ref_dq)
+    else:
+        _close(score, ref, 1e-4)
+        _close(dq[:, 4:], ref_dq[:, 4:], 1e-3)
+    card = _native.chain_wide_plan_on_card(c.P, c.M)
+    plan = _native.chain_wide_plan(c.P, c.M)
+    assert all(card[k] == plan[k] for k in ('smem_bytes', 'threads', 'rows'))
+    assert card['warps_per_sm'] >= 16
 
 
 @pytest.mark.parametrize('B,S', SHAPES)
@@ -449,8 +576,8 @@ def test_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):
         fk_score.dh_score_grad(q.double(), sup, w, spec)
     with pytest.raises(ValueError):
-        fused_score.poly_score_grad(torch.zeros(4, 65, device=cuda),
-                                    torch.zeros(3, 65, device=cuda),
+        fused_score.poly_score_grad(torch.zeros(4, 193, device=cuda),
+                                    torch.zeros(3, 193, device=cuda),
                                     torch.zeros(3, device=cuda))
     with pytest.raises(ValueError):
         fused_score.poly_score_grad(sup.T, sup.T, w[:21])
@@ -522,9 +649,10 @@ def test_chain_kernel_rejects_what_it_cannot_take(cuda, tmp_path):
         fk_score.chain_score_grad(q.double(), sup, w, cs)
     with pytest.raises(ValueError):
         fk_score.chain_score_grad(q, sup[:, :6].contiguous(), w, cs)
-    # 20 moving joints: beyond the kernel's compile-time bound of 16
+    # 70 moving joints: beyond the wide instance's bound of 64 (the
+    # tensor-core instance's is 16)
     rope = URDFRobot(robot_data.generate_rope_urdf(
-        n_links=20, path=str(tmp_path / 'rope_20.urdf')), device=cuda,
+        n_links=70, path=str(tmp_path / 'rope_70.urdf')), device=cuda,
         setup_acm=False, link_spheres=1)
     g = torch.Generator().manual_seed(0)
     qr = rope.rand_configs(64, g, cuda)

@@ -310,6 +310,7 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 }
 struct WarpScratch {
   float a[32][4], b[32][2], v[32];
+  double dv[32];
   std::barrier<>* bar;
 };
 WarpScratch g_warps[8];
@@ -353,19 +354,30 @@ float diffco_replay_shfl_xor(float v, int mask) {
   w.bar->arrive_and_wait();
   return o;
 }
+double diffco_replay_shfl_xor_f64(double v, int mask) {
+  WarpScratch& w = my_warp();
+  const int lane = threadIdx.x % 32;
+  w.dv[lane] = v;
+  w.bar->arrive_and_wait();
+  const double o = w.dv[lane ^ mask];
+  w.bar->arrive_and_wait();
+  return o;
+}
 '''
 
-# The block runner of the tensor-core kernels (B1, B2, B3), after their
-# device code: each block runs as its 256 threads, one block at a time,
-# with shared memory filled with NaN first; OUT gets the guard's
-# recomputations (int64), then the score and the gradient (float32).
+# The block runner of the tensor-core kernels (B1, B2, B3) and of B2's
+# wide instance, after their device code: each block of ``rows`` rows
+# runs as its 256 threads, one block at a time, with shared memory filled
+# with NaN first; OUT gets the guard's recomputations (int64), then the
+# score and the gradient (float32).
 TC_COMMON = r'''
 alignas(16) float diffco_tc_smem[1 << 16];
 
 template <class K>
-void run_tc_blocks(int B, int smem_bytes, K&& kernel) {
+void run_tc_blocks(int B, int smem_bytes, K&& kernel,
+                   int rows = diffco::kTcRows) {
   if (smem_bytes > int(sizeof(diffco_tc_smem))) std::exit(5);
-  const int nblocks = (B + diffco::kTcRows - 1) / diffco::kTcRows;
+  const int nblocks = (B + rows - 1) / rows;
   for (int blk = 0; blk < nblocks; ++blk) {
     std::fill(std::begin(diffco_tc_smem), std::end(diffco_tc_smem),
               std::nanf(""));
@@ -457,10 +469,12 @@ int main(int argc, char** argv) {
 '''
 
 # B2 (its measurement build, at the production threshold; at F <= 8 its
-# fp64 instance, kF64Rows threads a block, which has no guard):
+# fp64 instance, kF64Rows threads a block, and at F > 64 its wide
+# instance, wide_rows<K>() rows a block, neither with a guard):
 #   replay B S F IN OUT
 # IN holds x [B, F], s [S, F], w [S] (float32); `replay plan` prints
-# kF64Smem, then TcSmem<FP>::kBytes at FP = 16-64.
+# kF64Smem, then TcSmem<FP>::kBytes at FP = 16-64, then the wide
+# instance's shared bytes and rows at K = 3-6.
 POLY_RUNNER = TC_COMMON + r'''
 template <int F>
 void run_poly_f64(const std::vector<float>& x, const std::vector<float>& s,
@@ -485,6 +499,16 @@ void run_poly_f64(const std::vector<float>& x, const std::vector<float>& s,
   }
 }
 
+template <int K>
+void run_poly_wide(const std::vector<float>& x, const std::vector<float>& s,
+                   const std::vector<float>& w, std::vector<float>& score,
+                   std::vector<float>& dx, int B, int S, int F) {
+  run_tc_blocks(B, diffco::wide_smem_bytes<K>(), [&] {
+    diffco::poly_score_wide_kernel<K>(x.data(), s.data(), w.data(),
+                                      score.data(), dx.data(), B, S, F);
+  }, diffco::wide_rows<K>());
+}
+
 template <int FP>
 void run_poly(const std::vector<float>& x, const std::vector<float>& s,
               const std::vector<float>& w, std::vector<float>& score,
@@ -504,6 +528,10 @@ int main(int argc, char** argv) {
                   diffco::TcSmem<40>::kBytes, diffco::TcSmem<48>::kBytes,
                   diffco::TcSmem<56>::kBytes, diffco::TcSmem<64>::kBytes})
       std::printf("%d\n", b);
+    std::printf("%d %d\n", diffco::wide_smem_bytes<3>(), diffco::wide_rows<3>());
+    std::printf("%d %d\n", diffco::wide_smem_bytes<4>(), diffco::wide_rows<4>());
+    std::printf("%d %d\n", diffco::wide_smem_bytes<5>(), diffco::wide_rows<5>());
+    std::printf("%d %d\n", diffco::wide_smem_bytes<6>(), diffco::wide_rows<6>());
     return 0;
   }
   if (argc != 6) return 2;
@@ -518,11 +546,16 @@ int main(int argc, char** argv) {
   std::vector<float> score(B, std::nanf("")), dx(size_t(B) * F,
                                                   std::nanf(""));
   unsigned long long guard = 0;
-  switch (F <= diffco::kF64MaxF ? F : (F + 7) / 8 * 8) {
+  switch (F <= diffco::kF64MaxF ? F : F > 64 ? 1000 + (F + 31) / 32
+                                              : (F + 7) / 8 * 8) {
     case 2: run_poly_f64<2>(x, s, w, score, dx, B, S); break;
     case 5: run_poly_f64<5>(x, s, w, score, dx, B, S); break;
     case 24: run_poly<24>(x, s, w, score, dx, B, S, F, &guard); break;
     case 64: run_poly<64>(x, s, w, score, dx, B, S, F, &guard); break;
+    case 1003: run_poly_wide<3>(x, s, w, score, dx, B, S, F); break;
+    case 1004: run_poly_wide<4>(x, s, w, score, dx, B, S, F); break;
+    case 1005: run_poly_wide<5>(x, s, w, score, dx, B, S, F); break;
+    case 1006: run_poly_wide<6>(x, s, w, score, dx, B, S, F); break;
     default: return 4;
   }
   return put(argv[5], guard, score, dx);
@@ -531,10 +564,15 @@ int main(int argc, char** argv) {
 
 # B3 (its measurement build, at the production threshold):
 #   replay B S IN OUT
+# and the wide instance of B1, B3, B4 and B5 (csrc/chain_wide.cuh):
+#   replay wide B S C IN OUT
+# `replay wideplan` prints chain_wide_smem_bytes<K>(M) and wide_rows<K>()
+# for each (P, M) of WIDE_PLAN_PM.
 # IN holds the ChainSpec, then q [B, D], s [S, 3P], w [S] (float32);
 # `replay plan` prints ChainSmem<FP>::bytes(M) at FP = 8-64 (rows) for
 # M in CHAIN_PLAN_M (columns).
 CHAIN_PLAN_M = (1, 4, 7, 9, 11, 16)
+WIDE_PLAN_PM = ((19, 20), (34, 35), (9, 9), (64, 64), (50, 40), (22, 16))
 CHAIN_RUNNER = TC_COMMON + r'''
 template <int FP>
 void run_chain(const std::vector<float>& q, const std::vector<float>& s,
@@ -554,7 +592,58 @@ void plan_row() {
   std::printf("\n");
 }
 
+template <int K>
+void run_wide(const std::vector<float>& q, const std::vector<float>& s,
+              const std::vector<float>& W, std::vector<float>& score,
+              std::vector<float>& dq, int B, int S, int C,
+              const diffco::ChainSpecWide& sp) {
+  run_tc_blocks(B, diffco::chain_wide_smem_bytes<K>(sp.M), [&] {
+    diffco::chain_wide_score_kernel<K>(q.data(), s.data(), W.data(),
+                                       score.data(), dq.data(), B, S, C,
+                                       &sp);
+  }, diffco::wide_rows<K>());
+}
+
+// the wide instance: replay wide B S C IN OUT, IN holding the
+// ChainSpecWide, q [B, D], s [S, 3P], W [S, C]; OUT gets 0 (no guard),
+// score [B, C] and dq [C, B, D]
+int run_wide_main(char** argv) {
+  const int B = std::atoi(argv[2]), S = std::atoi(argv[3]),
+            C = std::atoi(argv[4]);
+  FILE* in = std::fopen(argv[5], "rb");
+  if (!in) return 2;
+  const diffco::ChainSpecWide sp = take<diffco::ChainSpecWide>(in, 1)[0];
+  if (!diffco::spec_ok(sp)) return 6;
+  const auto q = take<float>(in, size_t(B) * sp.D);
+  const auto s = take<float>(in, size_t(S) * 3 * sp.P);
+  const auto W = take<float>(in, size_t(S) * C);
+  std::fclose(in);
+  std::vector<float> score(size_t(B) * C, std::nanf("")),
+      dq(size_t(C) * B * sp.D, std::nanf(""));
+  switch ((3 * sp.P + 31) / 32) {
+    case 1: run_wide<1>(q, s, W, score, dq, B, S, C, sp); break;
+    case 2: run_wide<2>(q, s, W, score, dq, B, S, C, sp); break;
+    case 3: run_wide<3>(q, s, W, score, dq, B, S, C, sp); break;
+    case 4: run_wide<4>(q, s, W, score, dq, B, S, C, sp); break;
+    case 5: run_wide<5>(q, s, W, score, dq, B, S, C, sp); break;
+    case 6: run_wide<6>(q, s, W, score, dq, B, S, C, sp); break;
+    default: return 4;
+  }
+  return put(argv[6], 0, score, dq);
+}
+
+template <int K>
+void wide_plan(int M) {
+  std::printf("%d %d\n", diffco::chain_wide_smem_bytes<K>(M),
+              diffco::wide_rows<K>());
+}
+
 int main(int argc, char** argv) {
+  if (argc == 7 && std::string(argv[1]) == "wide") return run_wide_main(argv);
+  if (argc == 2 && std::string(argv[1]) == "wideplan") {
+    WIDE_PLAN_CALLS
+    return 0;
+  }
   if (argc == 2 && std::string(argv[1]) == "plan") {
     plan_row<8>(); plan_row<16>(); plan_row<24>(); plan_row<32>();
     plan_row<40>(); plan_row<48>(); plan_row<56>(); plan_row<64>();
@@ -581,7 +670,9 @@ int main(int argc, char** argv) {
   }
   return put(argv[4], guard, score, dq);
 }
-'''.replace('M_LIST', ', '.join(map(str, CHAIN_PLAN_M)))
+'''.replace('M_LIST', ', '.join(map(str, CHAIN_PLAN_M))).replace(
+    'WIDE_PLAN_CALLS', ' '.join(f'wide_plan<{-(-3 * P // 32)}>({M});'
+                                for P, M in WIDE_PLAN_PM))
 
 
 def _gxx():
@@ -704,13 +795,17 @@ def test_dh_tc_block_replay_matches_plain(tc_replay_bin, tmp_path,
         *(torch.from_numpy(a) for a in (q, sup, w)), spec))
 
 
-@pytest.mark.parametrize('F', [2, 5, 21, 64])
+@pytest.mark.parametrize('F', [2, 5, 21, 64, 72, 102, 150, 192])
 def test_poly_tc_block_replay_matches_plain(tc_bins, tmp_path, F):
     """B2 as the launch dispatches it: its fp64 instance at F = 2 and 5
     (one block of 256 rows, no guard), the tensor-core block at FP = 24
     and 64 (F = 64 fills the row: product 2 takes its extra column tile
-    for the weights), against its plain twin, as B1's replay: B = 128 +
-    5, whose second tensor-core block holds 5 live rows and 123 copies of
+    for the weights), its wide instance at F = 72 and 102 (K = 3 and 4
+    components a lane, two rows a warp, 16 rows a block: nine blocks,
+    the last with 5 live rows and the supports in chunks of 32, 32 and
+    6; no guard) and at F = 150 and 192 (K = 5 and 6, one row a warp, 8
+    rows a block), against its plain twin, as B1's replay: B = 128 + 5,
+    whose second tensor-core block holds 5 live rows and 123 copies of
     row B - 1, S = 70, shared memory filled with NaN. Rows and supports
     are uniform in a box off the origin, so that the block's centre
     matters; supports 0-11 sit on rows 0-3, 1e-3 from rows 4-7 and 1e-2
@@ -727,7 +822,7 @@ def test_poly_tc_block_replay_matches_plain(tc_bins, tmp_path, F):
                   (x.tobytes(), sup.tobytes(), w.tobytes()), F, tmp_path)
     _check_tc(*out, *fused_score._poly_score_grad_plain(
         *(torch.from_numpy(a) for a in (x, sup, w))),
-        guarded=F > _native.F64_MAX_F)
+        guarded=_native.F64_MAX_F < F <= _native.TC_MAX_F)
 
 
 def _chain_robot(name, tmp_path):
@@ -789,16 +884,20 @@ def _plan(exe):
 def test_poly_tc_plan_matches_the_block(tc_bins):
     """ops/_native.py::poly_tc_plan's shared bytes are B2's kernel's
     (csrc/poly_score.cu: kF64Smem for the fp64 instance at F <= 8,
-    TcSmem<FP> at every FP = 16-64), two blocks (16 warps) per SM on the
-    tensor-core block and at least three (24 warps) on the fp64 instance
-    (on the card, test_poly_score_kernel_at_every_fp holds the plan to the
-    occupancy calculator)."""
+    TcSmem<FP> at every FP = 16-64, and the wide instance's chunk and rows
+    at K = 3-6, F = 65-192), two blocks (16 warps) per SM on the
+    tensor-core block and the wide instance and at least three (24 warps)
+    on the fp64 instance (on the card, test_poly_score_kernel_at_every_fp
+    holds the plan to the occupancy calculator)."""
     got = [int(v) for v in _plan(tc_bins['poly'])]
-    assert got == [_native.poly_tc_plan(F)['smem_bytes']
-                   for F in range(8, 65, 8)]
+    assert got[:8] == [_native.poly_tc_plan(F)['smem_bytes']
+                       for F in range(8, 65, 8)]
+    wide = [(_native.poly_tc_plan(F)['smem_bytes'],
+             _native.poly_tc_plan(F)['rows']) for F in (96, 128, 160, 192)]
+    assert list(zip(got[8::2], got[9::2])) == wide
     assert all(_native.poly_tc_plan(F)['warps_per_sm']
                == (24 if F <= _native.F64_MAX_F else 16)
-               for F in range(1, 65))
+               for F in range(1, _native.MAX_F + 1))
 
 
 def test_chain_tc_plan_matches_the_block(tc_bins):
@@ -811,3 +910,102 @@ def test_chain_tc_plan_matches_the_block(tc_bins):
             for fp in range(8, 65, 8) for M in CHAIN_PLAN_M]
     assert got == want
     assert _native.chain_tc_plan(8, 7)['warps_per_sm'] == 16
+
+
+def _dh9():
+    """A 9-joint DH chain with a point on every frame (J = 9 > MAX_J)."""
+    from diffco_tpu_torch.robots.analytic import DHChainRobot, DHParameters
+    n = 9
+    return DHChainRobot(DHParameters(a=[0.1] * n, alpha=[0.5] * n,
+                                     d=[0.05] * n, theta=[0.3] * n),
+                        [[-np.pi, np.pi]] * n, [True] * n)
+
+
+def _wide_case(name, tmp_path):
+    """(robot, the wide instance's spec, its plain twin at one weight
+    column, at several, the twins' spec argument): the ropes and the DH
+    chain lie past the narrow kernels' bounds; the lift rig (prismatic,
+    mimic) and the trifinger (a branching tree) are forced onto the wide
+    instance."""
+    if name == 'dh9':
+        robot = _dh9()
+        spec = fk_score.robot_spec(robot)
+        return (robot, fk_score._c_spec(spec), fk_score._dh_score_grad_plain,
+                fk_score._dh_multi_score_grad_plain, spec)
+    if name.startswith('rope'):
+        robot = URDFRobot(robot_data.generate_rope_urdf(
+            n_links=int(name[4:]), path=str(tmp_path / f'{name}.urdf')),
+            device='cpu', setup_acm=False, link_spheres=1)
+    else:
+        robot = _chain_robot(name, tmp_path)
+    cs = fk_score.robot_chain_statics(robot)
+    c = fk_score._chain_struct(*fk_score._fold_chain(cs), cs.n_dofs,
+                               'chain_score_grad', narrow=False)
+    if name.startswith('rope'):
+        assert bytes(fk_score._c_chain_spec(cs)) == bytes(c)
+    return (robot, c, fk_score._chain_score_grad_plain,
+            fk_score._chain_multi_score_grad_plain, cs)
+
+
+# the 20-link rope (20 moving joints, 19 points: K = 2), the 35-link rope
+# (34 points, F = 102: K = 4) at one and three classes, the lift rig and
+# the trifinger (K = 1 and 1) and the 9-joint DH chain folded into chain
+# form (K = 1) at one and two
+WIDE_CASES = [('rope20', 1), ('rope35', 1), ('rope35', 3),
+              ('lift_rig.urdf', 2), ('trifinger_simple.urdf', 1),
+              ('dh9', 1), ('dh9', 2)]
+
+
+@pytest.mark.parametrize('name,C', WIDE_CASES)
+def test_chain_wide_replay_matches_plain(tc_bins, tmp_path, name, C):
+    """The wide instance of B1, B3, B4 and B5 (csrc/chain_wide.cuh) against
+    the plain twins, as B1's replay (``_check_tc``: score 1e-4, dq 1e-3 of
+    max away from rows 0-3, which sit on a support), at B = 128 + 5 and
+    S = 70 (chunks of 32, 32 and 6), shared memory filled with NaN; with
+    C > 1 the classes' weight columns W [S, C] give score [B, C] and
+    dq [C, B, D]."""
+    robot, c, plain, plain_multi, spec = _wide_case(name, tmp_path)
+    assert isinstance(c, _native.ChainSpecWide)
+    q, sup, w = _near_support_inputs(robot, seed=len(name) + C)
+    W = (np.random.default_rng(C).normal(size=(S, C)) * 0.05).astype(
+        np.float32)
+    if C == 1:
+        W[:, 0] = w
+    src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
+    src.write_bytes(bytes(c) + q.tobytes() + sup.tobytes() + W.tobytes())
+    proc = subprocess.run([str(tc_bins['chain']), 'wide', str(B), str(S),
+                           str(C), str(src), str(dst)],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+    raw = dst.read_bytes()
+    out = np.frombuffer(raw[8:], np.float32)
+    D = q.shape[1]
+    score, dq = out[:B * C].reshape(B, C), out[B * C:].reshape(C, B, D)
+    args = (torch.from_numpy(a) for a in (q, sup, W))
+    if C == 1:
+        ref, ref_dq = plain(*(torch.from_numpy(a) for a in (q, sup, w)),
+                            spec)
+        ref, ref_dq = ref[:, None], ref_dq[None]
+    else:
+        ref, ref_dq = plain_multi(*args, spec)
+    for k in range(C):
+        _check_tc(0, score[:, k], dq[k], ref[:, k], ref_dq[k],
+                  guarded=False)
+
+
+def test_chain_wide_plan_matches_the_kernel(tc_bins):
+    """ops/_native.py::chain_wide_plan's shared bytes and rows are the wide
+    instance's (csrc/chain_wide.cuh: B2's wide chunk, the ChainSpecWide,
+    the ancestor masks and each row's points, gradient, frames, axes and
+    joint values), and it keeps
+    16 warps per SM."""
+    got = [tuple(map(int, ln.split())) for ln in
+           subprocess.run([str(tc_bins['chain']), 'wideplan'],
+                          capture_output=True, text=True,
+                          timeout=60).stdout.splitlines()]
+    want = [(_native.chain_wide_plan(P, M)['smem_bytes'],
+             _native.chain_wide_plan(P, M)['rows'])
+            for P, M in WIDE_PLAN_PM]
+    assert got == want
+    assert all(_native.chain_wide_plan(P, M)['warps_per_sm'] == 16
+               for P, M in WIDE_PLAN_PM)

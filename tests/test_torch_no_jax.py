@@ -7,8 +7,10 @@ checker's fit, active-learning update, collision and path bands, and the
 planar path (a 2-D dataset generated, saved and unpacked, the 2-D
 ground truth, the escape and manifold samplers, RRT-Connect and RRT*)
 and the rigid-body path (se3, a RigidBody proxy scored, a mesh scene, a
-.scene text parsed, a point-cloud world) load neither JAX nor the JAX
-package."""
+.scene text parsed, a point-cloud world) and the multi-robot, temporal and
+host-side modules (MultiURDFRobot, the dynamic ground truth and
+PointRobot1D, the legacy checkers, profiling, the native oracle) load
+neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -129,6 +131,30 @@ name, shapes = moveit_scene.parse_scene_text(
     'w\n* b\n1\nsphere\n0.1\n0 0 0\n0 0 0 1\n0 0 0 0\n.\n')
 assert name == 'w' and shapes['b']['type'] == 'Sphere'
 assert dc.PCDEnv(np.zeros((5, 3))).scene.n_objects == 5
+from diffco_tpu_torch import native, profiling, legacy, dynamics
+two = [dc.TwoLinkRobot(device='cpu', setup_acm=False) for _ in range(2)]
+multi = dc.MultiURDFRobot(two)
+qm = multi.rand_configs(8, g, 'cpu')
+assert multi.fkine(qm).shape[0] == 8 and multi.collision(qm).shape == (8,)
+gt = dc.Dynamic1DChecker([(dc.LinearMotion(0.5, 2.0), 0.6),
+                          (dc.SineMotion(2.0, 0.8, 0.0, 7.0), 0.5)],
+                         device='cpu')
+xt, lab, _ = dc.temporal_dataset(gt, [[0, 10], [0, 10]], 32, g)
+pr = dc.PointRobot1D([[0, 10], [0, 10]])
+sd_chk = dc.Simple1DDynamicChecker(
+    [dc.Simple1DDynamicObstacle(1.2, dc.LinearMotion(0.5, 2.0))], pr,
+    device='cpu')
+assert sd_chk.predict(pr.normalize(xt))[0].shape == (32, 1)
+fc = dc.FCLChecker([dc.FCLObstacle('circle', (1.5, 1.0), 0.6)],
+                   robot=arm, device='cpu')
+assert fc.predict(grid[:4])[0].shape == (4, 1)
+timers = profiling.Timers()
+with timers.span('x', block=True):
+    pass
+assert native.available()
+centers = np.zeros((2, 1, 3))
+assert native.spheres_vs_scene(centers, np.ones(1),
+                               native.NativeScene(env.scene)).shape == (2,)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'diffco_tpu'
              or m.startswith('diffco_tpu.'))
