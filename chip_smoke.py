@@ -80,11 +80,13 @@ ten paths through the entry points a user calls:
   S = 512): ``diffco_tpu_torch.scripts.roofline_fk_score.run`` (B1's
   bench step and kernel, the B7 ablation ladder, the B1 block-size sweep)
   and ``diffco_tpu_torch.scripts.ab_dual_tile.run`` (B1 against the B6
-  dual-row variants), each result printed as a JSON line.
+  dual half-tile variants), each result printed as a JSON line.
 
 Before the paths it holds B6 (every variant) against the B1 kernel and
 B1's plain twin, B1 at each block size of the sweep against the twin,
-and each B7 mode against its plain twin, at B = 65536 + 37, S = 512.
+and each B7 mode against its plain twin, at B = 65536 + 37, S = 512, and
+reads from the SASS that every B6 variant and every B7 rung past fk_only
+runs its products on the tensor cores (HMMA).
 
 On the PandaFK and FrankaPanda paths' fitted sweeps it also prints the
 share of pairs that the near-pair guard of the tensor-core kernels
@@ -111,11 +113,13 @@ import time
 import numpy as np
 import torch
 
-from diffco_tpu_torch.ops.bounds import (ablation_work, bound, chain_ops,
-                                         chain_tc_bound, dh_ops, dh_tc_bound,
-                                         dh_tc_times, fk_score_bytes,
-                                         poly_bytes, poly_tc_bound, score_ops,
-                                         tc_bound, tc_times)
+from diffco_tpu_torch.ops.bounds import (ablation_tc_bound,
+                                         ablation_tc_times, ablation_work,
+                                         bound, chain_ops, chain_tc_bound,
+                                         dh_ops, dh_tc_bound, dh_tc_times,
+                                         fk_score_bytes, poly_bytes,
+                                         poly_tc_bound, score_ops, tc_bound,
+                                         tc_times)
 from diffco_tpu_torch.robots.analytic import baxter_arm
 
 # the main path's shapes (bench.py's primitive: B = 65536, S = 512)
@@ -335,16 +339,6 @@ mesh
 0 0 0 0
 .
 """
-# B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
-# without dq, 1e-3 with it. In mv_bf16_full kernel and twin may round an r
-# or 1/r to neighbouring bf16 values (2^-8 of a term; on the H100 they
-# differed by 2.6e-3 of the 6.9 max at this shape), while leaving the
-# rounding out moves it by 2.7e-2: check_roofline_kernels asserts that
-# this tolerance tells the two apart
-ABLATION_TOL = {'fk_only': 1e-4, 'mxu': 1e-4, 'mxu_rsqrt': 1e-4,
-                'fwd': 1e-4, 'mv_f32_full': 1e-3, 'mv_bf16_full': 1e-3}
-
-
 def _phase(name, t0, **info):
     fields = ' '.join(f'{k}={v}' for k, v in info.items())
     print(f'[{name}] {time.perf_counter() - t0:.2f}s {fields}', flush=True)
@@ -358,8 +352,9 @@ def _ptxas_report(log):
     mode_names = {str(v): k for k, v in MODES.items()}
     out, kernel, spill, stack = [], None, None, None
     for ln in log.splitlines():
-        m = re.search(r'((?:poly|dh|chain)(?:_multi|_dual)?_score_grad_kernel'
-                      r'|dh_ablation_kernel|(?:dh|poly|chain)_score_tc_kernel'
+        m = re.search(r'((?:poly|dh|chain)(?:_multi)?_score_grad_kernel'
+                      r'|dh_ablation_kernel|dh_dual_score_tc_kernel'
+                      r'|(?:dh|poly|chain)_score_tc_kernel'
                       r'|poly_score_(?:f64|wide)_kernel'
                       r'|chain_wide_score_kernel)I((?:L[ib]\d+E)+)E',
                       ln)
@@ -1022,19 +1017,26 @@ def check_chain_multi_kernel(dev):
 def check_roofline_kernels(robot, dev):
     """B6 in every variant against the B1 kernel and B1's fp32 plain twin,
     B1 at each block size of the roofline path's sweep against the twin,
-    and each B7 mode against its plain twin, at B = 65536 + 37, S = 512
-    (tolerances as in tests/test_torch_cuda.py)."""
+    and each B7 mode against its plain twin (``rf.ABLATION_TOL``), at
+    B = 65536 + 37, S = 512 (tolerances as in tests/test_torch_cuda.py);
+    and HMMA in the SASS of every B6 variant and B7 rung past fk_only."""
     from diffco_tpu_torch.ops import fk_score
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
     from diffco_tpu_torch.scripts import roofline_fk_score as rf
+    from diffco_tpu_torch.scripts import sass_counts
+    t0 = time.perf_counter()
+    hmma = sass_counts.roofline_hmma()
+    _phase('B6 and B7 SASS', t0, hmma={
+        re.search(r'(dh_\w+_kernel)I(L[ib]\d+E)E', k).group(0): n
+        for k, n in hmma.items()})
     t0 = time.perf_counter()
     q, sup, w = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=30)
     spec = fk_score.robot_spec(robot)
     b1 = fk_score.dh_score_grad(q, sup, w, spec)
     twin = fk_score._dh_score_grad_plain(q, sup, w, spec)
     dual = {}
-    for name, (threads, pipelined) in ab.VARIANTS.items():
-        score, dq = ab.dh_dual_score_grad(q, sup, w, spec, threads, pipelined)
+    for name in ab.VARIANTS:
+        score, dq = ab.dh_dual_score_grad(q, sup, w, spec, name)
         torch.cuda.synchronize()
         for what, (ref, ref_dq) in (('B1 kernel', b1), ('plain twin', twin)):
             _check_close(f'{name} score vs {what}', score, ref, 1e-4)
@@ -1061,14 +1063,14 @@ def check_roofline_kernels(robot, dev):
         ref = refs[mode] = rf._dh_ablation_plain(q, sup, w, spec, mode)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        tol = ABLATION_TOL[mode] * float(ref.abs().max())
+        tol = rf.ABLATION_TOL[mode] * float(ref.abs().max())
         if not err <= tol:
             raise AssertionError(f'dh_ablation {mode}: kernel and plain twin '
                                  f'disagree by {err} > {tol}')
         modes[mode] = err
     # a kernel that left out mv_bf16_full's rounding would give mv_f32_full
     bf16_gap = float((refs['mv_bf16_full'] - refs['mv_f32_full']).abs().max())
-    bf16_tol = ABLATION_TOL['mv_bf16_full'] * float(
+    bf16_tol = rf.ABLATION_TOL['mv_bf16_full'] * float(
         refs['mv_bf16_full'].abs().max())
     if not bf16_gap > bf16_tol:
         raise AssertionError(f'mv_bf16_full: its rounding moves it by only '
@@ -1077,7 +1079,7 @@ def check_roofline_kernels(robot, dev):
            max_abs_err=modes, bf16_rounding_moves=bf16_gap,
            bf16_tol=bf16_tol)
     return dict(args=(q, sup, w, spec), dual_err=dual, mode_err=modes,
-                sweep_err=max(sweep.values()))
+                sweep_err=max(sweep.values()), hmma=hmma)
 
 
 def roofline_path(dev):
@@ -1089,7 +1091,8 @@ def roofline_path(dev):
     roof = rf.run(dev)
     _phase('roofline path: roofline_fk_score', t0,
            full_kernel_ms=roof['full_kernel_ms'],
-           bench_step_ms=roof['bench_step_ms'])
+           bench_step_ms=roof['bench_step_ms'],
+           device_ms=roof['device_ms'])
     print(json.dumps({'roofline': roof}), flush=True)
     for key in ('bench_step_ms', 'full_kernel_ms', 'mv_f32_full_ms'):
         if not (roof[key] or 0) > 0:
@@ -1097,7 +1100,8 @@ def roofline_path(dev):
                                  f'(raw {roof["raw_ms"]})')
     t0 = time.perf_counter()
     dual = ab.run(dev)
-    _phase('roofline path: ab_dual_tile', t0, prod_ms=dual['prod_ms'])
+    _phase('roofline path: ab_dual_tile', t0, prod_ms=dual['prod_ms'],
+           device_ms={k: v['device_ms'] for k, v in dual['variants'].items()})
     print(json.dumps({'dual_tile_ab': dual}), flush=True)
     for name, v in dual['variants'].items():
         if not v['rel_grad_err_vs_prod'] < 1e-3:
@@ -2685,8 +2689,12 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
     (diffco_tpu_torch/ops/bounds.py). B1, B2 and B3 run their products on
     the tensor cores: their ``bound_ms`` is the tensor-core route's
     (``dh_tc_bound``, ``poly_tc_bound``, ``chain_tc_bound``), with the
-    fp32 bound beside it (``bound_fp32_ms``). B6 and B7 have one row per variant
-    and mode."""
+    fp32 bound beside it (``bound_fp32_ms``); so do B6 (B1's
+    ``dh_tc_bound``) and each B7 rung (``ablation_tc_bound``), which have
+    one row per variant and mode. ``ms`` is the wrapper's time per call
+    over back-to-back calls, which the host's launches bound for the
+    fastest kernels; B1, B6 and B7 also give ``device_ms``, the kernel's
+    own time on the card (``roofline_fk_score.device_ms``)."""
     from diffco_tpu_torch.ops import fk_score, fused_score
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
     from diffco_tpu_torch.scripts import roofline_fk_score as rf
@@ -2801,25 +2809,38 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
     B6, J6 = q6.shape
     S6, F6 = sup6.shape
     P6 = len(spec6[1])
-    bound6, by6 = bound(fk_score_bytes(B6, S6, F6, J6),
-                        score_ops(B6, S6, F6) + dh_ops(J6, P6) * B6)
+    # B6 runs B1's function on B1's block: B1's tensor-core bound, the
+    # fp32 one beside it; each B7 rung its own of each
+    bound6, by6 = dh_tc_bound(B6, S6, F6, J6, P6)
+    bound6_fp32, by6_fp32 = bound(fk_score_bytes(B6, S6, F6, J6),
+                                  score_ops(B6, S6, F6) + dh_ops(J6, P6) * B6)
     dual_rows = [
         row(f'dh_dual_score_grad:{name}',
             'diffco_tpu_torch/csrc/dh_dual_score.cu',
             'scripts/ab_dual_tile.py:160', [B6, S6, J6],
             dict(err=b67['dual_err'][name]),
-            lambda t=threads, p=pipe: ab.dh_dual_score_grad(
-                q6, sup6, w6, spec6, t, p),
+            lambda v=name: ab.dh_dual_score_grad(q6, sup6, w6, spec6, v),
             lambda: fk_score._dh_score_grad_plain(q6, sup6, w6, spec6),
-            bound6, by6)
-        for name, (threads, pipe) in ab.VARIANTS.items()]
+            bound6, by6, bound_fp32_ms=bound6_fp32, bound_fp32_by=by6_fp32,
+            bound_times_ms=dh_tc_times(B6, S6, F6, J6, P6),
+            device_ms=rf.device_ms(
+                lambda v=name: ab.dh_dual_score_grad(q6, sup6, w6, spec6, v),
+                rf.instance_pattern('dh_dual_score_tc_kernel',
+                                    ab.VARIANTS[name])))
+        for name in ab.VARIANTS]
     mode_rows = [
         row(f'dh_ablation:{mode}', 'diffco_tpu_torch/csrc/dh_ablation.cu',
             'scripts/roofline_fk_score.py:73', [B6, S6, J6],
             dict(err=b67['mode_err'][mode]),
             lambda m=mode: rf.dh_ablation(q6, sup6, w6, spec6, m),
             lambda m=mode: rf._dh_ablation_plain(q6, sup6, w6, spec6, m),
-            *bound(*ablation_work(mode, B6, S6, F6, J6, P6)))
+            *ablation_tc_bound(mode, B6, S6, F6, J6, P6),
+            **dict(zip(('bound_fp32_ms', 'bound_fp32_by'),
+                       bound(*ablation_work(mode, B6, S6, F6, J6, P6)))),
+            bound_times_ms=ablation_tc_times(mode, B6, S6, F6, J6, P6),
+            device_ms=rf.device_ms(
+                lambda m=mode: rf.dh_ablation(q6, sup6, w6, spec6, m),
+                rf.instance_pattern('dh_ablation_kernel', rf.MODES[mode])))
         for mode in rf.MODES]
     return [
         row('poly_score_grad', 'diffco_tpu_torch/csrc/poly_score.cu',
@@ -2843,6 +2864,9 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
             bound1, by1, bound_fp32_ms=bound1_fp32, bound_fp32_by=by1_fp32,
             bound_times_ms=dh_tc_times(B1, S1, F1, J, len(spec[1])),
             plan=b1['plan'], warps_per_sm=b1['plan']['warps_per_sm'],
+            device_ms=rf.device_ms(
+                lambda: fk_score.dh_score_grad(q, sup1, w1, spec),
+                'dh_score_tc_kernel'),
             large_s_vs_float64=b1['large_s']['cases'],
             wide=wide_at(wide['dh_score_grad'])),
         row('chain_score_grad', 'diffco_tpu_torch/csrc/chain_score.cu',

@@ -1,166 +1,184 @@
 // Kernel B1's function (DH FK + polyharmonic score + configuration
-// gradient) with two configurations per thread, written by hand for
-// Hopper: the A/B of the roofline path.
+// gradient) with each block's tile of 256 configurations in two halves,
+// written by hand for Hopper on B1's tensor-core block: the A/B of the
+// roofline path.
 //
 // Replaces: scripts/ab_dual_tile.py::dual_score_grad (body
 // make_dual_kernel), the TPU kernel that splits each batch tile into two
 // halves and runs them one after the other ("dual_seq") or with their
 // stages interleaved ("dual_pipe") so that the matrix unit and the vector
-// unit overlap. On Hopper the two halves of a tile are two rows of one
-// thread:
+// unit overlap.
 //
-//   PIPE = true  ("dual_pipe"): one pass over each staged support chunk
-//                updates both rows' sums. Each shared-memory read of s_j
-//                feeds two rows, and the two rows are two independent FMA
-//                chains for the scheduler.
-//   PIPE = false ("dual_seq", the control): the thread runs row A's whole
-//                support loop, then row B's. One row is live at a time.
+// Each half is kTcRows = 128 configurations and computes what a block of
+// B1 computes (dh_score.cu on tc_score_block.cuh and dh_tc_rows.cuh): its
+// own centre, both products in 3xTF32, the near-pair guard, TwoSum
+// scores, per-chunk product-2 sums. In B1 the FK and the backward run on
+// threads 0-127 alone, while the block's other four warps and its tensor
+// cores wait; the two variants ask whether interleaving two halves hides
+// that stretch:
 //
-// THREADS = 64 or 128 threads per block, that is 128 or 256 rows (the
-// reference's tiles of 1024 and 2048 lanes). Row A of thread t is
-// blockIdx.x * 2 * THREADS + t, row B is THREADS further, so that both
-// rows' loads and stores stay coalesced.
+//   dual_seq (the control): B1's block of 256 threads
+//       runs half A's FK, support loop and backward, then half B's: twice
+//       the rows per block and half the blocks, nothing interleaved. Two
+//       blocks (16 warps) per SM, as B1.
+//   dual_pipe (warp specialisation): 384 threads; warps 0-7 run the
+//       support loops (tc_score_block, meeting on named barrier 1),
+//       warps 8-11, one warpgroup, the FK and the backward, one thread a
+//       row. The block's halves take turns in two slots of shared memory,
+//       each its own TcSmem<24> and joint axes (2 x 60000 B), so that a
+//       half's sums, which the block leaves over its chunk buffers,
+//       outlive the next half's loop:
 //
-// What bounds it on this card: as B1, the fp32 CUDA cores (~3.2 GFLOP at
-// B = 65536, S = 512 against ~4 MB of bytes). The cost of the design is
-// registers: two live rows of x[24] and su[24] on top of B1's 126, which
-// may push dual_pipe to spills; ptxas reports each variant. Built for
-// FP = 24 only (DH robots with 6 to 8 control points, PandaFK padded).
+//         FK warps:   FK 0 | FK 1   | bwd 0, FK 2 | bwd 1, FK 3 | ...
+//         loop warps:      | loop 0 | loop 1      | loop 2      | ...
+//
+//       The groups hand over on named barriers, the producer arriving
+//       (bar.arrive) and the consumer waiting (bar.sync): 2 and 3 (slot
+//       0's, 1's rows written), 4 and 5 (slot 0's, 1's sums written).
+//       dual_pipe_256 gives a block one tile's two halves;
+//       dual_pipe_persist, one block per SM, walks every gridDim-th half,
+//       so that the FK and backward of all but its first and last halves
+//       hide behind loops (the reference's longer dual_pipe_2048 tile).
+//
+// What bounds it on this card: as B1, the products on the tensor cores
+// (dh_tc_bound, ops/bounds.py), with the pair work on the fp32 CUDA cores
+// beside them. Registers: dual_pipe's 384 threads run at up to 168
+// (__launch_bounds__(384, 1)), one block per SM: two blocks of 384
+// threads would need <= 85 registers a thread, which no reassignment
+// between the warpgroups (setmaxnreg) gives loop warps that need ~128.
+// So dual_pipe has 8 loop warps per SM where B1 and dual_seq have 16, and
+// its loop keeps the per-chunk product-2 sums in registers (kTcSumsRegs).
+// Built for FP = 24 only (DH robots with 6 to 8 control points, PandaFK
+// padded): a measurement kernel of the roofline path's one shape.
 #include <cuda_runtime.h>
 
-#include "dh_chain.cuh"
+#include "dh_tc_rows.cuh"
+
+extern __shared__ __align__(16) float diffco_tc_smem[];
 
 namespace diffco {
 namespace {
 
 constexpr int kDualFP = 24;
+constexpr int kDualRows = 2 * kTcRows;  // configurations per block
+constexpr int kPipeThreads = kTcThreads + kTcRows;  // + the FK warpgroup
+constexpr int kPipeSums = kTcSumsRegs;
+using SeqSmem = DhSmem<kDualFP>;
+using HalfSmem = DhSmem<kDualFP, kPipeSums>;  // one half of dual_pipe's
 
-// score_grad_accumulate (score_block.cuh) for two rows over one chunk:
-// each s_jf read from shared memory serves both rows.
-template <int FP>
-__device__ __forceinline__ void score_grad_accumulate_dual(
-    const float* xa, const float* xb, const float* s_chunk,
-    const float* w_chunk, int n, float* score, float* comp, float* rowsum,
-    float* sua, float* sub) {
-  for (int j = 0; j < n; ++j) {
-    const float* sj = s_chunk + j * FP;
-    float d2a = 0.f, d2b = 0.f;
-#pragma unroll
-    for (int f = 0; f < FP; ++f) {
-      const float sf = sj[f];
-      const float da = xa[f] - sf;
-      const float db = xb[f] - sf;
-      d2a = fmaf(da, da, d2a);
-      d2b = fmaf(db, db, d2b);
-    }
-    d2a = fmaxf(d2a, 0.f) + 1e-12f;
-    d2b = fmaxf(d2b, 0.f) + 1e-12f;
-    const float ia = rsqrtf(d2a), ib = rsqrtf(d2b);
-    const float wj = w_chunk[j];
-    two_sum_add(wj * (d2a * ia), score[0], comp[0]);
-    two_sum_add(wj * (d2b * ib), score[1], comp[1]);
-    const float ua = wj * ia, ub = wj * ib;
-    rowsum[0] += ua;
-    rowsum[1] += ub;
-#pragma unroll
-    for (int f = 0; f < FP; ++f) {
-      const float sf = sj[f];
-      sua[f] = fmaf(sf, ua, sua[f]);
-      sub[f] = fmaf(sf, ub, sub[f]);
-    }
-  }
+// A half's FK into the block at smem (one thread a row), and its backward
+// and stores
+__device__ __forceinline__ void half_fk(const float* __restrict__ q,
+                                        float* smem, int axes_at, int b0,
+                                        int row, int B, const DHSpec& sp) {
+  using L = TcSmem<kDualFP>;
+  const int b = b0 + row;
+  dh_row_fk<kDualFP>(q, b, b < B, sp, smem + L::kX + row * L::kXS,
+                     smem + axes_at + row * SeqSmem::kAxesStride);
 }
 
-__device__ __forceinline__ void load_q(const float* __restrict__ q, int b,
-                                       bool live, int J, float* qr) {
-#pragma unroll
-  for (int j = 0; j < kMaxJ; ++j)
-    qr[j] = (live && j < J) ? q[static_cast<size_t>(b) * J + j] : 0.f;
+__device__ __forceinline__ void half_backward(float* smem, int axes_at,
+                                              int b0, int row, int B,
+                                              const DHSpec& sp,
+                                              float* __restrict__ score,
+                                              float* __restrict__ dq) {
+  using L = TcSmem<kDualFP>;
+  float dqr[kMaxJ];
+  dh_row_backward<kDualFP>(smem, row, sp, smem + L::kX + row * L::kXS,
+                           smem + axes_at + row * SeqSmem::kAxesStride,
+                           dqr);
+  dh_row_store<kDualFP>(smem, row, b0 + row, b0 + row < B, sp, dqr, score,
+                        dq);
 }
 
-// FK again, the suffix-sum backward, and the row's stores (B1's epilogue).
-template <int KP, int FP>
-__device__ __forceinline__ void finish_row(const DHSpec& sp, const float* qr,
-                                           float* x, float sc, float scc,
-                                           float rs, const float* su, int b,
-                                           bool live, float* score,
-                                           float* dq) {
-  float az[3 * kMaxJ], ao[3 * kMaxJ], dqr[kMaxJ];
-  dh_chain<KP>(qr, sp, x, az, ao);
-  dh_backward<KP>(sp, x, az, ao, rs, su, dqr);
-  if (live) {
-    score[b] = sc + scc;
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j)
-      if (j < sp.J) dq[static_cast<size_t>(b) * sp.J + j] = dqr[j];
-  }
+// csrc variant numbers (ab_dual_tile.VARIANTS)
+constexpr int kDualSeq = 0;
+constexpr int kDualPipe = 1;
+constexpr int kDualPersist = 2;
+
+// The first configuration of dual_pipe's half i, and the block's halves
+template <int V>
+__device__ __forceinline__ int half_row0(int i) {
+  return (V == kDualPersist ? static_cast<int>(blockIdx.x + i * gridDim.x)
+                            : static_cast<int>(2 * blockIdx.x) + i) *
+         kTcRows;
 }
 
-template <int THREADS, bool PIPE>
-__global__ void __launch_bounds__(THREADS)
-dh_dual_score_grad_kernel(const float* __restrict__ q,
-                          const float* __restrict__ s,
-                          const float* __restrict__ w,
-                          float* __restrict__ score, float* __restrict__ dq,
-                          int B, int S, const __grid_constant__ DHSpec sp) {
+template <int V>
+__device__ __forceinline__ int block_halves(int B) {
+  if (V != kDualPersist) return 2;
+  const int H = (B + kTcRows - 1) / kTcRows;
+  return (H - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+}
+
+template <int V>
+__global__ void __launch_bounds__(V == kDualSeq ? kTcThreads : kPipeThreads,
+                                  V == kDualSeq ? kTcBlocksPerSM : 1)
+dh_dual_score_tc_kernel(const float* __restrict__ q,
+                        const float* __restrict__ s,
+                        const float* __restrict__ w,
+                        float* __restrict__ score, float* __restrict__ dq,
+                        int B, int S, const __grid_constant__ DHSpec sp) {
   constexpr int FP = kDualFP;
-  constexpr int KP = FP / 3;
-  __shared__ __align__(16) float s_sh[kChunk * FP];
-  __shared__ float w_sh[kChunk];
-  const int ba = blockIdx.x * 2 * THREADS + threadIdx.x;
+  const int tid = threadIdx.x;
   const int F = 3 * sp.P;
-  if constexpr (PIPE) {
-    const int bb = ba + THREADS;
-    const bool la = ba < B, lb = bb < B;
-    float qa[kMaxJ], qb[kMaxJ];
-    load_q(q, ba, la, sp.J, qa);
-    load_q(q, bb, lb, sp.J, qb);
-    float xa[FP], xb[FP], sua[FP], sub[FP];
-#pragma unroll
-    for (int f = 0; f < FP; ++f) {
-      xa[f] = xb[f] = 0.f;
-      sua[f] = sub[f] = 0.f;
-    }
-    {
-      float az[3 * kMaxJ], ao[3 * kMaxJ];  // dead here: recomputed below
-      dh_chain<KP>(qa, sp, xa, az, ao);
-      dh_chain<KP>(qb, sp, xb, az, ao);
-    }
-    float sc[2] = {0.f, 0.f}, scc[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
-    for (int c0 = 0; c0 < S; c0 += kChunk) {
-      const int n = min(kChunk, S - c0);
-      __syncthreads();
-      stage_supports<FP>(s, w, c0, n, F, s_sh, w_sh);
-      __syncthreads();
-      score_grad_accumulate_dual<FP>(xa, xb, s_sh, w_sh, n, sc, scc, rs, sua,
-                                     sub);
-    }
-    finish_row<KP, FP>(sp, qa, xa, sc[0], scc[0], rs[0], sua, ba, la, score,
-                       dq);
-    finish_row<KP, FP>(sp, qb, xb, sc[1], scc[1], rs[1], sub, bb, lb, score,
-                       dq);
-  } else {
+  if constexpr (V == kDualSeq) {
+    float* smem = diffco_tc_smem;
+#pragma unroll 1
     for (int h = 0; h < 2; ++h) {
-      const int b = ba + h * THREADS;
-      const bool live = b < B;
-      float qr[kMaxJ];
-      load_q(q, b, live, sp.J, qr);
-      float x[FP], su[FP];
-#pragma unroll
-      for (int f = 0; f < FP; ++f) x[f] = su[f] = 0.f;
-      {
-        float az[3 * kMaxJ], ao[3 * kMaxJ];
-        dh_chain<KP>(qr, sp, x, az, ao);
+      const int bh = blockIdx.x * kDualRows + h * kTcRows;
+      if (h) __syncthreads();  // the last half's backward is done
+      if (S > 0) tc_stage<FP>(s, w, 0, S, F, smem, 0);
+      if (tid < kTcRows) half_fk(q, smem, SeqSmem::kAxes, bh, tid, B, sp);
+      tc_score_block<FP, false, kDhSums<FP>>(s, w, S, F, smem, kTcGuard,
+                                             nullptr, smem + SeqSmem::kRun);
+      if (tid < kTcRows)
+        half_backward(smem, SeqSmem::kAxes, bh, tid, B, sp, score, dq);
+    }
+  } else {
+    const int m = block_halves<V>(B);
+    float* const slot[2] = {diffco_tc_smem,
+                            diffco_tc_smem + HalfSmem::kFloats};
+    if (tid < kTcThreads) {  // the support loops' warps
+      for (int i = 0; i < m; ++i) {
+        float* hs = slot[i & 1];
+        if (i & 1)  // its rows written (and its last half's sums read)
+          named_sync<3, kPipeThreads>();
+        else
+          named_sync<2, kPipeThreads>();
+        if (S > 0) tc_stage<FP>(s, w, 0, S, F, hs, 0);
+        tc_score_block<FP, false, kPipeSums, kTcStageFull, kTcP2Tf32x3,
+                       TcSyncGroup>(s, w, S, F, hs, kTcGuard, nullptr);
+        if (i & 1)  // its sums written
+          named_arrive<5, kPipeThreads>();
+        else
+          named_arrive<4, kPipeThreads>();
       }
-      float sc = 0.f, scc = 0.f, rs = 0.f;
-      for (int c0 = 0; c0 < S; c0 += kChunk) {
-        const int n = min(kChunk, S - c0);
-        __syncthreads();
-        stage_supports<FP>(s, w, c0, n, F, s_sh, w_sh);
-        __syncthreads();
-        score_grad_accumulate<FP>(x, s_sh, w_sh, n, sc, scc, rs, su);
+    } else {  // the FK warpgroup: row `row` of each half
+      const int row = tid - kTcThreads;
+      for (int i = 0; i < m && i < 2; ++i) {
+        half_fk(q, slot[i], HalfSmem::kAxes, half_row0<V>(i), row, B, sp);
+        if (i)
+          named_arrive<3, kPipeThreads>();
+        else
+          named_arrive<2, kPipeThreads>();
       }
-      finish_row<KP, FP>(sp, qr, x, sc, scc, rs, su, b, live, score, dq);
+      for (int i = 0; i < m; ++i) {
+        float* hs = slot[i & 1];
+        if (i & 1)
+          named_sync<5, kPipeThreads>();
+        else
+          named_sync<4, kPipeThreads>();
+        half_backward(hs, HalfSmem::kAxes, half_row0<V>(i), row, B, sp,
+                      score, dq);
+        if (i + 2 < m) {  // half i + 2 into the slot
+          half_fk(q, hs, HalfSmem::kAxes, half_row0<V>(i + 2), row, B, sp);
+          if (i & 1)
+            named_arrive<3, kPipeThreads>();
+          else
+            named_arrive<2, kPipeThreads>();
+        }
+      }
     }
   }
 }
@@ -168,30 +186,63 @@ dh_dual_score_grad_kernel(const float* __restrict__ q,
 }  // namespace
 }  // namespace diffco
 
-#define DIFFCO_DUAL_CASE(T, P)                                          \
-  if (threads == T && (pipelined != 0) == P) {                          \
-    diffco::dh_dual_score_grad_kernel<T, P>                             \
-        <<<(B + 2 * T - 1) / (2 * T), T, 0, st>>>(q, s, w, score, dq, B, \
-                                                   S, sp);               \
-    return static_cast<int>(cudaGetLastError());                        \
-  }
+// ---- launch code (the CPU replay test compiles the file up to here)
 
-// score [B], dq [B, J] as dh_score_grad, two rows per thread; `threads`
-// 64 or 128, `pipelined` 1 (dual_pipe) or 0 (dual_seq). Returns the
-// cudaError_t of the launch (0 on success); launches on `stream` and does
-// not synchronise.
+namespace diffco {
+namespace {
+
+// Launches variant V over B configurations on `st`; the cudaError_t.
+// dual_pipe_persist takes one block per SM (at most one per half).
+template <int V>
+int dual_launch(const float* q, const float* s, const float* w, float* score,
+                float* dq, int B, int S, const DHSpec& sp, cudaStream_t st) {
+  const auto kernel = dh_dual_score_tc_kernel<V>;
+  const int bytes = V == kDualSeq ? SeqSmem::kBytes : 2 * HalfSmem::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int grid = (B + kDualRows - 1) / kDualRows;
+  if (V == kDualPersist && e == cudaSuccess) {
+    int device = 0, sms = 0;
+    e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    const int halves = (B + kTcRows - 1) / kTcRows;
+    grid = halves < sms ? halves : sms;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, V == kDualSeq ? kTcThreads : kPipeThreads, bytes, st>>>(
+      q, s, w, score, dq, B, S, sp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace diffco
+
+// score [B], dq [B, J] as dh_score_grad; `variant` 0 (dual_seq_256), 1
+// (dual_pipe_256) or 2 (dual_pipe_persist). Returns the cudaError_t of
+// the launch (0 on success); launches on `stream` and does not
+// synchronise.
 extern "C" int dh_dual_score_grad(const float* q, const float* s,
                                   const float* w, float* score, float* dq,
-                                  int B, int S, int threads, int pipelined,
+                                  int B, int S, int variant,
                                   const diffco::DHSpec* spec, void* stream) {
   const diffco::DHSpec sp = *spec;
   if (B <= 0 || S < 0 || sp.J < 1 || sp.J > diffco::kMaxJ ||
       (3 * sp.P + 7) / 8 * 8 != diffco::kDualFP)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DIFFCO_DUAL_CASE(64, false)
-  DIFFCO_DUAL_CASE(64, true)
-  DIFFCO_DUAL_CASE(128, false)
-  DIFFCO_DUAL_CASE(128, true)
-  return cudaErrorInvalidValue;
+  switch (variant) {
+    case diffco::kDualSeq:
+      return diffco::dual_launch<diffco::kDualSeq>(q, s, w, score, dq, B, S,
+                                                   sp, st);
+    case diffco::kDualPipe:
+      return diffco::dual_launch<diffco::kDualPipe>(q, s, w, score, dq, B,
+                                                    S, sp, st);
+    case diffco::kDualPersist:
+      return diffco::dual_launch<diffco::kDualPersist>(q, s, w, score, dq, B,
+                                                       S, sp, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

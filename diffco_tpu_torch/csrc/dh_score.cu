@@ -38,14 +38,13 @@
 // The first design, one thread per configuration on the CUDA cores with
 // supports staged through shared memory in chunks of 128
 // (dh_score_grad_kernel, score_block.cuh), stays for the roofline path's
-// block-size sweep (dh_score_grad_threads): that sweep ports the
-// reference's tile sweep, and the B6 and B7 kernels are measured against
-// that design.
+// block-size sweep (dh_score_grad_threads), which ports the reference's
+// tile sweep. The roofline path's other kernels, B6 (dh_dual_score.cu)
+// and B7 (dh_ablation.cu), run on this file's production design.
 #include <cuda_runtime.h>
 
 #include "chain_wide.cuh"
-#include "dh_chain.cuh"
-#include "tc_score_block.cuh"
+#include "dh_tc_rows.cuh"
 
 extern __shared__ __align__(16) float diffco_tc_smem[];
 
@@ -100,27 +99,6 @@ dh_score_grad_kernel(const float* __restrict__ q, const float* __restrict__ s,
   }
 }
 
-// How product 2 sums over the chunks at each FP (tc_score_block.cuh's
-// kSums). One accumulator over all supports lost dq precision as S grew
-// (PERF.md section 6): per-chunk sums in registers where ptxas keeps the
-// kernel within 128 registers unspilled, else with the running sums in
-// shared memory.
-template <int FP>
-constexpr int kDhSums = FP == 24 ? kTcSumsShared : kTcSumsRegs;
-
-// The kernel's dynamic shared memory: the block's (TcSmem<FP>), then each
-// row's joint axes and origins (az, ao: 3 kMaxJ floats each) at an odd
-// stride, then kTcSumsShared's running sums where kDhSums takes them.
-template <int FP>
-struct DhSmem {
-  static constexpr int kAxesStride = 6 * kMaxJ + 1;
-  static constexpr int kAxes = TcSmem<FP>::kFloats;
-  static constexpr int kRun = kAxes + kTcRows * kAxesStride;
-  static constexpr int kBytes =
-      4 * (kRun + (kDhSums<FP> == kTcSumsShared ? TcSmem<FP>::kRunFloats
-                                                 : 0));
-};
-
 // B1 on the tensor-core score block (file comment). kMeasure: a
 // measurement build that counts the near-pair guard's recomputations
 // into *guard_pairs, with kappa as its threshold.
@@ -132,42 +110,25 @@ dh_score_tc_kernel(const float* __restrict__ q, const float* __restrict__ s,
                    const __grid_constant__ DHSpec sp, float kappa,
                    unsigned long long* guard_pairs) {
   using L = TcSmem<FP>;
-  constexpr int KP = FP / 3 < kMaxP ? FP / 3 : kMaxP;
   float* smem = diffco_tc_smem;
   const int tid = threadIdx.x;
   const int b = blockIdx.x * kTcRows + tid;
   const bool live = b < B;   // the ragged end of B is masked here
-  const int J = sp.J, F = 3 * sp.P;
+  const int F = 3 * sp.P;
   if (S > 0) tc_stage<FP>(s, w, 0, S, F, smem, 0);
   // FK into the row's points (zeros past F) and its joint axes and
   // origins, all in shared memory, which the backward reads after the
   // supports
   float* xrow = smem + L::kX + tid * L::kXS;
   float* axes = smem + DhSmem<FP>::kAxes + tid * DhSmem<FP>::kAxesStride;
-  if (tid < kTcRows) {
-    float qr[kMaxJ];
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j)
-      qr[j] = (live && j < J) ? q[static_cast<size_t>(b) * J + j] : 0.f;
-#pragma unroll
-    for (int f = 0; f < FP; ++f) xrow[f] = 0.f;
-    dh_chain<KP>(qr, sp, xrow, axes, axes + 3 * kMaxJ);
-  }
+  if (tid < kTcRows) dh_row_fk<FP>(q, b, live, sp, xrow, axes);
   tc_score_block<FP, kMeasure, kDhSums<FP>>(s, w, S, F, smem, kappa,
                                             guard_pairs,
                                             smem + DhSmem<FP>::kRun);
   if (tid < kTcRows) {  // the epilogue: the backward
     float dqr[kMaxJ];
-#pragma unroll
-    for (int f = 0; f < FP; ++f) xrow[f] += smem[L::kCen + f];  // x~ + c
-    const float* su = tc_row_sums<FP>(smem, tid, F);
-    dh_backward<KP>(sp, xrow, axes, axes + 3 * kMaxJ, su[F], su, dqr);
-    if (live) {
-      score[b] = smem[L::kScore + tid];
-#pragma unroll
-      for (int j = 0; j < kMaxJ; ++j)
-        if (j < J) dq[static_cast<size_t>(b) * J + j] = dqr[j];
-    }
+    dh_row_backward<FP>(smem, tid, sp, xrow, axes, dqr);
+    dh_row_store<FP>(smem, tid, b, live, sp, dqr, score, dq);
   }
 }
 

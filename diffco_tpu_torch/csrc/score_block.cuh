@@ -1,8 +1,8 @@
-// Polyharmonic DiffCo score block of the one-row-per-thread design: the
-// roofline path's kernels run it (dh_score.cu's first design, the B1
-// block-size sweep; dh_ablation.cu, B7; dh_dual_score.cu, B6). The
-// production kernels take only its TwoSum (tc_score_block.cuh for B1-B3,
-// multi_score_block.cuh for B4 and B5).
+// Polyharmonic DiffCo score block of the one-row-per-thread design: only
+// dh_score.cu's first design runs it, for the roofline path's B1
+// block-size sweep. Every other kernel takes only its TwoSum
+// (tc_score_block.cuh for B1-B3, B6 and B7, multi_score_block.cuh for B4
+// and B5).
 //
 // For one query x (FP components, zero-padded past F) against a chunk of
 // supports s_j with weights w_j:
@@ -34,7 +34,6 @@
 
 namespace diffco {
 
-constexpr int kThreads = 128;  // one query row per thread
 constexpr int kChunk = 128;    // supports staged in shared memory per pass
 constexpr int kMaxC = 8;       // weight columns the multi-class kernels take
 

@@ -84,6 +84,13 @@
 // reaches an output); rows past B are the caller's (B1 and B3 run them on
 // q = 0, B2 on copies of row B - 1, so that the centre stays on the
 // data) and masked by it.
+//
+// Hooks for the roofline path's kernels (B6, dh_dual_score.cu; B7,
+// dh_ablation.cu), whose defaults are the production block above: the
+// stage the block stops after (kStage: B7's rungs), product 2's type
+// (kP2: B7's bf16 rung) and how its threads meet (Sync: B6's dual_pipe
+// runs the block on its tensor-core warps alone, beside a warpgroup that
+// runs the FK).
 #pragma once
 
 #include <cstring>
@@ -123,6 +130,50 @@ constexpr int kTcSplit = 3;
 // than ~1/kappa of its relative precision to cancellation. Chosen from
 // the fitted PandaFK sweep on the H100 (PERF.md, section 6).
 constexpr float kTcGuard = 1.f / 64.f;
+// The stage tc_score_block stops after (kStage), each a prefix of the
+// next; what it leaves at kScore + row:
+constexpr int kTcStageDot = 0;    // product 1 alone: sum_j s_j . x
+constexpr int kTcStageRsqrt = 1;  // + d2 (guarded), rsqrt: sum_j (r + 1/r)
+constexpr int kTcStageScore = 2;  // + the score; product 2 not run
+constexpr int kTcStageFull = 3;   // + product 2: the sums at kSu too
+// Product 2's operands (kP2): 3xTF32 on the centred [s~ w | w]; or one
+// mma.sync.m16n8k16 bf16 product of bf16(rinv) and the uncentred
+// bf16([s w | w]) with fp32 accumulation, and the score's r and w
+// rounded to bf16 (its sums then in the rows' own frame: no c rowsum to
+// add back)
+constexpr int kTcP2Tf32x3 = 0;
+constexpr int kTcP2Bf16 = 1;
+
+// Named barrier `ID` of `COUNT` threads: bar.sync waits, bar.arrive
+// does not (barrier 0 is __syncthreads())
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_sync() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+#elif defined(DIFFCO_REPLAY)
+  diffco_replay_bar(ID, COUNT, true);
+#endif
+}
+
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_arrive() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+#elif defined(DIFFCO_REPLAY)
+  diffco_replay_bar(ID, COUNT, false);
+#endif
+}
+
+// How tc_score_block's threads meet (Sync): the whole block, or only
+// threads 0 .. kTcThreads - 1 of a larger one (named barrier 1)
+struct TcSyncBlock {
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+struct TcSyncGroup {
+  static __device__ __forceinline__ void sync() {
+    named_sync<1, kTcThreads>();
+  }
+};
 
 // Dynamic shared memory, in floats (every offset a multiple of 4).
 template <int FP>
@@ -211,6 +262,45 @@ __device__ __forceinline__ void mma_split(float (&d)[4], float (&s1)[4],
     mma_tf32(s2, ahi, float_bits(b.z), float_bits(b.w));
   }
   mma_tf32(d, ahi, float_bits(b.x), float_bits(b.y));
+}
+
+// v rounded to bf16 (to nearest even, for finite v) in the low 16 bits
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  const unsigned u = float_bits(v);
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return bits_float(bf16_bits(v) << 16);
+}
+
+// bf16(lo) in the low half, bf16(hi) in the high half: an mma operand
+// register holding two consecutive k (the lower k in the low half)
+__device__ __forceinline__ unsigned bf16_pack(float lo, float hi) {
+#if defined(__CUDA_ARCH__)
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+#else
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+#endif
+}
+
+// d += A B for one m16n8k16 bf16 tile, fp32 accumulation. Fragments (PTX
+// .bf16; lane = 4 g + t): A a0..a3 at (row, k) = (g, 2t..2t+1),
+// (g + 8, 2t..2t+1), (g, 2t+8..2t+9), (g + 8, 2t+8..2t+9); B b0, b1 at
+// (k, n) = (2t..2t+1, g), (2t+8..2t+9, g); C as m16n8k8's
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const unsigned (&a)[4], uint2 b) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+#elif defined(DIFFCO_REPLAY)
+  diffco_replay_mma_bf16(d, a, b.x, b.y);
+#endif
 }
 
 __device__ __forceinline__ float shfl_xor(float v, int mask) {
@@ -304,11 +394,17 @@ __device__ __forceinline__ void tc_put(float* p, float2 hl) {
 // Centre and split raw buffer `buf` (n live supports) into the chunk's
 // stores: product 1's and product 2's B fragments, (|s~|^2, w).
 // Every thread takes part (its share as tc_stage's); callers sync before
-// and after.
-template <int FP>
+// and after. kStage and kP2 as tc_score_block's: before kTcStageFull
+// product 2's fragments are not stored; kTcStageDot adds each s~ to the
+// thread's sums over its supports, ssum[m] for component e + 8m; with
+// kTcP2Bf16 product 2's fragments are the bf16 ones (tc_score_block) and
+// w_j is stored rounded to bf16.
+template <int FP, int kStage = kTcStageFull, int kP2 = kTcP2Tf32x3>
 __device__ __forceinline__ void tc_transform(float* smem, int buf, int n,
-                                             int F) {
+                                             int F, float* ssum = nullptr) {
   using L = TcSmem<FP>;
+  constexpr bool kP2Tf32 = kStage == kTcStageFull && kP2 == kTcP2Tf32x3;
+  constexpr bool kP2Bf16 = kStage == kTcStageFull && kP2 == kTcP2Bf16;
   const int j = threadIdx.x / 8, e = threadIdx.x % 8;
   const bool in = j < n;
   const float* sb = smem + L::kRawS + (buf * kTcChunk + j) * FP;
@@ -320,6 +416,12 @@ __device__ __forceinline__ void tc_transform(float* smem, int buf, int n,
                                   4 + e / 4;
   float* b2 = smem + L::kB2 + ((j / 8) * L::kNT2 * 32 + 4 * e + (j % 8) / 2) *
                                   4 + j % 2;
+  // the bf16 product 2: support j = 16 p + 8 h + 2t + i is k = 2t + i + 8h
+  // of the p-th pair of n-tiles, i.e. half i of register h of lane
+  // 4 (column % 8) + t
+  unsigned short* b2h = reinterpret_cast<unsigned short*>(smem + L::kB2) +
+                        (((j / 16) * L::kNT2 * 32 + 4 * e + (j % 8) / 2) * 2 +
+                         (j / 8) % 2) * 2 + j % 2;
   float ns = 0.f;
 #pragma unroll
   for (int m = 0; m < L::kKK; ++m) {
@@ -327,16 +429,23 @@ __device__ __forceinline__ void tc_transform(float* smem, int buf, int n,
     const float v = in && f < F ? sb[f] - smem[L::kCen + f] : 0.f;
     ns = fmaf(v, v, ns);
     tc_put(b1 + m * 128, tf32_split(v));
-    tc_put(b2 + m * 128, tf32_split(f == F ? wj : v * wj));
+    if constexpr (kStage == kTcStageDot) ssum[m] += v;
+    if constexpr (kP2Tf32)
+      tc_put(b2 + m * 128, tf32_split(f == F ? wj : v * wj));
+    if constexpr (kP2Bf16)   // uncentred: s_j w_j
+      b2h[m * 128] = bf16_bits(f == F ? wj : in && f < F ? sb[f] * wj : 0.f);
   }
   // product 2's last column tile, used where F = FP: w_j at column FP
-  tc_put(b2 + L::kKK * 128, tf32_split(e == 0 && F == FP ? wj : 0.f));
+  if constexpr (kP2Tf32)
+    tc_put(b2 + L::kKK * 128, tf32_split(e == 0 && F == FP ? wj : 0.f));
+  if constexpr (kP2Bf16)
+    b2h[L::kKK * 128] = bf16_bits(e == 0 && F == FP ? wj : 0.f);
   ns += shfl_xor(ns, 1);
   ns += shfl_xor(ns, 2);
   ns += shfl_xor(ns, 4);
   if (e == 0) {
     smem[L::kNw + 2 * j] = ns;
-    smem[L::kNw + 2 * j + 1] = wj;
+    smem[L::kNw + 2 * j + 1] = kP2Bf16 ? bf16_round(wj) : wj;
   }
 }
 
@@ -377,7 +486,15 @@ __device__ __forceinline__ void tc_x_fragment(const float* xs, int r0, int t,
 // up to kTcChunkRegMaxFP components, for the registers the second
 // accumulator takes; kTcSumsShared keeps the running sums at `run`
 // (TcSmem<FP>::kRunFloats floats of shared memory, outside the block's).
-template <int FP, bool kMeasure, int kSums = kTcSumsOne>
+// kStage, kP2 and Sync: the hooks of the file comment. Before
+// kTcStageFull kScore + i holds the stage's sum (kTcStageDot: sum_j s_j .
+// x_i, from the centred products as sum_j s~_j . x~_i + c . sum_j s~_j +
+// S c . x~_i + S |c|^2) and kSu is not written; with kTcP2Bf16 the sums
+// at kSu are su (not su~) and rowsum. Only threads 0 .. kTcThreads - 1
+// call, and Sync is how they meet.
+template <int FP, bool kMeasure, int kSums = kTcSumsOne,
+          int kStage = kTcStageFull, int kP2 = kTcP2Tf32x3,
+          class Sync = TcSyncBlock>
 __device__ __forceinline__ void tc_score_block(
     const float* __restrict__ s, const float* __restrict__ w, int S, int F,
     float* smem, float kappa, unsigned long long* guard_pairs,
@@ -385,14 +502,17 @@ __device__ __forceinline__ void tc_score_block(
   using L = TcSmem<FP>;
   constexpr int K = kTcChunk;
   constexpr int KK = L::kKK, NT2 = L::kNT2;
-  constexpr bool kChunkSums = kSums == kTcSumsRegs;
-  constexpr bool kRunShared = kSums == kTcSumsShared;
+  constexpr bool kFull = kStage == kTcStageFull;
+  constexpr bool kBf16 = kP2 == kTcP2Bf16;
+  constexpr bool kChunkSums = kSums == kTcSumsRegs && kFull;
+  constexpr bool kRunShared = kSums == kTcSumsShared && kFull;
   constexpr bool kXRegs =
       FP <= (kChunkSums ? kTcChunkRegMaxFP : kTcRegMaxFP);
   // two n-tiles per pass of the support loop where x~'s fragments stay in
   // registers (their products and pair work interleave); one on wider
-  // rows, which would spill
-  constexpr int kUnroll = kXRegs ? 2 : 1;
+  // rows, which would spill; all four with the bf16 product 2, whose k =
+  // 16 fragment takes the rinv of two n-tiles
+  constexpr int kUnroll = kBf16 ? K / 8 : kXRegs ? 2 : 1;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int r0 = 16 * warp + g;  // and r0 + 8
@@ -403,7 +523,7 @@ __device__ __forceinline__ void tc_score_block(
     if (i % FP >= F) smem[L::kRawS + i] = 0.f;
 
   // the centre: the mean of the block's rows
-  __syncthreads();
+  Sync::sync();
   // eight lanes per component, 16 rows each, then summed across them
   for (int f = tid / 8; f < (FP + 31) / 32 * 32; f += kTcThreads / 8) {
     float acc = 0.f;
@@ -415,7 +535,7 @@ __device__ __forceinline__ void tc_score_block(
     acc += shfl_xor(acc, 4);
     if (f < FP && tid % 8 == 0) smem[L::kCen + f] = acc * (1.f / kTcRows);
   }
-  __syncthreads();
+  Sync::sync();
   if (tid < kTcRows) {
     double nx = 0.0;
 #pragma unroll 4
@@ -428,7 +548,7 @@ __device__ __forceinline__ void tc_score_block(
     smem[L::kNx + 2 * tid] = hi;
     smem[L::kNx + 2 * tid + 1] = static_cast<float>(nx - hi);
   }
-  __syncthreads();
+  Sync::sync();
 
   unsigned ahi[kXRegs ? KK : 1][4], alo[kXRegs ? KK : 1][4];
   if constexpr (kTcDist && kXRegs) {
@@ -442,6 +562,7 @@ __device__ __forceinline__ void tc_score_block(
                         smem[L::kNx + 2 * r0 + 17] + 1e-12f};
   const int nt2 = (F + 8) / 8;  // product 2's column tiles (F + 1 columns)
   float sc[2] = {0.f, 0.f}, cc[2] = {0.f, 0.f};
+  float ssum[kStage == kTcStageDot ? KK : 1] = {};  // sum_j s~_j (Dot)
   float acc[NT2][4];
 #pragma unroll
   for (int n2 = 0; n2 < NT2; ++n2)
@@ -453,14 +574,16 @@ __device__ __forceinline__ void tc_score_block(
 
   const float4* b1s = reinterpret_cast<const float4*>(smem + L::kB1);
   const float4* b2s = reinterpret_cast<const float4*>(smem + L::kB2);
+  const uint2* b2h = reinterpret_cast<const uint2*>(smem + L::kB2);
   const int nch = (S + K - 1) / K;
   for (int ch = 0; ch < nch; ++ch) {
     cp_async_wait_all();
-    __syncthreads();  // chunk ch landed; the last chunk's reads are done
+    Sync::sync();  // chunk ch landed; the last chunk's reads are done
     if (ch + 1 < nch)
       tc_stage<FP>(s, w, (ch + 1) * K, S, F, smem, (ch + 1) & 1);
-    tc_transform<FP>(smem, ch & 1, min(K, S - ch * K), F);
-    __syncthreads();
+    tc_transform<FP, kStage, kP2>(smem, ch & 1, min(K, S - ch * K), F,
+                                  ssum);
+    Sync::sync();
     // the chunk's raw supports, for the direct differences
     const float* raw = smem + L::kRawS + (ch & 1) * K * FP;
     // product 2 of this chunk, added to acc after it (kChunkSums)
@@ -471,6 +594,7 @@ __device__ __forceinline__ void tc_score_block(
 #pragma unroll
         for (int i = 0; i < 4; ++i) part[n2][i] = 0.f;
     }
+    unsigned a16[4];  // the bf16 product 2's A fragment (two n-tiles)
 #pragma unroll (kUnroll)
     for (int nt = 0; nt < K / 8; ++nt) {
       float d[4] = {0.f, 0.f, 0.f, 0.f}, ds[4] = {0.f, 0.f, 0.f, 0.f},
@@ -487,6 +611,13 @@ __device__ __forceinline__ void tc_score_block(
             mma_split(d, ds, dt, h, l, b);
           }
         }
+      }
+      if constexpr (kStage == kTcStageDot) {  // the rows' x~ . s~ sums
+        two_sum_add((d[0] + (ds[0] + dt[0])) + (d[1] + (ds[1] + dt[1])),
+                    sc[0], cc[0]);
+        two_sum_add((d[2] + (ds[2] + dt[2])) + (d[3] + (ds[3] + dt[3])),
+                    sc[1], cc[1]);
+        continue;
       }
       // (|s~|^2, w) of supports 2t and 2t + 1 of the n-tile
       const float4 nw = *reinterpret_cast<const float4*>(
@@ -526,19 +657,49 @@ __device__ __forceinline__ void tc_score_block(
         ri[p] = tc_rsqrt(d2[p]);
         r[p] = d2[p] * ri[p];
       }
+      if constexpr (kStage == kTcStageRsqrt) {  // live supports only
+        const int j = ch * K + 8 * nt + 2 * t;
+        const float l0 = j < S ? 1.f : 0.f, l1 = j + 1 < S ? 1.f : 0.f;
+        two_sum_add(fmaf(l1, r[1] + ri[1], l0 * (r[0] + ri[0])), sc[0],
+                    cc[0]);
+        two_sum_add(fmaf(l1, r[3] + ri[3], l0 * (r[2] + ri[2])), sc[1],
+                    cc[1]);
+        continue;
+      }
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) r[p] = bf16_round(r[p]);
+      }
       // a row's two terms summed, then added with compensation
       two_sum_add(fmaf(wv[1], r[1], wv[0] * r[0]), sc[0], cc[0]);
       two_sum_add(fmaf(wv[1], r[3], wv[0] * r[2]), sc[1], cc[1]);
-      // product 2's A fragment: (g, k = t) support 2t, (g, t + 4) 2t + 1
-      unsigned hi[4], lo[4];
-      tf32_split_bits({ri[0], ri[2], ri[1], ri[3]}, hi, lo);
-      __syncwarp();
+      if constexpr (kFull && kBf16) {
+        // the even n-tile's supports 2t, 2t + 1 are k = 2t, 2t + 1 of the
+        // k = 16 fragment, the odd one's k = 2t + 8, 2t + 9
+        a16[2 * (nt & 1)] = bf16_pack(ri[0], ri[1]);      // row r0
+        a16[2 * (nt & 1) + 1] = bf16_pack(ri[2], ri[3]);  // row r0 + 8
+        if (nt & 1) {
+          __syncwarp();
 #pragma unroll
-      for (int n2 = 0; n2 < NT2; ++n2) {
-        float(&sums)[4] = kChunkSums ? part[n2] : acc[n2];
-        if (n2 < nt2)
-          mma_split(sums, sums, sums, hi, lo,
-                    b2s[(nt * NT2 + n2) * 32 + lane]);
+          for (int n2 = 0; n2 < NT2; ++n2) {
+            float(&sums)[4] = kChunkSums ? part[n2] : acc[n2];
+            if (n2 < nt2) {
+              mma_bf16(sums, a16, b2h[((nt / 2) * NT2 + n2) * 32 + lane]);
+            }
+          }
+        }
+      } else if constexpr (kFull) {
+        // product 2's A fragment: (g, k = t) support 2t, (g, t + 4) 2t + 1
+        unsigned hi[4], lo[4];
+        tf32_split_bits({ri[0], ri[2], ri[1], ri[3]}, hi, lo);
+        __syncwarp();
+#pragma unroll
+        for (int n2 = 0; n2 < NT2; ++n2) {
+          float(&sums)[4] = kChunkSums ? part[n2] : acc[n2];
+          if (n2 < nt2)
+            mma_split(sums, sums, sums, hi, lo,
+                      b2s[(nt * NT2 + n2) * 32 + lane]);
+        }
       }
     }
     if constexpr (kChunkSums) {
@@ -574,21 +735,53 @@ __device__ __forceinline__ void tc_score_block(
       two_sum_add(so, sc[rr], cc[rr]);
       cc[rr] += co;
     }
-  __syncthreads();  // every warp is done with the chunk buffers
-  float* su = smem + L::kSu;
+  if constexpr (kStage == kTcStageDot) {
+    // sum_j s~_j: over the lanes of a warp that share e = lane % 8
 #pragma unroll
-  for (int n2 = 0; n2 < NT2; ++n2) {
-    const int col = 8 * n2 + 2 * t;
-    su[r0 * L::kSuS + col] = acc[n2][0];
-    su[r0 * L::kSuS + col + 1] = acc[n2][1];
-    su[(r0 + 8) * L::kSuS + col] = acc[n2][2];
-    su[(r0 + 8) * L::kSuS + col + 1] = acc[n2][3];
+    for (int m = 0; m < KK; ++m) {
+      ssum[m] += shfl_xor(ssum[m], 8);
+      ssum[m] += shfl_xor(ssum[m], 16);
+    }
+  }
+  Sync::sync();  // every warp is done with the chunk buffers
+  float* su = smem + L::kSu;
+  if constexpr (kFull) {
+#pragma unroll
+    for (int n2 = 0; n2 < NT2; ++n2) {
+      const int col = 8 * n2 + 2 * t;
+      su[r0 * L::kSuS + col] = acc[n2][0];
+      su[r0 * L::kSuS + col + 1] = acc[n2][1];
+      su[(r0 + 8) * L::kSuS + col] = acc[n2][2];
+      su[(r0 + 8) * L::kSuS + col + 1] = acc[n2][3];
+    }
+  }
+  if constexpr (kStage == kTcStageDot) {  // each warp's sums, [8][FP]
+    if (lane < 8)
+#pragma unroll
+      for (int m = 0; m < KK; ++m) su[warp * FP + lane + 8 * m] = ssum[m];
   }
   if (t == 0) {
     smem[L::kScore + r0] = sc[0] + cc[0];
     smem[L::kScore + r0 + 8] = sc[1] + cc[1];
   }
-  __syncthreads();
+  Sync::sync();
+  if constexpr (kStage == kTcStageDot) {
+    if (tid < kTcRows) {
+      float cs = 0.f, cx = 0.f, c2 = 0.f;
+#pragma unroll 4
+      for (int f = 0; f < FP; ++f) {
+        float sf = 0.f;
+#pragma unroll
+        for (int i = 0; i < kTcThreads / 32; ++i) sf += su[i * FP + f];
+        const float c = smem[L::kCen + f];
+        cs = fmaf(c, sf, cs);
+        cx = fmaf(c, xs[tid * L::kXS + f], cx);
+        c2 = fmaf(c, c, c2);
+      }
+      smem[L::kScore + tid] += cs + static_cast<float>(S) * (cx + c2);
+    }
+    Sync::sync();
+  }
 }
 
 // Row `row`'s sums after tc_score_block, turned in place into the rows'

@@ -95,8 +95,8 @@ def multi_plan(P: int, C: int) -> dict:
 TC_ROWS, TC_THREADS, TC_CHUNK, TC_MIN_BLOCKS = 128, 256, 32, 2
 TC_GUARD = 1 / 64   # kTcGuard, the near-pair guard's threshold
 # B1's widths whose product-2 running sums live in shared memory
-# (csrc/dh_score.cu kDhSums == kTcSumsShared; per-chunk sums in registers
-# at the others)
+# (csrc/dh_tc_rows.cuh kDhSums == kTcSumsShared; per-chunk sums in
+# registers at the others)
 DH_SHARED_SUMS_FP = (24,)
 
 
@@ -129,7 +129,7 @@ def _tc_plan(fp: int, row_floats: int, extra_floats: int = 0) -> dict:
 def dh_tc_plan(P: int) -> dict:
     """B1's launch plan (``csrc/dh_score.cu``) for P control points: the
     block's shared memory, each row's joint axes and origins
-    (``DhSmem<FP>``, 6 kMaxJ + 1 floats a row) and, at
+    (``DhSmem<FP>``, csrc/dh_tc_rows.cuh, 6 kMaxJ + 1 floats a row) and, at
     ``DH_SHARED_SUMS_FP``, product 2's running sums (``TcSmem<FP>::
     kRunFloats``: 4 floats per thread per column tile)."""
     fp = (3 * P + 7) // 8 * 8
@@ -380,7 +380,7 @@ def _bind(libs):
         fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
         fn.restype = cint
     # the roofline path (diffco_tpu_torch/scripts): B1 at other block
-    # sizes, the B7 ablations and the B6 dual-row kernel
+    # sizes, the B7 ablations and the B6 dual half-tile kernel
     fn = libs['dh_score'].dh_score_grad_threads
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
                    ctypes.POINTER(DHSpec), ptr]
@@ -390,7 +390,7 @@ def _bind(libs):
                    ctypes.POINTER(DHSpec), ptr]
     fn.restype = cint
     fn = libs['dh_dual_score'].dh_dual_score_grad
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint, cint,
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
                    ctypes.POINTER(DHSpec), ptr]
     fn.restype = cint
 

@@ -21,8 +21,11 @@ B1, B2 and B3 run their two matrix products on the tensor cores
 ``csrc/tc_score_block.cuh``), so their least time on that route is
 ``tc_bound`` (``dh_tc_bound``, ``poly_tc_bound``, ``chain_tc_bound``):
 the largest of the bytes over HBM, the two products in 3xTF32 over the
-TF32 peak, and the work left on the CUDA cores over the fp32 peak. Their
-fp32 bounds (the one above) stay beside them; B4-B7 keep theirs alone.
+TF32 peak, and the work left on the CUDA cores over the fp32 peak. B6
+runs B1's function on B1's block, so its tensor-core bound is
+``dh_tc_bound``; each B7 rung, a prefix of B1's block, has
+``ablation_tc_bound``. The fp32 bounds (the one above) stay beside them;
+B4 and B5 keep theirs alone.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import json
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_TF32_FLOPS = 495e12   # dense, tensor cores
+PEAK_BF16_FLOPS = 989e12   # dense, tensor cores
 
 
 def bound(bytes_moved, ops):
@@ -158,19 +162,19 @@ def ablation_work(mode, B, S, F, J, P):
     ``fk_only`` adds 3P to sum the points. The rungs after it count B1's
     per-pair work, by the definition of a rung (a sum over pairs of d2 or
     of w r could be had with fewer operations, but the rung measures the
-    stage of B1 that computes it per pair): ``mxu`` per pair the
+    stage of B1 that computes it per pair): ``mxu`` per pair the dot s_j
+    . x (2F) + 1 (its sum); ``mxu_rsqrt`` and ``fwd`` per pair the
     expanded-square distance, clamp and floor (2F + 5, as ``score_ops``)
-    + 1 (its sum); ``mxu_rsqrt`` and ``fwd`` that + rsqrt and r + 2 (r +
-    1/r and its sum, or w r and its sum); each per row 2F and per support
-    2F. ``mv_f32_full`` / ``mv_bf16_full`` B1's work (``score_ops`` +
-    ``dh_ops``) + J to sum dq into the output."""
+    + rsqrt and r + 2 (r + 1/r and its sum, or w r and its sum); each per
+    row 2F and per support 2F. ``mv_f32_full`` / ``mv_bf16_full`` B1's
+    work (``score_ops`` + ``dh_ops``) + J to sum dq into the output."""
     fk = 66 * J + 18 * P
     q_out = 4 * (B * J + B)
     if mode == 'fk_only':
         return q_out, B * (fk + 3 * P)
     rows = B * fk + B * 2 * F + S * 2 * F
     if mode == 'mxu':
-        return q_out + 4 * S * F, rows + B * S * (2 * F + 6)
+        return q_out + 4 * S * F, rows + B * S * (2 * F + 1)
     sweep = rows + B * S * (2 * F + 9)
     if mode == 'mxu_rsqrt':
         return q_out + 4 * S * F, sweep
@@ -180,6 +184,50 @@ def ablation_work(mode, B, S, F, J, P):
         return (q_out + 4 * (S * F + S),
                 score_ops(B, S, F) + B * (dh_ops(J, P) + J))
     raise ValueError(f'ablation_work: unknown mode {mode!r}')
+
+
+# per pair on the CUDA cores beside product 1, by B7 rung on B1's block:
+# the sum of the dot (mxu); d2 from the norms and the cross term, clamp
+# and floor, rsqrt, r, and r + 1/r or w r into the sum (mxu_rsqrt, fwd);
+# B1's TC_PAIR_OPS with the split of rinv into TF32 hi and lo (3) in
+# place of rounding r and rinv to bf16 (2) (mv_bf16_full)
+_ABLATION_TC_PAIR_OPS = {'mxu': 1, 'mxu_rsqrt': 9, 'fwd': 9,
+                         'mv_bf16_full': TC_PAIR_OPS - 3 + 2}
+
+
+def ablation_tc_times(mode, B, S, F, J, P):
+    """Least times, in ms, of a B7 rung on B1's tensor-core block
+    (``csrc/dh_ablation.cu``): 'bytes' (``ablation_work``'s, over HBM),
+    'tensor' (product 1 in 3xTF32 over the TF32 peak for every rung past
+    ``fk_only``; ``mv_f32_full`` also product 2 in 3xTF32, as
+    ``tc_product_ops``; ``mv_bf16_full`` product 2 as one bf16 product
+    over the bf16 peak) and 'fp32' (per row the FK and 2F, per support
+    2F, and the rung's pair work, over the fp32 peak; the full rungs per
+    row B1's FK and backward + J, as ``dh_tc_times``). ``fk_only`` runs
+    no product: its fp32 time is ``ablation_work``'s."""
+    nbytes, ops = ablation_work(mode, B, S, F, J, P)
+    if mode == 'fk_only':
+        return dict(bytes=nbytes / PEAK_HBM_BYTES * 1e3, tensor=0.0,
+                    fp32=ops / PEAK_FP32_FLOPS * 1e3)
+    if mode == 'mv_f32_full':
+        return tc_times(B, S, F, nbytes, dh_ops(J, P) + J)
+    product1 = 3 * B * S * 2 * F / PEAK_TF32_FLOPS
+    row_ops = (dh_ops(J, P) + J if mode == 'mv_bf16_full'
+               else 66 * J + 18 * P)
+    tensor = product1 + (B * S * 2 * (F + 1) / PEAK_BF16_FLOPS
+                         if mode == 'mv_bf16_full' else 0.0)
+    fp32 = (B * S * _ABLATION_TC_PAIR_OPS[mode] + B * (row_ops + 2 * F)
+            + S * 2 * F) / PEAK_FP32_FLOPS
+    return dict(bytes=nbytes / PEAK_HBM_BYTES * 1e3, tensor=tensor * 1e3,
+                fp32=fp32 * 1e3)
+
+
+def ablation_tc_bound(mode, B, S, F, J, P):
+    """(least ms, 'bytes' or 'operations') of a B7 rung on B1's block:
+    the largest of ``ablation_tc_times``."""
+    t = ablation_tc_times(mode, B, S, F, J, P)
+    ms = max(t.values())
+    return ms, 'bytes' if ms == t['bytes'] else 'operations'
 
 
 def table():
@@ -224,14 +272,21 @@ def table():
     put('B5', fk_score_bytes(B, S, 24, 7, C=2),
         score_ops(B, S, 24, C=2) + B * chain_ops(panda, C=2),
         dict(B=B, S=S, D=7, F=24, C=2))
-    # B6: B1's function in every variant (two rows per thread)
+    # B6: B1's function on B1's block in every variant
     put('B6', fk_score_bytes(B, S, F, J),
         score_ops(B, S, F) + B * dh_ops(J, P), dict(B=B, S=S, J=J, F=F))
+    rows['B6']['bound_tc_ms'], rows['B6']['bound_tc_by'] = dh_tc_bound(
+        B, S, F, J, P)
     # B7: the ablation modes, each writing one float per configuration
     for mode in ('fk_only', 'mxu', 'mxu_rsqrt', 'fwd', 'mv_f32_full',
                  'mv_bf16_full'):
-        put(f'B7 {mode}', *ablation_work(mode, B, S, F, J, P),
+        key = f'B7 {mode}'
+        put(key, *ablation_work(mode, B, S, F, J, P),
             dict(B=B, S=S, J=J, P=P, F=F))
+        rows[key]['bound_tc_ms'], rows[key]['bound_tc_by'] = \
+            ablation_tc_bound(mode, B, S, F, J, P)
+        rows[key]['bound_tc_times_ms'] = ablation_tc_times(mode, B, S, F, J,
+                                                           P)
     return rows
 
 

@@ -1,4 +1,4 @@
-"""A/B of kernel B1 against its two-rows-per-thread variants (kernel B6,
+"""A/B of kernel B1 against its dual half-tile variants (kernel B6,
 ``csrc/dh_dual_score.cu``): the PyTorch counterpart of the JAX package's
 ``scripts/ab_dual_tile.py``.
 
@@ -6,17 +6,21 @@
 
 The reference splits each TPU batch tile into two halves and runs them in
 sequence (``dual_seq``, the control) or with their stages interleaved
-(``dual_pipe``). On the card the two halves are two rows of one thread:
-``dual_pipe`` shares each shared-memory support read between the two rows
-and gives the scheduler two independent FMA chains; ``dual_seq`` runs one
-row's support loop after the other. Each runs at 64 and 128 threads per
-block (128 and 256 rows).
+(``dual_pipe``). On the card a block takes a tile of 256 configurations
+as two halves of 128, each computed as a block of B1's tensor-core kernel
+computes it: ``dual_seq_256`` runs one half's FK, support loop and
+backward, then the other's; ``dual_pipe_256`` gives the FK and the
+backward a warpgroup of their own, which runs half B's FK and half A's
+backward while the tensor-core warps run the other half's support loop;
+``dual_pipe_persist`` does the same with one block per SM walking many
+halves, each half's FK and backward hidden behind its neighbours' loops.
 
 At the roofline shape (PandaFK, B = 65536, S = 512) it checks each variant
 against the production kernel (``fk_score.dh_score_grad``) on the first
 4096 configurations, then times the production kernel and each variant by
 scan differencing (``roofline_fk_score.per_step_ms``; a step is
-``q - 1e-4 dq``). The result goes to ``--out`` (default
+``q - 1e-4 dq``) and by their own time on the card
+(``roofline_fk_score.device_ms``). The result goes to ``--out`` (default
 ``build/diffco_tpu_torch/roofline_dual_tile.json``) and is printed as JSON
 with the card's name and power limit. ``--device cpu`` runs the plain twin
 as a rehearsal.
@@ -32,9 +36,9 @@ from ..device import resolve_device
 from ..ops import fk_score
 from . import roofline_fk_score as rf
 
-# name -> (threads per block, pipelined)
-VARIANTS = {'dual_seq_64': (64, False), 'dual_pipe_64': (64, True),
-            'dual_seq_128': (128, False), 'dual_pipe_128': (128, True)}
+# name (by rows per tile; the persistent form walks many) ->
+# csrc/dh_dual_score.cu's variant
+VARIANTS = {'dual_seq_256': 0, 'dual_pipe_256': 1, 'dual_pipe_persist': 2}
 N_CHECK = 4096
 
 # launches of the B6 kernel (not of its plain twin), for run accounting
@@ -42,23 +46,21 @@ dh_dual_score_grad_launches = 0
 dh_dual_score_grad_launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
-def dh_dual_score_grad(q, s, w, spec, threads=128, pipelined=True):
-    """Kernel B6: B1's function, q [B, J] -> (score [B], dq [B, J]), two
-    configurations per thread, ``threads`` (64 or 128) per block. A CUDA
-    tensor launches ``csrc/dh_dual_score.cu`` (or raises); a CPU tensor
-    runs B1's plain twin, ``fk_score._dh_score_grad_plain``."""
-    name = f"dual_{'pipe' if pipelined else 'seq'}_{threads}"
-    if name not in VARIANTS:
-        raise ValueError(f'dh_dual_score_grad: {threads} threads, built for '
-                         f'{sorted({t for t, _ in VARIANTS.values()})}')
+def dh_dual_score_grad(q, s, w, spec, variant='dual_pipe_256'):
+    """Kernel B6: B1's function, q [B, J] -> (score [B], dq [B, J]), in
+    the ``variant`` of ``VARIANTS``. A CUDA tensor launches
+    ``csrc/dh_dual_score.cu`` (or raises); a CPU tensor runs B1's plain
+    twin, ``fk_score._dh_score_grad_plain``."""
+    if variant not in VARIANTS:
+        raise ValueError(f'dh_dual_score_grad: variant {variant!r}, not one '
+                         f'of {list(VARIANTS)}')
     if q.device.type == 'cpu':
         return fk_score._dh_score_grad_plain(q, s, w, spec)
     c = rf.fp24_spec('dh_dual_score_grad', spec)
     out = fk_score._launch('dh_dual_score_grad', 'dh_dual_score', q, s, w, c,
-                           c.J, c.P, threads, int(pipelined),
-                           counts=globals())
+                           c.J, c.P, VARIANTS[variant], counts=globals())
     if q.shape[0]:   # launched, and counted in dh_dual_score_grad_launches
-        dh_dual_score_grad_launches_by_variant[name] += 1
+        dh_dual_score_grad_launches_by_variant[variant] += 1
     return out
 
 
@@ -77,8 +79,8 @@ def run(device='cuda', batch=rf.B, supports=rf.S):
     qc = q[:N_CHECK]
     sc0, dq0 = fk_score.dh_score_grad(qc, sup, w, spec)
     variants = {}
-    for name, (threads, pipe) in VARIANTS.items():
-        sc1, dq1 = dh_dual_score_grad(qc, sup, w, spec, threads, pipe)
+    for name in VARIANTS:
+        sc1, dq1 = dh_dual_score_grad(qc, sup, w, spec, name)
         variants[name] = dict(
             max_abs_score_err_vs_prod=float((sc1 - sc0).abs().max()),
             rel_grad_err_vs_prod=float((dq1 - dq0).abs().max()
@@ -86,11 +88,18 @@ def run(device='cuda', batch=rf.B, supports=rf.S):
     t_prod, out['prod_raw_ms'] = timed(
         lambda x: fk_score.dh_score_grad(x, sup, w, spec))
     out['prod_ms'] = t_prod
-    for name, (threads, pipe) in VARIANTS.items():
-        t, raw = timed(lambda x, t=threads, p=pipe: dh_dual_score_grad(
-            x, sup, w, spec, t, p))
+    on_card = dev.type == 'cuda'
+    out['prod_device_ms'] = (rf.device_ms(
+        lambda: fk_score.dh_score_grad(q, sup, w, spec), 'dh_score_tc_kernel')
+        if on_card else None)
+    for name in VARIANTS:
+        t, raw = timed(lambda x, v=name: dh_dual_score_grad(
+            x, sup, w, spec, v))
         variants[name].update(ms_per_step=t, raw_ms=raw, speedup_vs_prod=(
-            t_prod / t if t and t_prod else None))
+            t_prod / t if t and t_prod else None), device_ms=(rf.device_ms(
+                lambda v=name: dh_dual_score_grad(q, sup, w, spec, v),
+                rf.instance_pattern('dh_dual_score_tc_kernel',
+                                    VARIANTS[name])) if on_card else None))
     out['variants'] = variants
     return out
 

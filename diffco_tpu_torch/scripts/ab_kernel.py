@@ -148,18 +148,19 @@ _TC_ABLATIONS = {
                 'constexpr int kTcSplit = 1;')],
 }
 _DH_SUMS = 'constexpr int kDhSums = FP == 24 ? kTcSumsShared : kTcSumsRegs;'
+_DHR = 'dh_tc_rows.cuh'
 B1_ABLATIONS = {
-    'oneAcc': [(None, _DH_SUMS, 'constexpr int kDhSums = kTcSumsOne;')],
-    'regsSums': [(None, _DH_SUMS, 'constexpr int kDhSums = kTcSumsRegs;')],
+    'oneAcc': [(_DHR, _DH_SUMS, 'constexpr int kDhSums = kTcSumsOne;')],
+    'regsSums': [(_DHR, _DH_SUMS, 'constexpr int kDhSums = kTcSumsRegs;')],
     'directDist': [(_TCB, 'constexpr bool kTcDist = true;',
                     'constexpr bool kTcDist = false;')],
     'noP2': [(_TCB, 'if (n2 < nt2)\n', 'if (n2 < 0)\n')],
     'noEpilogue': [(None, 'if (tid < kTcRows) {  // the epilogue',
                     'if (false) {  // the epilogue')],
-    'noFK': [(None, '''    dh_chain<KP>(qr, sp, xrow, axes, axes + 3 * kMaxJ);
-  }
-  tc_score_block''', '''  }
-  tc_score_block''')],
+    'noFK': [(None,
+              'if (tid < kTcRows) dh_row_fk<FP>(q, b, live, sp, xrow, axes);',
+              'if (tid < kTcRows)\n'
+              '    for (int f = 0; f < FP; ++f) xrow[f] = 0.f;')],
     **_TC_ABLATIONS,
 }
 _ONE_ACC = [(None, '(FP <= kTcChunkMaxFP ? kTcSumsRegs : kTcSumsOne)',

@@ -11,12 +11,13 @@ configurations, weights N(0, 0.05^2)) it times
   q through autograd (kernel B1 at this batch), then ``q - 1e-4 g``;
 - ``full_kernel``: ``fk_score.dh_score_grad`` (B1) alone;
 - the ablation ladder of kernel B7 (``csrc/dh_ablation.cu``, through
-  ``dh_ablation``), each rung a prefix of B1: ``fk_only`` -> ``mxu`` (+ the
-  per-pair squared distance, by B1's direct difference) -> ``mxu_rsqrt``
-  (+ the rsqrt) -> ``fwd`` (+ the weighted score) -> ``mv_f32_full`` (B1
-  in full, one output), and
-  ``mv_bf16_full`` (the same with its score / rowsum / su operands rounded
-  to bf16, the reference's A/B);
+  ``dh_ablation``), each rung a prefix of B1's tensor-core kernel:
+  ``fk_only`` -> ``mxu`` (+ product 1 alone: sum_j s_j . x, the
+  reference's matrix-unit dot) -> ``mxu_rsqrt`` (+ d2 from the expanded
+  square with the guard, the rsqrt) -> ``fwd`` (+ the weighted score) ->
+  ``mv_f32_full`` (B1 in full, one output), and ``mv_bf16_full`` (the
+  same with product 2 as one bf16 product and the score's r and w
+  rounded to bf16, the reference's A/B);
 - B1 at 64 / 128 / 256 / 512 threads per block (``tile_sweep_full_ms``;
   the reference sweeps its TPU batch tile).
 
@@ -25,7 +26,14 @@ step's input the previous step's output, run at ``N_SHORT`` and ``N_LONG``
 steps after a warm-up, each run timed with CUDA events, the minimum over
 ``REPS`` runs; per step = (long - short) / (N_LONG - N_SHORT). A difference
 at or below zero is reported as null; ``raw_ms`` holds every variant's two
-times. The names follow the reference's result; none of its TPU numbers
+times. The reference's scan runs on the device alone; an eager step here
+also waits on the host, which launches each kernel from Python (~0.03-0.07
+ms a step, host-dependent), so a kernel faster than that is hidden in its
+step. The result's ``device_ms`` therefore holds each kernel's own time
+on the card, the mean duration of ``N_DEVICE`` launches in a
+``torch.profiler`` trace (``device_ms``), and on the card the ladder is
+computed from it.
+The names follow the reference's result; none of its TPU numbers
 describes this card.
 
 The result goes to ``--out`` (default ``build/diffco_tpu_torch/
@@ -39,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -55,17 +64,26 @@ B = 65536
 S = 512
 N_SHORT, N_LONG = 20, 120
 REPS = 6
+N_DEVICE = 20
+N_TRACE_SLACK = 5
 SWEEP_THREADS = (64, 128, 256, 512)
 OUT_DIR = Path(__file__).resolve().parents[2] / 'build' / 'diffco_tpu_torch'
 
 # the reference's ablation names, in ladder order, -> csrc/dh_ablation.cu's
-# AblationMode. ``mxu`` is the reference's sum_j s_j . x, the dot that its
-# distance is made of; the port's rung is B1's own distance, sum_j d2_j by
-# direct difference, which is S ||x||^2 + sum_j ||s_j||^2 - 2 sum_j s_j . x
+# AblationMode (``mxu``: sum_j s_j . x, the dot that the distance is made
+# of)
 MODES = {'fk_only': 0, 'mxu': 1, 'mxu_rsqrt': 2, 'fwd': 3,
          'mv_f32_full': 4, 'mv_bf16_full': 5}
 LADDER = ('fk_only', 'mxu', 'mxu_rsqrt', 'fwd', 'mv_f32_full')
 FP_BUILT = 24   # the padded point width the B6 and B7 kernels are built for
+# B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
+# without dq, 1e-3 with it. In mv_bf16_full kernel and twin may round an r
+# or 1/r to neighbouring bf16 values (2^-8 of a term; the kernel's d2 comes
+# from the expanded square, the twin's by direct difference), while
+# leaving the rounding out moves it by several times the tolerance, which
+# chip_smoke.py and tests/test_torch_cuda.py assert
+ABLATION_TOL = {'fk_only': 1e-4, 'mxu': 1e-4, 'mxu_rsqrt': 1e-4,
+                'fwd': 1e-4, 'mv_f32_full': 1e-3, 'mv_bf16_full': 1e-3}
 
 # launches of the B7 kernel (not of its plain twin), for run accounting
 dh_ablation_launches = 0
@@ -137,13 +155,12 @@ def _dh_ablation_plain(q, s, w, spec, mode):
         for j in reversed(range(dq.shape[1])):
             acc = acc + dq[:, j]
         return acc
+    if mode == 'mxu':
+        return x @ s.sum(0)
     out = []
     for x_c in torch.split(x, _PLAIN_ROWS):
         d2 = torch.sum((x_c[:, None, :] - s[None, :, :]) ** 2, dim=-1)
         d2 = torch.clamp(d2, min=0.0) + 1e-12
-        if mode == 'mxu':
-            out.append(d2.sum(1))
-            continue
         rinv = torch.rsqrt(d2)
         r = d2 * rinv
         out.append((r + rinv).sum(1) if mode == 'mxu_rsqrt' else r @ w)
@@ -195,6 +212,40 @@ def _elapsed_ms(fn, dev):
     e1.record()
     torch.cuda.synchronize(dev)
     return e0.elapsed_time(e1)
+
+
+def device_ms(fn, kernel, n=None):
+    """The mean time on the card, in ms, of the kernel launched by each of
+    ``n`` (default ``N_DEVICE``) calls of ``fn``: the durations of the
+    last ``n`` device events whose name ``kernel`` (a regular expression)
+    matches in a ``torch.profiler`` trace of CUDA activity over ``n +
+    N_TRACE_SLACK`` calls (the trace can miss the first launches after it
+    starts: 18 of 20 were seen once on the H100). Raises if it holds
+    fewer than ``n`` or more than one such kernel a call."""
+    n = N_DEVICE if n is None else n
+    calls = n + N_TRACE_SLACK
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e.start_ns(), e.duration_ns())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA
+                    and re.search(kernel, e.name()))
+    if not n <= len(events) <= calls:
+        raise RuntimeError(f'device_ms: {len(events)} launches of {kernel} '
+                           f'in the trace of {calls} calls')
+    return sum(d for _, d in events[-n:]) / n * 1e-6
+
+
+def instance_pattern(kernel, arg):
+    """``device_ms``'s pattern for the instance ``kernel<arg>`` of a kernel
+    template with one int argument, in a trace's demangled or mangled
+    name (the trace may keep another instance's events)."""
+    return rf'{kernel}(<{arg}>|ILi{arg}EE)'
 
 
 def per_step_ms(step, q):
@@ -278,10 +329,22 @@ def run(device='cuda', batch=B, supports=S):
         str(t): timed(f'tile_sweep_{t}', full_step(
             lambda qq, t=t: dh_score_grad_threads(qq, sup, w, spec, t)))
         for t in SWEEP_THREADS}
+    # on the card each kernel's own time (module docstring), the ladder's
+    dev_ms = None
+    if dev.type == 'cuda':
+        dev_ms = {'full_kernel': device_ms(
+            lambda: fk_score.dh_score_grad(q, sup, w, spec),
+            'dh_score_tc_kernel')}
+        dev_ms.update({mode: device_ms(
+            lambda m=mode: dh_ablation(q, sup, w, spec, m),
+            instance_pattern('dh_ablation_kernel', MODES[mode]))
+            for mode in MODES})
+    res['device_ms'] = dev_ms
     # the ladder: what each rung adds, as a share of B1 in full
-    full, prev, ladder = res['mv_f32_full_ms'], 0.0, {}
+    times = dev_ms or {m: res[f'{m}_ms'] for m in MODES}
+    full, prev, ladder = times['mv_f32_full'], 0.0, {}
     for mode in LADDER:
-        ms = res[f'{mode}_ms']
+        ms = times[mode]
         adds = None if ms is None or prev is None else ms - prev
         ladder[mode] = dict(ms=ms, adds_ms=adds, share_of_full=(
             None if adds is None or not full else adds / full))

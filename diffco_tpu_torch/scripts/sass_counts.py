@@ -11,7 +11,8 @@ it with ``cuobjdump -sass`` and takes the kernel instance for ``--fp``
 components (of B4 or B5, the multi-class block's full one; of B1, B2 and
 B3, ``csrc/dh_score.cu``, ``poly_score.cu`` and ``chain_score.cu``, the
 production tensor-core kernel, whose HMMA instructions must be there:
-the run fails without them). Every
+the run fails without them; ``roofline_hmma`` holds every instance of B6
+and B7 to the same). Every
 backward branch closes a loop; for each innermost loop it prints the
 opcode counts of its body. Two kinds of loop carry the per-pair work:
 
@@ -41,6 +42,14 @@ the sum; the whole function's counts are printed beside it. Pass
 ``--product-cols 0`` for a kernel without a product loop. The result
 goes to ``--out`` (default ``build/diffco_tpu_torch/sass_counts.json``)
 and is printed as JSON with the toolkit's version.
+
+    python3 -m diffco_tpu_torch.scripts.sass_counts --against OTHER_DIR \\
+        --source diffco_tpu_torch/csrc/dh_score.cu [--source ...]
+
+compares each source's SASS, kernel by kernel and instruction by
+instruction, with that of the file of the same name in OTHER_DIR (another
+commit's ``csrc/``), and prints how many kernels are identical and the
+instruction counts of those that differ.
 """
 from __future__ import annotations
 
@@ -56,6 +65,12 @@ KEYS = ('LDS', 'FFMA', 'FADD', 'FMUL', 'MUFU.RSQ', 'HMMA', 'STS', 'total')
 # the kernels on the tensor-core block (csrc/tc_score_block.cuh)
 TC_KERNELS = ('dh_score_tc_kernel', 'poly_score_tc_kernel',
               'chain_score_tc_kernel')
+# the roofline path's kernels on B1's block: B6's three variants
+# (csrc/dh_dual_score.cu) and B7's six rungs (csrc/dh_ablation.cu), of
+# which only the fk_only rung (<0>) runs no product
+ROOFLINE_TC_SOURCES = {'dh_dual_score': ('dh_dual_score_tc_kernel', 3),
+                       'dh_ablation': ('dh_ablation_kernel', 6)}
+ROOFLINE_NO_PRODUCT = 'dh_ablation_kernelILi0EE'
 
 
 def _tool(name):
@@ -197,15 +212,113 @@ def run(source, fp, product_cols=None):
                                     if tc and rsq else None))
 
 
+def roofline_hmma():
+    """{mangled kernel: HMMA count} of every instance of B6 and B7 in the
+    libraries ``_native.build()`` made (their SASS by cuobjdump; needs the
+    toolkit, no card). Raises unless each source has all its instances
+    and each, B7's fk_only rung aside, has HMMA."""
+    libs = _native.build()
+    out = {}
+    for stem, (kernel, n) in ROOFLINE_TC_SOURCES.items():
+        sass = subprocess.run([_tool('cuobjdump'), '-sass', libs[stem]._name],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        found = {name: counts(instrs)['HMMA']
+                 for name, instrs in parse_functions(sass).items()
+                 if kernel in name}
+        if len(found) != n:
+            raise RuntimeError(f'{stem}: {len(found)} instances of {kernel} '
+                               f'in its SASS, not {n}: {sorted(found)}')
+        missing = [k for k, c in found.items()
+                   if not c and ROOFLINE_NO_PRODUCT not in k]
+        if missing:
+            raise RuntimeError(f'no HMMA instruction in the SASS of '
+                               f'{missing}')
+        out.update(found)
+    return out
+
+
+# an anonymous namespace's name, which nvcc derives from the file and the
+# build
+_ANON = re.compile(r'\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}')
+
+
+def _instructions(sass):
+    """{kernel: [instruction text]} from cuobjdump -sass, anonymous
+    namespaces' names replaced by 'ANON' in both."""
+    funcs, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r'Function : (\S+)', ln)
+        if m:
+            cur = funcs.setdefault(_ANON.sub('ANON', m.group(1)), [])
+            continue
+        m = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s+(.*?);', ln)
+        if m and cur is not None:
+            cur.append(_ANON.sub('ANON', m.group(1)))
+    return funcs
+
+
+def compare(sources, other_dir):
+    """Each source's SASS against that of the file of the same name in
+    ``other_dir`` (for example another commit's ``csrc/``, unpacked with
+    ``git archive``), kernel by kernel and instruction by instruction; all
+    the cubins build in parallel. Returns one dict a source: the kernels
+    identical, those that differ (with both instruction counts) and those
+    in one build only."""
+    flags = [f for f in _native._NVCC_FLAGS
+             if f not in ('-shared', '-Xcompiler', '-fPIC')]
+    _native._BUILD.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in map(Path, sources):
+        for tag, path in (('this', src),
+                          ('other', Path(other_dir) / src.name)):
+            cubin = _native._BUILD / f'compare-{tag}-{src.stem}.cubin'
+            procs.append((src, tag, cubin, subprocess.Popen(
+                [_native._nvcc(), *flags, '-cubin', '-o', str(cubin),
+                 str(path)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    sass = {}
+    for src, tag, cubin, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed for {tag} {src.name}:\n{log}')
+        sass[src, tag] = _instructions(subprocess.run(
+            [_tool('cuobjdump'), '-sass', str(cubin)], capture_output=True,
+            text=True, check=True).stdout)
+    out = []
+    for src in map(Path, sources):
+        this, other = sass[src, 'this'], sass[src, 'other']
+        both = sorted(set(this) & set(other))
+        out.append(dict(
+            source=src.name,
+            identical=[k for k in both if this[k] == other[k]],
+            differ={k: (len(other[k]), len(this[k])) for k in both
+                    if this[k] != other[k]},
+            only=sorted(set(this) ^ set(other))))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--source', action='append',
                     help='a kernel source (repeatable; default B5)')
     ap.add_argument('--fp', type=int, default=24)
     ap.add_argument('--product-cols', type=int, default=64)
+    ap.add_argument('--against', metavar='DIR',
+                    help='compare each source\'s SASS with DIR/<its name> '
+                         'instead of counting')
     ap.add_argument('--out', default=str(_native._BUILD / 'sass_counts.json'))
     args = ap.parse_args(argv)
     sources = args.source or [str(_native._CSRC / 'chain_multi_score.cu')]
+    if args.against:
+        res = compare(sources, args.against)
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+        print(json.dumps({'sass_compare': [
+            dict(source=r['source'], identical=len(r['identical']),
+                 differ=list(r['differ'].values()), only=r['only'])
+            for r in res]}))
+        return
     res = [run(s, args.fp, args.product_cols) for s in sources]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))

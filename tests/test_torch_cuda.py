@@ -61,15 +61,9 @@ CHAIN_MULTI_CASES = [('panda_simple.urdf', 37, 5, 3),
                      ('lift_rig.urdf', 300, 37, 8),
                      ('lift_rig.urdf', 64, 0, 5)]
 
-# B6 and B7 at a ragged small shape and the roofline path's shape
+# B6 and B7 at a ragged small shape and the roofline path's shape; B7
+# against its twin at rf.ABLATION_TOL
 ROOFLINE_SHAPES = [(300, 130), (65536 + 37, 512)]
-# B7 against its twin, max |diff| <= tol x max |twin|: 1e-4 for the sums
-# without dq, 1e-3 with it. In mv_bf16_full kernel and twin may round an r
-# or 1/r to neighbouring bf16 values (2^-8 of a term; about a third of the
-# tolerance at the large shape on the H100); leaving the rounding out
-# moves it by about 3 times the tolerance, which the test asserts
-ABLATION_TOL = {'fk_only': 1e-4, 'mxu': 1e-4, 'mxu_rsqrt': 1e-4,
-                'fwd': 1e-4, 'mv_f32_full': 1e-3, 'mv_bf16_full': 1e-3}
 
 
 @pytest.fixture
@@ -776,7 +770,7 @@ def test_ablation_kernel_matches_plain(cuda, mode, B, S):
     ref = rf._dh_ablation_plain(q, sup, w, spec, mode)
     assert out.shape == (B,) and bool(torch.isfinite(out).all())
     err = float((out - ref).abs().max())
-    tol = ABLATION_TOL[mode] * float(ref.abs().max())
+    tol = rf.ABLATION_TOL[mode] * float(ref.abs().max())
     assert err <= tol, err
     if mode == 'mv_bf16_full':    # the tolerance would catch no rounding
         f32 = rf._dh_ablation_plain(q, sup, w, spec, 'mv_f32_full')
@@ -788,9 +782,8 @@ def test_ablation_kernel_matches_plain(cuda, mode, B, S):
 def test_dual_kernel_matches_plain_and_b1(cuda, variant, B, S):
     robot, q, sup, w = _inputs(B, S, cuda, seed=11)
     spec = fk_score.robot_spec(robot)
-    threads, pipelined = ab.VARIANTS[variant]
     before = ab.dh_dual_score_grad_launches
-    score, dq = ab.dh_dual_score_grad(q, sup, w, spec, threads, pipelined)
+    score, dq = ab.dh_dual_score_grad(q, sup, w, spec, variant)
     torch.cuda.synchronize()
     assert ab.dh_dual_score_grad_launches == before + 1
     for ref, ref_dq in (fk_score._dh_score_grad_plain(q, sup, w, spec),
@@ -817,14 +810,23 @@ def test_roofline_kernels_reject_what_they_cannot_take(cuda):
         rf.dh_ablation(q.double(), sup, w, spec, 'fwd')
     with pytest.raises(ValueError, match='threads'):
         rf.dh_score_grad_threads(q, sup, w, spec, 96)
-    with pytest.raises(ValueError, match='threads'):
-        ab.dh_dual_score_grad(q, sup, w, spec, threads=256)
+    with pytest.raises(ValueError, match='variant'):
+        ab.dh_dual_score_grad(q, sup, w, spec, variant='dual_pipe_64')
     # four points pad to 16 components: the kernels are built for 24
     four = (spec[0], spec[1][:4], spec[2])
     with pytest.raises(ValueError, match='built for 24'):
         ab.dh_dual_score_grad(q, sup[:, :12].contiguous(), w, four)
     with pytest.raises(ValueError, match='built for 24'):
         rf.dh_ablation(q, sup[:, :12].contiguous(), w, four, 'mxu')
+
+
+def test_roofline_kernels_run_on_the_tensor_cores(cuda):
+    """Every B6 variant and every B7 rung past fk_only has HMMA in its
+    SASS (``sass_counts.roofline_hmma`` raises otherwise)."""
+    from diffco_tpu_torch.scripts import sass_counts
+    hmma = sass_counts.roofline_hmma()
+    assert len(hmma) == len(ab.VARIANTS) + len(rf.MODES)
+    assert sum(n > 0 for n in hmma.values()) == len(hmma) - 1
 
 
 def test_roofline_entry_points_on_the_card(cuda, monkeypatch):
@@ -834,9 +836,13 @@ def test_roofline_entry_points_on_the_card(cuda, monkeypatch):
     res = rf.run('cuda', batch=4096, supports=128)
     assert res['raw_ms']['full_kernel']['long_ms'] > 0
     assert list(res['ladder']) == list(rf.LADDER)
+    assert set(res['device_ms']) == {'full_kernel', *rf.MODES}
+    assert all(ms > 0 for ms in res['device_ms'].values())
     res = ab.run('cuda', batch=4096, supports=128)
+    assert res['prod_device_ms'] > 0
     for v in res['variants'].values():
         assert v['rel_grad_err_vs_prod'] < 1e-3
+        assert v['device_ms'] > 0
 
 
 def _baxter_checkers(cuda):

@@ -78,12 +78,12 @@ def test_wrapper_runs_plain_twin_on_cpu_without_counting():
     spec = tfk.robot_spec(TPanda())
     want = tfk._dh_score_grad_plain(q, sup, w, spec)
     before = ab.dh_dual_score_grad_launches
-    for threads, pipelined in ab.VARIANTS.values():
-        score, dq = ab.dh_dual_score_grad(q, sup, w, spec, threads, pipelined)
+    for variant in ab.VARIANTS:
+        score, dq = ab.dh_dual_score_grad(q, sup, w, spec, variant)
         assert torch.equal(score, want[0]) and torch.equal(dq, want[1])
     assert ab.dh_dual_score_grad_launches == before
-    with pytest.raises(ValueError, match='threads'):
-        ab.dh_dual_score_grad(q, sup, w, spec, threads=96)
+    with pytest.raises(ValueError, match='variant'):
+        ab.dh_dual_score_grad(q, sup, w, spec, variant='dual_pipe_128')
 
 
 def test_dual_tile_entry_point_on_cpu(tmp_path, monkeypatch):

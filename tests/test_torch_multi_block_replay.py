@@ -26,6 +26,8 @@ from diffco_tpu_torch.ops import _native, fk_score, fused_score
 from diffco_tpu_torch.robots import PandaFK, URDFRobot
 from diffco_tpu_torch.robots.urdf import FrankaPanda
 from diffco_tpu_torch.robots.analytic import baxter_arm, panda_with_points
+from diffco_tpu_torch.scripts import ab_dual_tile as ab
+from diffco_tpu_torch.scripts import roofline_fk_score as rf
 
 torch.set_num_threads(1)
 
@@ -56,7 +58,7 @@ PRELUDE = r'''
 #define __CUDACC__ 1
 
 struct Dim3 { unsigned x, y, z; };
-thread_local Dim3 threadIdx, blockIdx, blockDim;
+thread_local Dim3 threadIdx, blockIdx, blockDim, gridDim;
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
@@ -298,10 +300,12 @@ def test_chain_multi_register_instance_replay_matches_plain(replay_bin,
 # within both, plain TF32 does not.
 
 TC_PRELUDE = PRELUDE.replace('#include <algorithm>', '#include <algorithm>\n'
-                             '#include <array>\n#include <memory>') + r'''
+                             '#include <array>\n#include <memory>\n'
+                             '#include <mutex>') + r'''
 #define DIFFCO_REPLAY 1
 #define __noinline__
 struct alignas(8) float2 { float x, y; };
+struct alignas(8) uint2 { unsigned x, y; };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
 inline void __syncwarp() {}
 inline unsigned long long atomicAdd(unsigned long long* p,
@@ -310,10 +314,27 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 }
 struct WarpScratch {
   float a[32][4], b[32][2], v[32];
+  unsigned ua[32][4], ub[32][2];
   double dv[32];
   std::barrier<>* bar;
 };
-WarpScratch g_warps[8];
+WarpScratch g_warps[16];
+// named barriers (bar.sync / bar.arrive id, count): one std::barrier per
+// id, made at its first use in a block with that use's count
+std::mutex g_named_mu;
+std::barrier<>* g_named[16];
+void diffco_replay_bar(int id, int count, bool wait) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(g_named_mu);
+    if (!g_named[id]) g_named[id] = new std::barrier<>(count);
+    b = g_named[id];
+  }
+  if (wait)
+    b->arrive_and_wait();
+  else
+    (void)b->arrive();
+}
 inline WarpScratch& my_warp() { return g_warps[threadIdx.x / 32]; }
 inline float tf32_cut(unsigned u) {
   u &= 0xffffe000u;
@@ -338,6 +359,36 @@ void diffco_replay_mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
       // B (k, n) in lane 4 n + k % 4, register k / 4
       const float av = w.a[4 * (m % 8) + k % 4][m / 8 + 2 * (k / 4)];
       const float bv = w.b[4 * n + k % 4][k / 4];
+      acc += av * bv;
+    }
+    out[i] = acc;
+  }
+  w.bar->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+// m16n8k16 bf16: each register two bf16 (the lower k in the low half);
+// the products are exact in fp32 and added in order of k
+inline float bf16_half(unsigned u, int half) {
+  return tf32_cut(half ? u & 0xffff0000u : u << 16);
+}
+void diffco_replay_mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                            unsigned b0, unsigned b1) {
+  WarpScratch& w = my_warp();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int i = 0; i < 4; ++i) w.ua[lane][i] = a[i];
+  w.ub[lane][0] = b0;
+  w.ub[lane][1] = b1;
+  w.bar->arrive_and_wait();
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int m = i < 2 ? g : g + 8, n = 2 * t + (i & 1);
+    float acc = d[i];
+    for (int k = 0; k < 16; ++k) {
+      // A (m, k) in lane 4 (m % 8) + (k % 8) / 2, register m / 8 + 2 (k / 8);
+      // B (k, n) in lane 4 n + (k % 8) / 2, register k / 8; half k % 2
+      const float av = bf16_half(
+          w.ua[4 * (m % 8) + (k % 8) / 2][m / 8 + 2 * (k / 8)], k % 2);
+      const float bv = bf16_half(w.ub[4 * n + (k % 8) / 2][k / 8], k % 2);
       acc += av * bv;
     }
     out[i] = acc;
@@ -375,28 +426,34 @@ alignas(16) float diffco_tc_smem[1 << 16];
 
 template <class K>
 void run_tc_blocks(int B, int smem_bytes, K&& kernel,
-                   int rows = diffco::kTcRows) {
+                   int rows = diffco::kTcRows,
+                   int nthreads = diffco::kTcThreads, int grid = 0) {
   if (smem_bytes > int(sizeof(diffco_tc_smem))) std::exit(5);
-  const int nblocks = (B + rows - 1) / rows;
+  const int nblocks = grid ? grid : (B + rows - 1) / rows;
   for (int blk = 0; blk < nblocks; ++blk) {
     std::fill(std::begin(diffco_tc_smem), std::end(diffco_tc_smem),
               std::nanf(""));
-    std::barrier<> bar(diffco::kTcThreads);
+    std::barrier<> bar(nthreads);
     g_barrier = &bar;
     std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
-    for (int i = 0; i < diffco::kTcThreads / 32; ++i) {
+    for (int i = 0; i < nthreads / 32; ++i) {
       warp_bars.emplace_back(new std::barrier<>(32));
       g_warps[i].bar = warp_bars.back().get();
     }
     std::vector<std::thread> threads;
-    for (int t = 0; t < diffco::kTcThreads; ++t)
+    for (int t = 0; t < nthreads; ++t)
       threads.emplace_back([&, t] {
         threadIdx = Dim3{unsigned(t), 0u, 0u};
         blockIdx = Dim3{unsigned(blk), 0u, 0u};
-        blockDim = Dim3{unsigned(diffco::kTcThreads), 1u, 1u};
+        blockDim = Dim3{unsigned(nthreads), 1u, 1u};
+        gridDim = Dim3{unsigned(nblocks), 1u, 1u};
         kernel();
       });
     for (auto& th : threads) th.join();
+    for (auto& b : g_named) {
+      delete b;
+      b = nullptr;
+    }
   }
 }
 
@@ -675,6 +732,68 @@ int main(int argc, char** argv) {
                                 for P, M in WIDE_PLAN_PM))
 
 
+# B6 (dh_dual_score.cu, variant V: 0 dual_seq, 1 dual_pipe, 2
+# dual_pipe_persist on a grid of two blocks, whose first walks halves 0
+# and 2) and B7 (dh_ablation.cu, rung M), production builds (no guard
+# count):
+#   replay dual V B S IN OUT    and    replay abl M B S IN OUT
+# IN holds the DHSpec, then q [B, J], s [S, 3P], w [S] (float32); OUT gets
+# 0, then score [B] and dq [B, J] (B6) or the rung's out [B] (B7).
+ROOF_RUNNER = TC_COMMON + r"""
+template <int M>
+void run_abl(const std::vector<float>& q, const std::vector<float>& s,
+             const std::vector<float>& w, std::vector<float>& out, int B,
+             int S, const diffco::DHSpec& sp) {
+  run_tc_blocks(B, diffco::DhSmem<24>::kBytes, [&] {
+    diffco::dh_ablation_kernel<M>(q.data(), s.data(), w.data(), out.data(),
+                                  B, S, sp);
+  });
+}
+
+int main(int argc, char** argv) {
+  if (argc != 7) return 2;
+  const std::string kind = argv[1];
+  const int V = std::atoi(argv[2]), B = std::atoi(argv[3]),
+            S = std::atoi(argv[4]);
+  FILE* in = std::fopen(argv[5], "rb");
+  if (!in) return 2;
+  const diffco::DHSpec sp = take<diffco::DHSpec>(in, 1)[0];
+  const auto q = take<float>(in, size_t(B) * sp.J);
+  const auto s = take<float>(in, size_t(S) * 3 * sp.P);
+  const auto w = take<float>(in, size_t(S));
+  std::fclose(in);
+  std::vector<float> score(B, std::nanf("")), dq;
+  if (kind == "dual") {
+    dq.assign(size_t(B) * sp.J, std::nanf(""));
+    auto k = [&]<int P>() {
+      diffco::dh_dual_score_tc_kernel<P>(q.data(), s.data(), w.data(),
+                                         score.data(), dq.data(), B, S, sp);
+    };
+    const int pipe = 2 * diffco::HalfSmem::kBytes;
+    if (V == 0)
+      run_tc_blocks(B, diffco::SeqSmem::kBytes,
+                    [&] { k.template operator()<0>(); }, diffco::kDualRows);
+    else if (V == 1)
+      run_tc_blocks(B, pipe, [&] { k.template operator()<1>(); },
+                    diffco::kDualRows, diffco::kPipeThreads);
+    else
+      run_tc_blocks(B, pipe, [&] { k.template operator()<2>(); },
+                    diffco::kDualRows, diffco::kPipeThreads, 2);
+  } else {
+    switch (V) {
+      case 0: run_abl<0>(q, s, w, score, B, S, sp); break;
+      case 1: run_abl<1>(q, s, w, score, B, S, sp); break;
+      case 2: run_abl<2>(q, s, w, score, B, S, sp); break;
+      case 3: run_abl<3>(q, s, w, score, B, S, sp); break;
+      case 4: run_abl<4>(q, s, w, score, B, S, sp); break;
+      case 5: run_abl<5>(q, s, w, score, B, S, sp); break;
+      default: return 4;
+    }
+  }
+  return put(argv[6], 0, score, dq);
+}
+"""
+
 def _gxx():
     """g++ with C++20's <barrier>, or skip."""
     gxx = shutil.which('g++')
@@ -698,16 +817,19 @@ def _tc_device_code(name):
 
 @pytest.fixture(scope='module')
 def tc_bins(tmp_path_factory):
-    """The replay executables of B1, B2 and B3 (g++ -std=c++20, the three
-    builds started together)."""
+    """The replay executables of B1, B2, B3 and of B6 and B7 together
+    (g++ -std=c++20, the four builds started together)."""
     gxx = _gxx()
     d = tmp_path_factory.mktemp('tc_block_replay')
     procs = {}
-    for kind, source, runner in (('dh', 'dh_score.cu', TC_RUNNER),
-                                 ('poly', 'poly_score.cu', POLY_RUNNER),
-                                 ('chain', 'chain_score.cu', CHAIN_RUNNER)):
+    for kind, sources, runner in (
+            ('dh', ('dh_score.cu',), TC_RUNNER),
+            ('poly', ('poly_score.cu',), POLY_RUNNER),
+            ('chain', ('chain_score.cu',), CHAIN_RUNNER),
+            ('roof', ('dh_dual_score.cu', 'dh_ablation.cu'), ROOF_RUNNER)):
         src, exe = d / f'{kind}.cpp', d / kind
-        src.write_text(TC_PRELUDE + _tc_device_code(source) + runner)
+        src.write_text(TC_PRELUDE + ''.join(map(_tc_device_code, sources))
+                       + runner)
         procs[kind] = (exe, subprocess.Popen(
             [gxx, '-std=c++20', '-O1', '-pthread', '-w', '-I',
              str(_native._CSRC), '-o', str(exe), str(src)],
@@ -725,15 +847,15 @@ def tc_replay_bin(tc_bins):
     return tc_bins['dh']
 
 
-def _near_support_inputs(robot, seed):
-    """q [B, J] and supports s [S, 3P] whose first rows sit on query rows'
-    FK points: supports 0-3 exactly on rows 0-3, 4-7 at 1e-3 from rows
-    4-7 and 8-11 at 1e-2 from rows 8-11 (random directions in point
+def _near_support_inputs(robot, seed, rows=B):
+    """q [rows, J] and supports s [S, 3P] whose first rows sit on query
+    rows' FK points: supports 0-3 exactly on rows 0-3, 4-7 at 1e-3 from
+    rows 4-7 and 8-11 at 1e-2 from rows 8-11 (random directions in point
     space), the rest FK points of random configurations; w [S] ~
     N(0, 0.05^2). numpy from a seed."""
     lims = np.asarray(robot.joint_limits, np.float32)
     rng = np.random.default_rng(seed)
-    u = rng.uniform(size=(S + B, lims.shape[0])).astype(np.float32)
+    u = rng.uniform(size=(S + rows, lims.shape[0])).astype(np.float32)
     qs = u * (lims[:, 1] - lims[:, 0]) + lims[:, 0]
     q = np.ascontiguousarray(qs[S:])
     sup = robot.fkine(torch.from_numpy(qs[:S])).reshape(S, -1).numpy()
@@ -745,10 +867,10 @@ def _near_support_inputs(robot, seed):
     return q, np.ascontiguousarray(sup, np.float32), w
 
 
-def _run_tc(exe, args, blobs, n_grad, tmp_path):
+def _run_tc(exe, args, blobs, n_grad, tmp_path, rows=B):
     """Run a tensor-core replay on the inputs ``blobs`` (bytes, in order)
     with the command-line ``args`` before IN and OUT: (the guard's
-    recomputations, score [B], gradient [B, n_grad])."""
+    recomputations, score [rows], gradient [rows, n_grad])."""
     src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
     src.write_bytes(b''.join(blobs))
     proc = subprocess.run([str(exe), *map(str, args), str(src), str(dst)],
@@ -757,7 +879,7 @@ def _run_tc(exe, args, blobs, n_grad, tmp_path):
     raw = dst.read_bytes()
     guard = int(np.frombuffer(raw[:8], np.int64)[0])
     out = np.frombuffer(raw[8:], np.float32)
-    return guard, out[:B], out[B:].reshape(B, n_grad)
+    return guard, out[:rows], out[rows:].reshape(rows, n_grad)
 
 
 def _check_tc(guard, score, grad, ref, ref_grad, guarded=True):
@@ -1009,3 +1131,51 @@ def test_chain_wide_plan_matches_the_kernel(tc_bins):
     assert got == want
     assert all(_native.chain_wide_plan(P, M)['warps_per_sm'] == 16
                for P, M in WIDE_PLAN_PM)
+
+
+# ---- B6 (csrc/dh_dual_score.cu) and B7 (csrc/dh_ablation.cu) on B1's
+# tensor-core block: two 256-row tiles, the second with 5 live rows (half
+# A) and none (half B), and S = 70 (a ragged last chunk)
+ROOF_B = 2 * 128 + 5
+
+
+@pytest.mark.parametrize('variant', list(ab.VARIANTS))
+def test_dual_tc_replay_matches_plain(tc_bins, tmp_path, variant):
+    """B6 in each variant (dual_seq: B1's block on each half in turn;
+    dual_pipe and its persistent form: 384 threads, the FK warpgroup and
+    the loop warps handing over on named barriers) against B1's plain
+    twin as B1's replay (``_check_tc``), rows 0-11 on and next to
+    supports."""
+    robot = PandaFK()
+    spec = fk_score.robot_spec(robot)
+    q, sup, w = _near_support_inputs(robot, seed=21, rows=ROOF_B)
+    out = _run_tc(tc_bins['roof'], ('dual', ab.VARIANTS[variant], ROOF_B, S),
+                  (bytes(fk_score._c_spec(spec)), q.tobytes(), sup.tobytes(),
+                   w.tobytes()), q.shape[1], tmp_path, rows=ROOF_B)
+    _check_tc(*out, *fk_score._dh_score_grad_plain(
+        *(torch.from_numpy(a) for a in (q, sup, w)), spec), guarded=False)
+
+
+@pytest.mark.parametrize('mode', list(rf.MODES))
+def test_ablation_tc_replay_matches_plain(tc_bins, tmp_path, mode):
+    """Each B7 rung against its twin (``rf._dh_ablation_plain``) at
+    ``rf.ABLATION_TOL`` of max |twin|, on FK points of random
+    configurations."""
+    robot = PandaFK()
+    spec = fk_score.robot_spec(robot)
+    lims = np.asarray(robot.joint_limits, np.float32)
+    rng = np.random.default_rng(22)
+    qs = (rng.uniform(size=(S + ROOF_B, 7)) * (lims[:, 1] - lims[:, 0])
+          + lims[:, 0]).astype(np.float32)
+    q = np.ascontiguousarray(qs[S:])
+    sup = robot.fkine(torch.from_numpy(qs[:S])).reshape(S, -1).numpy()
+    w = (rng.normal(size=S) * 0.05).astype(np.float32)
+    _, out, _ = _run_tc(tc_bins['roof'], ('abl', rf.MODES[mode], ROOF_B, S),
+                        (bytes(fk_score._c_spec(spec)), q.tobytes(),
+                         sup.tobytes(), w.tobytes()), 0, tmp_path,
+                        rows=ROOF_B)
+    ref = rf._dh_ablation_plain(*(torch.from_numpy(a) for a in (q, sup, w)),
+                                spec, mode).numpy()
+    assert np.isfinite(out).all()
+    err = np.abs(out - ref).max()
+    assert err <= rf.ABLATION_TOL[mode] * np.abs(ref).max(), (mode, err)

@@ -87,9 +87,8 @@ def _jax_points(q):
 
 
 def _tpu_kernel(ref, mode, q, sup, w):
-    """The interpreted TPU kernel's output. Its ``mxu`` is sum_j s_j . x;
-    the port's rung is B1's sum_j d2_j, so that output is mapped through
-    sum_j ||x - s_j||^2 = S ||x||^2 + sum_j ||s_j||^2 - 2 sum_j s_j . x."""
+    """The interpreted TPU kernel's output (its ``mxu`` is sum_j s_j . x,
+    as the port's)."""
     robot = JPanda()
     if mode.startswith('mv_'):
         kern, n_joints, f_pad = ref.make_mv_full(robot, mode == 'mv_f32_full')
@@ -98,11 +97,7 @@ def _tpu_kernel(ref, mode, q, sup, w):
         kern = kernels[mode]
     out = ref._ablation_call(kern, n_joints, f_pad, TB, jnp.asarray(q),
                              jnp.asarray(sup), jnp.asarray(w))
-    out = np.asarray(out, np.float64)[0, :B]
-    if mode == 'mxu':
-        x, s = _jax_points(q), sup.astype(np.float64)
-        out = S * (x * x).sum(1) + (s * s).sum() - 2 * out + S * 1e-12
-    return out
+    return np.asarray(out, np.float64)[0, :B]
 
 
 def _fp32_math(mode, q, sup, w):
@@ -118,9 +113,9 @@ def _fp32_math(mode, q, sup, w):
     s = sup.astype(np.float64)
     if mode == 'fk_only':
         return x.sum(1)
-    d2 = ((x[:, None, :] - s[None]) ** 2).sum(-1) + 1e-12
     if mode == 'mxu':
-        return d2.sum(1)
+        return x @ s.sum(0)
+    d2 = ((x[:, None, :] - s[None]) ** 2).sum(-1) + 1e-12
     r = np.sqrt(d2)
     return (r + 1 / r).sum(1) if mode == 'mxu_rsqrt' else r @ w
 
@@ -172,6 +167,27 @@ def test_ablation_bounds_extend_b1():
     assert ops == sorted(ops)
 
 
+def test_tc_bounds_of_b6_and_b7():
+    """B6 runs B1's function on B1's block: its tensor-core bound is B1's.
+    Each B7 rung's tensor-core bound is no greater than its fp32 one, the
+    rungs past fk_only are set by their products, and the full f32 rung's
+    by the same products as B1."""
+    rows = bounds.table()
+    assert rows['B6']['bound_tc_ms'] == rows['B1']['bound_tc_ms']
+    assert rows['B6']['bound_ms'] == rows['B1']['bound_ms']
+    B_, S_, F, J, P = 65536, 512, 21, 7, 7
+    for mode in rf.MODES:
+        row = rows[f'B7 {mode}']
+        assert row['bound_tc_ms'] <= row['bound_ms'], mode
+        assert (row['bound_tc_ms'], row['bound_tc_by']) == \
+            bounds.ablation_tc_bound(mode, B_, S_, F, J, P)
+        if mode != 'fk_only':
+            assert row['bound_tc_ms'] == row['bound_tc_times_ms']['tensor']
+    assert rows['B7 mv_f32_full']['bound_tc_ms'] == rows['B1']['bound_tc_ms']
+    assert rows['B7 mxu']['bound_tc_ms'] < rows['B7 mv_bf16_full'][
+        'bound_tc_ms'] < rows['B7 mv_f32_full']['bound_tc_ms']
+
+
 def test_tc_bound_of_b1():
     """B1's tensor-core bound: the two products in 3xTF32 over the TF32
     peak set it at PandaFK's shape, below the fp32 bound that assumes no
@@ -220,6 +236,7 @@ def test_roofline_entry_point_on_cpu(tmp_path, monkeypatch):
                 'implied_tflops_full', 'ladder', 'raw_ms'):
         assert key in res, key
     assert res['f_pad'] == 24 and res['device'] == 'cpu'
+    assert res['device_ms'] is None   # a card's measurement only
     assert set(res['tile_sweep_full_ms']) == {'64', '128', '256', '512'}
     assert list(res['ladder']) == list(rf.LADDER)
     raw = res['raw_ms']['full_kernel']
