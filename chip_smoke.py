@@ -9,11 +9,13 @@ instances, on Baxter's arm with 4 and 2 control points, and at FP = 32,
 40 and 48 on PandaFK's chain with more points, B2 at every FP = 8-64; B1,
 B2 and B3 with rows whose points sit on a support or 1e-3 and 1e-2 from
 one; B1 on fitted proxies of 2048 and 4096 supports against its float64
-twin; B2 also at F = 2, 4 and 14, the first two on its fp64 instance,
+twin, and B2 and B3 at FP = 64 and 56 (the marked ropes of 11 and 9
+links) on fitted proxies of 4096 and 8192; B2 also at F = 2, 4 and 14,
+the first two on its fp64 instance,
 and at F = 72, 102, 150 and 192 on its wide instance; the FK kernels'
 wide instance, for chains past their own bounds, as B1 and B4 launch it
 on a 9-joint DH chain and B3 and B5 on the 35-link rope), then drives
-ten paths through the entry points a user calls:
+eleven paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -76,6 +78,12 @@ ten paths through the entry points a user calls:
   10000 -> the 65536 sweeps: from configurations through B3's wide
   instance (35 moving joints, 34 points), from points through B2's wide
   instance at F = 102, each held to the float64 twin;
+- the mesh path: the PandaFK journey on a torch.distributed mesh of one
+  rank (NCCL) -> ForwardKinematicsDiffCo(mesh=...) fit -> verify -> the
+  65536 sweep with its gradient (B1 on the rank's rows), held to the
+  same checker without a mesh and to the float64 twin -> Adam with
+  options['mesh'] and the ground-truth check -> distributed_fit_lazy on
+  65536 rows -> a save_checker_dcp / load_checker_dcp round trip;
 - the roofline path at bench.py's primitive shape (PandaFK, B = 65536,
   S = 512): ``diffco_tpu_torch.scripts.roofline_fk_score.run`` (B1's
   bench step and kernel, the B7 ablation ladder, the B1 block-size sweep)
@@ -160,6 +168,9 @@ WIDE_MULTI_CLASSES = (1, 2, 5)
 # B1 on proxies of this many supports, with weights that cancel as a
 # fitted proxy's do (_fitted_proxy), held to the float64 twin
 LARGE_S = (2048, 4096)
+# B2 and B3 at FP = 64 and 56 on fitted proxies of the marked ropes
+TC_LARGE_S = (4096, 8192)
+TC_ROPE_LINKS = (11, 9)
 FIT_SAMPLES = 5000               # ForwardKinematicsDiffCo.fit's default
 URDF_FIT_SAMPLES = 3000          # the README quick start's
 # The URDF trajopt departs from the README's options in two places. 83 %
@@ -304,6 +315,10 @@ TEMPORAL_TEST = 2000
 TEMPORAL_MIN_ACC = 0.9
 TEMPORAL_GRID = 200
 ROPE_LINKS = 35
+# the mesh path (mesh_journey)
+MESH_PROBLEMS = 2
+MESH_LAZY_ROWS = 65536
+MESH_LAZY_ITERS = 1000
 ROPE_FIT = 10000
 # tests/test_moveit_scene_e2e.py:17-49: a box, a sphere, an inline mesh
 MOVEIT_SCENE = """\
@@ -474,7 +489,7 @@ def check_poly_kernel(robot, dev):
     then at every FP instance (POLY_FS; F <= 8 is the fp64 instance) on
     rows uniform in a box. Prints B2's launch plan as the card gives it
     (fails unless ops/_native.py::poly_plan_holds and it keeps 16 warps
-    per SM, at every FP)."""
+    per SM, 8 at FP = 64, at every FP)."""
     from diffco_tpu_torch.ops import _native, fused_score
     t0 = time.perf_counter()
     q, sup, w = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=1)
@@ -488,12 +503,15 @@ def check_poly_kernel(robot, dev):
     plans = {}
     for F in POLY_FS:
         card = plans[F] = _native.poly_score_plan_on_card(F)
+        # one block (8 warps) per SM at FP = 64, whose per-chunk running
+        # sums take 36 KB of shared memory
+        least = 8 if 56 < F <= _native.TC_MAX_F else 16
         if not _native.poly_plan_holds(card, F) or \
-                card['warps_per_sm'] < 16:
+                card['warps_per_sm'] < least:
             raise AssertionError(f'B2 plan {card} on the card at F = {F}, '
                                  f'{_native.poly_tc_plan(F)} in '
-                                 'ops/_native.py::poly_tc_plan (16 warps per '
-                                 'SM at least)')
+                                 f'ops/_native.py::poly_tc_plan ({least} '
+                                 'warps per SM at least)')
     print(f'B2 launch plan (F = 21): {plans[21]}', flush=True)
     _phase('B2 poly_score_grad vs plain', t0, B=B_RAGGED, S=S_BENCH,
            F=x.shape[1], max_abs_err=err,
@@ -686,6 +704,81 @@ def check_dh_large_s(dev):
                                   if k not in ('robot', 'S')})
     if failed:
         raise AssertionError(f'B1 at large S beyond the tolerance: {failed}')
+    return out
+
+
+def _allclose_ratio(a, b, tol):
+    """max |a - b| / (tol + tol |b|): torch.allclose(a, b, tol, tol) holds
+    where it is at most 1."""
+    return float(((a - b).abs() / (tol + tol * b.abs())).max())
+
+
+def check_tc_large_s(dev):
+    """B3 and B2 at FP = 64 and 56 on fitted proxies of TC_LARGE_S
+    supports (_fitted_proxy on the marked ropes of TC_ROPE_LINKS links,
+    labels from ab_kernel's rope_ball_gt: a control point inside a ball),
+    at B = 65536 + 37, against their twins in float64 at the sweeps'
+    tolerances (score 1e-4, dq and dx 1e-3): B3 from the ropes'
+    configurations (21 points on 11 moving joints, FP = 64; 17 on 9, FP =
+    56), B2 from their points (F = 63 and 51). The float32 twin itself
+    misses 1e-4 on the score at S = 8192, so the reference is float64.
+    Prints each case's error, its error over the reference's max and its
+    allclose ratio, and fails after all cases if any is out of
+    tolerance."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import robot_data
+    from diffco_tpu_torch.ops import fk_score, fused_score
+    from diffco_tpu_torch.scripts.ab_kernel import rope_ball_gt
+    out, failed = dict(err=0.0, cases=[]), []
+    for links in TC_ROPE_LINKS:
+        robot = dc.URDFRobot(
+            robot_data.generate_marked_rope_urdf(n_links=links), device=dev,
+            setup_acm=False)
+        gt = rope_ball_gt(robot)
+        cs = fk_score.robot_chain_statics(robot)
+        q = robot.rand_configs(B_RAGGED, torch.Generator().manual_seed(80),
+                               dev)
+        x = robot.fkine(q).reshape(B_RAGGED, -1).contiguous()
+        q64, x64 = q.double(), x.double()
+        for S in TC_LARGE_S:
+            sup, w = _fitted_proxy(robot, gt, S, dev, seed=90 + S)
+            sup64, w64 = sup.double(), w.double()
+            F = sup.shape[1]
+            for name, run, plain, arg, arg64 in (
+                    ('B3 chain_score_grad',
+                     lambda a: fk_score.chain_score_grad(a, sup, w, cs),
+                     lambda a: fk_score._chain_score_grad_plain(
+                         a, sup64, w64, cs), q, q64),
+                    ('B2 poly_score_grad',
+                     lambda a: fused_score.poly_score_grad(a, sup, w),
+                     lambda a: fused_score._poly_score_grad_plain(
+                         a, sup64, w64), x, x64)):
+                t0 = time.perf_counter()
+                score, grad = run(arg)
+                with torch.no_grad():
+                    ref, ref_g = plain(arg64)
+                torch.cuda.synchronize()
+                row = dict(kernel=name, S=S, F=F, FP=(F + 7) // 8 * 8)
+                for what, a, b, tol in (('score', score.double(), ref, 1e-4),
+                                        ('grad', grad.double(), ref_g, 1e-3)):
+                    err = float((a - b).abs().max())
+                    row.update({
+                        f'{what}_err': err,
+                        f'{what}_err_of_max': err / float(b.abs().max()),
+                        f'{what}_allclose_ratio': _allclose_ratio(a, b,
+                                                                  tol)})
+                    out['err'] = max(out['err'], err)
+                    if not torch.allclose(a, b, rtol=tol, atol=tol):
+                        failed.append(f'{name} F = {F} S = {S} {what}')
+                row['colliding'] = float(gt(q).float().mean())
+                out['cases'].append(row)
+                _phase(f'{name} vs float64 twin, marked rope of {links} '
+                       f'links, S = {S}', t0, B=B_RAGGED,
+                       **{k: v for k, v in row.items()
+                          if k not in ('kernel', 'S')})
+    if failed:
+        raise AssertionError(f'B2 / B3 at FP = 56 and 64, large S, beyond '
+                             f'the tolerance: {failed}')
     return out
 
 
@@ -2667,6 +2760,118 @@ def multi_robot_journey(dev):
     return out
 
 
+def mesh_journey(robot, dev):
+    """The mesh path: the PandaFK journey (panda_world's box + sphere) on a
+    torch.distributed mesh of one rank, NCCL at world size 1
+    (``make_mesh(('dp', 'tp'), (1, 1))``; one card cannot hold more ranks,
+    so the multi-rank cases are the CPU tests' on gloo), each phase in a
+    profiling.Timers span: ForwardKinematicsDiffCo(mesh=...) fit on
+    FIT_SAMPLES (TPR >= 0.9 after the bias) and verify on VERIFY_SAMPLES
+    -> collision_score on B_BENCH configurations with its gradient (each
+    rank's rows through B1), held to the float64 twin (1e-4, 1e-3) and to
+    the same checker built without a mesh (1e-6) -> adam_traj_optimize
+    with options['mesh'] (TRAJ_OPTIONS) on MESH_PROBLEMS problems and the
+    ground-truth check of the dense paths -> distributed_fit_lazy on
+    MESH_LAZY_ROWS rows of PandaFK features (MESH_LAZY_ITERS iterations),
+    timed -> save_checker_dcp / load_checker_dcp, whose restored state
+    reproduces the scores. Prints the spans; destroys the process group
+    after."""
+    import shutil
+    import torch.distributed as dist
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch import profiling, routines
+    from diffco_tpu_torch.kernels import Polyharmonic, RQKernel
+    from diffco_tpu_torch.ops import fk_score
+    from diffco_tpu_torch.parallel import distributed_fit_lazy, make_mesh
+    timers = profiling.Timers()
+    with timers.span('mesh, make_mesh', block=True):
+        mesh = make_mesh(('dp', 'tp'), (1, 1))
+    env = _scene()
+    gt = dc.CapsuleChainCollision(robot, link_radius=LINK_RADIUS) \
+        .checker_fn(env)
+    checkers = {}
+    for name, m in (('mesh', mesh), ('no mesh', None)):
+        with timers.span(f'{name}, fit and verify', block=True):
+            checkers[name] = dc.ForwardKinematicsDiffCo(
+                robot=robot, environment=env, gt_check_func=gt, seed=0,
+                device=dev, mesh=m)
+            _fit(checkers[name], FIT_SAMPLES, f'PandaFK on the {name} path',
+                 verify=m is not None)
+    checker, plain = checkers['mesh'], checkers['no mesh']
+    with timers.span('mesh, collision_score sweep', block=True):
+        t0 = time.perf_counter()
+        q = robot.rand_configs(B_BENCH, torch.Generator().manual_seed(3),
+                               dev)
+        out = {}
+        for name, ck in checkers.items():
+            qg = q.clone().requires_grad_(True)
+            s = ck.collision_score(qg)
+            dq, = torch.autograd.grad(s.sum(), qg)
+            out[name] = (s.detach().reshape(-1) - ck.safety_bias, dq)
+        p = checker.perceptron
+        w = (p.rbf_nodes * p.valid_mask.to(p.rbf_nodes.dtype)
+             / p.rbf_kernel.epsilon)
+        with torch.no_grad():
+            ref, ref_dq = fk_score._dh_score_grad_plain(
+                q.double(), p.support_transformed.double(), w.double(),
+                fk_score.robot_spec(robot))
+        torch.cuda.synchronize()
+        s, dq = out['mesh']
+        if plain.perceptron.num_valid != p.num_valid:
+            raise AssertionError(f'mesh path: {p.num_valid} supports, '
+                                 f'{plain.perceptron.num_valid} without a '
+                                 'mesh')
+        _check_close('mesh collision_score vs the checker without a mesh',
+                     s, out['no mesh'][0], 1e-6)
+        _check_close('mesh collision_score dq vs the checker without a mesh',
+                     dq, out['no mesh'][1], 1e-6)
+        _check_close('mesh collision_score vs plain twin (float64)',
+                     s.double(), ref, 1e-4)
+        _check_close('mesh collision_score dq vs plain twin (float64)',
+                     dq.double(), ref_dq, 1e-3)
+        _phase('mesh collision_score sweep', t0, configs=B_BENCH,
+               supports=p.num_valid,
+               max_abs_err=_max_err([(s.double(), ref),
+                                     (dq.double(), ref_dq)]),
+               vs_no_mesh=_max_err([(s, out['no mesh'][0]),
+                                    (dq, out['no mesh'][1])]))
+    with timers.span('mesh, Adam', block=True):
+        _trajopt(checker, robot, gt, dev, 'PandaFK on the mesh path',
+                 n=MESH_PROBLEMS, mesh=mesh)
+    with timers.span('mesh, distributed_fit_lazy', block=True):
+        t0 = time.perf_counter()
+        ql = robot.rand_configs(MESH_LAZY_ROWS,
+                                torch.Generator().manual_seed(9), dev)
+        X = robot.fkine(ql).reshape(MESH_LAZY_ROWS, -1)
+        y = gt(ql).float() * 2 - 1
+        gains, hyp, it = distributed_fit_lazy(RQKernel(10), X, y, mesh,
+                                              max_iteration=MESH_LAZY_ITERS)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(hyp).all())
+                and gains.shape == (MESH_LAZY_ROWS,)):
+            raise AssertionError('distributed_fit_lazy: bad gains')
+        _phase('mesh distributed_fit_lazy', t0, rows=MESH_LAZY_ROWS,
+               F=X.shape[1], iterations=int(it),
+               supports=int((gains != 0).sum()),
+               train_acc=float(((hyp > 0) == (y > 0)).float().mean()))
+    with timers.span('mesh, checkpoint round trip', block=True):
+        t0 = time.perf_counter()
+        path = 'build/chip_smoke/mesh_dcp'
+        shutil.rmtree(path, ignore_errors=True)
+        routines.save_checker_dcp(p, path)
+        fresh = dc.DiffCo(kernel_func=RQKernel(10), transform=robot.fkine)
+        fresh.rbf_kernel = Polyharmonic(k=1, epsilon=1)
+        routines.load_checker_dcp(fresh, path, device=dev)
+        with torch.no_grad():
+            a, b = fresh.poly_score(q), p.poly_score(q)
+        if fresh.num_valid != p.num_valid:
+            raise AssertionError('load_checker_dcp: num_valid')
+        _check_close('load_checker_dcp scores', a, b, 1e-6)
+        _phase('mesh checkpoint round trip', t0, supports=fresh.num_valid)
+    print(f'mesh path spans: {json.dumps(timers.summary())}', flush=True)
+    dist.destroy_process_group()
+
+
 def _time_ms(fn, warmup, iters):
     for _ in range(warmup):
         fn()
@@ -2850,6 +3055,7 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
             bound2, by2, bound_fp32_ms=bound2_fp32, bound_fp32_by=by2_fp32,
             bound_times_ms=tc_times(B, S, F, poly_bytes(B, S, F), 2 * F),
             plan=b2['plan'], warps_per_sm=b2['plan']['warps_per_sm'],
+            rope_large_s_vs_float64=b2['rope_large_s'],
             planar_proxies={k: poly_at(v) for k, v in b2['planar'].items()},
             rigid_proxies={k: poly_at(v) for k, v in b2['rigid'].items()},
             multi_robot_proxies={k: poly_at(v)
@@ -2877,6 +3083,7 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
             bound_times_ms=tc_times(B3, S3, F3, fk_score_bytes(B3, S3, F3, D),
                                     chain_ops(c3)),
             plan=b3['plan'], warps_per_sm=b3['plan']['warps_per_sm'],
+            rope_large_s_vs_float64=b3['rope_large_s'],
             scene_file=chain_at(b2['rigid']['scene F18']),
             wide=wide_at(wide['chain_score_grad']),
             rope_wide=chain_at(b2['multi']['F102 rope'])),
@@ -2975,7 +3182,11 @@ def main():
     b2 = check_poly_kernel(robot, dev)
     b1 = check_dh_kernel(robot, dev)
     b1['large_s'] = check_dh_large_s(dev)
+    tc_large_s = check_tc_large_s(dev)
     b3 = check_chain_kernel(dev)
+    for b, k in ((b2, 'B2'), (b3, 'B3')):
+        b['rope_large_s'] = [c for c in tc_large_s['cases']
+                             if c['kernel'].startswith(k)]
     wide = check_wide_kernels(dev)
     b4 = check_dh_multi_kernel(robot, dev)
     b5 = check_chain_multi_kernel(dev)
@@ -2995,6 +3206,7 @@ def main():
                       ('rigid body', lambda: rigid.update(rigid_journey(dev))),
                       ('multi-robot', lambda: multi.update(
                           multi_robot_journey(dev))),
+                      ('mesh', lambda: mesh_journey(robot, dev)),
                       ('roofline', lambda: roofline_path(dev))):
         _zero_launches()
         run()
@@ -3015,6 +3227,7 @@ def main():
                     ('rigid body', 'chain_score_grad'),
                     ('multi-robot', 'poly_score_grad'),
                     ('multi-robot', 'chain_score_grad'),
+                    ('mesh', 'dh_score_grad'),
                     ('roofline', 'dh_score_grad'),
                     ('roofline', 'dh_dual_score_grad'),
                     ('roofline', 'dh_ablation'),

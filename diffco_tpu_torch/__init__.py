@@ -38,6 +38,12 @@ obstacle-list API (``legacy``: ``Obstacle``, ``FCLObstacle``,
 ``FCLChecker``, ``Simple1DDynamicObstacle``, ``Simple1DDynamicChecker``),
 the timers, check counter and trace capture of ``profiling``, and the
 float64 host oracle ``native`` (g++ at first use).
+Multi-device scale-out on ``torch.distributed`` (``parallel``:
+``make_mesh``, the sharded sweeps, Gram, fits and trajectory
+optimization, SPMD; every ``mesh=`` argument and ``options['mesh']``),
+the checkpoint pair ``routines.save_checker_dcp`` / ``load_checker_dcp``,
+and the ROS/MoveIt interface (``ros_interface``; a checker's
+``robot_topic=``).
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; they
 raise rather than fall back when no card is present. Nothing here imports

@@ -11,7 +11,14 @@ functions the trajectory optimizers call.
 Everything runs on the checker's ``device`` (CUDA unless the caller asks
 for the CPU). Configurations are drawn from a seeded CPU
 ``torch.Generator`` and host-side splits from a seeded numpy stream, so a
-seed gives the same datasets on every device.
+seed gives the same datasets on every device, and on every rank of a mesh.
+
+With ``mesh=`` (``parallel.make_mesh``) a checker scales out SPMD over the
+mesh's first axis: every rank makes the same calls, ground-truth labels
+and score sweeps run on each rank's block of the rows and are gathered,
+and training runs sharded (``perceptron.Perceptron``). Each rank scores
+its local rows with ``poly_score``, so the kernel routers' batch gates
+apply to the local size.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from . import kernels as kernel
 from .device import fp32_matmul, resolve_device
 from .envs.shape_env import ShapeEnv
+from .parallel import sharding
 from .perceptron import DiffCo
 from .robots.urdf import URDFRobot
 from .sampler import (path_band_samples,
@@ -37,17 +45,17 @@ def _numpy(x):
 
 class CollisionChecker:
     """Base: resolves robot/environment arguments, the device and the
-    ground-truth check function."""
+    ground-truth check function. ``robot_topic`` takes the robot and its
+    ground truth from ROS (``ros_interface.ROSRobotEnv``, MoveIt's
+    StateValidity service); ``mesh`` shards the checker's batches (module
+    docstring)."""
 
     def __init__(self, robot=None, robot_base_transform=None,
                  environment=None, robot_topic=None,
                  planning_scene_topic=None, gt_check_func=None,
                  device=None, seed: int = 0, mesh=None):
-        del planning_scene_topic
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                'mesh= is not ported yet (ROADMAP A15, torch.distributed)')
+        self.mesh = mesh
         if isinstance(robot, str):
             if not os.path.isfile(robot):
                 raise ValueError('Invalid robot URDF file path')
@@ -56,8 +64,9 @@ class CollisionChecker:
                               base_transform=robot_base_transform,
                               device=self.device)
         if robot_topic is not None:
-            raise NotImplementedError(
-                'ROS robots are not ported yet (ROADMAP A15)')
+            from .ros_interface import ROSRobotEnv
+            robot = ROSRobotEnv(robot_topic=robot_topic,
+                                planning_scene_topic=planning_scene_topic)
         self.robot = robot
         if environment is not None and isinstance(environment, Dict):
             environment = ShapeEnv(environment)
@@ -83,8 +92,19 @@ class CollisionChecker:
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _meshed(self):
+        return self.mesh is not None and not sharding.is_rank_local()
+
     def _gt_labels(self, q):
-        return self.gt_check_func(q)
+        """Ground-truth labels; with a mesh each rank labels its block of
+        the rows and the blocks are gathered."""
+        if not self._meshed():
+            return self.gt_check_func(q)
+        q = q if torch.is_tensor(q) else self._tensor(q)
+        shard = sharding.row_shard(self.mesh, q.shape[0])
+        labels = torch.as_tensor(self.gt_check_func(
+            sharding.row_block(q, shard)), device=q.device)
+        return shard.gather(labels)[:q.shape[0]]
 
     def collision(self, q):
         return self._gt_labels(q)
@@ -140,6 +160,7 @@ class RBFDiffCo(CollisionChecker):
         super().__init__(robot=robot,
                          robot_base_transform=robot_base_transform,
                          environment=environment, robot_topic=robot_topic,
+                         planning_scene_topic=planning_scene_topic,
                          gt_check_func=gt_check_func, device=device,
                          seed=seed, mesh=mesh)
         if kernel_func is None:
@@ -148,7 +169,7 @@ class RBFDiffCo(CollisionChecker):
         else:
             self.kernel_func = kernel_func
         self.perceptron = perceptron_class(kernel_func=self.kernel_func,
-                                           **perceptron_kwargs)
+                                           mesh=mesh, **perceptron_kwargs)
         self._init_state()
 
     def _init_state(self):
@@ -384,9 +405,17 @@ class RBFDiffCo(CollisionChecker):
         return fn
 
     def _sweep_raw(self, q):
-        """Proxy-score sweep over a [B, dof] batch -> [B, C]."""
-        s = self.perceptron.poly_score(q)
-        return s.reshape(s.shape[0], -1)
+        """Proxy-score sweep over a [B, dof] batch -> [B, C]. With a mesh
+        each rank scores its block of the rows (padded to a multiple of
+        the first axis) and the blocks are gathered, the padding dropped;
+        the gradient in q flows back whole to every rank."""
+        if not self._meshed():
+            s = self.perceptron.poly_score(q)
+            return s.reshape(s.shape[0], -1)
+        shard = sharding.row_shard(self.mesh, q.shape[0])
+        s = self.perceptron.poly_score(sharding.row_block(q, shard))
+        return sharding.gather_rows(s.reshape(s.shape[0], -1),
+                                    shard)[:q.shape[0]]
 
     def _sweep_scores(self, q):
         """Flat [B * C] view of ``_sweep_raw`` (what verify/bias use)."""
@@ -422,6 +451,7 @@ class ForwardKinematicsDiffCo(RBFDiffCo):
         CollisionChecker.__init__(
             self, robot=robot, robot_base_transform=robot_base_transform,
             environment=environment, robot_topic=robot_topic,
+            planning_scene_topic=planning_scene_topic,
             gt_check_func=gt_check_func, device=device, seed=seed,
             mesh=mesh)
         self.tensorized_fkine = self.robot.fkine
@@ -433,7 +463,7 @@ class ForwardKinematicsDiffCo(RBFDiffCo):
         self.kernel_transform = self.tensorized_fkine
         self.perceptron = perceptron_class(
             kernel_func=self.kernel_func, transform=self.kernel_transform,
-            **perceptron_kwargs)
+            mesh=mesh, **perceptron_kwargs)
         self._init_state()
 
     def _uniform_sample_on_transformed_manifold(self, transform,

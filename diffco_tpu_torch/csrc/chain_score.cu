@@ -33,9 +33,12 @@
 // joints (22 KB for FrankaPanda's M = 7, where kMaxM would take 50 KB).
 // The same thread runs chain_backward after the supports, from the row's
 // sums (tc_row_sums). The moving frames (fr) are indexed by data and stay
-// in per-thread local memory, used by the FK only. Up to FP = 48 product 2
-// accumulates chunk by chunk (tc_score_block.cuh's kChunkSums), which the
-// fitted FrankaPanda sweep's gradient needs.
+// in per-thread local memory, used by the FK only. Product 2 accumulates
+// chunk by chunk (tc_score_block.cuh's kTcPointSums), which the fitted
+// FrankaPanda sweep's gradient needs, and at FP = 56 and 64 the marked
+// ropes' fitted proxies at S = 4096 and 8192: the running sums in
+// registers up to FP = 56 (unspilled), in shared memory at 64 (ChainSmem;
+// in registers they spill 12 B and ran 2 % slower on the card).
 //
 // The chain is data, not code: ops/fk_score.py folds every fixed joint
 // into the constant transform in front of the next moving joint, so the
@@ -58,13 +61,19 @@ extern __shared__ __align__(16) float diffco_tc_smem[];
 namespace diffco {
 namespace {
 
-// The kernel's dynamic shared memory: the block's (TcSmem<FP>), then each
-// row's zo [M][6] at an odd stride of 6M + 1 floats (in each thread's
+// Product 2's sums (kTcPointSums): in registers up to FP = 56.
+template <int FP>
+constexpr int kChainSums = kTcPointSums<FP, 56>;
+
+// The kernel's dynamic shared memory: the block's (TcSmem<FP>), product
+// 2's running sums where kChainSums keeps them in shared memory, then
+// each row's zo [M][6] at an odd stride of 6M + 1 floats (in each thread's
 // local memory instead, zo cost 3.1 % at FrankaPanda's shape: PERF.md
 // section 6).
 template <int FP>
 struct ChainSmem {
-  static constexpr int kZo = TcSmem<FP>::kFloats;
+  static constexpr int kRun = TcSmem<FP>::kFloats;
+  static constexpr int kZo = kRun + kTcRunFloats<FP, kChainSums<FP>>;
   DIFFCO_HD static int zo_stride(int M) { return 6 * M + 1; }
   static int bytes(int M) { return 4 * (kZo + kTcRows * zo_stride(M)); }
 };
@@ -97,10 +106,8 @@ chain_score_tc_kernel(const float* __restrict__ q, const float* __restrict__ s,
     for (int f = 0; f < FP; ++f) xrow[f] = 0.f;
     chain_fk<KP>(qb, live, sp, fr, zo, xrow);
   }
-  // product 2 by chunks where its accumulator fits (kTcChunkMaxFP)
-  tc_score_block<FP, kMeasure,
-                 (FP <= kTcChunkMaxFP ? kTcSumsRegs : kTcSumsOne)>(
-      s, w, S, F, smem, kappa, guard_pairs);
+  tc_score_block<FP, kMeasure, kChainSums<FP>>(
+      s, w, S, F, smem, kappa, guard_pairs, smem + ChainSmem<FP>::kRun);
   if (tid < kTcRows) {  // the epilogue: the backward
     float dqr[kMaxD];
 #pragma unroll

@@ -25,9 +25,12 @@
 // 16 to 64); rows past B are copies of row B - 1, so that the block's
 // centre (the mean of its rows) stays on the data. After the supports,
 // dx = x~ rowsum - su~ in the block's centred frame (su~ = su - c rowsum),
-// which needs no centre added back. Up to FP = 48 product 2 accumulates
-// chunk by chunk (tc_score_block.cuh's kChunkSums), which the fitted
-// FrankaPanda sweep's gradient needs. This runs at F = 9-64 (FP = 16-64).
+// which needs no centre added back. Product 2 accumulates chunk by chunk
+// (tc_score_block.cuh's kTcPointSums), which the fitted FrankaPanda
+// sweep's gradient needs, and at FP = 56 and 64 the marked rope's fitted
+// proxies at S = 4096 and 8192; there, where running sums in registers
+// spill, they sit in shared memory after the block's (PolySmem). This
+// runs at F = 9-64 (FP = 16-64).
 //
 // At F <= 8 (poly_score_f64_kernel) the pairs run in fp64 on the CUDA
 // cores instead, one thread per row. The q-space proxies of the planar
@@ -64,6 +67,17 @@ extern __shared__ __align__(16) float diffco_tc_smem[];
 namespace diffco {
 namespace {
 
+// The kernel's dynamic shared memory: the block's (TcSmem<FP>), then
+// product 2's running sums where kTcPointSums keeps them in shared memory.
+template <int FP>
+constexpr int kPolySums = kTcPointSums<FP, kTcChunkMaxFP>;
+
+template <int FP>
+struct PolySmem {
+  static constexpr int kRun = TcSmem<FP>::kFloats;
+  static constexpr int kBytes = 4 * (kRun + kTcRunFloats<FP, kPolySums<FP>>);
+};
+
 // B2 on the tensor-core score block (file comment). kMeasure: a
 // measurement build that counts the near-pair guard's recomputations
 // into *guard_pairs, with kappa as its threshold.
@@ -86,10 +100,8 @@ poly_score_tc_kernel(const float* __restrict__ x, const float* __restrict__ s,
     const size_t b = b0 + min(r, live - 1);
     smem[L::kX + r * L::kXS + f] = f < F ? x[b * F + f] : 0.f;
   }
-  // product 2 by chunks where its accumulator fits (kTcChunkMaxFP)
-  tc_score_block<FP, kMeasure,
-                 (FP <= kTcChunkMaxFP ? kTcSumsRegs : kTcSumsOne)>(
-      s, w, S, F, smem, kappa, guard_pairs);
+  tc_score_block<FP, kMeasure, kPolySums<FP>>(
+      s, w, S, F, smem, kappa, guard_pairs, smem + PolySmem<FP>::kRun);
   // dx = x~ rowsum - su~ (rowsum at column F of the row's sums)
   for (int i = tid; i < live * FP; i += kTcThreads) {
     const int r = i / FP, f = i % FP;
@@ -215,9 +227,9 @@ int poly_launch(const float* x, const float* s, const float* w, float* score,
   const auto kernel = poly_score_tc_kernel<FP, kMeasure>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TcSmem<FP>::kBytes);
+      PolySmem<FP>::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<(B + kTcRows - 1) / kTcRows, kTcThreads, TcSmem<FP>::kBytes,
+  kernel<<<(B + kTcRows - 1) / kTcRows, kTcThreads, PolySmem<FP>::kBytes,
            st>>>(x, s, w, score, dx, B, S, F, kappa, guard_pairs);
   return static_cast<int>(cudaGetLastError());
 }
@@ -314,12 +326,12 @@ int poly_plan(int* out) {
   const auto kernel = poly_score_tc_kernel<FP, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TcSmem<FP>::kBytes);
+      PolySmem<FP>::kBytes);
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, kTcThreads, TcSmem<FP>::kBytes);
-  out[0] = TcSmem<FP>::kBytes;
+        &blocks, kernel, kTcThreads, PolySmem<FP>::kBytes);
+  out[0] = PolySmem<FP>::kBytes;
   out[1] = blocks;
   out[2] = kTcThreads;
   out[3] = kTcRows;

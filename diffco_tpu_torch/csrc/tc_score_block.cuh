@@ -41,7 +41,7 @@
 // its chains of dependent products short).
 // Plain TF32 keeps ~3 decimal digits, too few where fitted weights
 // cancel (sum_j |w_j| r_j ~ 7.5e3 against |score| ~ 1.5). With
-// kChunkSums (B2 and B3 up to kTcChunkMaxFP, B1 where it fits) product
+// per-chunk sums (every kernel on the block) product
 // 2 accumulates each chunk on the tensor cores into a fresh accumulator,
 // added to the rows' running sums on the CUDA cores after the chunk: one
 // accumulator over all S supports lost ~8x more of the gradient (the
@@ -50,7 +50,8 @@
 // PERF.md section 6).
 // Where a second accumulator in registers would spill, kTcSumsShared
 // keeps the running sums in shared memory instead (each lane its own
-// slots, added to after each chunk: B1, dh_score.cu).
+// slots, added to after each chunk: B1 at FP = 24, dh_score.cu; B2 at FP
+// = 56 and 64 and B3 at 64, kTcPointSums).
 // |x~|^2 is formed in double and kept as hi + lo floats, because its
 // rounding would enter every pair of the row alike. The score stays on
 // the CUDA cores, compensated per thread and merged with compensation
@@ -105,10 +106,11 @@ constexpr int kTcThreads = 256;    // 8 warps x 16 rows
 constexpr int kTcChunk = 32;       // supports per staged chunk (4 n-tiles)
 constexpr int kTcBlocksPerSM = 512 / kTcThreads;  // 16 warps per SM
 constexpr int kTcRegMaxFP = 32;    // x~ fragments in registers up to here
-// Product 2 by chunks (kChunkSums) up to kTcChunkMaxFP components, where
-// its second accumulator fits the 128 registers unspilled (ptxas on the
-// H100: FP = 56 and 64 spill 12-24 B), with x~'s fragments in registers
-// up to kTcChunkRegMaxFP (FP = 32 with them in registers spills 64-88 B).
+// Product 2 by chunks (kChunkSums) with the running sums in registers up
+// to kTcChunkMaxFP components, where its second accumulator fits the 128
+// registers unspilled (ptxas on the H100: FP = 56 and 64 spill 12-24 B),
+// with x~'s fragments in registers up to kTcChunkRegMaxFP (FP = 32 with
+// them in registers spills 64-88 B).
 constexpr int kTcChunkMaxFP = 48;
 constexpr int kTcChunkRegMaxFP = 24;
 // How product 2 sums over the supports (tc_score_block's kSums): one
@@ -120,6 +122,17 @@ constexpr int kTcChunkRegMaxFP = 24;
 constexpr int kTcSumsOne = 0;
 constexpr int kTcSumsRegs = 1;
 constexpr int kTcSumsShared = 2;
+// B2's and B3's kSums at FP: per-chunk sums in registers up to
+// kRegsMaxFP, the widest FP at which the kernel keeps within 128
+// registers unspilled (B2: kTcChunkMaxFP; B3: 56), past it per-chunk
+// sums whose running sums are in shared memory (kTcWideSums), which the
+// card timed faster than registers that spill. One accumulator over all
+// supports took dq and dx past 1e-3 of the float64 twin on fitted
+// proxies of the marked rope (FP = 56, 64) at S = 4096 and 8192 (PERF.md
+// section 6).
+constexpr int kTcWideSums = kTcSumsShared;
+template <int FP, int kRegsMaxFP>
+constexpr int kTcPointSums = FP <= kRegsMaxFP ? kTcSumsRegs : kTcWideSums;
 // The design's parts (scripts/ab_kernel.py's ablations replace these
 // lines in a copy): product 1 on the tensor cores (false: every d2 by
 // direct difference), 3 products per split (1: plain TF32), and the
@@ -202,6 +215,12 @@ struct TcSmem {
   // kTcSumsShared's running sums: [NT2][4][kTcThreads], outside the block
   static constexpr int kRunFloats = 4 * kNT2 * kTcThreads;
 };
+
+// The running sums' floats that a kernel with product-2 sums kSums adds
+// to the block's shared memory
+template <int FP, int kSums>
+constexpr int kTcRunFloats =
+    kSums == kTcSumsShared ? TcSmem<FP>::kRunFloats : 0;
 
 __device__ __forceinline__ float bits_float(unsigned u) {
 #if defined(__CUDA_ARCH__)

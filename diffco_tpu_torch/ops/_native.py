@@ -98,6 +98,17 @@ TC_GUARD = 1 / 64   # kTcGuard, the near-pair guard's threshold
 # (csrc/dh_tc_rows.cuh kDhSums == kTcSumsShared; per-chunk sums in
 # registers at the others)
 DH_SHARED_SUMS_FP = (24,)
+# B2's and B3's widths whose product-2 running sums live in shared
+# memory (csrc/poly_score.cu kPolySums, csrc/chain_score.cu kChainSums ==
+# kTcSumsShared; in registers at the others)
+POLY_SHARED_SUMS_FP = (56, 64)
+CHAIN_SHARED_SUMS_FP = (64,)
+
+
+def _run_floats(fp: int) -> int:
+    """``TcSmem<FP>::kRunFloats``: 4 floats per thread per column tile
+    of product 2."""
+    return 4 * (fp // 8 + 1) * TC_THREADS
 
 
 def _tc_block_floats(fp: int) -> int:
@@ -133,8 +144,7 @@ def dh_tc_plan(P: int) -> dict:
     ``DH_SHARED_SUMS_FP``, product 2's running sums (``TcSmem<FP>::
     kRunFloats``: 4 floats per thread per column tile)."""
     fp = (3 * P + 7) // 8 * 8
-    run = (4 * (fp // 8 + 1) * TC_THREADS if fp in DH_SHARED_SUMS_FP
-           else 0)
+    run = _run_floats(fp) if fp in DH_SHARED_SUMS_FP else 0
     return _tc_plan(fp, 6 * MAX_J + 1, run)
 
 
@@ -154,7 +164,9 @@ def poly_tc_plan(F: int) -> dict:
     tensor-core block's shared memory alone (F64_MAX_F < F <= TC_MAX_F),
     or the fp64 or the wide instance's chunk, with the blocks per SM
     their launch bounds guarantee (their registers, which only the build
-    knows, may allow more: ``poly_plan_holds``)."""
+    knows, may allow more: ``poly_plan_holds``). At
+    ``POLY_SHARED_SUMS_FP`` the block adds product 2's running sums
+    (``PolySmem<FP>``)."""
     if F <= F64_MAX_F:
         return dict(fp=8, smem_bytes=4 * F64_CHUNK * (F64_MAX_F + 1),
                     blocks_per_sm=F64_MIN_BLOCKS,
@@ -167,7 +179,9 @@ def poly_tc_plan(F: int) -> dict:
                     warps_per_sm=WIDE_MIN_BLOCKS * WIDE_THREADS // 32,
                     threads=WIDE_THREADS,
                     rows=WIDE_THREADS // 32 * (2 if K <= 4 else 1))
-    return _tc_plan((F + 7) // 8 * 8, 0)
+    fp = (F + 7) // 8 * 8
+    return _tc_plan(fp, 0, _run_floats(fp) if fp in POLY_SHARED_SUMS_FP
+                    else 0)
 
 
 def poly_plan_holds(card: dict, F: int) -> bool:
@@ -185,9 +199,12 @@ def poly_plan_holds(card: dict, F: int) -> bool:
 
 def chain_tc_plan(P: int, M: int) -> dict:
     """B3's launch plan (``csrc/chain_score.cu``) for P control points and
-    M moving joints: the block's shared memory and each row's joint axes
-    and origins (``ChainSmem<FP>``, 6 M + 1 floats a row)."""
-    return _tc_plan((3 * P + 7) // 8 * 8, 6 * M + 1)
+    M moving joints: the block's shared memory, at
+    ``CHAIN_SHARED_SUMS_FP`` product 2's running sums, and each row's
+    joint axes and origins (``ChainSmem<FP>``, 6 M + 1 floats a row)."""
+    fp = (3 * P + 7) // 8 * 8
+    return _tc_plan(fp, 6 * M + 1, _run_floats(fp)
+                    if fp in CHAIN_SHARED_SUMS_FP else 0)
 
 
 def chain_wide_plan(P: int, M: int) -> dict:

@@ -21,6 +21,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from collections import namedtuple
@@ -136,11 +137,21 @@ def _limits(robot):
                            else robot.joint_limits, dtype=torch.float32)
 
 
+def _first_trials(inits, offset, first, second=None):
+    """Trial 0 (global index) of each problem = ``first``, trial 1 =
+    ``second`` if given, where they fall in the block of trials [offset,
+    offset + T) that ``inits`` [P, T, ...] holds."""
+    T = inits.shape[1]
+    for t, path in ((0, first), (1, second)):
+        if path is not None and offset <= t < offset + T:
+            inits[:, t - offset] = path
+
+
 def _adam_batch_core(starts, targets, limits, init_firsts, rand,
                      robot_fkine: Callable, dist_est: Callable,
                      n_waypoints: int, maxiter: int, lr: float,
                      safety_margin, max_speed: float, history: bool = False,
-                     dense_sub: int = 1):
+                     dense_sub: int = 1, trials=None):
     """P problems x T restarts in one batch of paths, all steps in one
     loop.
 
@@ -151,6 +162,11 @@ def _adam_batch_core(starts, targets, limits, init_firsts, rand,
     ||grad|| < 1e-4. ``dist_est`` maps [B, dof] -> [B]. Returns per
     problem (solution [P, N, dof], cost, success, step, hist) with hist
     [P, T, maxiter, N, dof] when ``history``.
+
+    ``trials`` (a ``parallel.sharding.RowShard``) marks ``rand`` as this
+    rank's block of the restarts of a mesh: the restarts run here, and the
+    per-restart bests of every rank are gathered before the choice, which
+    is then the unsharded run's.
     """
     dev, dt = starts.device, starts.dtype
     P, T = rand.shape[:2]
@@ -162,12 +178,9 @@ def _adam_batch_core(starts, targets, limits, init_firsts, rand,
     # straight line next when an init was given, the others random
     inits = rand * (hi - lo) + lo
     straight = _straight(starts, targets, n_waypoints)
-    if init_firsts is None:
-        inits[:, 0] = straight
-    else:
-        inits[:, 0] = init_firsts
-        if T > 1:
-            inits[:, 1] = straight
+    _first_trials(inits, 0 if trials is None else trials.offset,
+                  straight if init_firsts is None else init_firsts,
+                  None if init_firsts is None else straight)
     inits[:, :, 0] = starts[:, None]
     inits[:, :, -1] = targets[:, None]
     endpoint_mask = _endpoint_mask(n_waypoints, dt, dev)
@@ -237,6 +250,20 @@ def _adam_batch_core(starts, targets, limits, init_firsts, rand,
             hist.append(p)
         p = p_next
 
+    hists = (torch.stack(hist, dim=1).reshape(
+        (P, T) + (maxiter, n_waypoints, dof)) if history else None)
+    if trials is not None:
+        # every rank's restarts, [P, T_local, ...] blocks along the restarts
+        per_trial = [trials.gather(a.reshape((P, T) + a.shape[1:]), dim=1)
+                     for a in (found, b_loss, b_valid_p, b_loss_p,
+                               b_valid_obj, b_loss_obj, b_valid_step,
+                               b_loss_step)]
+        hists = None if hists is None else trials.gather(hists, dim=1)
+        T = per_trial[0].shape[1]
+        (found, b_loss, b_valid_p, b_loss_p, b_valid_obj, b_loss_obj,
+         b_valid_step, b_loss_step) = [a.reshape((P * T,) + a.shape[2:])
+                                       for a in per_trial]
+
     # per problem: the first restart with a valid solution, else the
     # lowest loss
     found = found.reshape(P, T)
@@ -250,8 +277,6 @@ def _adam_batch_core(starts, targets, limits, init_firsts, rand,
                            b_loss_p[sel])
     cost = torch.where(any_found, b_valid_obj[sel], b_loss_obj[sel])
     step_sel = torch.where(any_found, b_valid_step[sel], b_loss_step[sel])
-    hists = (torch.stack(hist, dim=1).reshape(
-        (P, T) + (maxiter, n_waypoints, dof)) if history else None)
     return solution, cost, any_found, step_sel, hists
 
 
@@ -259,19 +284,22 @@ def _adam_traj_core(start_cfg, target_cfg, limits, init_first, generator,
                     robot_fkine: Callable, dist_est: Callable,
                     n_waypoints: int, num_trials: int, maxiter: int,
                     lr: float, safety_margin, max_speed: float,
-                    history: bool = False, dense_sub: int = 1):
+                    history: bool = False, dense_sub: int = 1, trials=None):
     """One problem's restarts through ``_adam_batch_core``: ``init_first``
-    [N, dof] or None, the random restarts drawn from ``generator``.
-    Returns (solution, cost, success, step, hist) with hist
-    [T, maxiter, N, dof] when ``history``."""
+    [N, dof] or None, the random restarts drawn from ``generator`` (all of
+    them; with ``trials`` this rank's block of them runs). Returns
+    (solution, cost, success, step, hist) with hist [T, maxiter, N, dof]
+    when ``history``."""
     dof = start_cfg.shape[-1]
     rand = _draws([generator], num_trials, n_waypoints, dof,
                   start_cfg.dtype, start_cfg.device)
+    if trials is not None:
+        rand = rand[:, trials.rows]
     out = _adam_batch_core(
         start_cfg[None], target_cfg[None], limits,
         None if init_first is None else init_first[None], rand,
         robot_fkine, dist_est, n_waypoints, maxiter, lr, safety_margin,
-        max_speed, history=history, dense_sub=dense_sub)
+        max_speed, history=history, dense_sub=dense_sub, trials=trials)
     solution, cost, success, step, hists = out
     return (solution[0], cost[0], success[0], step[0],
             None if hists is None else hists[0])
@@ -284,10 +312,25 @@ def _device_of(start_cfg):
         else resolve_device(None)
 
 
-def _no_mesh(o):
-    if o.get('mesh') is not None:
-        raise NotImplementedError(
-            "options['mesh'] is not ported yet (ROADMAP A15)")
+def _mesh_shard(o, n: int):
+    """``options['mesh']`` as a ``parallel.sharding.RowShard`` over n
+    restarts or problems rounded up to a multiple of the mesh's first
+    axis, or None without a mesh. The optimizers draw every restart's
+    initial path on every rank and run the rank's block, under
+    ``sharding.rank_local()`` (a meshed checker's score then scores the
+    rank's own paths)."""
+    if o.get('mesh') is None:
+        return None
+    from .parallel import sharding
+    return sharding.row_shard(o['mesh'], n)
+
+
+def _local(shard):
+    """``sharding.rank_local()`` with a mesh, else nothing."""
+    if shard is None:
+        return contextlib.nullcontext()
+    from .parallel import sharding
+    return sharding.rank_local()
 
 
 def _n_check(n_waypoints, dsub):
@@ -304,9 +347,14 @@ def adam_traj_optimize(robot, dist_est, start_cfg, target_cfg, options=None):
     random initial paths from a CPU ``torch.Generator`` seeded with
     ``options['seed']``. Returns {start_cfg, target_cfg, cnt_check, cost,
     time, success, seed, solution}.
+
+    ``options['mesh']`` (``parallel.make_mesh``) shards the restarts over
+    the mesh's first axis, rounded up to a multiple of its size: every
+    rank draws all restarts' initial paths, runs its block and the best is
+    chosen over all of them (with restarts that divide the mesh, the
+    unsharded run's result).
     """
     o = _default_options(options)
-    _no_mesh(o)
     lr = float(o['extra_optimizer_options'].get('lr', 5e-1))
     dev = _device_of(start_cfg)
     start_cfg = torch.as_tensor(start_cfg, dtype=torch.float32, device=dev)
@@ -320,13 +368,18 @@ def adam_traj_optimize(robot, dist_est, start_cfg, target_cfg, options=None):
     limits = _limits(robot).to(dev)
     num_trials = int(o['NUM_RE_TRIALS'])
     dsub = int(o.get('dense_sub', 1))
+    trials = _mesh_shard(o, num_trials)
+    if trials is not None:
+        num_trials = trials.n_pad
 
     start_t = time.time()
-    solution, cost, success, _, _ = _adam_traj_core(
-        start_cfg, target_cfg, limits, init_first, generator,
-        robot.fkine, dist_est, n_waypoints, num_trials, int(o['MAXITER']),
-        lr, float(o['safety_margin']), float(o['max_speed']),
-        history=bool(o['history']), dense_sub=dsub)
+    with _local(trials):
+        solution, cost, success, _, _ = _adam_traj_core(
+            start_cfg, target_cfg, limits, init_first, generator,
+            robot.fkine, dist_est, n_waypoints, num_trials,
+            int(o['MAXITER']), lr, float(o['safety_margin']),
+            float(o['max_speed']), history=bool(o['history']),
+            dense_sub=dsub, trials=trials)
     solution = solution.cpu().numpy()
     elapsed = time.time() - start_t
 
@@ -353,11 +406,12 @@ def adam_traj_optimize_batch(robot, dist_est, start_cfgs, target_cfgs,
     seeded ``seed + i``, in the order ``adam_traj_optimize`` draws them,
     so the records equal P independent calls with those seeds.
     ``options['init_solutions']`` [P, N_WAYPOINTS, dof] warm-starts trial 0
-    of each problem (e.g. a batched repair of proxy solutions). Returns a
-    list of P record dicts.
+    of each problem (e.g. a batched repair of proxy solutions).
+    ``options['mesh']`` shards the problems over the mesh's first axis
+    (padded to a multiple of its size with repeats of the first problems,
+    whose records are dropped). Returns a list of P record dicts.
     """
     o = _default_options(options)
-    _no_mesh(o)
     lr = float(o['extra_optimizer_options'].get('lr', 5e-1))
     dev = _device_of(start_cfgs)
     starts = torch.as_tensor(start_cfgs, dtype=torch.float32, device=dev)
@@ -378,15 +432,28 @@ def adam_traj_optimize_batch(robot, dist_est, start_cfgs, target_cfgs,
                              f'expected {(P, n_waypoints, dof)}')
     limits = _limits(robot).to(dev)
     dsub = int(o.get('dense_sub', 1))
-    generators = [torch.Generator().manual_seed(seed + i) for i in range(P)]
+    problems = _mesh_shard(o, P)
+    # problem i of the padded set is problem i % P
+    mine = torch.arange(P if problems is None else problems.n_pad) % P
+    if problems is not None:
+        mine = mine[problems.rows]
+    generators = [torch.Generator().manual_seed(seed + int(i))
+                  for i in mine]
 
     start_t = time.time()
     rand = _draws(generators, num_trials, n_waypoints, dof, starts.dtype,
                   dev)
-    sols, costs, succs, _, _ = _adam_batch_core(
-        starts, targets, limits, init_firsts, rand, robot.fkine, dist_est,
-        n_waypoints, int(o['MAXITER']), lr, float(o['safety_margin']),
-        float(o['max_speed']), dense_sub=dsub)
+    mine = mine.to(dev)
+    with _local(problems):
+        sols, costs, succs, _, _ = _adam_batch_core(
+            starts[mine], targets[mine], limits,
+            None if init_firsts is None else init_firsts[mine], rand,
+            robot.fkine, dist_est, n_waypoints, int(o['MAXITER']), lr,
+            float(o['safety_margin']), float(o['max_speed']),
+            dense_sub=dsub)
+    if problems is not None:
+        sols, costs, succs = (problems.gather(t)[:P]
+                              for t in (sols, costs, succs))
     sols, costs, succs = sols.cpu().numpy(), costs.tolist(), succs.tolist()
     elapsed = time.time() - start_t
 
@@ -410,7 +477,7 @@ def _al_traj_core(start_cfg, target_cfg, limits, init_first, rand,
                   robot_fkine: Callable, dist_est: Callable,
                   n_waypoints: int, outer_iters: int, inner_iters: int,
                   lr: float, safety_margin, num_sub: int,
-                  restore_iters: int = 0):
+                  restore_iters: int = 0, trials=None):
     """Augmented-Lagrangian trajectory optimization over the restarts as
     one batch of paths [T, N, dof] (``rand`` [T, N, dof] uniform draws).
 
@@ -428,7 +495,8 @@ def _al_traj_core(start_cfg, target_cfg, limits, init_first, rand,
     descent on sum g^2 only moves the path away from violated
     constraints. Selection: the feasible restart with the lowest
     objective, else the least summed violation. Returns (solution, cost,
-    success, max violation).
+    success, max violation). ``trials``: as ``_adam_batch_core``'s
+    (``rand`` this rank's block of the restarts).
     """
     dev, dt = start_cfg.device, start_cfg.dtype
     T, _, dof = rand.shape
@@ -463,8 +531,9 @@ def _al_traj_core(start_cfg, target_cfg, limits, init_first, rand,
     # trial 0 = the given init or the straight line (unlike Adam, no
     # straight line next to a given init), the others random
     inits = rand * (hi - lo) + lo
-    inits[0] = (_straight(start_cfg[None], target_cfg[None], n_waypoints)[0]
-                if init_first is None else init_first)
+    _first_trials(inits[None], 0 if trials is None else trials.offset,
+                  _straight(start_cfg[None], target_cfg[None], n_waypoints)[0]
+                  if init_first is None else init_first)
     inits[:, 0] = start_cfg
     inits[:, -1] = target_cfg
 
@@ -511,6 +580,8 @@ def _al_traj_core(start_cfg, target_cfg, limits, init_first, rand,
     with torch.no_grad():
         g = constraints(p)
         objs = objective(p)
+    if trials is not None:
+        p, g, objs = (trials.gather(a) for a in (p, g, objs))
     feasible = g.amax(dim=1) <= 1e-4
     any_found = torch.any(feasible)
     sel = torch.where(any_found,
@@ -527,9 +598,10 @@ def al_traj_optimize(robot, dist_est, start_cfg, target_cfg, options=None):
     ``restore_iters`` (400; 0 turns the restoration epilogue off), lr in
     ``extra_optimizer_options`` (0.1). Trial 0 is ``init_solution`` or the
     straight line; the others are random, drawn from a CPU generator
-    seeded ``seed``. Returns Adam's record plus ``max_violation``."""
+    seeded ``seed``. ``options['mesh']`` shards the restarts as
+    ``adam_traj_optimize`` does. Returns Adam's record plus
+    ``max_violation``."""
     o = _default_options(options)
-    _no_mesh(o)
     o.setdefault('outer_iters', 10)
     o.setdefault('inner_iters', max(1, int(o['MAXITER']) // 10))
     o.setdefault('num_sub', 4)
@@ -552,13 +624,20 @@ def al_traj_optimize(robot, dist_est, start_cfg, target_cfg, options=None):
     outer, inner = int(o['outer_iters']), int(o['inner_iters'])
     restore, num_sub = int(o['restore_iters']), int(o['num_sub'])
 
+    trials = _mesh_shard(o, num_trials)
+    if trials is not None:
+        num_trials = trials.n_pad
+
     start_t = time.time()
     rand = _draws([torch.Generator().manual_seed(int(o['seed']))],
                   num_trials, n_waypoints, dof, start_cfg.dtype, dev)[0]
-    solution, cost, success, max_viol = _al_traj_core(
-        start_cfg, target_cfg, limits, init_first, rand, robot.fkine,
-        dist_est, n_waypoints, outer, inner, lr, float(o['safety_margin']),
-        num_sub, restore_iters=restore)
+    with _local(trials):
+        solution, cost, success, max_viol = _al_traj_core(
+            start_cfg, target_cfg, limits, init_first,
+            rand if trials is None else rand[trials.rows], robot.fkine,
+            dist_est, n_waypoints, outer, inner, lr,
+            float(o['safety_margin']), num_sub, restore_iters=restore,
+            trials=trials)
     solution = solution.cpu().numpy()
     elapsed = time.time() - start_t
     n_dense = (n_waypoints - 1) * num_sub + 1

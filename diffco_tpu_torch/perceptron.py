@@ -77,15 +77,95 @@ def _class_picks(gains, hyp, y, target, diagK, valid):
     return idx, delta, done
 
 
+def _combine(local, shard, key_min: int, key_max: int):
+    """The ranks' candidates combined: ``local`` [K, fields] holds this
+    rank's per-column candidates; every rank gathers them all ([R, K,
+    fields]) and takes, per column, the fields of the rank whose field
+    ``key_min`` is least and of the one whose ``key_max`` is greatest. Ties
+    go to the lowest rank, whose rows come first: the pick ``torch.argmin``
+    / ``argmax`` make on the whole vector. Returns (at_min, at_max, all)."""
+    G = shard.gather(local[None])
+    cols = torch.arange(local.shape[0], device=local.device)
+    return (G[torch.argmin(G[:, :, key_min], dim=0), cols],
+            G[torch.argmax(G[:, :, key_max], dim=0), cols], G)
+
+
+def _scatter_local(shard, gains, idx, delta, cols=None):
+    """gains[idx - offset] += delta on the rank that holds row idx (global
+    indices idx [C]; ``cols`` the columns of a [N, C] gains, None for
+    vector gains [N, C] taking delta [1, C])."""
+    li = idx - shard.offset
+    own = (li >= 0) & (li < shard.n_local)
+    li = li.clamp(0, shard.n_local - 1)
+    if cols is None:
+        return gains.index_add(0, li, torch.where(own[:, None], delta, 0.0))
+    return gains.index_put((li, cols), torch.where(own, delta, 0.0),
+                           accumulate=True)
+
+
+def _class_picks_sharded(gains, hyp, y, target, diagK, valid, shard,
+                         feats=None):
+    """``_class_picks`` over row-sharded state: each rank's local
+    candidates (value, global index and the owner's target, hypothesis,
+    gain and diagonal there, its count of supports, and with ``feats``
+    [n, F] the candidate rows' features) combined in one gather
+    (``_combine``). Returns (idx [C], delta [C], done [C], the picked
+    rows' features [C, F] or None)."""
+    C = y.shape[1]
+    dt = y.dtype
+    cols = torch.arange(C, device=y.device)
+    inf = torch.tensor(float('inf'), dtype=dt, device=y.device)
+    margin = torch.where(valid[:, None], y * hyp, inf)
+    min_i = torch.argmin(margin, dim=0)
+    nz = gains != 0
+    modified = y * (hyp - gains * diagK[:, None]) * nz * valid[:, None]
+    max_i = torch.argmax(modified, dim=0)
+    # per column: 0-4 the min-margin pick (margin, global index, target,
+    # hypothesis, diagonal), 5-7 the removal pick (modified margin, global
+    # index, gain), 8 the rank's supports, then the picks' features
+    fields = [margin[min_i, cols], (min_i + shard.offset).to(dt),
+              target[min_i, cols], hyp[min_i, cols], diagK[min_i],
+              modified[max_i, cols], (max_i + shard.offset).to(dt),
+              gains[max_i, cols], torch.sum(nz, dim=0).to(dt)]
+    local = torch.stack(fields, dim=1)
+    if feats is not None:
+        local = torch.cat([local, feats[min_i].reshape(C, -1),
+                           feats[max_i].reshape(C, -1)], dim=1)
+    at_min, at_max, G = _combine(local, shard, 0, 5)
+    take_update = at_min[:, 0] <= 0
+    delta_update = (at_min[:, 2] - at_min[:, 3]) / at_min[:, 4]
+    removable = (at_max[:, 5] > 0) & (torch.sum(G[:, :, 8], dim=0) > 1)
+    take_remove = ~take_update & removable
+    done = ~take_update & ~removable
+    idx = torch.where(take_update, at_min[:, 1], at_max[:, 6]).long()
+    delta = torch.where(take_update, delta_update,
+                        torch.where(take_remove, -at_max[:, 7],
+                                    torch.zeros_like(delta_update)))
+    feat = None
+    if feats is not None:
+        F = (local.shape[1] - 9) // 2
+        feat = torch.where(take_update[:, None], at_min[:, 9:9 + F],
+                           at_max[:, 9 + F:])
+    return idx, delta, done, feat
+
+
 def _train_columns(rows, diagK, y, beta: float, max_iteration: int,
-                   init_gains=None, init_hypothesis=None, valid_mask=None):
+                   init_gains=None, init_hypothesis=None, valid_mask=None,
+                   shard=None, feats=None):
     """Greedy training of every label column of y [N, C] over one Gram:
     ``rows(idx [C])`` returns the Gram rows [C, N] a step needs (gathered
     from K, or computed lazily). Each iteration folds either update into
     one scatter-add + axpy per class::
 
         gains[idx_c, c] += delta_c;  hyp[:, c] += delta_c * K[idx_c]
-    """
+
+    With ``shard`` (``parallel.sharding.RowShard``) every row argument is
+    this rank's block of the rows, and each iteration's picks are combined
+    across the ranks (``_class_picks_sharded``): ``rows(idx)`` then
+    returns the rank's block [C, n] of the picked rows (the Gram's
+    symmetric columns ``K_local[:, idx]``), or, with ``feats`` (the
+    rank's feature rows, lazy training), ``rows(features [C, F])`` of the
+    picked rows' features, which travel with the picks."""
     N, C = y.shape
     dt, dev = diagK.dtype, diagK.device
     y = y.to(dt)
@@ -100,9 +180,17 @@ def _train_columns(rows, diagK, y, beta: float, max_iteration: int,
     cols = torch.arange(C, device=dev)
 
     def step(gains, hyp):
-        idx, delta, done = _class_picks(gains, hyp, y, target, diagK, valid)
-        gains = gains.index_put((idx, cols), delta, accumulate=True)
-        return gains, hyp + rows(idx).T * delta, done
+        if shard is None:
+            idx, delta, done = _class_picks(gains, hyp, y, target, diagK,
+                                            valid)
+            gains = gains.index_put((idx, cols), delta, accumulate=True)
+            return gains, hyp + rows(idx).T * delta, done
+        idx, delta, done, feat = _class_picks_sharded(
+            gains, hyp, y, target, diagK, valid, shard, feats)
+        gains = _scatter_local(shard, gains, idx, delta, cols)
+        kr = rows(idx if feat is None else feat.reshape(
+            (C,) + feats.shape[1:]))
+        return gains, hyp + kr.T * delta, done
 
     return _greedy_loop(step, gains, hyp, max_iteration)
 
@@ -190,14 +278,56 @@ def multiclass_train_loop_lazy(Xt, y, kernel_func, beta: float,
                           init_gains, init_hypothesis, valid_mask)
 
 
+def _vector_picks_sharded(gains, hyp, y, target, diagK, valid, shard,
+                          feats=None):
+    """The vector-gain step's picks over row-sharded state, combined as
+    ``_class_picks_sharded`` combines a column's (diagK [n, C], feats [n,
+    M, d]). Returns (min-margin fields, removal fields, supports in all,
+    picked rows' features or None): the fields are [1, k] rows of
+    (value, global index, target, hypothesis, diagonal [C] or gains [C])."""
+    dt = y.dtype
+    inf = torch.tensor(float('inf'), dtype=dt, device=y.device)
+    margin = torch.where(valid, y * hyp, inf)
+    min_i = torch.argmin(margin)
+    nonzero = torch.any(gains != 0, dim=-1)
+    modified = y * (hyp - torch.sum(diagK * gains, dim=-1)) * nonzero * valid
+    max_i = torch.argmax(modified)
+    C = diagK.shape[1]
+    # 0-3 the min-margin pick (margin, global index, target, hypothesis),
+    # 4-5 the removal pick (modified margin, global index), 6 the rank's
+    # supports, then the diagonal [C] at the first and the gains [C] at
+    # the second, then the picks' features
+    head = torch.stack([margin[min_i], (min_i + shard.offset).to(dt),
+                        target[min_i], hyp[min_i], modified[max_i],
+                        (max_i + shard.offset).to(dt),
+                        torch.sum(nonzero).to(dt)])
+    parts = [head, diagK[min_i], gains[max_i]]
+    if feats is not None:
+        parts += [feats[min_i].reshape(-1), feats[max_i].reshape(-1)]
+    local = torch.cat(parts)[None]
+    at_min, at_max, G = _combine(local, shard, 0, 4)
+    count = torch.sum(G[:, 0, 6])
+    feat = None
+    if feats is not None:
+        F = feats[0].numel()
+        o = 7 + 2 * C
+        feat = (at_min[0, o:o + F], at_max[0, o + F:])
+    return at_min, at_max, count, feat
+
+
 def _train_vector_gains(rows, diagK, y, beta: float, max_iteration: int,
                         init_gains=None, init_hypothesis=None,
-                        valid_mask=None):
+                        valid_mask=None, shard=None, feats=None):
     """Vector-gain greedy training (``MultiDimDiffCo``): gains [N, C],
     hypothesis h_i = sum_j K[i, j] . g_j [N]; ``rows(idx [1])`` returns
     the vector Gram row [1, N, C]. The min-margin update uses the rank-1
     pseudo-inverse of the diagonal kernel vector,
-    delta = (target - h_i) * K_ii / ||K_ii||^2."""
+    delta = (target - h_i) * K_ii / ||K_ii||^2.
+
+    ``shard`` and ``feats`` (the rank's [n, M, d] feature rows, lazy
+    training) as in ``_train_columns``: ``rows`` then returns the rank's
+    block [1, n, C] of the picked row, from its global index or from its
+    features [1, M, d]."""
     N, C = diagK.shape
     dt, dev = diagK.dtype, diagK.device
     y = y.reshape(-1).to(dt)
@@ -211,7 +341,30 @@ def _train_vector_gains(rows, diagK, y, beta: float, max_iteration: int,
            else init_hypothesis.clone())
     inf = torch.tensor(float('inf'), dtype=dt, device=dev)
 
+    def step_sharded(gains, hyp):
+        C = diagK.shape[1]
+        at_min, at_max, count, feat = _vector_picks_sharded(
+            gains, hyp, y, target, diagK, valid, shard, feats)
+        take_update = at_min[:, 0] <= 0
+        k_ii = at_min[:, 7:7 + C]                                # [1, C]
+        inv_k = k_ii / torch.clamp(torch.sum(k_ii ** 2), min=1e-12)
+        delta_vec = (at_min[:, 2] - at_min[:, 3])[:, None] * inv_k
+        removable = (at_max[:, 4] > 0) & (count > 1)
+        take_remove = ~take_update & removable
+        done = ~take_update & ~removable
+        idx = torch.where(take_update, at_min[:, 1], at_max[:, 5]).long()
+        delta = torch.where(take_update[:, None], delta_vec,
+                            torch.where(take_remove[:, None],
+                                        -at_max[:, 7 + C:7 + 2 * C],
+                                        torch.zeros_like(delta_vec)))
+        gains = _scatter_local(shard, gains, idx, delta)
+        kr = rows(idx if feat is None else torch.where(
+            take_update, feat[0], feat[1]).reshape((1,) + feats.shape[1:]))
+        return gains, hyp + kr[0] @ delta[0], done
+
     def step(gains, hyp):
+        if shard is not None:
+            return step_sharded(gains, hyp)
         margin = torch.where(valid, y * hyp, inf)
         min_i = torch.argmin(margin).reshape(1)
         take_update = margin[min_i] <= 0
@@ -287,21 +440,75 @@ def extract_supports(gains, S: int):
     return idx, valid, num_valid
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh= (multi-device training) is not ported yet '
-            '(ROADMAP A15, torch.distributed)')
-
-
 class Perceptron:
-    """Base class: the padded support state shared by every proxy."""
+    """Base class: the padded support state shared by every proxy.
+
+    With a ``mesh`` (``parallel.make_mesh``: a torch.distributed
+    DeviceMesh) training scales out over its first axis, SPMD: every rank
+    calls ``train`` with the same dataset, holds its block of the rows of
+    the Gram (or of the features, on the lazy path), and each iteration's
+    picks are combined across the ranks (``_train_columns``,
+    ``_train_vector_gains``), so every rank ends with the unsharded run's
+    gains and supports."""
 
     # support sets are padded to a multiple of this many rows
     _pad_multiple = 128
 
     def __init__(self):
         self.support_points = None
+        self.mesh = None
+
+    # -- mesh plumbing (DiffCo, MultiDiffCo and MultiDimDiffCo) -------------
+
+    def _mesh_train_inputs(self, Xt, y, lazy):
+        """The trainer's inputs for ``train``: (rows, diagK, y, valid, K,
+        shard, feats). Without a mesh the Gram K (dense) or its lazy rows;
+        with one this rank's block of the padded rows (``shard``), its row
+        block of the Gram on the dense path and its feature rows (``feats``)
+        on the lazy path, whose picked rows' features travel with the
+        picks. Vector kernels ([N, N, C] Grams) take their rows as
+        [1, n, C]."""
+        vector = Xt.dim() == 3
+        if self.mesh is None:
+            if lazy:
+                return (_lazy_rows(self.kernel_func, Xt),
+                        _row_diag(self.kernel_func, Xt), y, None, None, None,
+                        None)
+            K = self.kernel_func(Xt, Xt)
+            ar = torch.arange(K.shape[0], device=K.device)
+            return ((lambda idx: K[idx]), K[ar, ar], y, None, K, None, None)
+        from .parallel import sharding
+        shard = sharding.row_shard(self.mesh, Xt.shape[0])
+        Xp = shard.pad(Xt)
+        yl = shard.pad(y)[shard.rows]
+        valid = (torch.arange(shard.n_pad, device=Xt.device)
+                 < Xt.shape[0])[shard.rows]
+        Xl = Xp[shard.rows]
+        if lazy:
+            return ((lambda feat: self.kernel_func(feat, Xl)),
+                    _row_diag(self.kernel_func, Xl), yl, valid, None, shard,
+                    Xl)
+        K_local = self.kernel_func(Xl, Xp)
+        rows = ((lambda idx: K_local[:, idx].transpose(0, 1)) if vector
+                else (lambda idx: K_local[:, idx].T))
+        return (rows, sharding.local_diagonal(K_local, shard), yl, valid,
+                K_local, shard, None)
+
+    def _mesh_warm_start(self, Xt, K, shard, init_gains, vg, einsum):
+        """The warm start's (gains, hypothesis) for the trainer: the
+        hypothesis K @ gains from the Gram (its row block with a mesh) or,
+        without one, from the cross-Gram against the support buffer
+        (padded rows carry zero gain); with a mesh both cut to the rank's
+        rows."""
+        N = init_gains.shape[0]
+        if K is not None:
+            hyp = einsum(K[:, :N], init_gains)
+        else:
+            X = Xt if shard is None else shard.pad(Xt)[shard.rows]
+            hyp = einsum(self.kernel_func(X, self.support_transformed), vg)
+        if shard is None:
+            return init_gains, hyp
+        return shard.pad(init_gains)[shard.rows], hyp
 
     def _pad_size(self, count: int) -> int:
         if self.max_num_supports is not None:
@@ -411,7 +618,7 @@ class DiffCo(Perceptron):
                  max_batch_size=None, max_num_supports: Optional[int] = None,
                  mesh=None):
         super().__init__()
-        _no_mesh(mesh)
+        self.mesh = mesh
         self.kernel_func = (RQKernel(gamma) if kernel_func == 'rq'
                             else kernel_func)
         self.beta = float(beta)
@@ -457,26 +664,20 @@ class DiffCo(Perceptron):
         N = X.shape[0]
         Xt = self._apply_transform(X)
         yc = y.reshape(N, -1).to(Xt.dtype)
-        K = None
         init_gains = init_hyp = None
         with fp32_matmul():
-            if N > self.lazy_gram_threshold:
-                rows = _lazy_rows(self.kernel_func, Xt)
-                diagK = _row_diag(self.kernel_func, Xt)
-            else:
-                K = self.kernel_func(Xt, Xt)
-                rows, diagK = (lambda idx: K[idx]), torch.diagonal(K)
+            rows, diagK, y_train, valid, K, shard, feats = \
+                self._mesh_train_inputs(Xt, yc, N > self.lazy_gram_threshold)
             if update and self.gains is not None:
                 init_gains, vg = self._prev_gains(exist_mask, N)
-                # hypothesis = K @ gains; on the lazy path a cross-Gram
-                # against the full padded support buffer (padded rows
-                # carry zero gain)
-                init_hyp = (K @ init_gains if K is not None else
-                            self.kernel_func(Xt, self.support_transformed)
-                            @ vg)
-            gains, hyp, it = _train_columns(rows, diagK, yc, self.beta,
+                init_gains, init_hyp = self._mesh_warm_start(
+                    Xt, K, shard, init_gains, vg, torch.matmul)
+            gains, hyp, it = _train_columns(rows, diagK, y_train, self.beta,
                                             int(max_iteration), init_gains,
-                                            init_hyp)
+                                            init_hyp, valid, shard, feats)
+        if shard is not None:
+            gains, hyp = shard.gather(gains)[:N], shard.gather(hyp)[:N]
+            K = None   # the support Gram is recomputed from the kept rows
         gains, hyp = gains.reshape(y.shape), hyp.reshape(y.shape)
         self.train_iterations = int(it)
         if verbose:
@@ -733,7 +934,7 @@ class MultiDimDiffCo(Perceptron):
     def __init__(self, kernel_func=None, gamma=1, beta=1, transform=None,
                  max_batch_size=None, max_num_supports=None, mesh=None):
         super().__init__()
-        _no_mesh(mesh)
+        self.mesh = mesh
         self.kernel_func = (MultiDimRQKernel(gamma) if kernel_func is None
                             or kernel_func == 'multi_dim_rq'
                             else kernel_func)
@@ -768,29 +969,25 @@ class MultiDimDiffCo(Perceptron):
         y = y.reshape(-1)
         N = X.shape[0]
         Xt = self._apply_transform(X)                 # [N, M, d]
-        lazy = N > self.lazy_gram_threshold
-        K = None
         init_gains = init_hyp = None
         with fp32_matmul():
-            if not lazy:
-                K = self.kernel_func(Xt, Xt)
+            rows, diagK, y_train, valid, K, shard, feats = \
+                self._mesh_train_inputs(Xt, y.to(Xt.dtype),
+                                        N > self.lazy_gram_threshold)
             if update and self.gains is not None:
                 init_gains, vg = self._prev_gains(exist_mask, N)
-                init_hyp = (torch.einsum('nsc,sc->n', K, init_gains)
-                            if K is not None else torch.einsum(
-                                'nsc,sc->n', self.kernel_func(
-                                    Xt, self.support_transformed), vg))
+                init_gains, init_hyp = self._mesh_warm_start(
+                    Xt, K, shard, init_gains, vg,
+                    lambda k, g: torch.einsum('nsc,sc->n', k, g))
             elif update:
                 raise ValueError('update=True requires a previously trained '
                                  'MultiDimDiffCo (no gains present)')
-            if lazy:
-                gains, hyp, it = multidim_train_loop_lazy(
-                    Xt, y, self.kernel_func, self.beta, int(max_iteration),
-                    init_gains, init_hyp)
-            else:
-                gains, hyp, it = multidim_train_loop(
-                    K, y, self.beta, int(max_iteration), init_gains,
-                    init_hyp)
+            gains, hyp, it = _train_vector_gains(
+                rows, diagK, y_train, self.beta, int(max_iteration),
+                init_gains, init_hyp, valid, shard, feats)
+        if shard is not None:
+            gains, hyp = shard.gather(gains)[:N], shard.gather(hyp)[:N]
+            K = None   # the support Gram is recomputed from the kept rows
         self.train_iterations = int(it)
         if verbose:
             acc = float(torch.mean(((hyp > 0) == (y > 0)).float()))

@@ -232,6 +232,48 @@ def load_pretrained_checker(checker, path: str, device=None):
     return checker
 
 
+def _checker_state(checker):
+    """The arrays-only state of ``save_pretrained_checker`` as tensors,
+    ``num_valid`` a 0-d one (attributes that are None are left out)."""
+    state = {k: getattr(checker, k) for k in _CHECKER_STATE_KEYS
+             if getattr(checker, k, None) is not None}
+    state['num_valid'] = torch.tensor(int(checker.num_valid))
+    return state
+
+
+def save_checker_dcp(checker, path: str):
+    """A perceptron's state as a ``torch.distributed.checkpoint``
+    directory: the arrays of ``save_pretrained_checker`` and
+    ``num_valid`` (the counterpart of the JAX package's
+    ``save_checker_orbax``, diffco_tpu/routines.py:233). With a process
+    group up (a mesh) every rank calls it, and the state, the same on
+    every rank, is written once; without one this process writes it."""
+    import torch.distributed.checkpoint as dcp
+    dcp.save(_checker_state(checker), checkpoint_id=os.path.abspath(path))
+
+
+def load_checker_dcp(checker, path: str, device=None):
+    """Restore a state written by ``save_checker_dcp`` onto ``device``
+    (CUDA unless the caller asks for the CPU), each array at the shape and
+    dtype the checkpoint records (the counterpart of
+    ``load_checker_orbax``, diffco_tpu/routines.py:246). With a process
+    group up every rank calls it and reads the whole state."""
+    import torch.distributed.checkpoint as dcp
+    dev = resolve_device(device)
+    path = os.path.abspath(path)
+    meta = dcp.FileSystemReader(path).read_metadata()
+    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype,
+                            device=dev)
+             for k, m in meta.state_dict_metadata.items()}
+    dcp.load(state, checkpoint_id=path)
+    for k, v in state.items():
+        if k == 'num_valid':
+            checker.num_valid = int(v)
+        else:
+            setattr(checker, k, v)
+    return checker
+
+
 def save_ompl_path(path_file: str, path, times=None):
     """Write a path as whitespace-separated rows, each led by its time
     when ``times`` is given."""

@@ -17,6 +17,8 @@ one card in one process.
         --supports 4096 --fitted --ablate oneAcc regsSums
     python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b2 --planar \
         --source build/parent/diffco_tpu_torch/csrc/poly_score.cu
+    python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b3 --rope \
+        --supports 8192 --ablate wideOneAcc wideRegsSums
 
 ``--source OTHER.cu`` is any source that defines the kernel's C entry
 (``chain_multi_score_grad``, ``dh_multi_score_grad``, ``dh_score_grad``,
@@ -68,7 +70,17 @@ gradient sums), ``noEpilogue`` leaves out the backward, ``noFK`` the FK
 (the rows' points stay zero). B3's: ``noFK`` (the chain FK out; the rows'
 points stay zero). B2's and B3's
 ``oneAcc``: product 2 in one accumulator over all supports instead of one
-per chunk (the block's ``kChunkSums`` off). ``directDist`` and
+per chunk (``kTcPointSums = kTcSumsOne``); ``wideOneAcc`` the same only
+where production keeps the running sums in shared memory (B2 at FP = 56
+and 64, B3 at 64; their design before the per-chunk sums there);
+``wideRegsSums`` per-chunk sums with the running sums in registers there
+instead (which spill). ``--rope [LINKS]`` (``b2``,
+``b3``) runs them on the marked rope
+(``robot_data.generate_marked_rope_urdf()``, 21 points on 11 moving
+joints: FP = 64; 9 links, 17 points, FP = 56) with a fitted proxy of
+``--supports`` supports (``rope_ball_gt``'s labels), every build held to
+or reported against the float64 twin, as chip_smoke.py's
+``check_tc_large_s``. ``directDist`` and
 ``tf32x1`` compute the function and their error against the twin (and a
 float64 twin) is reported beside their time, which shows what the split
 buys; none of them is held to the tolerance. Each build is
@@ -163,11 +175,24 @@ B1_ABLATIONS = {
               '    for (int f = 0; f < FP; ++f) xrow[f] = 0.f;')],
     **_TC_ABLATIONS,
 }
-_ONE_ACC = [(None, '(FP <= kTcChunkMaxFP ? kTcSumsRegs : kTcSumsOne)',
-             'kTcSumsOne')]
-B2_ABLATIONS = {'oneAcc': _ONE_ACC, **_TC_ABLATIONS}
+_POINT_SUMS = ('constexpr int kTcPointSums = FP <= kRegsMaxFP ? '
+               'kTcSumsRegs : kTcWideSums;')
+_WIDE_SUMS = 'constexpr int kTcWideSums = kTcSumsShared;'
+# B2's and B3's product-2 sums (tc_score_block.cuh's kTcPointSums): one
+# accumulator at every FP; or where the running sums sit in shared
+# memory (B2 at FP = 56 and 64, B3 at 64: their design before the
+# per-chunk sums there); or per-chunk sums in registers there
+_POINT_SUMS_ABLATIONS = {
+    'oneAcc': [(_TCB, _POINT_SUMS,
+                'constexpr int kTcPointSums = kTcSumsOne;')],
+    'wideOneAcc': [(_TCB, _WIDE_SUMS,
+                    'constexpr int kTcWideSums = kTcSumsOne;')],
+    'wideRegsSums': [(_TCB, _WIDE_SUMS,
+                      'constexpr int kTcWideSums = kTcSumsRegs;')],
+}
+B2_ABLATIONS = {**_POINT_SUMS_ABLATIONS, **_TC_ABLATIONS}
 B3_ABLATIONS = {
-    'oneAcc': _ONE_ACC,
+    **_POINT_SUMS_ABLATIONS,
     'noFK': [(None, 'chain_fk<KP>(qb, live, sp, fr, zo, xrow);', '')],
     **_TC_ABLATIONS,
 }
@@ -324,6 +349,54 @@ def _fitted_weights(robot, qs, sup):
                        device=sup.device)).contiguous()
 
 
+# the marked rope's ground truth (--rope; chip_smoke.py's
+# check_tc_large_s): a configuration collides where a control point lies
+# inside this ball (about a third of random configurations do)
+ROPE_BALL, ROPE_BALL_RADIUS = (0.2, 0.0, 0.2), 0.2
+
+
+def rope_ball_gt(robot, center=ROPE_BALL, radius=ROPE_BALL_RADIUS):
+    """q [B, D] -> bool [B]: whether any control point of the robot lies
+    inside the ball."""
+    def gt(q):
+        c = torch.as_tensor(center, dtype=q.dtype, device=q.device)
+        return ((robot.fkine(q) - c).norm(dim=-1) < radius).any(-1)
+    return gt
+
+
+def _rope_setup(kernel, dev, g, S, links=11):
+    """B2 or B3 on the marked rope of ``links`` links (2 links - 1 points
+    on ``links`` moving joints: FP = 64 at 11 and 10, 56 at 9) with a
+    fitted proxy's weights: those interpolating rope_ball_gt's +-1 labels
+    of the S supports' configurations."""
+    from .. import robot_data
+    from ..device import fp32_matmul
+    from ..kernels import Polyharmonic
+    from ..perceptron import masked_rbf_solve
+    from ..robots.urdf import URDFRobot
+    robot = URDFRobot(robot_data.generate_marked_rope_urdf(n_links=links),
+                      device=dev, setup_acm=False)
+    qs = robot.rand_configs(S, g, dev)
+    sup = robot.fkine(qs).reshape(S, -1).contiguous()
+    y = rope_ball_gt(robot)(qs).float() * 2 - 1
+    with fp32_matmul():
+        w = masked_rbf_solve(Polyharmonic(k=1, epsilon=1)(sup, sup), y,
+                             torch.ones(S, dtype=torch.bool, device=dev))
+    q = robot.rand_configs(B, g, dev)
+    if kernel == 'b3':
+        spec = fk_score.robot_chain_statics(robot)
+        c = fk_score._c_chain_spec(spec)
+        return ((q, sup, w.contiguous()), fk_score.chain_score_grad,
+                fk_score._chain_score_grad_plain, spec, (ctypes.byref(c),),
+                c.D, _native.chain_score_plan_on_card(c.P, c.M))
+    x = robot.fkine(q).reshape(B, -1).contiguous()
+    F = x.shape[1]
+    return ((x, sup, w.contiguous()),
+            lambda x, s, w, _: fused_score.poly_score_grad(x, s, w),
+            lambda x, s, w, _: fused_score._poly_score_grad_plain(x, s, w),
+            None, (F,), F, _native.poly_score_plan_on_card(F))
+
+
 def _planar_proxy(dev):
     """chip_smoke.py's planar escape proxy on its unified grid (module
     docstring): (x [160000, 2], supports, weights)."""
@@ -344,12 +417,16 @@ def _planar_proxy(dev):
             p.support_transformed.contiguous(), w.contiguous())
 
 
-def _single_setup(kernel, dev, g, S=None, fitted=False, planar=False):
+def _single_setup(kernel, dev, g, S=None, fitted=False, planar=False,
+                  rope=False):
     """One weight column at the kernel's shape (module docstring), or S
-    supports, with a fitted proxy's weights, or the planar proxy: (the
-    production wrapper's arguments, the wrapper, its plain twin on given
-    arguments, the C entry's arguments after the output pointers, the
-    gradient's columns, the launch plan on the card)."""
+    supports, with a fitted proxy's weights, or the planar proxy, or the
+    marked rope's fitted proxy: (the production wrapper's arguments, the
+    wrapper, its plain twin on given arguments, the C entry's arguments
+    after the output pointers, the gradient's columns, the launch plan on
+    the card)."""
+    if rope:
+        return _rope_setup(kernel, dev, g, S or KERNELS[kernel]['S'], rope)
     if planar:
         x, sup, w = _planar_proxy(dev)
         return ((x, sup, w),
@@ -390,7 +467,8 @@ def _single_setup(kernel, dev, g, S=None, fitted=False, planar=False):
             _native.dh_score_plan_on_card(c.P))
 
 
-def run_single(builds, kernel, S=None, fitted=False, planar=False):
+def run_single(builds, kernel, S=None, fitted=False, planar=False,
+               rope=False):
     """B1, B2 or B3: {name: (source, check)} timed against production,
     with each build's error against the fp32 twin and against a float64
     twin (max |diff|, and that over max |twin|, for score and gradient)
@@ -398,15 +476,16 @@ def run_single(builds, kernel, S=None, fitted=False, planar=False):
     entry) must agree with the fp32 twin; an ablation is reported only.
     With ``fitted`` the builds are held to the float64 twin instead: the
     fp32 twin's own rounding takes up the tolerance there; so with
-    ``planar``, where another build is reported only."""
+    ``planar`` and ``rope``, where another build is reported only (the
+    designs they replaced miss the tolerance there)."""
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
     libs, ptxas = _build_all([src for src, _ in builds.values()], entry)
     g = torch.Generator().manual_seed(0)
     args, wrapper, plain, spec, tail, n_grad, plan = _single_setup(
-        kernel, dev, g, S, fitted, planar)
-    fitted = fitted or planar
-    if planar:
+        kernel, dev, g, S, fitted, planar, rope)
+    fitted = fitted or planar or rope
+    if planar or rope:
         builds = {k: (src, False) for k, (src, _) in builds.items()}
     Bq, S = args[0].shape[0], args[1].shape[0]
     r64, r64_g = plain(*(a.double() for a in args), spec)
@@ -452,11 +531,11 @@ def run_single(builds, kernel, S=None, fitted=False, planar=False):
 
 
 def run(builds, classes=None, kernel='chain', S=None, fitted=False,
-        planar=False):
+        planar=False, rope=False):
     """{name: (source, check)} timed against production (module
     docstring)."""
     if kernel in ('b1', 'b2', 'b3'):
-        return run_single(builds, kernel, S, fitted, planar)
+        return run_single(builds, kernel, S, fitted, planar, rope)
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
     classes = classes or KERNELS[kernel]['classes']
@@ -510,7 +589,7 @@ def main(argv=None):
                     help='another build of the C entry (repeatable)')
     ap.add_argument('--ablate', nargs='+', default=[],
                     choices=sorted({*ABLATIONS, *B1_ABLATIONS,
-                                    *B3_ABLATIONS}))
+                                    *B2_ABLATIONS, *B3_ABLATIONS}))
     ap.add_argument('--classes', type=int, nargs='+', default=None)
     ap.add_argument('--supports', type=int, default=None,
                     help='S for b1, b2, b3 (default: the module docstring)')
@@ -518,6 +597,10 @@ def main(argv=None):
                     help="b1, b2: a fitted proxy's weights")
     ap.add_argument('--planar', action='store_true',
                     help="b2: the planar escape proxy's grid (F = 2)")
+    ap.add_argument('--rope', type=int, nargs='?', const=11, default=0,
+                    metavar='LINKS',
+                    help="b2, b3: the marked rope's fitted proxy (11 links, "
+                    'FP = 64, unless LINKS is given: 9 is FP = 56)')
     ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)
     table = ablation_table(args.kernel)
@@ -533,8 +616,10 @@ def main(argv=None):
         ap.error('--supports and --fitted take b1, b2 or b3')
     if args.planar and args.kernel != 'b2':
         ap.error('--planar takes b2')
+    if args.rope and args.kernel not in ('b2', 'b3'):
+        ap.error('--rope takes b2 or b3')
     res = run(builds, args.classes, args.kernel, args.supports, args.fitted,
-              args.planar)
+              args.planar, args.rope)
     res.update(card_info(torch.device('cuda')))
     write_result(res, args.out or
                  _native._BUILD / f'ab_kernel-{args.kernel}.json')

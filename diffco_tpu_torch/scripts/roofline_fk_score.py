@@ -65,7 +65,7 @@ S = 512
 N_SHORT, N_LONG = 20, 120
 REPS = 6
 N_DEVICE = 20
-N_TRACE_SLACK = 5
+N_TRACE_SLACK = 20
 SWEEP_THREADS = (64, 128, 256, 512)
 OUT_DIR = Path(__file__).resolve().parents[2] / 'build' / 'diffco_tpu_torch'
 
@@ -220,8 +220,9 @@ def device_ms(fn, kernel, n=None):
     last ``n`` device events whose name ``kernel`` (a regular expression)
     matches in a ``torch.profiler`` trace of CUDA activity over ``n +
     N_TRACE_SLACK`` calls (the trace can miss the first launches after it
-    starts: 18 of 20 were seen once on the H100). Raises if it holds
-    fewer than ``n`` or more than one such kernel a call."""
+    starts: 18 of 20 were seen once on the H100, 19 of 25 once after
+    chip_smoke's mesh path). Raises if it holds fewer than ``n`` or more
+    than one such kernel a call."""
     n = N_DEVICE if n is None else n
     calls = n + N_TRACE_SLACK
     fn()

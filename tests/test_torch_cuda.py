@@ -147,7 +147,7 @@ def test_poly_score_kernel_at_every_fp(cuda, F):
     """B2 at every instance against its twin, rows uniform in a box off
     the origin and rows 0-11 on or near a support, with its launch plan on
     the card as ops/_native.py::poly_tc_plan gives it
-    (``poly_plan_holds``): 16 warps per SM at least."""
+    (``poly_plan_holds``): 16 warps per SM at least (8 at FP = 64)."""
     g = torch.Generator().manual_seed(F)
     x = (torch.rand(4096 + 5, F, generator=g) * 1.2 - 0.3).to(cuda)
     sup = (torch.rand(128, F, generator=g) * 1.2 - 0.3).to(cuda)
@@ -157,7 +157,10 @@ def test_poly_score_kernel_at_every_fp(cuda, F):
     ref, ref_dx = fused_score._poly_score_grad_plain(x, sup, w)
     _close_near(score, dx, ref, ref_dx)
     plan = _native.poly_score_plan_on_card(F)
-    assert _native.poly_plan_holds(plan, F) and plan['warps_per_sm'] >= 16
+    # one block (8 warps) per SM at FP = 64: its per-chunk running sums
+    # take 36 KB of shared memory
+    least = 8 if 56 < F <= _native.TC_MAX_F else 16
+    assert _native.poly_plan_holds(plan, F) and plan['warps_per_sm'] >= least
 
 
 def _planar_proxy(dof, dev):
@@ -493,6 +496,77 @@ def test_dh_score_kernel_on_large_fitted_proxies(cuda, name, S):
                                                 w.double(), spec)
     _close(score.double(), ref, 1e-4)
     _close(dq.double(), ref_dq, 1e-3)
+
+
+@pytest.mark.parametrize('kernel', ['B3', 'B2'])
+@pytest.mark.parametrize('S', [4096, 8192])
+@pytest.mark.parametrize('links', [11, 9])
+def test_fp64_kernels_on_large_fitted_proxies(cuda, kernel, S, links):
+    """B3 and B2 at FP = 64 and 56 (the marked ropes of 11 and 9 links:
+    their configurations, their 21 and 17 points, F = 63 and 51) on
+    fitted proxies of 4096 and 8192 supports whose weights cancel,
+    against the float64 twins: score 1e-4, dq and dx 1e-3 (per-chunk
+    product-2 sums; one accumulator over all supports missed the
+    gradient's tolerance up to 4.6x there, PERF.md section 6)."""
+    from diffco_tpu_torch.device import fp32_matmul
+    from diffco_tpu_torch.kernels import Polyharmonic
+    from diffco_tpu_torch.perceptron import masked_rbf_solve
+    from diffco_tpu_torch.scripts.ab_kernel import rope_ball_gt
+    robot = URDFRobot(robot_data.generate_marked_rope_urdf(n_links=links),
+                      device=cuda, setup_acm=False)
+    g = torch.Generator().manual_seed(S)
+    qs = robot.rand_configs(S, g, cuda)
+    sup = robot.fkine(qs).reshape(S, -1).contiguous()
+    y = rope_ball_gt(robot)(qs).float() * 2 - 1
+    with fp32_matmul():
+        w = masked_rbf_solve(Polyharmonic(k=1, epsilon=1)(sup, sup), y,
+                             torch.ones(S, dtype=torch.bool, device=cuda))
+    w = w.contiguous()
+    q = robot.rand_configs(65536 + 37, g, cuda)
+    if kernel == 'B3':
+        cs = fk_score.robot_chain_statics(robot)
+        score, grad = fk_score.chain_score_grad(q, sup, w, cs)
+        ref, ref_g = fk_score._chain_score_grad_plain(
+            q.double(), sup.double(), w.double(), cs)
+    else:
+        x = robot.fkine(q).reshape(q.shape[0], -1).contiguous()
+        score, grad = fused_score.poly_score_grad(x, sup, w)
+        ref, ref_g = fused_score._poly_score_grad_plain(
+            x.double(), sup.double(), w.double())
+    _close(score.double(), ref, 1e-4)
+    _close(grad.double(), ref_g, 1e-3)
+
+
+def test_mesh_sweep_on_the_card_launches_b1(cuda):
+    """A ForwardKinematicsDiffCo on a mesh of one rank (NCCL, world size
+    1) fits as the checker without a mesh does, and its sharded
+    collision_score sweep (65536 rows: each rank's block through B1)
+    equals the unsharded one, score and dq, and launches B1."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.parallel import make_mesh
+    import torch.distributed as dist
+    mesh = make_mesh(('dp', 'tp'), (1, 1))
+    robot = PandaFK()
+    env = dc.ShapeEnv({'box1': _shape('Box', [0.1] * 3, [0.5, 0.5, 0.5]),
+                       'sphere1': _shape('Sphere', 0.1, [0.5, 0, 0])})
+    gt = dc.CapsuleChainCollision(robot, link_radius=0.15).checker_fn(env)
+    out = []
+    for m in (mesh, None):
+        ck = dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
+                                        gt_check_func=gt, seed=0,
+                                        device=cuda, mesh=m)
+        ck.fit(num_samples=2000)
+        q = robot.rand_configs(65536, torch.Generator().manual_seed(3), cuda)
+        qg = q.clone().requires_grad_(True)
+        before = fk_score.dh_score_grad_launches
+        s = ck.collision_score(qg)
+        dq, = torch.autograd.grad(s.sum(), qg)
+        assert fk_score.dh_score_grad_launches > before
+        out.append((ck.perceptron.num_valid, s.detach(), dq))
+    dist.destroy_process_group()
+    assert out[0][0] == out[1][0]
+    _close(out[0][1], out[1][1], 1e-6)
+    _close(out[0][2], out[1][2], 1e-6)
 
 
 def test_warm_start_train_on_the_card_matches_the_cpu(cuda, monkeypatch):

@@ -530,7 +530,7 @@ int main(int argc, char** argv) {
 # instance, wide_rows<K>() rows a block, neither with a guard):
 #   replay B S F IN OUT
 # IN holds x [B, F], s [S, F], w [S] (float32); `replay plan` prints
-# kF64Smem, then TcSmem<FP>::kBytes at FP = 16-64, then the wide
+# kF64Smem, then PolySmem<FP>::kBytes at FP = 16-64, then the wide
 # instance's shared bytes and rows at K = 3-6.
 POLY_RUNNER = TC_COMMON + r'''
 template <int F>
@@ -571,7 +571,7 @@ void run_poly(const std::vector<float>& x, const std::vector<float>& s,
               const std::vector<float>& w, std::vector<float>& score,
               std::vector<float>& dx, int B, int S, int F,
               unsigned long long* guard) {
-  run_tc_blocks(B, diffco::TcSmem<FP>::kBytes, [&] {
+  run_tc_blocks(B, diffco::PolySmem<FP>::kBytes, [&] {
     diffco::poly_score_tc_kernel<FP, true>(
         x.data(), s.data(), w.data(), score.data(), dx.data(), B, S, F,
         diffco::kTcGuard, guard);
@@ -580,10 +580,10 @@ void run_poly(const std::vector<float>& x, const std::vector<float>& s,
 
 int main(int argc, char** argv) {
   if (argc == 2 && std::string(argv[1]) == "plan") {
-    for (int b : {diffco::kF64Smem, diffco::TcSmem<16>::kBytes,
-                  diffco::TcSmem<24>::kBytes, diffco::TcSmem<32>::kBytes,
-                  diffco::TcSmem<40>::kBytes, diffco::TcSmem<48>::kBytes,
-                  diffco::TcSmem<56>::kBytes, diffco::TcSmem<64>::kBytes})
+    for (int b : {diffco::kF64Smem, diffco::PolySmem<16>::kBytes,
+                  diffco::PolySmem<24>::kBytes, diffco::PolySmem<32>::kBytes,
+                  diffco::PolySmem<40>::kBytes, diffco::PolySmem<48>::kBytes,
+                  diffco::PolySmem<56>::kBytes, diffco::PolySmem<64>::kBytes})
       std::printf("%d\n", b);
     std::printf("%d %d\n", diffco::wide_smem_bytes<3>(), diffco::wide_rows<3>());
     std::printf("%d %d\n", diffco::wide_smem_bytes<4>(), diffco::wide_rows<4>());
@@ -1006,11 +1006,13 @@ def _plan(exe):
 def test_poly_tc_plan_matches_the_block(tc_bins):
     """ops/_native.py::poly_tc_plan's shared bytes are B2's kernel's
     (csrc/poly_score.cu: kF64Smem for the fp64 instance at F <= 8,
-    TcSmem<FP> at every FP = 16-64, and the wide instance's chunk and rows
-    at K = 3-6, F = 65-192), two blocks (16 warps) per SM on the
-    tensor-core block and the wide instance and at least three (24 warps)
-    on the fp64 instance (on the card, test_poly_score_kernel_at_every_fp
-    holds the plan to the occupancy calculator)."""
+    PolySmem<FP> at every FP = 16-64, and the wide instance's chunk and
+    rows at K = 3-6, F = 65-192), two blocks (16 warps) per SM on the
+    tensor-core block up to FP = 56 and the wide instance, one (8 warps)
+    at FP = 64, whose per-chunk running sums take 36 KB of shared memory,
+    and at least three (24 warps) on the fp64 instance (on the card,
+    test_poly_score_kernel_at_every_fp holds the plan to the occupancy
+    calculator)."""
     got = [int(v) for v in _plan(tc_bins['poly'])]
     assert got[:8] == [_native.poly_tc_plan(F)['smem_bytes']
                        for F in range(8, 65, 8)]
@@ -1018,14 +1020,16 @@ def test_poly_tc_plan_matches_the_block(tc_bins):
              _native.poly_tc_plan(F)['rows']) for F in (96, 128, 160, 192)]
     assert list(zip(got[8::2], got[9::2])) == wide
     assert all(_native.poly_tc_plan(F)['warps_per_sm']
-               == (24 if F <= _native.F64_MAX_F else 16)
+               == (24 if F <= _native.F64_MAX_F else
+                   8 if 56 < F <= _native.TC_MAX_F else 16)
                for F in range(1, _native.MAX_F + 1))
 
 
 def test_chain_tc_plan_matches_the_block(tc_bins):
     """ops/_native.py::chain_tc_plan's shared bytes are B3's kernel's
-    (csrc/chain_score.cu: TcSmem<FP> and each row's zo, 6 M + 1 floats)
-    at every FP = 8-64 and several M; FrankaPanda's shape (P = 8, M = 7)
+    (csrc/chain_score.cu: TcSmem<FP>, the running sums at FP = 56 and
+    64, and each row's zo, 6 M + 1 floats) at every FP = 8-64 and several
+    M; FrankaPanda's shape (P = 8, M = 7)
     keeps two blocks (16 warps) per SM."""
     got = [int(v) for v in _plan(tc_bins['chain'])]
     want = [_native.chain_tc_plan(fp // 3, M)['smem_bytes']

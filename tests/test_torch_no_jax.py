@@ -9,8 +9,10 @@ ground truth, the escape and manifold samplers, RRT-Connect and RRT*)
 and the rigid-body path (se3, a RigidBody proxy scored, a mesh scene, a
 .scene text parsed, a point-cloud world) and the multi-robot, temporal and
 host-side modules (MultiURDFRobot, the dynamic ground truth and
-PointRobot1D, the legacy checkers, profiling, the native oracle) load
-neither JAX nor the JAX package."""
+PointRobot1D, the legacy checkers, profiling, the native oracle) and the
+ROS interface and the mesh path (a world-size-1 gloo mesh: a meshed
+checker's fit, score gradient, Adam with options['mesh'], the checkpoint
+pair, the lazy distributed fit) load neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -155,6 +157,24 @@ assert native.available()
 centers = np.zeros((2, 1, 3))
 assert native.spheres_vs_scene(centers, np.ones(1),
                                native.NativeScene(env.scene)).shape == (2,)
+from diffco_tpu_torch import ros_interface
+from diffco_tpu_torch.parallel import make_mesh, sharding
+assert not ros_interface._HAS_ROS
+mesh = make_mesh(('dp', 'tp'), (1, 1), device_type='cpu')
+mck = dc.ForwardKinematicsDiffCo(robot=dc.PandaFK(),
+                                 gt_check_func=cap.checker_fn(env),
+                                 device='cpu', mesh=mesh)
+mck.fit(num_samples=200)
+mq = qs.clone().requires_grad_(True)
+torch.autograd.grad(mck.collision_score(mq).sum(), mq)
+rec = dc.adam_traj_optimize(dc.PandaFK(), mck.score_fn(), qs[0], qs[1],
+                            dict(opts, mesh=mesh))
+with tempfile.TemporaryDirectory() as d:
+    routines.save_checker_dcp(mck.perceptron, os.path.join(d, 'ck'))
+    routines.load_checker_dcp(dc.DiffCo(), os.path.join(d, 'ck'),
+                              device='cpu')
+gl = sharding.distributed_fit_lazy(dc.kernels.RQKernel(5.0), X, X[:, 0],
+                                   mesh, max_iteration=20)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'diffco_tpu'
              or m.startswith('diffco_tpu.'))

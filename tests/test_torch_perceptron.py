@@ -123,11 +123,13 @@ def test_diffco_train_matches_on_raw_configs():
 
 
 def test_unported_branches_raise():
-    """mesh= is not ported (ROADMAP A15); a warm start on a trained DiffCo
-    without exist_mask raises (the JAX package asserts it)."""
+    """mesh= is ported (sharded training: tests/test_torch_parallel.py),
+    so the perceptron keeps the mesh it is given; a warm start on a
+    trained DiffCo without exist_mask raises (the JAX package asserts
+    it)."""
     X, y = _data(N=20)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tp.DiffCo(mesh=object())
+    mesh = object()
+    assert tp.DiffCo(mesh=mesh).mesh is mesh
     p = tp.DiffCo()
     p.train(torch.from_numpy(X), torch.from_numpy(y), max_iteration=60)
     with pytest.raises(ValueError, match='exist_mask'):

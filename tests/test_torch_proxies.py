@@ -304,7 +304,8 @@ def test_multidimdiffco_matches(lazy):
 def test_update_and_mesh_raise():
     """The JAX package's update errors: MultiDimDiffCo without gains
     raises ValueError, RBFDiffCo.update without supports RuntimeError;
-    mesh= (ROADMAP A15) and labels without num_class columns raise."""
+    labels without num_class columns raise. mesh= is ported (sharded
+    training: tests/test_torch_parallel.py): the perceptron keeps it."""
     X, y = _data(N=20)
     with pytest.raises(ValueError, match='no gains'):
         tp.MultiDimDiffCo().train(*_t(X, y[:, 0]), update=True)
@@ -312,8 +313,8 @@ def test_update_and_mesh_raise():
                    device='cpu')
     with pytest.raises(RuntimeError, match='no supports'):
         ck.update(num_samples=10)
-    with pytest.raises(NotImplementedError, match='ROADMAP A15'):
-        tp.MultiDimDiffCo(mesh=object())
+    mesh = object()
+    assert tp.MultiDimDiffCo(mesh=mesh).mesh is mesh
     with pytest.raises(ValueError, match='num_class'):
         tp.MultiDiffCo().train(*_t(X, y[:, 0]))
 
