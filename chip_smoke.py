@@ -14,7 +14,8 @@ links) on fitted proxies of 4096 and 8192; B2 also at F = 2, 4 and 14,
 the first two on its fp64 instance,
 and at F = 72, 102, 150 and 192 on its wide instance; the FK kernels'
 wide instance, for chains past their own bounds, as B1 and B4 launch it
-on a 9-joint DH chain and B3 and B5 on the 35-link rope), then drives
+on a 9-joint DH chain and B3 and B5 on the 35-link rope; every wide
+instance with DMMA, the fp64 tensor cores' mma, in its SASS), then drives
 eleven paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
@@ -124,10 +125,11 @@ import torch
 from diffco_tpu_torch.ops.bounds import (ablation_tc_bound,
                                          ablation_tc_times, ablation_work,
                                          bound, chain_ops, chain_tc_bound,
-                                         dh_ops, dh_tc_bound, dh_tc_times,
+                                         chain_wide_bound, dh_ops,
+                                         dh_tc_bound, dh_tc_times,
                                          fk_score_bytes, poly_bytes,
-                                         poly_tc_bound, score_ops, tc_bound,
-                                         tc_times)
+                                         poly_tc_bound, poly_wide_bound,
+                                         score_ops, tc_bound, tc_times)
 from diffco_tpu_torch.robots.analytic import baxter_arm
 
 # the main path's shapes (bench.py's primitive: B = 65536, S = 512)
@@ -320,6 +322,10 @@ MESH_PROBLEMS = 2
 MESH_LAZY_ROWS = 65536
 MESH_LAZY_ITERS = 1000
 ROPE_FIT = 10000
+# the rope's sweeps against float64 on the wide instances' first design
+# (PERF.md section 6, PR 16's table; B2's on its own float32 points):
+# printed beside this run's
+ROPE_PR16_ERRS = dict(score_p=1.2e-7, dx=2.2e-7, score_q=1.0e-6, dq=1.9e-6)
 # tests/test_moveit_scene_e2e.py:17-49: a box, a sphere, an inline mesh
 MOVEIT_SCENE = """\
 panda_world
@@ -422,11 +428,17 @@ def _check_tc_ptxas(regs):
     within the launch bound's 128 registers and unspilled, and B2's fp64
     (F64_INSTANCES) and wide (WIDE_INSTANCES) instances and the FK
     kernels' wide one (CHAIN_WIDE_INSTANCES, built into each of B1, B3,
-    B4 and B5) within theirs (65536 over the threads of their least blocks
-    per SM) and unspilled, or fail."""
+    B4 and B5; its launch bound one block per SM from K = 5,
+    ``_native.chain_wide_min_blocks``) within theirs (65536 over the
+    threads of their least blocks per SM, at most 255) and unspilled, or
+    fail."""
     from diffco_tpu_torch.ops import _native
     f64_regs = 65536 // (_native.F64_ROWS * _native.F64_MIN_BLOCKS)
-    wide_regs = 65536 // (_native.WIDE_THREADS * _native.WIDE_MIN_BLOCKS)
+
+    def wide_regs(kind, K):
+        blocks = (_native.WIDE_MIN_BLOCKS if kind == 'poly_score_wide'
+                  else _native.chain_wide_min_blocks(K))
+        return min(255, 65536 // (_native.WIDE_THREADS * blocks))
     found = {k: set() for k in TC_INSTANCES}
     f64, wide, chain_wide = set(), set(), set()
     for line in regs:
@@ -447,7 +459,8 @@ def _check_tc_ptxas(regs):
         if m:
             (wide if m.group(1) == 'poly_score_wide' else chain_wide).add(
                 int(m.group(2)))
-            if int(m.group(3)) > wide_regs or int(m.group(4)) != 0:
+            if (int(m.group(3)) > wide_regs(m.group(1), int(m.group(2)))
+                    or int(m.group(4)) != 0):
                 raise AssertionError(f'ptxas: {line}')
     if (found != TC_INSTANCES or f64 != F64_INSTANCES
             or wide != WIDE_INSTANCES
@@ -489,7 +502,8 @@ def check_poly_kernel(robot, dev):
     then at every FP instance (POLY_FS; F <= 8 is the fp64 instance) on
     rows uniform in a box. Prints B2's launch plan as the card gives it
     (fails unless ops/_native.py::poly_plan_holds and it keeps 16 warps
-    per SM, 8 at FP = 64, at every FP)."""
+    per SM, 8 at FP = 64 and on the wide instance past F = 128, at every
+    FP)."""
     from diffco_tpu_torch.ops import _native, fused_score
     t0 = time.perf_counter()
     q, sup, w = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=1)
@@ -504,8 +518,9 @@ def check_poly_kernel(robot, dev):
     for F in POLY_FS:
         card = plans[F] = _native.poly_score_plan_on_card(F)
         # one block (8 warps) per SM at FP = 64, whose per-chunk running
-        # sums take 36 KB of shared memory
-        least = 8 if 56 < F <= _native.TC_MAX_F else 16
+        # sums take 36 KB of shared memory, and on the wide instance past
+        # F = 128 (118-139 KB)
+        least = 8 if 56 < F <= _native.TC_MAX_F or F > 128 else 16
         if not _native.poly_plan_holds(card, F) or \
                 card['warps_per_sm'] < least:
             raise AssertionError(f'B2 plan {card} on the card at F = {F}, '
@@ -870,10 +885,18 @@ def check_wide_kernels(dev):
     B3 and B5 launch it for a chain past their bounds (WIDE_CASES), against
     the plain twins at B = 65536 + 37, S = 512, configurations 0-11 on or
     near a support; with its launch plan from the card (fails unless
-    ops/_native.py::chain_wide_plan's shared bytes, threads and rows, with
-    16 warps per SM at least). Returns per case the error and the
-    arguments for the timing table."""
+    ops/_native.py::chain_wide_plan_holds: chain_wide_plan's shared bytes,
+    threads and rows and at least its blocks per SM, 16 warps). Returns
+    per case the error and the arguments for the timing table. First DMMA
+    in the SASS of every wide instance (B2's and the FK kernels':
+    sass_counts.wide_dmma), or fail."""
     from diffco_tpu_torch.ops import _native, fk_score
+    from diffco_tpu_torch.scripts import sass_counts
+    t0 = time.perf_counter()
+    dmma = sass_counts.wide_dmma()
+    _phase('wide instances SASS', t0, dmma={
+        stem: {re.search(r'(\w+_kernel)I(L[ib]\d+E)E', k).group(0): n
+               for k, n in found.items()} for stem, found in dmma.items()})
     out = {}
     for seed, (name, C) in enumerate(WIDE_CASES, start=21):
         t0 = time.perf_counter()
@@ -918,13 +941,11 @@ def check_wide_kernels(dev):
             err = _max_err([(score, ref), (dq[:, 4:], ref_dq[:, 4:])])
         card = _native.chain_wide_plan_on_card(c.P, c.M)
         plan = _native.chain_wide_plan(c.P, c.M)
-        if (any(card[k] != plan[k] for k in ('smem_bytes', 'threads',
-                                              'rows'))
+        if (not _native.chain_wide_plan_holds(card, c.P, c.M)
                 or card['warps_per_sm'] < 16):
             raise AssertionError(f'wide plan {card} on the card for {name}, '
                                  f'{plan} in ops/_native.py::'
-                                 'chain_wide_plan (16 warps per SM at '
-                                 'least)')
+                                 'chain_wide_plan')
         _phase(f'wide {kernel.__name__} vs plain, {name}', t0, B=B_RAGGED,
                S=S_BENCH, C=C, D=c.D, moving_joints=c.M, points=c.P,
                max_abs_err=err, plan=card,
@@ -1299,6 +1320,10 @@ def _sweeps(checker, robot, gt, dev, kernel_plain, tag):
     with torch.no_grad():
         ref_q, ref_dq = kernel_plain(q64, sup64, w64)
         ref_p, ref_dx = fused_score._poly_score_grad_plain(x64, sup64, w64)
+        # the same in float64 on the kernel's own float32 points: what is
+        # left is the kernel's error, not the FK's float32 rounding
+        ref_ps, ref_dxs = fused_score._poly_score_grad_plain(
+            xg.detach().reshape(B_BENCH, -1).double(), sup64, w64)
         twin_q, twin_dq = kernel_plain(q, sup, w)
         cond = max(float((torch.cdist(xc, sup64) * w64.abs()).sum(1).max())
                    for xc in torch.split(x64, 8192))
@@ -1328,7 +1353,11 @@ def _sweeps(checker, robot, gt, dev, kernel_plain, tag):
     return dict(q=q, sup=sup, w=w, ref_q=ref_q, ref_dq=ref_dq,
                 x=robot.fkine(q).reshape(B_BENCH, -1).contiguous(),
                 ref_p=ref_p, ref_dx=ref_dx, err_q=_max_err(pq),
-                err_p=_max_err(pp))
+                err_p=_max_err(pp),
+                errs=dict(score_q=_max_err(pq[:1]), dq=_max_err(pq[1:]),
+                          score_p=_max_err(pp[:1]), dx=_max_err(pp[1:]),
+                          score_p_same=_max_err([(out_p, ref_ps)]),
+                          dx_same=_max_err([(dx.double(), ref_dxs)])))
 
 
 def _guard_share(fitted, tag, kernels):
@@ -2737,6 +2766,15 @@ def _rope(dev, timers):
                              q, s, w, cs), 'rope')
         if fk_score.chain_score_grad_launches == before:
             raise AssertionError('B3 did not launch on the rope\'s sweep')
+    e = fitted['errs']
+    print('rope sweeps, the wide instances against float64 (the first wide '
+          'design\'s in brackets, chip_smoke on NVIDIA H100 80GB HBM3, '
+          f'700.00 W): B2 on its float32 points score {e["score_p_same"]} '
+          f'({ROPE_PR16_ERRS["score_p"]}), dx {e["dx_same"]} '
+          f'({ROPE_PR16_ERRS["dx"]}), against the twin on float64 FK '
+          f'points score {e["score_p"]}, dx {e["dx"]}; B3 from q score '
+          f'{e["score_q"]} ({ROPE_PR16_ERRS["score_q"]}), dq {e["dq"]} '
+          f'({ROPE_PR16_ERRS["dq"]})', flush=True)
     w = fitted['w'].reshape(-1).contiguous()
     sup = fitted['sup'].contiguous()
     return dict(q=fitted['q'], sup=sup, w=w, cs=cs,
@@ -2896,11 +2934,16 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
     (``dh_tc_bound``, ``poly_tc_bound``, ``chain_tc_bound``), with the
     fp32 bound beside it (``bound_fp32_ms``); so do B6 (B1's
     ``dh_tc_bound``) and each B7 rung (``ablation_tc_bound``), which have
-    one row per variant and mode. ``ms`` is the wrapper's time per call
+    one row per variant and mode. The wide instances' entries (B2's F =
+    102 rope proxy, B3's ``rope_wide``, the ``wide`` rows of B1, B3, B4,
+    B5) add ``bound_f64_tc_ms``, the bound of the route they take, both
+    products on the fp64 tensor cores (``poly_wide_bound``,
+    ``chain_wide_bound``), beside their ``bound_ms`` (the 3xTF32 route's
+    ``tc_bound``). ``ms`` is the wrapper's time per call
     over back-to-back calls, which the host's launches bound for the
     fastest kernels; B1, B6 and B7 also give ``device_ms``, the kernel's
     own time on the card (``roofline_fk_score.device_ms``)."""
-    from diffco_tpu_torch.ops import fk_score, fused_score
+    from diffco_tpu_torch.ops import _native, fk_score, fused_score
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
     from diffco_tpu_torch.scripts import roofline_fk_score as rf
     x, sup, w = b2['args']
@@ -2959,7 +3002,12 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
         Bp, Sp, Fp = xp.shape[0], sp.shape[0], xp.shape[1]
         bp, byp = poly_tc_bound(Bp, Sp, Fp)
         bp32, byp32 = bound(poly_bytes(Bp, Sp, Fp), score_ops(Bp, Sp, Fp))
+        wide = {}
+        if Fp > _native.TC_MAX_F:   # the wide instance: its own bound too
+            wide = dict(zip(('bound_f64_tc_ms', 'bound_f64_tc_by'),
+                            poly_wide_bound(Bp, Sp, Fp)))
         return dict(
+            **wide,
             shape=[Bp, Sp, Fp], bound_fp32_ms=bp32, bound_fp32_by=byp32,
             max_abs_err_vs_float64=fitted['err'],
             ms=_time_ms(lambda: fused_score.poly_score_grad(xp, sp, wp), 5,
@@ -2978,7 +3026,12 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
         Ss, Fs = ss.shape
         cc = fk_score._c_chain_spec(cs)
         bs, bys = chain_tc_bound(Bs, Ss, Fs, Ds, cc)
+        wide = {}
+        if isinstance(cc, _native.ChainSpecWide):
+            wide = dict(zip(('bound_f64_tc_ms', 'bound_f64_tc_by'),
+                            chain_wide_bound(Bs, Ss, Fs, Ds, cc)))
         return dict(
+            **wide,
             shape=[Bs, Ss, Ds], F=Fs, max_abs_err_vs_float64=fitted['err_q'],
             ms=_time_ms(lambda: fk_score.chain_score_grad(qs, ss, ws, cs), 5,
                         50),
@@ -2989,7 +3042,8 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
         """The wide instance at check_wide_kernels' shape, with its error
         against the plain twin; the bound is the function's (B1's or B3's
         tensor-core route at one class, the fp32 one at several), with
-        the DH chain's FK counted as dh_ops."""
+        the DH chain's FK counted as dh_ops; beside it the wide block's
+        own, the fp64 tensor-core route (``chain_wide_bound``)."""
         qw, sw, ww, specw = case['args']
         c = case['c']
         Bw, Dw = qw.shape
@@ -3001,7 +3055,10 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
                             fk_ops) if Cw == 1 else
                    bound(fk_score_bytes(Bw, Sw, Fw, Dw, Cw),
                          score_ops(Bw, Sw, Fw, Cw) + fk_ops * Bw))
+        bf, byf = chain_wide_bound(Bw, Sw, Fw, Dw, c, Cw,
+                                   dh=case['robot'].startswith('DH'))
         return dict(
+            bound_f64_tc_ms=bf, bound_f64_tc_by=byf,
             robot=case['robot'], shape=[Bw, Sw, Dw, Cw], F=Fw,
             moving_joints=c.M, points=c.P, plan=case['plan'],
             max_abs_err=case['err'],

@@ -16,22 +16,26 @@
 // - the ChainSpecWide (6 KB) lives in a device buffer, is copied into the
 //   block's shared memory once, and every thread reads it from there;
 //   beside it each point's moving ancestors as a 64-bit mask;
-// - the block's wide_rows<K>() rows, R = wide_rows_per_warp<K>() a warp:
-//   lane r < R of each warp runs chain_fk for row r of its warp (one
-//   thread a configuration, as the tensor-core kernels do) into the row's
-//   points x, moving frames fr and world axes and origins zo, all in
-//   shared memory (a row takes 2 * 32K + 19 M floats);
-// - per class c the warp's lanes run the wide score block (wide_pairs, fp64
-//   pairs from direct differences, chunk by chunk) on the row's points and
-//   weight column c, and write the point gradient g to the row's shared
-//   slot; then the backward runs across the warp's lanes, one moving
-//   joint a lane (lanes m and m + 32): the sum over the points it moves
-//   (the masks) of (z_m x (x_k - o_m)) . g_k, or z_m . g_k for a
-//   prismatic joint, times its mimic multiplier; one dof a lane then adds
-//   its joints' values in joint order and writes dq [C, B, D], and lane 0
-//   the score [B, C].
-// The FK runs once a row on one lane; the pairs, ~3K fp64 operations a
-// lane and five double shuffles each, dominate.
+// - the block's kWideRows = 32 rows, one thread a row (threads 0-31, as
+//   the tensor-core kernels run one thread a configuration): chain_fk
+//   writes the row's points into the wide block's row buffer and each
+//   moving joint's world axis and origin (zo) to the caller's scratch in
+//   device memory, zo [B, M, 6] (what the backward reads after the
+//   supports; in shared memory it would take 27 KB a block at the rope's
+//   35 joints and leave one block per SM); the moving frames, indexed by
+//   data and used by the FK only, stay in the thread's local memory;
+// - the wide score block (wide_score_block.cuh: x~ in fp64, both products
+//   on the fp64 tensor cores) runs the pairs once per class c, on weight
+//   column c (product 1 and the pair work are redone per class);
+// - then the backward, each warp a row at a time: its lanes write the
+//   row's points (x~ + c) and gradient (x~ rowsum - su~) in fp32 over the
+//   block's chunk buffers, then one moving joint a lane (lanes m and m +
+//   32) sums over the points it moves (the masks) (z_m x (x_k - o_m)) .
+//   g_k, or z_m . g_k for a prismatic joint, times its mimic multiplier;
+//   one dof a lane then adds its joints' values in joint order and writes
+//   dq [C, B, D], and lane 0 the score [B, C]. No atomics.
+// The block takes 97-139 KB of shared memory at K = 3-6 whatever the
+// chain (two blocks, 16 warps, per SM up to K = 4: the 35-link rope).
 #pragma once
 
 #include "chain_fk.cuh"
@@ -46,34 +50,118 @@ constexpr int kWideSpecFloats = (sizeof(ChainSpecWide) / 4 + 3) / 4 * 4;
 // the points' ancestor masks, 64 bits each
 constexpr int kWideAncFloats = 2 * kWideMaxCP;
 
-// floats of one row: x and -g (32 K each), fr (12 M), zo (6 M), the
-// joints' values (M)
+// the kernel's dynamic shared memory: the wide block's, the spec, the
+// masks (the backward's joints' values and rows go over the block's
+// chunk buffers, after the sums)
 template <int K>
-__host__ __device__ constexpr int chain_wide_row_floats(int M) {
-  return 2 * 32 * K + 19 * M;
+__host__ __device__ constexpr int chain_wide_smem_bytes() {
+  return WideSmem<K>::kBytes + 4 * (kWideSpecFloats + kWideAncFloats);
 }
 
-// the kernel's dynamic shared memory: the pairs' chunk, the spec, the
-// masks, the rows
+// The backward's floats after the sums: the joints' values [rows][M + 1],
+// then per warp one row's points and gradient [2][32 K].
 template <int K>
-__host__ __device__ constexpr int chain_wide_smem_bytes(int M) {
-  return wide_smem_bytes<K>() +
-         4 * (kWideSpecFloats + kWideAncFloats +
-              wide_rows<K>() * chain_wide_row_floats<K>(M));
+struct ChainWideTail {
+  static constexpr int kJv = 2 * (WideSmem<K>::kSums +
+                                  kWideRows * WideSmem<K>::kS);
+  static constexpr int kXg = kJv + kWideRows * (kWideMaxM + 1);
+  static constexpr int kEnd = kXg + kWideThreads / 32 * 2 * 32 * K;
+  static_assert(kEnd <= 2 * WideSmem<K>::kEnd, "the backward's floats");
+};
+
+// blocks per SM in the launch bound: two (<= 128 registers) up to K = 4,
+// where two blocks' shared memory fits an SM; one above
+template <int K>
+constexpr int kChainWideMinBlocks = K <= 4 ? kWideMinBlocks : 1;
+
+// The spec, its ancestor masks and the backward's floats, after the wide
+// block's shared memory.
+template <int K>
+__device__ __forceinline__ float* chain_wide_spec(double* sm) {
+  return reinterpret_cast<float*>(sm + WideSmem<K>::kEnd);
+}
+
+// After wide_tc_pairs for class c of C: the block's live rows' backward
+// (a warp a row, a joint a lane, from zo_g [B, M, 6]), then dq [C, B, D],
+// a dof a lane, and the score [B, C]. Out of line: the pair loop's
+// registers stay its own (inlined, the kernel spilled 8-44 B at 128).
+template <int K>
+__device__ __noinline__ void chain_wide_epilogue(
+    double* sm, const float* __restrict__ zo_g, float* __restrict__ score,
+    float* __restrict__ dq, int B, int c, int C) {
+  using L = WideSmem<K>;
+  using T = ChainWideTail<K>;
+  constexpr int kWarps = kWideThreads / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float* spf = chain_wide_spec<K>(sm);
+  const ChainSpecWide& sp = *reinterpret_cast<const ChainSpecWide*>(spf);
+  const auto* anc =
+      reinterpret_cast<const unsigned long long*>(spf + kWideSpecFloats);
+  const int M = sp.M, D = sp.D, P = sp.P, F = 3 * P;
+  const int b0 = blockIdx.x * kWideRows;
+  const int live = min(kWideRows, B - b0);
+  float* smf = reinterpret_cast<float*>(sm);
+  float* jv = smf + T::kJv;
+  float* xr = smf + T::kXg + warp * 2 * 32 * K;
+  float* gr = xr + 32 * K;
+  for (int r = warp; r < live; r += kWarps) {  // a joint a lane
+    for (int f = lane; f < F; f += 32) {  // the row's points, gradient
+      xr[f] = static_cast<float>(sm[L::kXt + r * L::kS + f] + sm[L::kC + f]);
+      gr[f] = static_cast<float>(wide_row_grad<K>(sm, r, f, F));
+    }
+    wide_syncwarp();
+    const float(*zo)[6] = reinterpret_cast<const float(*)[6]>(
+        zo_g + static_cast<size_t>(b0 + r) * M * 6);
+    for (int m = lane; m < M; m += 32) {
+      const float zx = zo[m][0], zy = zo[m][1], zz = zo[m][2];
+      const float ox = zo[m][3], oy = zo[m][4], oz = zo[m][5];
+      const bool rev = sp.jtype[m] == kRevolute;
+      float val = 0.f;
+      for (int k = 0; k < P; ++k) {
+        if (!((anc[k] >> m) & 1ull)) continue;
+        const float gx = gr[3 * k], gy = gr[3 * k + 1], gz = gr[3 * k + 2];
+        if (rev) {
+          const float rx = xr[3 * k] - ox, ry = xr[3 * k + 1] - oy,
+                      rz = xr[3 * k + 2] - oz;
+          val += (zy * rz - zz * ry) * gx + (zz * rx - zx * rz) * gy +
+                 (zx * ry - zy * rx) * gz;
+        } else {
+          val += zx * gx + zy * gy + zz * gz;
+        }
+      }
+      jv[r * (M + 1) + m] = sp.mult[m] * val;
+    }
+    wide_syncwarp();  // the next row's points go over these
+  }
+  __syncthreads();
+  for (int r = warp; r < live; r += kWarps) {  // dq, a dof a lane
+    const int b = b0 + r;
+    for (int d = lane; d < D; d += 32) {
+      float v = 0.f;
+      for (int m = 0; m < M; ++m)
+        if (sp.dof[m] == d) v += jv[r * (M + 1) + m];
+      dq[(static_cast<size_t>(c) * B + b) * D + d] = v;
+    }
+    if (lane == 0)
+      score[static_cast<size_t>(b) * C + c] =
+          static_cast<float>(wide_row_score<K>(sm, r));
+  }
+  __syncthreads();  // the sums' readers are done: the next class stages
 }
 
 template <int K>
-__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
+__global__ void __launch_bounds__(kWideThreads, kChainWideMinBlocks<K>)
 chain_wide_score_kernel(const float* __restrict__ q,
                         const float* __restrict__ s,
                         const float* __restrict__ W,
                         float* __restrict__ score, float* __restrict__ dq,
                         int B, int S, int C,
-                        const ChainSpecWide* __restrict__ spg) {
-  constexpr int R = wide_rows_per_warp<K>(), FW = 32 * K;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float* chunk = diffco_tc_smem;
-  float* spf = chunk + wide_smem_bytes<K>() / 4;
+                        const ChainSpecWide* __restrict__ spg,
+                        float* __restrict__ zo_g) {
+  using L = WideSmem<K>;
+  const int tid = threadIdx.x;
+  double* sm = reinterpret_cast<double*>(diffco_tc_smem);
+  float* spf = chain_wide_spec<K>(sm);
   {  // the spec, word by word
     const int* src = reinterpret_cast<const int*>(spg);
     int* dst = reinterpret_cast<int*>(spf);
@@ -83,7 +171,7 @@ chain_wide_score_kernel(const float* __restrict__ q,
   }
   __syncthreads();
   const ChainSpecWide& sp = *reinterpret_cast<const ChainSpecWide*>(spf);
-  const int M = sp.M, D = sp.D, P = sp.P, F = 3 * P;
+  const int P = sp.P;
   // bit m of anc[k]: moving joint m moves point k
   auto* anc = reinterpret_cast<unsigned long long*>(spf + kWideSpecFloats);
   for (int k = tid; k < P; k += kWideThreads) {
@@ -91,82 +179,23 @@ chain_wide_score_kernel(const float* __restrict__ q,
     for (int m = sp.pframe[k]; m >= 0; m = sp.mparent[m]) a |= 1ull << m;
     anc[k] = a;
   }
-  const int RS = chain_wide_row_floats<K>(M);
-  float* rows = spf + kWideSpecFloats + kWideAncFloats;
-  const int r0 = blockIdx.x * wide_rows<K>() + warp * R;
-  if (lane < R) {  // FK of the row (a row past B as row B - 1, not written)
-    float* x = rows + (warp * R + lane) * RS;
-    const int b = min(r0 + lane, B - 1);
-    for (int f = 0; f < FW; ++f) x[f] = 0.f;
-    chain_fk<kWideMaxCP>(q + static_cast<size_t>(b) * D, true, sp,
-                         reinterpret_cast<float(*)[12]>(x + 2 * FW),
-                         reinterpret_cast<float(*)[6]>(x + 2 * FW + 12 * M),
-                         x);
+  const int b0 = blockIdx.x * kWideRows;
+  const int live = min(kWideRows, B - b0);   // rows of the block below B
+  if (tid < kWideRows) {  // FK of row tid (past B as row B - 1)
+    float fr[kWideMaxM][12], zo_past[kWideMaxM][6];
+    float(*zo)[6] = tid < live
+        ? reinterpret_cast<float(*)[6]>(zo_g + static_cast<size_t>(b0 + tid) *
+                                                   sp.M * 6)
+        : zo_past;
+    chain_fk<kWideMaxCP>(
+        q + static_cast<size_t>(b0 + min(tid, live - 1)) * sp.D, true, sp,
+        fr, zo, reinterpret_cast<float*>(sm + L::kRows) + tid * L::kS);
   }
   __syncthreads();
-  double xr[R][K];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      xr[r][k] =
-          static_cast<double>(rows[(warp * R + r) * RS + lane + 32 * k]);
-  }
+  wide_rows_setup<K>(sm, 3 * P);
   for (int c = 0; c < C; ++c) {
-    double g[R][K], sc[R];
-    wide_pairs<K, R>(s, W + c, C, S, F, chunk, xr, g, sc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        rows[(warp * R + r) * RS + FW + lane + 32 * k] =
-            -static_cast<float>(g[r][k]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {  // the joints' values, a joint a lane
-      const float* x = rows + (warp * R + r) * RS;
-      const float* gneg = x + FW;
-      const float(*zo)[6] =
-          reinterpret_cast<const float(*)[6]>(x + 2 * FW + 12 * M);
-      float* jv = const_cast<float*>(x) + 2 * FW + 18 * M;
-      for (int m = lane; m < M; m += 32) {
-        const float zx = zo[m][0], zy = zo[m][1], zz = zo[m][2];
-        const float ox = zo[m][3], oy = zo[m][4], oz = zo[m][5];
-        const bool rev = sp.jtype[m] == kRevolute;
-        float val = 0.f;
-        for (int k = 0; k < P; ++k) {
-          if (!((anc[k] >> m) & 1ull)) continue;
-          const float gx = -gneg[3 * k], gy = -gneg[3 * k + 1],
-                      gz = -gneg[3 * k + 2];
-          if (rev) {
-            const float rx = x[3 * k] - ox, ry = x[3 * k + 1] - oy,
-                        rz = x[3 * k + 2] - oz;
-            val += (zy * rz - zz * ry) * gx + (zz * rx - zx * rz) * gy +
-                   (zx * ry - zy * rx) * gz;
-          } else {
-            val += zx * gx + zy * gy + zz * gz;
-          }
-        }
-        jv[m] = sp.mult[m] * val;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {  // dq, a dof a lane, and the score
-      const int b = r0 + r;
-      if (b >= B) continue;
-      const float* jv = rows + (warp * R + r) * RS + 2 * FW + 18 * M;
-      for (int d = lane; d < D; d += 32) {
-        float v = 0.f;
-        for (int m = 0; m < M; ++m)
-          if (sp.dof[m] == d) v += jv[m];
-        dq[(static_cast<size_t>(c) * B + b) * D + d] = v;
-      }
-      if (lane == 0)
-        score[static_cast<size_t>(b) * C + c] = static_cast<float>(sc[r]);
-    }
-    __syncthreads();  // the backward's reads are done
+    wide_tc_pairs<K>(s, W + c, C, S, 3 * P, sm);
+    chain_wide_epilogue<K>(sm, zo_g, score, dq, B, c, C);
   }
 }
 

@@ -13,33 +13,35 @@ namespace {
 template <int K>
 int chain_wide_launch_k(const float* q, const float* s, const float* W,
                         float* score, float* dq, int B, int S, int C,
-                        const ChainSpecWide& sp, const ChainSpecWide* dev,
+                        const ChainSpecWide* dev, float* zo,
                         cudaStream_t st) {
   const auto kernel = chain_wide_score_kernel<K>;
-  const int bytes = chain_wide_smem_bytes<K>(sp.M);
+  const int bytes = chain_wide_smem_bytes<K>();
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<(B + wide_rows<K>() - 1) / wide_rows<K>(), kWideThreads, bytes,
-           st>>>(q, s, W, score, dq, B, S, C, dev);
+  kernel<<<(B + kWideRows - 1) / kWideRows, kWideThreads, bytes, st>>>(
+      q, s, W, score, dq, B, S, C, dev, zo);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches the wide kernel over B configurations and C weight columns
 // (W [S, C]: score [B, C], dq [C, B, D]) on `st`. `host` is the spec as
 // the host built it (checked here), `dev` its copy on the device (read by
-// the kernel). The cudaError_t, 0 on success.
+// the kernel), `zo` the caller's scratch of B M 6 floats (the joints'
+// world axes and origins between the FK and the backward). The
+// cudaError_t, 0 on success.
 inline int chain_wide_launch(const float* q, const float* s, const float* W,
                              float* score, float* dq, int B, int S, int C,
                              const ChainSpecWide* host,
-                             const ChainSpecWide* dev, cudaStream_t st) {
+                             const ChainSpecWide* dev, float* zo,
+                             cudaStream_t st) {
   if (B <= 0 || S < 0 || C < 1 || C > kMaxC || dev == nullptr ||
-      !spec_ok(*host))
+      zo == nullptr || !spec_ok(*host))
     return cudaErrorInvalidValue;
 #define DIFFCO_WIDE(KV)                                                    \
   case KV:                                                                 \
-    return chain_wide_launch_k<KV>(q, s, W, score, dq, B, S, C, *host, dev, \
-                                   st)
+    return chain_wide_launch_k<KV>(q, s, W, score, dq, B, S, C, dev, zo, st)
   switch ((3 * host->P + 31) / 32) {
     DIFFCO_WIDE(1);
     DIFFCO_WIDE(2);
@@ -54,11 +56,11 @@ inline int chain_wide_launch(const float* q, const float* s, const float* W,
 
 // out = {dynamic shared bytes per block, blocks resident per SM by the
 // runtime's occupancy calculator, threads per block, configurations per
-// block} of the wide kernel for P points and M moving joints.
+// block} of the wide kernel for P points (any M moving joints).
 template <int K>
-int chain_wide_plan_k(int M, int* out) {
+int chain_wide_plan_k(int* out) {
   const auto kernel = chain_wide_score_kernel<K>;
-  const int bytes = chain_wide_smem_bytes<K>(M);
+  const int bytes = chain_wide_smem_bytes<K>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   int blocks = 0;
@@ -68,7 +70,7 @@ int chain_wide_plan_k(int M, int* out) {
   out[0] = bytes;
   out[1] = blocks;
   out[2] = kWideThreads;
-  out[3] = wide_rows<K>();
+  out[3] = kWideRows;
   return static_cast<int>(e);
 }
 
@@ -76,12 +78,12 @@ inline int chain_wide_plan(int P, int M, int* out) {
   if (P < 1 || P > kWideMaxCP || M < 1 || M > kWideMaxM)
     return cudaErrorInvalidValue;
   switch ((3 * P + 31) / 32) {
-    case 1: return chain_wide_plan_k<1>(M, out);
-    case 2: return chain_wide_plan_k<2>(M, out);
-    case 3: return chain_wide_plan_k<3>(M, out);
-    case 4: return chain_wide_plan_k<4>(M, out);
-    case 5: return chain_wide_plan_k<5>(M, out);
-    case 6: return chain_wide_plan_k<6>(M, out);
+    case 1: return chain_wide_plan_k<1>(out);
+    case 2: return chain_wide_plan_k<2>(out);
+    case 3: return chain_wide_plan_k<3>(out);
+    case 4: return chain_wide_plan_k<4>(out);
+    case 5: return chain_wide_plan_k<5>(out);
+    case 6: return chain_wide_plan_k<6>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -48,15 +48,15 @@
 // ~4F + 12 fp64 operations, against the H100's 1:2 fp64 rate.
 //
 // At F = 65-192 (poly_score_wide_kernel<K>, K = ceil(F / 32)) the pairs
-// run on the wide score block of wide_score_block.cuh: one warp takes
-// wide_rows_per_warp<K>() rows, each lane K components of each row, the
-// pairs in fp64 from direct differences with the warp's shuffles summing
-// |x - s|^2, chunk by chunk: control-point rows of 22-64 points (three
-// Panda arms, a rigid body of many keypoints), which the JAX kernel takes
-// at any F and the tensor-core block's shared memory and registers do
-// not. Score and dx are the fp64 instance's arithmetic, with no expanded
-// square and no cancelling x rowsum - su; the kernel is bound by fp64
-// issue and shuffles, not by the bytes it moves.
+// run on the wide score block of wide_score_block.cuh, both products on
+// the fp64 tensor cores (mma.sync m16n8k4 .f64) and the pair work in
+// fp64: control-point rows of 22-64 points (three Panda arms, the 35-link
+// rope, a rigid body of many keypoints), which the JAX kernel takes at
+// any F and the 3xTF32 block's shared memory and registers do not. 32
+// rows a block, centred in fp64; its rows are copies of row B - 1 past B.
+// At the rope's sweep (F = 102, S = 1536) the two products are ~4.2e10
+// fp64 operations: bound by the fp64 tensor cores' 67 TFLOP/s
+// (ops/bounds.py::wide_f64_tc_bound), not by the ~27 MB it moves.
 #include <cuda_runtime.h>
 
 #include "tc_score_block.cuh"
@@ -173,41 +173,36 @@ poly_score_f64_kernel(const float* __restrict__ x,
   }
 }
 
-// B2 at F = 65-kWideMaxF (file comment): kWideThreads threads, 8 warps of
-// wide_rows_per_warp<K>() rows each, on wide_pairs.
+// B2 at F = 65-kWideMaxF (file comment): kWideRows rows a block on the
+// wide score block.
 template <int K>
 __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
 poly_score_wide_kernel(const float* __restrict__ x,
                        const float* __restrict__ s,
                        const float* __restrict__ w, float* __restrict__ score,
                        float* __restrict__ dx, int B, int S, int F) {
-  constexpr int R = wide_rows_per_warp<K>();
-  const int lane = threadIdx.x % 32;
-  const int r0 = blockIdx.x * wide_rows<K>() + threadIdx.x / 32 * R;
-  // the warp's rows, a row past B read as row B - 1 (never written)
-  double xr[R][K], g[R][K], sc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const size_t b = min(r0 + r, B - 1);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int f = lane + 32 * k;
-      xr[r][k] = f < F ? static_cast<double>(x[b * F + f]) : 0.0;
-    }
+  using L = WideSmem<K>;
+  double* sm = reinterpret_cast<double*>(diffco_tc_smem);
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kWideRows;
+  const int live = min(kWideRows, B - b0);   // rows of the block below B
+  // the block's rows, consecutive threads on consecutive components; a
+  // row past B reads row B - 1
+  float* xr = reinterpret_cast<float*>(sm + L::kRows);
+  for (int i = tid; i < kWideRows * F; i += kWideThreads) {
+    const int r = i / F, f = i % F;
+    xr[r * L::kS + f] = x[static_cast<size_t>(b0 + min(r, live - 1)) * F + f];
   }
-  wide_pairs<K, R>(s, w, 1, S, F, diffco_tc_smem, xr, g, sc);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int b = r0 + r;
-    if (b >= B) continue;
-    if (lane == 0) score[b] = static_cast<float>(sc[r]);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int f = lane + 32 * k;
-      if (f < F)
-        dx[static_cast<size_t>(b) * F + f] = static_cast<float>(g[r][k]);
-    }
+  __syncthreads();
+  wide_rows_setup<K>(sm, F);
+  wide_tc_pairs<K>(s, w, 1, S, F, sm);
+  for (int i = tid; i < live * F; i += kWideThreads) {
+    const int r = i / F, f = i % F;
+    dx[static_cast<size_t>(b0 + r) * F + f] =
+        static_cast<float>(wide_row_grad<K>(sm, r, f, F));
   }
+  if (tid < live)
+    score[b0 + tid] = static_cast<float>(wide_row_score<K>(sm, tid));
 }
 
 }  // namespace
@@ -264,9 +259,13 @@ template <int K>
 int poly_wide_launch(const float* x, const float* s, const float* w,
                      float* score, float* dx, int B, int S, int F,
                      cudaStream_t st) {
-  poly_score_wide_kernel<K><<<(B + wide_rows<K>() - 1) / wide_rows<K>(),
-                              kWideThreads, wide_smem_bytes<K>(), st>>>(
-      x, s, w, score, dx, B, S, F);
+  const auto kernel = poly_score_wide_kernel<K>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WideSmem<K>::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<(B + kWideRows - 1) / kWideRows, kWideThreads,
+           WideSmem<K>::kBytes, st>>>(x, s, w, score, dx, B, S, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,13 +284,18 @@ int poly_wide_dispatch(const float* x, const float* s, const float* w,
 // The wide instance's plan for K = ceil(F / 32), as poly_plan's.
 template <int K>
 int poly_wide_plan(int* out) {
+  const auto kernel = poly_score_wide_kernel<K>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WideSmem<K>::kBytes);
   int blocks = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, poly_score_wide_kernel<K>, kWideThreads, wide_smem_bytes<K>());
-  out[0] = wide_smem_bytes<K>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kWideThreads, WideSmem<K>::kBytes);
+  out[0] = WideSmem<K>::kBytes;
   out[1] = blocks;
   out[2] = kWideThreads;
-  out[3] = wide_rows<K>();
+  out[3] = kWideRows;
   return static_cast<int>(e);
 }
 

@@ -153,10 +153,37 @@ def dh_tc_plan(P: int) -> dict:
 # floats in shared memory, __launch_bounds__ minimum kF64MinBlocks)
 F64_MAX_F, F64_ROWS, F64_CHUNK, F64_MIN_BLOCKS = 8, 256, 256, 3
 # its wide instance at TC_MAX_F < F <= MAX_F (poly_score_wide_kernel<K>,
-# K = ceil(F / 32): kWideThreads threads, two rows a warp up to K = 4 and
-# one above, kWideChunk supports of 32 K + 1 floats, kWideMinBlocks)
+# K = ceil(F / 32), on csrc/wide_score_block.cuh: kWideThreads threads
+# and kWideRows rows a block, kWideChunk supports a chunk, kWideGroups
+# warps a row tile, kWideMinBlocks in the launch bound)
 TC_MAX_F = 64
 WIDE_THREADS, WIDE_CHUNK, WIDE_MIN_BLOCKS = 256, 32, 2
+WIDE_ROWS, WIDE_GROUPS = 32, 4
+
+
+def wide_smem_doubles(K: int) -> int:
+    """``WideSmem<K>::kEnd``: the wide block's shared doubles: the centre
+    and the row stride 32 K + 4, |x~|^2, the groups' scores, x~ [rows],
+    then the chunk: raw floats [chunk][32 K], weights, s~ [chunk], (|s~|^2,
+    w), coef [rows][40]."""
+    stride = 32 * K + 4
+    area = stride + WIDE_ROWS + WIDE_GROUPS * WIDE_ROWS + WIDE_ROWS * stride
+    return (area + WIDE_CHUNK * 16 * K + WIDE_CHUNK // 2
+            + WIDE_CHUNK * stride + 2 * WIDE_CHUNK + WIDE_ROWS * 40)
+
+
+def chain_wide_min_blocks(K: int) -> int:
+    """``kChainWideMinBlocks<K>`` (csrc/chain_wide.cuh): the wide FK
+    instance's launch bound, two blocks per SM up to K = 4, one above."""
+    return WIDE_MIN_BLOCKS if K <= 4 else 1
+
+
+def _wide_plan(K: int, smem: int, min_blocks: int = WIDE_MIN_BLOCKS) -> dict:
+    blocks = min(min_blocks,
+                 SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED))
+    return dict(fp=32 * K, smem_bytes=smem, blocks_per_sm=blocks,
+                warps_per_sm=blocks * WIDE_THREADS // 32,
+                threads=WIDE_THREADS, rows=WIDE_ROWS)
 
 
 def poly_tc_plan(F: int) -> dict:
@@ -174,11 +201,7 @@ def poly_tc_plan(F: int) -> dict:
                     threads=F64_ROWS, rows=F64_ROWS)
     if F > TC_MAX_F:
         K = -(-F // 32)
-        return dict(fp=32 * K, smem_bytes=4 * WIDE_CHUNK * (32 * K + 1),
-                    blocks_per_sm=WIDE_MIN_BLOCKS,
-                    warps_per_sm=WIDE_MIN_BLOCKS * WIDE_THREADS // 32,
-                    threads=WIDE_THREADS,
-                    rows=WIDE_THREADS // 32 * (2 if K <= 4 else 1))
+        return _wide_plan(K, 8 * wide_smem_doubles(K))
     fp = (F + 7) // 8 * 8
     return _tc_plan(fp, 0, _run_floats(fp) if fp in POLY_SHARED_SUMS_FP
                     else 0)
@@ -186,11 +209,11 @@ def poly_tc_plan(F: int) -> dict:
 
 def poly_plan_holds(card: dict, F: int) -> bool:
     """B2's plan as the card gives it (``poly_score_plan_on_card``) is
-    ``poly_tc_plan``'s: equal for the tensor-core instances; for the fp64
-    and the wide instance the same shared bytes, threads and rows, and at
-    least the blocks per SM of their launch bounds."""
+    ``poly_tc_plan``'s: equal for the tensor-core and the wide instances;
+    for the fp64 instance the same shared bytes, threads and rows, and at
+    least the blocks per SM of its launch bound."""
     plan = poly_tc_plan(F)
-    if F64_MAX_F < F <= TC_MAX_F:
+    if F > F64_MAX_F:
         return card == plan
     return (all(card[k] == plan[k]
                 for k in ('fp', 'smem_bytes', 'threads', 'rows'))
@@ -209,23 +232,38 @@ def chain_tc_plan(P: int, M: int) -> dict:
 
 def chain_wide_plan(P: int, M: int) -> dict:
     """The wide FK instances' launch plan (``csrc/chain_wide.cuh``,
-    K = ceil(3P / 32)) for P control points and M moving joints: B2's
-    wide chunk, the spec (``ChainSpecWide``, in whole 16-byte words), the
-    points' ancestor masks (2 WIDE_MAX_CP floats) and per row its points
-    and gradient (32 K floats each), moving frames (12 M), axes and
-    origins (6 M) and the joints' values (M); WIDE_THREADS
-    threads, two rows a warp up to K = 4 and one above, and the blocks per
-    SM of the launch bound (the card's calculator may allow more:
-    ``chain_wide_plan_on_card``)."""
+    K = ceil(3P / 32)) for P control points and M moving joints: the wide
+    block's shared memory (``wide_smem_doubles``; the backward's rows and
+    joints' values go over its chunk buffers), the spec
+    (``ChainSpecWide``, in whole 16-byte words) and the points' ancestor
+    masks (2 WIDE_MAX_CP floats), whatever M (the joints' axes and origins
+    go to a scratch in device memory, ``wide_scratch_floats``);
+    WIDE_THREADS threads and WIDE_ROWS rows, and the blocks per SM that
+    the launch bound (``chain_wide_min_blocks``) and shared memory
+    allow."""
     K = -(-3 * P // 32)
-    rows = WIDE_THREADS // 32 * (2 if K <= 4 else 1)
     spec = (ctypes.sizeof(ChainSpecWide) // 4 + 3) // 4 * 4
-    return dict(fp=32 * K, smem_bytes=4 * (WIDE_CHUNK * (32 * K + 1) + spec
-                                           + 2 * WIDE_MAX_CP
-                                           + rows * (64 * K + 19 * M)),
-                blocks_per_sm=WIDE_MIN_BLOCKS,
-                warps_per_sm=WIDE_MIN_BLOCKS * WIDE_THREADS // 32,
-                threads=WIDE_THREADS, rows=rows)
+    return _wide_plan(K, 8 * wide_smem_doubles(K) + 4 * (
+        spec + 2 * WIDE_MAX_CP), chain_wide_min_blocks(K))
+
+
+def wide_scratch_floats(B: int, M: int) -> int:
+    """The wide FK instance's scratch (its C entries' ``zo``): each
+    configuration's moving joints' world axes and origins, B M 6
+    floats."""
+    return B * M * 6
+
+
+def chain_wide_plan_holds(card: dict, P: int, M: int) -> bool:
+    """The wide FK instance's plan as the card gives it
+    (``chain_wide_plan_on_card``) is ``chain_wide_plan``'s: the same shared
+    bytes, threads and rows, and at least its blocks per SM (equal where
+    shared memory bounds them; a small chain's registers may allow
+    more)."""
+    plan = chain_wide_plan(P, M)
+    return (all(card[k] == plan[k]
+                for k in ('fp', 'smem_bytes', 'threads', 'rows'))
+            and card['blocks_per_sm'] >= plan['blocks_per_sm'])
 
 
 class DHSpec(ctypes.Structure):
@@ -371,7 +409,8 @@ def _bind(libs):
     fn = libs['chain_score'].chain_score_plan
     fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
     fn.restype = cint
-    # the wide instances (csrc/chain_wide.cuh): host spec, device copy
+    # the wide instances (csrc/chain_wide.cuh): host spec, device copy,
+    # the joints' axes and origins' scratch
     wide = ctypes.POINTER(ChainSpecWide)
     for lib, name, n_int in (('dh_score', 'dh_score_grad', 2),
                              ('chain_score', 'chain_score_grad', 2),
@@ -379,7 +418,7 @@ def _bind(libs):
                              ('chain_multi_score', 'chain_multi_score_grad',
                               3)):
         fn = getattr(libs[lib], f'{name}_wide')
-        fn.argtypes = [ptr] * 5 + [cint] * n_int + [wide, ptr, ptr]
+        fn.argtypes = [ptr] * 5 + [cint] * n_int + [wide, ptr, ptr, ptr]
         fn.restype = cint
     fn = libs['chain_score'].chain_score_wide_plan
     fn.argtypes = [cint, cint, ctypes.POINTER(cint)]

@@ -26,6 +26,14 @@ runs B1's function on B1's block, so its tensor-core bound is
 ``dh_tc_bound``; each B7 rung, a prefix of B1's block, has
 ``ablation_tc_bound``. The fp32 bounds (the one above) stay beside them;
 B4 and B5 keep theirs alone.
+
+B2's and the FK kernels' wide instances (``csrc/wide_score_block.cuh``:
+``poly_score_wide_kernel``, ``chain_wide_score_kernel``) run both
+products on the fp64 tensor cores and the pair work in fp64, so their
+least time on that route is ``wide_f64_tc_bound`` (``poly_wide_bound``,
+``chain_wide_bound``): the largest of the bytes over HBM, the products
+over the fp64 tensor-core peak, the pair, row and support work over the
+fp64 peak, and the FK and backward over the fp32 peak.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_TF32_FLOPS = 495e12   # dense, tensor cores
 PEAK_BF16_FLOPS = 989e12   # dense, tensor cores
+PEAK_FP64_TC_FLOPS = 67e12  # dense, tensor cores
+PEAK_FP64_FLOPS = 34e12    # outside the tensor cores
 
 
 def bound(bytes_moved, ops):
@@ -81,6 +91,52 @@ def tc_bound(B, S, F, bytes_moved, row_ops):
     t = tc_times(B, S, F, bytes_moved, row_ops)
     ms = max(t.values())
     return ms, 'bytes' if ms == t['bytes'] else 'operations'
+
+
+# fp64 operations per pair on the CUDA cores beside the wide block's
+# products: once, d2 from the norms and the cross term (3), clamp and
+# floor (2), rsqrt and its Newton step (4); per class w r into the score
+# (2) and coef = w rinv (1)
+WIDE_PAIR_OPS, WIDE_CLASS_PAIR_OPS = 9, 3
+
+
+def wide_f64_tc_times(B, S, F, bytes_moved, fk_ops=0, C=1):
+    """Least times, in ms, of a kernel on the wide score block
+    (``csrc/wide_score_block.cuh``) with C weight columns: 'bytes' (over
+    HBM), 'tensor' (the cross term x . s once, 2F a pair, and per class
+    the [s | 1] sums, 2 (F + 1) a pair, over the fp64 tensor-core peak),
+    'fp64' (``WIDE_PAIR_OPS`` + C ``WIDE_CLASS_PAIR_OPS`` a pair, per row
+    |x~|^2 and per class its gradient x~ rowsum - su~ (2F each), per
+    support |s~|^2 (2F), over the fp64 peak) and 'fp32' (per row
+    ``fk_ops``, the FK and backward, over the fp32 peak)."""
+    return dict(
+        bytes=bytes_moved / PEAK_HBM_BYTES * 1e3,
+        tensor=B * S * (2 * F + C * 2 * (F + 1)) / PEAK_FP64_TC_FLOPS * 1e3,
+        fp64=(B * S * (WIDE_PAIR_OPS + C * WIDE_CLASS_PAIR_OPS)
+              + B * 2 * F * (1 + C) + S * 2 * F) / PEAK_FP64_FLOPS * 1e3,
+        fp32=B * fk_ops / PEAK_FP32_FLOPS * 1e3)
+
+
+def wide_f64_tc_bound(B, S, F, bytes_moved, fk_ops=0, C=1):
+    """(least ms, 'bytes' or 'operations') on the wide block: the largest
+    of ``wide_f64_tc_times`` (its parts run side by side)."""
+    t = wide_f64_tc_times(B, S, F, bytes_moved, fk_ops, C)
+    ms = max(t.values())
+    return ms, 'bytes' if ms == t['bytes'] else 'operations'
+
+
+def poly_wide_bound(B, S, F):
+    """B2's wide instance (F = 65-192): ``wide_f64_tc_bound`` of its bytes
+    (``poly_bytes``)."""
+    return wide_f64_tc_bound(B, S, F, poly_bytes(B, S, F))
+
+
+def chain_wide_bound(B, S, F, D, c, C=1, dh=False):
+    """The FK kernels' wide instance for a folded chain spec ``c`` (B1,
+    B3, B4, B5 past their bounds): ``wide_f64_tc_bound`` with the chain's
+    FK and backward (``chain_ops``, or ``dh_ops`` for a DH chain)."""
+    fk = dh_ops(D, c.P, C) if dh else chain_ops(c, C)
+    return wide_f64_tc_bound(B, S, F, fk_score_bytes(B, S, F, D, C), fk, C)
 
 
 def dh_tc_times(B, S, F, J, P):
@@ -235,7 +291,8 @@ def table():
     PandaFK (J = 7, P = 7, F = 21) for the DH kernels, FrankaPanda's
     generated panda_simple chain (D = M = 7, P = 8, F = 24, 45 point /
     ancestor pairs) for the chain kernels, C = 2 for the multi-class
-    ones."""
+    ones; and B2's and B3's wide instances at the 35-link rope's sweep (S
+    = 1536, F = 102)."""
     from ..robots.urdf import FrankaPanda
     from .fk_score import _c_chain_spec, robot_chain_statics
     B, S = 65536, 512
@@ -287,6 +344,31 @@ def table():
             ablation_tc_bound(mode, B, S, F, J, P)
         rows[key]['bound_tc_times_ms'] = ablation_tc_times(mode, B, S, F, J,
                                                            P)
+    # B2's and B3's wide instances at the 35-link rope's sweep (F = 102,
+    # S = 1536; 35 moving joints): the fp64 tensor-core bound, and the
+    # 3xTF32 route's beside it
+    from .. import robot_data
+    from ..robots.urdf import URDFRobot
+    rope = _c_chain_spec(robot_chain_statics(URDFRobot(
+        robot_data.generate_rope_urdf(n_links=35), device='cpu',
+        setup_acm=False, link_spheres=1)))
+    Sr, Fr = 1536, 3 * rope.P
+    put('B2 wide', poly_bytes(B, Sr, Fr), score_ops(B, Sr, Fr),
+        dict(B=B, S=Sr, F=Fr))
+    rows['B2 wide']['bound_f64_tc_ms'], rows['B2 wide']['bound_f64_tc_by'] \
+        = poly_wide_bound(B, Sr, Fr)
+    rows['B2 wide']['bound_f64_tc_times_ms'] = wide_f64_tc_times(
+        B, Sr, Fr, poly_bytes(B, Sr, Fr))
+    rows['B2 wide']['bound_tc_ms'] = poly_tc_bound(B, Sr, Fr)[0]
+    put('B3 wide', fk_score_bytes(B, Sr, Fr, rope.D),
+        score_ops(B, Sr, Fr) + B * chain_ops(rope),
+        dict(B=B, S=Sr, D=rope.D, F=Fr))
+    rows['B3 wide']['bound_f64_tc_ms'], rows['B3 wide']['bound_f64_tc_by'] \
+        = chain_wide_bound(B, Sr, Fr, rope.D, rope)
+    rows['B3 wide']['bound_f64_tc_times_ms'] = wide_f64_tc_times(
+        B, Sr, Fr, fk_score_bytes(B, Sr, Fr, rope.D), chain_ops(rope))
+    rows['B3 wide']['bound_tc_ms'] = chain_tc_bound(B, Sr, Fr, rope.D,
+                                                    rope)[0]
     return rows
 
 

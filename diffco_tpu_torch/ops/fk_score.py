@@ -152,7 +152,8 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
     (score [B], dq [B, D]), weight columns W [S, C] give
     (score [B, C], dq [C, B, D]); ``dq=False`` gives score [B] alone. A
     ``_native.ChainSpecWide`` ``c`` launches the wide instance,
-    ``<name>_wide``, with the spec's device copy."""
+    ``<name>_wide``, with the spec's device copy and a scratch of
+    ``_native.wide_scratch_floats`` for the joints' axes and origins."""
     _native.check_cuda_inputs(name, q, s, w)
     B, S = q.shape[0], s.shape[0]
     multi = w.dim() == 2
@@ -176,11 +177,15 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
     if B > 0:
         fn = getattr(_native.build()[lib],
                      entry or (f'{name}_wide' if wide else name))
+        # held until the launch is queued, so that neither buffer's memory
+        # goes to the other
+        extra = ((_on_device(bytes(c), q.device),
+                  q.new_empty(_native.wide_scratch_floats(B, c.M)))
+                 if wide else ())
         rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
                 *(t.data_ptr() for t in outs), B, S,
                 *((C,) if multi else ()), *ints, ctypes.byref(c),
-                *((_on_device(bytes(c), q.device).data_ptr(),) if wide
-                  else ()),
+                *(t.data_ptr() for t in extra),
                 torch.cuda.current_stream(q.device).cuda_stream)
         _native.raise_on_error(name, rc)
         (globals() if counts is None else counts)[f'{name}_launches'] += 1

@@ -19,6 +19,10 @@ one card in one process.
         --source build/parent/diffco_tpu_torch/csrc/poly_score.cu
     python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b3 --rope \
         --supports 8192 --ablate wideOneAcc wideRegsSums
+    python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b3 --wide-rope \
+        --source build/parent/diffco_tpu_torch/csrc/chain_score.cu \
+        --ablate wideChunkSums wideNoP1 wideNoP2 wideNoTransform wideNoFK \
+        wideNoBackward
 
 ``--source OTHER.cu`` is any source that defines the kernel's C entry
 (``chain_multi_score_grad``, ``dh_multi_score_grad``, ``dh_score_grad``,
@@ -80,7 +84,22 @@ instead (which spill). ``--rope [LINKS]`` (``b2``,
 joints: FP = 64; 9 links, 17 points, FP = 56) with a fitted proxy of
 ``--supports`` supports (``rope_ball_gt``'s labels), every build held to
 or reported against the float64 twin, as chip_smoke.py's
-``check_tc_large_s``. ``directDist`` and
+``check_tc_large_s``. ``--wide-rope`` (``b2``, ``b3``) runs the wide
+instances (``csrc/wide_score_block.cuh``) at the 35-link rope's fitted
+sweep, chip_smoke.py's multi-robot shape: ``robot_data.
+generate_rope_urdf(35)`` (34 points on 35 moving joints, F = 102), ``--supports``
+supports (default 1536; 512 for the shorter sweep) with the weights that
+interpolate ``rope_ball_gt``'s +-1 labels, B2 from the points and B3
+from q (its ``chain_score_grad_wide`` entry), every build held to or
+reported against the float64 twin; a ``--source`` of the parent's file
+times the parent's wide design in the same process. The wide block's
+ablations (``WIDE_ABLATIONS``): ``wideChunkSums`` sums product 2 per
+chunk of 32 supports into running sums (the design the block keeps one
+fp64 accumulator in place of), ``wideNoP2`` takes product 2 out,
+``wideNoP1`` product 1 (d2 from the norms alone), ``wideNoTransform``
+the centring of each chunk into fp64 (s~ stays unwritten),
+``wideNoFK`` (b3) the chain FK (the rows' points stay as staged) and
+``wideNoBackward`` (b3) the joints' backward. ``directDist`` and
 ``tf32x1`` compute the function and their error against the twin (and a
 float64 twin) is reported beside their time, which shows what the split
 buys; none of them is held to the tolerance. Each build is
@@ -190,11 +209,31 @@ _POINT_SUMS_ABLATIONS = {
     'wideRegsSums': [(_TCB, _WIDE_SUMS,
                       'constexpr int kTcWideSums = kTcSumsRegs;')],
 }
-B2_ABLATIONS = {**_POINT_SUMS_ABLATIONS, **_TC_ABLATIONS}
+_WSB, _CW = 'wide_score_block.cuh', 'chain_wide.cuh'
+# the wide block's parts (module docstring)
+WIDE_ABLATIONS = {
+    'wideChunkSums': [(_WSB, 'constexpr bool kWideChunkSums = false;',
+                       'constexpr bool kWideChunkSums = true;')],
+    'wideNoP2': [(_WSB, 'for (int nt = 0; nt < kWideChunk / 8; ++nt) {',
+                  'for (int nt = 0; nt < 0; ++nt) {')],
+    'wideNoP1': [(_WSB, 'for (int ks = 0; ks < KS1; ++ks)',
+                  'for (int ks = 0; ks < 0; ++ks)')],
+    'wideNoTransform': [(_WSB, 'for (int f = e; f < F; f += 8) {',
+                         'for (int f = e; f < 0; f += 8) {')],
+}
+_WIDE_FK_ABLATIONS = {
+    'wideNoFK': [(_CW, 'chain_fk<kWideMaxCP>(',
+                  'if (false) chain_fk<kWideMaxCP>(')],
+    'wideNoBackward': [(_CW, 'for (int m = lane; m < M; m += 32) {',
+                        'for (int m = lane; m < 0; m += 32) {')],
+}
+B2_ABLATIONS = {**_POINT_SUMS_ABLATIONS, **_TC_ABLATIONS, **WIDE_ABLATIONS}
 B3_ABLATIONS = {
     **_POINT_SUMS_ABLATIONS,
     'noFK': [(None, 'chain_fk<KP>(qb, live, sp, fr, zo, xrow);', '')],
     **_TC_ABLATIONS,
+    **WIDE_ABLATIONS,
+    **_WIDE_FK_ABLATIONS,
 }
 
 
@@ -215,11 +254,12 @@ def _ptxas(log):
     return out
 
 
-def _build_all(sources, entry):
+def _build_all(sources, entry, lib=None):
     """({source: its C entry}, {source: its ptxas report}), each source
     built into a library with the production flags (one nvcc per source
     not yet built, all started together; a build's nvcc output is kept
-    beside it)."""
+    beside it). ``lib``: the production library whose ``entry`` gives the
+    argument types (default ``entry`` without ``_grad``)."""
     outs, procs, reports = {}, [], {}
     _native._BUILD.mkdir(parents=True, exist_ok=True)
     for source in sources:
@@ -242,7 +282,7 @@ def _build_all(sources, entry):
     for source, out in outs.items():
         log = out.with_suffix('.log')
         reports[source] = _ptxas(log.read_text()) if log.exists() else []
-    argtypes = getattr(_native.build()[entry.replace('_grad', '')],
+    argtypes = getattr(_native.build()[lib or entry.replace('_grad', '')],
                        entry).argtypes
     fns = {}
     for source, out in outs.items():
@@ -250,6 +290,14 @@ def _build_all(sources, entry):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fns, reports
+
+
+def _wide_scratch(source):
+    """Whether the wide entries of the build of ``source`` take the
+    joints' scratch (``zo``) after the spec's device copy (this tree's
+    do; a source from before it, the parent's, does not)."""
+    launch = Path(source).resolve().parent / 'chain_wide_launch.cuh'
+    return 'float* zo' in launch.read_text()
 
 
 def ablation_table(kernel):
@@ -397,6 +445,48 @@ def _rope_setup(kernel, dev, g, S, links=11):
             None, (F,), F, _native.poly_score_plan_on_card(F))
 
 
+WIDE_ROPE_LINKS = 35
+
+
+def _wide_rope_setup(kernel, dev, g, S):
+    """B2 or B3 at the 35-link rope's fitted sweep (``--wide-rope``, module
+    docstring): their wide instances, with the weights that interpolate
+    rope_ball_gt's +-1 labels of the S supports' configurations."""
+    from .. import robot_data
+    from ..device import fp32_matmul
+    from ..kernels import Polyharmonic
+    from ..perceptron import masked_rbf_solve
+    from ..robots.urdf import URDFRobot
+    robot = URDFRobot(robot_data.generate_rope_urdf(n_links=WIDE_ROPE_LINKS),
+                      device=dev, setup_acm=False, link_spheres=1)
+    qs = robot.rand_configs(S, g, dev)
+    sup = robot.fkine(qs).reshape(S, -1).contiguous()
+    y = rope_ball_gt(robot)(qs).float() * 2 - 1
+    with fp32_matmul():
+        w = masked_rbf_solve(Polyharmonic(k=1, epsilon=1)(sup, sup), y,
+                             torch.ones(S, dtype=torch.bool, device=dev))
+    q = robot.rand_configs(B, g, dev)
+    if kernel == 'b3':
+        spec = fk_score.robot_chain_statics(robot)
+        c = fk_score._c_chain_spec(spec)
+        assert isinstance(c, _native.ChainSpecWide)
+        keep = (fk_score._on_device(bytes(c), torch.device(dev)),
+                q.new_empty(_native.wide_scratch_floats(B, c.M)))
+        # the spec's device copy and the scratch, both referenced by the
+        # plan's 'keep' while the builds run
+        tail = (ctypes.byref(c), *(ctypes.c_void_p(t.data_ptr())
+                                   for t in keep))
+        return ((q, sup, w.contiguous()), fk_score.chain_score_grad,
+                fk_score._chain_score_grad_plain, spec, tail, c.D,
+                dict(_native.chain_wide_plan_on_card(c.P, c.M), keep=keep))
+    x = robot.fkine(q).reshape(B, -1).contiguous()
+    F = x.shape[1]
+    return ((x, sup, w.contiguous()),
+            lambda x, s, w, _: fused_score.poly_score_grad(x, s, w),
+            lambda x, s, w, _: fused_score._poly_score_grad_plain(x, s, w),
+            None, (F,), F, _native.poly_score_plan_on_card(F))
+
+
 def _planar_proxy(dev):
     """chip_smoke.py's planar escape proxy on its unified grid (module
     docstring): (x [160000, 2], supports, weights)."""
@@ -418,13 +508,15 @@ def _planar_proxy(dev):
 
 
 def _single_setup(kernel, dev, g, S=None, fitted=False, planar=False,
-                  rope=False):
+                  rope=False, wide_rope=False):
     """One weight column at the kernel's shape (module docstring), or S
     supports, with a fitted proxy's weights, or the planar proxy, or the
     marked rope's fitted proxy: (the production wrapper's arguments, the
     wrapper, its plain twin on given arguments, the C entry's arguments
     after the output pointers, the gradient's columns, the launch plan on
     the card)."""
+    if wide_rope:
+        return _wide_rope_setup(kernel, dev, g, S or 1536)
     if rope:
         return _rope_setup(kernel, dev, g, S or KERNELS[kernel]['S'], rope)
     if planar:
@@ -468,7 +560,7 @@ def _single_setup(kernel, dev, g, S=None, fitted=False, planar=False,
 
 
 def run_single(builds, kernel, S=None, fitted=False, planar=False,
-               rope=False):
+               rope=False, wide_rope=False):
     """B1, B2 or B3: {name: (source, check)} timed against production,
     with each build's error against the fp32 twin and against a float64
     twin (max |diff|, and that over max |twin|, for score and gradient)
@@ -477,15 +569,26 @@ def run_single(builds, kernel, S=None, fitted=False, planar=False,
     With ``fitted`` the builds are held to the float64 twin instead: the
     fp32 twin's own rounding takes up the tolerance there; so with
     ``planar`` and ``rope``, where another build is reported only (the
-    designs they replaced miss the tolerance there)."""
+    designs they replaced miss the tolerance there); with ``wide_rope``
+    B3 runs its ``chain_score_grad_wide`` entry."""
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
-    libs, ptxas = _build_all([src for src, _ in builds.values()], entry)
+    if wide_rope and kernel == 'b3':
+        entry += '_wide'
+    libs, ptxas = _build_all([src for src, _ in builds.values()], entry,
+                             KERNELS[kernel]['source'][:-3])
     g = torch.Generator().manual_seed(0)
     args, wrapper, plain, spec, tail, n_grad, plan = _single_setup(
-        kernel, dev, g, S, fitted, planar, rope)
-    fitted = fitted or planar or rope
-    if planar or rope:
+        kernel, dev, g, S, fitted, planar, rope, wide_rope)
+    plan = dict(plan)
+    keep = plan.pop('keep', None)   # the tail points into these
+    if keep is not None:
+        for src, _ in builds.values():
+            if not _wide_scratch(src):   # an older wide entry: no scratch
+                libs[src].argtypes = (libs[src].argtypes[:-2]
+                                      + libs[src].argtypes[-1:])
+    fitted = fitted or planar or rope or wide_rope
+    if planar or rope or wide_rope:
         builds = {k: (src, False) for k, (src, _) in builds.items()}
     Bq, S = args[0].shape[0], args[1].shape[0]
     r64, r64_g = plain(*(a.double() for a in args), spec)
@@ -500,12 +603,16 @@ def run_single(builds, kernel, S=None, fitted=False, planar=False,
     for name, (src, check) in builds.items():
         fn = libs[src]
 
-        def alt(fn=fn):   # as the wrapper: allocate, launch, check
+        own_tail = (tail if keep is None or _wide_scratch(src)
+                    else tail[:-1])
+
+        def alt(fn=fn, own_tail=own_tail):
+            # as the wrapper: allocate, launch, check
             score, grad = args[0].new_empty(Bq), args[0].new_empty(
                 (Bq, n_grad))
             _native.raise_on_error(f'{entry} ({name})', fn(
                 *(t.data_ptr() for t in (*args, score, grad)), Bq, S,
-                *tail, torch.cuda.current_stream(dev).cuda_stream))
+                *own_tail, torch.cuda.current_stream(dev).cuda_stream))
             return score, grad
         row = {}
         for who, f in (('production', prod), (name, alt)):
@@ -531,11 +638,11 @@ def run_single(builds, kernel, S=None, fitted=False, planar=False,
 
 
 def run(builds, classes=None, kernel='chain', S=None, fitted=False,
-        planar=False, rope=False):
+        planar=False, rope=False, wide_rope=False):
     """{name: (source, check)} timed against production (module
     docstring)."""
     if kernel in ('b1', 'b2', 'b3'):
-        return run_single(builds, kernel, S, fitted, planar, rope)
+        return run_single(builds, kernel, S, fitted, planar, rope, wide_rope)
     dev = torch.device('cuda')
     entry = KERNELS[kernel]['entry']
     classes = classes or KERNELS[kernel]['classes']
@@ -601,6 +708,9 @@ def main(argv=None):
                     metavar='LINKS',
                     help="b2, b3: the marked rope's fitted proxy (11 links, "
                     'FP = 64, unless LINKS is given: 9 is FP = 56)')
+    ap.add_argument('--wide-rope', action='store_true',
+                    help="b2, b3: the 35-link rope's fitted sweep on their "
+                    'wide instances (S = 1536 unless --supports)')
     ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)
     table = ablation_table(args.kernel)
@@ -616,10 +726,10 @@ def main(argv=None):
         ap.error('--supports and --fitted take b1, b2 or b3')
     if args.planar and args.kernel != 'b2':
         ap.error('--planar takes b2')
-    if args.rope and args.kernel not in ('b2', 'b3'):
-        ap.error('--rope takes b2 or b3')
+    if (args.rope or args.wide_rope) and args.kernel not in ('b2', 'b3'):
+        ap.error('--rope and --wide-rope take b2 or b3')
     res = run(builds, args.classes, args.kernel, args.supports, args.fitted,
-              args.planar, args.rope)
+              args.planar, args.rope, args.wide_rope)
     res.update(card_info(torch.device('cuda')))
     write_result(res, args.out or
                  _native._BUILD / f'ab_kernel-{args.kernel}.json')

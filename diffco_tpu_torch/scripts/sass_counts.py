@@ -43,6 +43,15 @@ the sum; the whole function's counts are printed beside it. Pass
 goes to ``--out`` (default ``build/diffco_tpu_torch/sass_counts.json``)
 and is printed as JSON with the toolkit's version.
 
+    python3 -m diffco_tpu_torch.scripts.sass_counts \\
+        --source diffco_tpu_torch/csrc/poly_score.cu --wide 4
+
+reads a wide instance instead (``poly_score_wide_kernel<K>`` of B2,
+``chain_wide_score_kernel<K>`` of the FK kernels), whose DMMA
+instructions (the fp64 tensor cores' ``mma.sync``) must be there;
+``wide_dmma`` holds every wide instance of the built libraries to the
+same.
+
     python3 -m diffco_tpu_torch.scripts.sass_counts --against OTHER_DIR \\
         --source diffco_tpu_torch/csrc/dh_score.cu [--source ...]
 
@@ -61,7 +70,10 @@ from pathlib import Path
 
 from ..ops import _native
 
-KEYS = ('LDS', 'FFMA', 'FADD', 'FMUL', 'MUFU.RSQ', 'HMMA', 'STS', 'total')
+KEYS = ('LDS', 'FFMA', 'FADD', 'FMUL', 'MUFU.RSQ', 'HMMA', 'DMMA', 'STS',
+        'total')
+# the wide instances on csrc/wide_score_block.cuh (fp64 tensor cores)
+WIDE_KERNELS = ('poly_score_wide_kernel', 'chain_wide_score_kernel')
 # the kernels on the tensor-core block (csrc/tc_score_block.cuh)
 TC_KERNELS = ('dh_score_tc_kernel', 'poly_score_tc_kernel',
               'chain_score_tc_kernel')
@@ -142,7 +154,7 @@ def counts(instrs, lo=None, hi=None):
     return out
 
 
-def run(source, fp, product_cols=None):
+def run(source, fp, product_cols=None, wide=None):
     src = Path(source).resolve()
     rows, threads = _native.MULTI_ROWS, _native.MULTI_THREADS
     _native._BUILD.mkdir(parents=True, exist_ok=True)
@@ -157,6 +169,14 @@ def run(source, fp, product_cols=None):
     version = subprocess.run([_native._nvcc(), '--version'],
                              capture_output=True, text=True).stdout
     funcs = parse_functions(sass)
+    if wide is not None:
+        name = next((n for n in funcs if any(k in n for k in WIDE_KERNELS)
+                     and f'ILi{wide}EE' in n), None)
+        if name is None:
+            raise RuntimeError(f'no wide instance for K = {wide} in {src}: '
+                               f'{sorted(funcs)}')
+        return _report(src, name, funcs[name], wide, product_cols, ptxas,
+                       version, rows, threads)
     # a tensor-core kernel's production instance <FP, false> (B1, B2,
     # B3), a multi-class kernel's full instance, <FP, kInstFull, 0>
     # (csrc/multi_score_block.cuh), else the one instance for FP
@@ -170,7 +190,14 @@ def run(source, fp, product_cols=None):
     if name is None:
         raise RuntimeError(f'no kernel instance for FP = {fp} in {src}: '
                            f'{sorted(funcs)}')
-    instrs = funcs[name]
+    return _report(src, name, funcs[name], fp, product_cols, ptxas, version,
+                   rows, threads)
+
+
+def _report(src, name, instrs, fp, product_cols, ptxas, version, rows,
+            threads):
+    """The counts of kernel ``name`` (module docstring); raises when a
+    tensor-core kernel has no HMMA or a wide instance no DMMA."""
     loops = [dict(start=hex(lo), end=hex(hi), body=counts(instrs, lo, hi))
              for lo, hi in innermost_loops(instrs)]
     # the support loop: most rsqrts (an unrolled body, not its remainder)
@@ -196,6 +223,8 @@ def run(source, fp, product_cols=None):
     tc = any(k in name for k in TC_KERNELS)
     if tc and not counts(instrs)['HMMA']:
         raise RuntimeError(f'{name}: no HMMA instruction in its SASS')
+    if any(k in name for k in WIDE_KERNELS) and not counts(instrs)['DMMA']:
+        raise RuntimeError(f'{name}: no DMMA instruction in its SASS')
     log = ptxas.stderr + ptxas.stdout
     regs = re.search(rf"entry function '{re.escape(name)}'.*?"
                      r'(\d+) bytes stack frame, (\d+) bytes spill stores.*?'
@@ -235,6 +264,38 @@ def roofline_hmma():
             raise RuntimeError(f'no HMMA instruction in the SASS of '
                                f'{missing}')
         out.update(found)
+    return out
+
+
+# the sources that hold a wide instance, and how many: B2's at K = 3-6,
+# the FK kernels' at K = 1-6
+WIDE_SOURCES = {'poly_score': 4, 'chain_score': 6, 'chain_multi_score': 6,
+                'dh_score': 6, 'dh_multi_score': 6}
+
+
+def wide_dmma():
+    """{source: {mangled wide instance: DMMA count}} of the libraries
+    ``_native.build()`` made (their SASS by cuobjdump; needs the toolkit,
+    no card). Raises unless each source has all its wide instances and
+    each has DMMA: both products of the wide block on the fp64 tensor
+    cores."""
+    libs = _native.build()
+    out = {}
+    for stem, n in WIDE_SOURCES.items():
+        sass = subprocess.run([_tool('cuobjdump'), '-sass', libs[stem]._name],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        found = out[stem] = {
+            name: counts(instrs)['DMMA']
+            for name, instrs in parse_functions(sass).items()
+            if any(k in name for k in WIDE_KERNELS)}
+        if len(found) != n:
+            raise RuntimeError(f'{stem}: {len(found)} wide instances in its '
+                               f'SASS, not {n}: {sorted(found)}')
+        missing = [k for k, c in found.items() if not c]
+        if missing:
+            raise RuntimeError(f'no DMMA instruction in the SASS of '
+                               f'{missing}')
     return out
 
 
@@ -304,6 +365,8 @@ def main(argv=None):
                     help='a kernel source (repeatable; default B5)')
     ap.add_argument('--fp', type=int, default=24)
     ap.add_argument('--product-cols', type=int, default=64)
+    ap.add_argument('--wide', type=int, metavar='K',
+                    help='read the wide instance for K = ceil(F / 32)')
     ap.add_argument('--against', metavar='DIR',
                     help='compare each source\'s SASS with DIR/<its name> '
                          'instead of counting')
@@ -319,7 +382,7 @@ def main(argv=None):
                  differ=list(r['differ'].values()), only=r['only'])
             for r in res]}))
         return
-    res = [run(s, args.fp, args.product_cols) for s in sources]
+    res = [run(s, args.fp, args.product_cols, args.wide) for s in sources]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     print(json.dumps({'sass_counts': res}))

@@ -26,7 +26,9 @@ def _inputs(B=192, S=64, F=21, seed=0):
     return x, s, w
 
 
-@pytest.mark.parametrize('F', [21, 8, 5])
+# 72 and 102: the widths B2's wide instance serves (three Panda arms, the
+# 35-link rope), which the Pallas kernel pads to its f_pad
+@pytest.mark.parametrize('F', [21, 8, 5, 72, 102])
 def test_plain_twin_matches_pallas_and_xla(F):
     x, s, w = _inputs(F=F)
     score, dx = tfs._poly_score_grad_plain(*map(torch.from_numpy, (x, s, w)))

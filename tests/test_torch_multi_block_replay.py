@@ -51,6 +51,7 @@ PRELUDE = r'''
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(...)
 #define __grid_constant__
 #define __shared__
@@ -303,7 +304,6 @@ TC_PRELUDE = PRELUDE.replace('#include <algorithm>', '#include <algorithm>\n'
                              '#include <array>\n#include <memory>\n'
                              '#include <mutex>') + r'''
 #define DIFFCO_REPLAY 1
-#define __noinline__
 struct alignas(8) float2 { float x, y; };
 struct alignas(8) uint2 { unsigned x, y; };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
@@ -315,7 +315,7 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 struct WarpScratch {
   float a[32][4], b[32][2], v[32];
   unsigned ua[32][4], ub[32][2];
-  double dv[32];
+  double dv[32], da[32][2], db[32];
   std::barrier<>* bar;
 };
 WarpScratch g_warps[16];
@@ -405,6 +405,31 @@ float diffco_replay_shfl_xor(float v, int mask) {
   w.bar->arrive_and_wait();
   return o;
 }
+// m16n8k4 fp64 (mma.sync .f64): A a0, a1 at (row, k) = (g, t), (g + 8, t);
+// B b0 at (k, n) = (t, g); C c0..c3 at (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1); each product added to the accumulator in order of k,
+// in double
+void diffco_replay_mma_f64(double (&d)[4], double a0, double a1, double b) {
+  WarpScratch& w = my_warp();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  w.da[lane][0] = a0;
+  w.da[lane][1] = a1;
+  w.db[lane] = b;
+  w.bar->arrive_and_wait();
+  double out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int m = i < 2 ? g : g + 8, n = 2 * t + (i & 1);
+    double acc = d[i];
+    for (int k = 0; k < 4; ++k)
+      // A (m, k) in lane 4 (m % 8) + k, register m / 8; B (k, n) in lane
+      // 4 n + k
+      acc = std::fma(w.da[4 * (m % 8) + k][m / 8], w.db[4 * n + k], acc);
+    out[i] = acc;
+  }
+  w.bar->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+void diffco_replay_syncwarp() { my_warp().bar->arrive_and_wait(); }
 double diffco_replay_shfl_xor_f64(double v, int mask) {
   WarpScratch& w = my_warp();
   const int lane = threadIdx.x % 32;
@@ -527,7 +552,7 @@ int main(int argc, char** argv) {
 
 # B2 (its measurement build, at the production threshold; at F <= 8 its
 # fp64 instance, kF64Rows threads a block, and at F > 64 its wide
-# instance, wide_rows<K>() rows a block, neither with a guard):
+# instance, kWideRows rows a block, neither with a guard):
 #   replay B S F IN OUT
 # IN holds x [B, F], s [S, F], w [S] (float32); `replay plan` prints
 # kF64Smem, then PolySmem<FP>::kBytes at FP = 16-64, then the wide
@@ -560,10 +585,10 @@ template <int K>
 void run_poly_wide(const std::vector<float>& x, const std::vector<float>& s,
                    const std::vector<float>& w, std::vector<float>& score,
                    std::vector<float>& dx, int B, int S, int F) {
-  run_tc_blocks(B, diffco::wide_smem_bytes<K>(), [&] {
+  run_tc_blocks(B, diffco::WideSmem<K>::kBytes, [&] {
     diffco::poly_score_wide_kernel<K>(x.data(), s.data(), w.data(),
                                       score.data(), dx.data(), B, S, F);
-  }, diffco::wide_rows<K>());
+  }, diffco::kWideRows);
 }
 
 template <int FP>
@@ -585,10 +610,10 @@ int main(int argc, char** argv) {
                   diffco::PolySmem<40>::kBytes, diffco::PolySmem<48>::kBytes,
                   diffco::PolySmem<56>::kBytes, diffco::PolySmem<64>::kBytes})
       std::printf("%d\n", b);
-    std::printf("%d %d\n", diffco::wide_smem_bytes<3>(), diffco::wide_rows<3>());
-    std::printf("%d %d\n", diffco::wide_smem_bytes<4>(), diffco::wide_rows<4>());
-    std::printf("%d %d\n", diffco::wide_smem_bytes<5>(), diffco::wide_rows<5>());
-    std::printf("%d %d\n", diffco::wide_smem_bytes<6>(), diffco::wide_rows<6>());
+    std::printf("%d %d\n", diffco::WideSmem<3>::kBytes, diffco::kWideRows);
+    std::printf("%d %d\n", diffco::WideSmem<4>::kBytes, diffco::kWideRows);
+    std::printf("%d %d\n", diffco::WideSmem<5>::kBytes, diffco::kWideRows);
+    std::printf("%d %d\n", diffco::WideSmem<6>::kBytes, diffco::kWideRows);
     return 0;
   }
   if (argc != 6) return 2;
@@ -623,7 +648,7 @@ int main(int argc, char** argv) {
 #   replay B S IN OUT
 # and the wide instance of B1, B3, B4 and B5 (csrc/chain_wide.cuh):
 #   replay wide B S C IN OUT
-# `replay wideplan` prints chain_wide_smem_bytes<K>(M) and wide_rows<K>()
+# `replay wideplan` prints chain_wide_smem_bytes<K>() and kWideRows
 # for each (P, M) of WIDE_PLAN_PM.
 # IN holds the ChainSpec, then q [B, D], s [S, 3P], w [S] (float32);
 # `replay plan` prints ChainSmem<FP>::bytes(M) at FP = 8-64 (rows) for
@@ -654,11 +679,12 @@ void run_wide(const std::vector<float>& q, const std::vector<float>& s,
               const std::vector<float>& W, std::vector<float>& score,
               std::vector<float>& dq, int B, int S, int C,
               const diffco::ChainSpecWide& sp) {
-  run_tc_blocks(B, diffco::chain_wide_smem_bytes<K>(sp.M), [&] {
+  std::vector<float> zo(size_t(B) * sp.M * 6, std::nanf(""));
+  run_tc_blocks(B, diffco::chain_wide_smem_bytes<K>(), [&] {
     diffco::chain_wide_score_kernel<K>(q.data(), s.data(), W.data(),
                                        score.data(), dq.data(), B, S, C,
-                                       &sp);
-  }, diffco::wide_rows<K>());
+                                       &sp, zo.data());
+  }, diffco::kWideRows);
 }
 
 // the wide instance: replay wide B S C IN OUT, IN holding the
@@ -690,9 +716,9 @@ int run_wide_main(char** argv) {
 }
 
 template <int K>
-void wide_plan(int M) {
-  std::printf("%d %d\n", diffco::chain_wide_smem_bytes<K>(M),
-              diffco::wide_rows<K>());
+void wide_plan(int /* M: the plan does not depend on it */) {
+  std::printf("%d %d\n", diffco::chain_wide_smem_bytes<K>(),
+              diffco::kWideRows);
 }
 
 int main(int argc, char** argv) {
@@ -1008,8 +1034,9 @@ def test_poly_tc_plan_matches_the_block(tc_bins):
     (csrc/poly_score.cu: kF64Smem for the fp64 instance at F <= 8,
     PolySmem<FP> at every FP = 16-64, and the wide instance's chunk and
     rows at K = 3-6, F = 65-192), two blocks (16 warps) per SM on the
-    tensor-core block up to FP = 56 and the wide instance, one (8 warps)
-    at FP = 64, whose per-chunk running sums take 36 KB of shared memory,
+    tensor-core block up to FP = 56 and the wide instance up to K = 4, one
+    (8 warps) at FP = 64, whose per-chunk running sums take 36 KB of
+    shared memory, and on the wide instance at K = 5, 6 (118 and 139 KB),
     and at least three (24 warps) on the fp64 instance (on the card,
     test_poly_score_kernel_at_every_fp holds the plan to the occupancy
     calculator)."""
@@ -1021,7 +1048,7 @@ def test_poly_tc_plan_matches_the_block(tc_bins):
     assert list(zip(got[8::2], got[9::2])) == wide
     assert all(_native.poly_tc_plan(F)['warps_per_sm']
                == (24 if F <= _native.F64_MAX_F else
-                   8 if 56 < F <= _native.TC_MAX_F else 16)
+                   8 if 56 < F <= _native.TC_MAX_F or F > 128 else 16)
                for F in range(1, _native.MAX_F + 1))
 
 
@@ -1121,10 +1148,10 @@ def test_chain_wide_replay_matches_plain(tc_bins, tmp_path, name, C):
 
 def test_chain_wide_plan_matches_the_kernel(tc_bins):
     """ops/_native.py::chain_wide_plan's shared bytes and rows are the wide
-    instance's (csrc/chain_wide.cuh: B2's wide chunk, the ChainSpecWide,
-    the ancestor masks and each row's points, gradient, frames, axes and
-    joint values), and it keeps
-    16 warps per SM."""
+    instance's (csrc/chain_wide.cuh: the wide block's WideSmem<K>, the
+    ChainSpecWide and the ancestor masks, whatever the chain's joints),
+    and it keeps 16 warps per SM up to K = 4 (the 35-link rope), 8 at
+    K = 5 and 6."""
     got = [tuple(map(int, ln.split())) for ln in
            subprocess.run([str(tc_bins['chain']), 'wideplan'],
                           capture_output=True, text=True,
@@ -1133,8 +1160,86 @@ def test_chain_wide_plan_matches_the_kernel(tc_bins):
              _native.chain_wide_plan(P, M)['rows'])
             for P, M in WIDE_PLAN_PM]
     assert got == want
-    assert all(_native.chain_wide_plan(P, M)['warps_per_sm'] == 16
-               for P, M in WIDE_PLAN_PM)
+    assert [_native.chain_wide_plan(P, M)['warps_per_sm']
+            for P, M in WIDE_PLAN_PM] == [16, 16, 16, 8, 8, 16]
+
+
+def _cancelling_rope_case(S_fit, seed):
+    """The 35-link rope (34 points on 35 moving joints, F = 102: the wide
+    instances) with fitted weights that cancel: the small regularised
+    polyharmonic solve (reg 1e-6, float64) over the +-1 labels of
+    ``ab_kernel.rope_ball_gt`` at S_fit supports, as ``ab_kernel
+    --wide-rope`` fits them on the card. (robot, its chain statics, q [B,
+    D], points x [B, F], supports [S_fit, F], w [S_fit]) in float32."""
+    from diffco_tpu_torch.kernels import Polyharmonic
+    from diffco_tpu_torch.perceptron import masked_rbf_solve
+    from diffco_tpu_torch.scripts.ab_kernel import rope_ball_gt
+    robot = URDFRobot(robot_data.generate_rope_urdf(n_links=35),
+                      device='cpu', setup_acm=False, link_spheres=1)
+    lims = np.asarray(robot.joint_limits, np.float32)
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(size=(S_fit + B, lims.shape[0])).astype(np.float32)
+    qs = torch.from_numpy(u * (lims[:, 1] - lims[:, 0]) + lims[:, 0])
+    pts = robot.fkine(qs).reshape(S_fit + B, -1)
+    sup = pts[:S_fit]
+    y = rope_ball_gt(robot)(qs[:S_fit]).double() * 2 - 1
+    w = masked_rbf_solve(Polyharmonic(k=1, epsilon=1)(sup.double(),
+                                                      sup.double()), y,
+                         torch.ones(S_fit, dtype=torch.bool), reg=1e-6)
+    return (robot, fk_score.robot_chain_statics(robot),
+            np.ascontiguousarray(qs[S_fit:].numpy()),
+            np.ascontiguousarray(pts[S_fit:].numpy()),
+            np.ascontiguousarray(sup.numpy()), w.float().numpy())
+
+
+@pytest.mark.parametrize('kernel', ['poly', 'chain'])
+def test_wide_replay_holds_float64_on_cancelling_weights(tc_bins, tmp_path,
+                                                         kernel):
+    """The wide block on fitted weights that cancel (sum_j |w_j| r_j far
+    above |score|): B2's wide instance on the 35-link rope's points (F =
+    102) and B3's on its configurations, B = 128 + 5, S = 96 (chunks of 32,
+    all full), held to the float64 twin at score 1e-4 and gradient 1e-3 of
+    max; the fp32 twin's own error on the same inputs is measured beside it
+    and is no smaller than the block's (the block's products and pair work
+    are fp64)."""
+    S_fit = 96
+    robot, cs, q, x, sup, w = _cancelling_rope_case(S_fit, seed=17)
+    if kernel == 'poly':
+        F = x.shape[1]
+        _, score, grad = _run_tc(tc_bins['poly'], (B, S_fit, F),
+                                 (x.tobytes(), sup.tobytes(), w.tobytes()),
+                                 F, tmp_path)
+        args = [torch.from_numpy(a) for a in (x, sup, w)]
+        ref, ref_g = fused_score._poly_score_grad_plain(
+            *(a.double() for a in args))
+        f32, f32_g = fused_score._poly_score_grad_plain(*args)
+    else:
+        c = fk_score._c_chain_spec(cs)
+        assert isinstance(c, _native.ChainSpecWide)
+        src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
+        src.write_bytes(bytes(c) + q.tobytes() + sup.tobytes() + w.tobytes())
+        proc = subprocess.run([str(tc_bins['chain']), 'wide', str(B),
+                               str(S_fit), '1', str(src), str(dst)],
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+        out = np.frombuffer(dst.read_bytes()[8:], np.float32)
+        score, grad = out[:B], out[B:].reshape(B, q.shape[1])
+        args = [torch.from_numpy(a) for a in (q, sup, w)]
+        ref, ref_g = fk_score._chain_score_grad_plain(
+            *(a.double() for a in args), cs)
+        f32, f32_g = fk_score._chain_score_grad_plain(*args, cs)
+    ref, ref_g = ref.numpy(), ref_g.numpy()
+    # the weights cancel: their terms' magnitudes far above the scores
+    r = np.linalg.norm(x[:, None, :] - sup[None], axis=-1)
+    assert (np.abs(w) * r).sum(1).min() > 20 * np.abs(ref).max()
+    assert np.isfinite(score).all() and np.isfinite(grad).all()
+    tol = 1e-3 * float(np.abs(ref_g).max())
+    np.testing.assert_allclose(score, ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(grad, ref_g, rtol=1e-3, atol=tol)
+    err = (np.abs(score - ref).max(), np.abs(grad - ref_g).max())
+    err32 = (np.abs(f32.numpy() - ref).max(),
+             np.abs(f32_g.numpy() - ref_g).max())
+    assert err[0] <= err32[0] and err[1] <= err32[1], (err, err32)
 
 
 # ---- B6 (csrc/dh_dual_score.cu) and B7 (csrc/dh_ablation.cu) on B1's

@@ -225,6 +225,28 @@ def test_tc_bounds_of_b2_and_b3(kernel, ms):
         B_, S_, 21, 7, 7)[0]
 
 
+@pytest.mark.parametrize('kernel', ['B2 wide', 'B3 wide'])
+def test_wide_f64_tc_bounds_of_b2_and_b3(kernel):
+    """The wide instances' fp64 tensor-core bound (``bounds.
+    wide_f64_tc_bound``) at the 35-link rope's sweep (B = 65536, S = 1536,
+    F = 102): the two products over the fp64 tensor cores' 67 TFLOP/s set
+    it, 2 B S (2F + 1) operations (~0.616 ms), above the pair work in fp64,
+    the FK in fp32 and the bytes; ``bounds.table()`` gives it beside the
+    3xTF32 route's ``tc_bound``, which it exceeds."""
+    row = bounds.table()[kernel]
+    B_, S_, F = row['shape']['B'], row['shape']['S'], row['shape']['F']
+    assert (B_, S_, F) == (65536, 1536, 102)
+    times = row['bound_f64_tc_times_ms']
+    assert row['bound_f64_tc_ms'] == times['tensor'] == \
+        2 * B_ * S_ * (2 * F + 1) / bounds.PEAK_FP64_TC_FLOPS * 1e3
+    assert times['tensor'] > times['fp64'] > max(times['fp32'],
+                                                 times['bytes'])
+    assert row['bound_f64_tc_by'] == 'operations'
+    assert abs(row['bound_f64_tc_ms'] - 0.616) < 1e-3
+    assert row['bound_f64_tc_ms'] > row['bound_tc_ms']
+    assert bounds.PEAK_FP64_TC_FLOPS > bounds.PEAK_FP64_FLOPS
+
+
 def test_roofline_entry_point_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(rf, 'N_SHORT', 1)
     monkeypatch.setattr(rf, 'N_LONG', 2)
