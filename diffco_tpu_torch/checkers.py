@@ -34,6 +34,7 @@ from .device import fp32_matmul, resolve_device
 from .envs.shape_env import ShapeEnv
 from .parallel import sharding
 from .perceptron import DiffCo
+from .profiling import span, spanned
 from .robots.urdf import URDFRobot
 from .sampler import (path_band_samples,
                       uniform_sample_on_transformed_manifold)
@@ -180,6 +181,7 @@ class RBFDiffCo(CollisionChecker):
 
     # -- fitting ------------------------------------------------------------
 
+    @spanned('diffco.checker.fit', keep=True)
     def fit(self, q=None, labels=None, dists=None, update=False,
             exist_mask=None, num_samples=5000, verify_ratio=0.1,
             verbose=False, **get_dataset_kwargs):
@@ -188,8 +190,9 @@ class RBFDiffCo(CollisionChecker):
         and verify on a held-out split. Returns the biased (acc, tpr,
         tnr), or Nones without a split."""
         get_dataset_kwargs.setdefault('verbose', not self.perceptron_trained)
-        q, labels, dists = self._generate_dataset(
-            q, labels, dists, num_samples, **get_dataset_kwargs)
+        with span('diffco.checker.labels'):
+            q, labels, dists = self._generate_dataset(
+                q, labels, dists, num_samples, **get_dataset_kwargs)
         num_samples = q.shape[0]
         labels = 2 * labels - 1
 
@@ -226,22 +229,27 @@ class RBFDiffCo(CollisionChecker):
             labels_verify = None
 
         # 3N iterations: the greedy loop often needs ~2N to converge
-        self.perceptron.train(
-            q_train, labels_train, update=update, exist_mask=exist_mask,
-            max_iteration=3 * q_train.shape[0], distance=dists_train,
-            verbose=verbose)
-        self.perceptron.fit_poly(
-            kernel_func=kernel.Polyharmonic(k=1, epsilon=1), target='label')
-        self.safety_bias = self._calculate_safety_bias(q_verify)
-        if verify_ratio:
-            verify_acc, verify_tpr, verify_tnr = self.verify(
-                q_verify, labels_verify, verbose=verbose)
-            self.q_verify = q_verify
-        else:
-            verify_acc = verify_tpr = verify_tnr = None
+        with span('diffco.perceptron.train'):
+            self.perceptron.train(
+                q_train, labels_train, update=update, exist_mask=exist_mask,
+                max_iteration=3 * q_train.shape[0], distance=dists_train,
+                verbose=verbose)
+        with span('diffco.perceptron.fit_poly'):
+            self.perceptron.fit_poly(
+                kernel_func=kernel.Polyharmonic(k=1, epsilon=1),
+                target='label')
+        with span('diffco.checker.verify'):
+            self.safety_bias = self._calculate_safety_bias(q_verify)
+            if verify_ratio:
+                verify_acc, verify_tpr, verify_tnr = self.verify(
+                    q_verify, labels_verify, verbose=verbose)
+                self.q_verify = q_verify
+            else:
+                verify_acc = verify_tpr = verify_tnr = None
         self.perceptron_trained = True
         return verify_acc, verify_tpr, verify_tnr
 
+    @spanned('diffco.checker.update', keep=True)
     def update(self, q=None, labels=None, dists=None, exploit_std=0.3,
                num_samples=100, num_exploit_samples=None,
                num_explore_samples=None, verify=False, verbose=False,
@@ -395,12 +403,13 @@ class RBFDiffCo(CollisionChecker):
             return copies[key][1]
 
         def fn(q):
-            pt = transform(q)
-            sup, mask, nodes = state(pt)
-            with fp32_matmul():
-                out = ((rbf_kernel(pt, sup) * mask[None, :])
-                       @ nodes.reshape(-1, 1))
-            return out.reshape(-1) + bias
+            with span('diffco.checker.score'):
+                pt = transform(q)
+                sup, mask, nodes = state(pt)
+                with fp32_matmul():
+                    out = ((rbf_kernel(pt, sup) * mask[None, :])
+                           @ nodes.reshape(-1, 1))
+                return out.reshape(-1) + bias
         fn.follows_input = True
         return fn
 

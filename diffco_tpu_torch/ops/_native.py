@@ -19,10 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from ..profiling import span
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD = Path(__file__).resolve().parents[2] / 'build' / 'diffco_tpu_torch'
@@ -308,7 +309,6 @@ class ChainSpecWide(ctypes.Structure):
 
 _libs = {}
 build_log = ''        # nvcc's output (ptxas register/spill report)
-build_seconds = None
 
 
 def _nvcc() -> str:
@@ -332,11 +332,16 @@ def _source_hash() -> str:
 
 def build():
     """Compile every ``csrc/*.cu`` not yet built for this source hash (one
-    nvcc per source, in parallel) and load the libraries. Idempotent."""
-    global build_log, build_seconds
+    nvcc per source, in parallel) and load the libraries. Idempotent; the
+    compile or load is the kept span ``diffco.native.build``."""
     if _libs:
         return _libs
-    t0 = time.perf_counter()
+    with span('diffco.native.build', keep=True):
+        return _build()
+
+
+def _build():
+    global build_log
     tag = _source_hash()
     _BUILD.mkdir(parents=True, exist_ok=True)
     sources = sorted(_CSRC.glob('*.cu'))
@@ -369,7 +374,6 @@ def build():
     for name, path in targets.items():
         _libs[name] = ctypes.CDLL(str(path))
     _bind(_libs)
-    build_seconds = time.perf_counter() - t0
     return _libs
 
 

@@ -34,6 +34,7 @@ from . import _native
 from .fused_score import (_poly_score_grad_plain, _poly_score_xla,
                           polyharmonic_score)
 from ..device import fp32_matmul
+from ..profiling import span, spanned
 from ..robots.analytic import DHChainRobot
 from ..robots.fk_jvp import (_FIXED, _IDENT9, _ZERO3, ChainStatics,
                              DHStatics, chain_vjp, dh_chain, dh_vjp,
@@ -182,11 +183,12 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
         extra = ((_on_device(bytes(c), q.device),
                   q.new_empty(_native.wide_scratch_floats(B, c.M)))
                  if wide else ())
-        rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
-                *(t.data_ptr() for t in outs), B, S,
-                *((C,) if multi else ()), *ints, ctypes.byref(c),
-                *(t.data_ptr() for t in extra),
-                torch.cuda.current_stream(q.device).cuda_stream)
+        with span('diffco.ops.launch'):
+            rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
+                    *(t.data_ptr() for t in outs), B, S,
+                    *((C,) if multi else ()), *ints, ctypes.byref(c),
+                    *(t.data_ptr() for t in extra),
+                    torch.cuda.current_stream(q.device).cuda_stream)
         _native.raise_on_error(name, rc)
         (globals() if counts is None else counts)[f'{name}_launches'] += 1
     return tuple(outs) if dq else outs[0]
@@ -486,6 +488,7 @@ def _dh_spec(robot):
     return spec
 
 
+@spanned('diffco.ops.fk_score')
 def fk_polyharmonic_score_auto(q, robot, supports, weights, valid_mask=None,
                                epsilon: float = 1.0):
     """Route ``score(fkine(q))`` [B, 1] through the one-pass route of a DH

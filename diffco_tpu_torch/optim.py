@@ -32,6 +32,7 @@ import torch
 
 from . import utils
 from .device import fp32_matmul, resolve_device
+from .profiling import span
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8   # optax.adam defaults
 
@@ -215,40 +216,46 @@ def _adam_batch_core(starts, targets, limits, init_firsts, rand,
     found = torch.zeros(B, dtype=torch.bool, device=dev)
     hist = []
     for it in range(maxiter):
-        pv = p.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss, objective, constraint = loss_fn(pv)
-            g, = torch.autograd.grad(loss.sum(), pv)
-        loss, objective, constraint = (
-            loss.detach(), objective.detach(), constraint.detach())
-        g = g * endpoint_mask
-        gnorm = torch.sqrt(torch.sum(g ** 2, dim=(1, 2)))
-        updates, new_mu, new_nu, new_count = _adam_update(g, mu, nu, count,
-                                                          lr)
-        d3 = done[:, None, None]
-        freeze = done.to(dt)[:, None, None]
-        p_new = p + updates * (1.0 - freeze)
-        mu = torch.where(d3, mu, new_mu)
-        nu = torch.where(d3, nu, new_nu)
-        count = torch.where(done, count, new_count)
-        p_next = torch.where(d3, p, p_new)
+        with span('diffco.optim.step'):
+            pv = p.detach().requires_grad_(True)
+            with torch.enable_grad():
+                with span('diffco.optim.loss'):
+                    loss, objective, constraint = loss_fn(pv)
+                with span('diffco.optim.backward'):
+                    g, = torch.autograd.grad(loss.sum(), pv)
+            loss, objective, constraint = (
+                loss.detach(), objective.detach(), constraint.detach())
+            with span('diffco.optim.update'):
+                g = g * endpoint_mask
+                gnorm = torch.sqrt(torch.sum(g ** 2, dim=(1, 2)))
+                updates, new_mu, new_nu, new_count = _adam_update(
+                    g, mu, nu, count, lr)
+                d3 = done[:, None, None]
+                freeze = done.to(dt)[:, None, None]
+                p_new = p + updates * (1.0 - freeze)
+                mu = torch.where(d3, mu, new_mu)
+                nu = torch.where(d3, nu, new_nu)
+                count = torch.where(done, count, new_count)
+                p_next = torch.where(d3, p, p_new)
 
-        better_loss = ~done & (loss < b_loss)
-        bl3 = better_loss[:, None, None]
-        b_loss = torch.where(better_loss, loss, b_loss)
-        b_loss_p = torch.where(bl3, p, b_loss_p)
-        b_loss_obj = torch.where(better_loss, objective, b_loss_obj)
-        b_loss_step = torch.where(better_loss, it, b_loss_step)
-        valid = constraint <= 1e-2
-        better_valid = ~done & valid & (objective < b_valid_obj)
-        b_valid_obj = torch.where(better_valid, objective, b_valid_obj)
-        b_valid_p = torch.where(better_valid[:, None, None], p, b_valid_p)
-        b_valid_step = torch.where(better_valid, it, b_valid_step)
-        found = found | valid
-        done = done | (valid & (gnorm < 1e-4))
-        if history:
-            hist.append(p)
-        p = p_next
+                better_loss = ~done & (loss < b_loss)
+                bl3 = better_loss[:, None, None]
+                b_loss = torch.where(better_loss, loss, b_loss)
+                b_loss_p = torch.where(bl3, p, b_loss_p)
+                b_loss_obj = torch.where(better_loss, objective, b_loss_obj)
+                b_loss_step = torch.where(better_loss, it, b_loss_step)
+                valid = constraint <= 1e-2
+                better_valid = ~done & valid & (objective < b_valid_obj)
+                b_valid_obj = torch.where(better_valid, objective,
+                                          b_valid_obj)
+                b_valid_p = torch.where(better_valid[:, None, None], p,
+                                        b_valid_p)
+                b_valid_step = torch.where(better_valid, it, b_valid_step)
+                found = found | valid
+                done = done | (valid & (gnorm < 1e-4))
+                if history:
+                    hist.append(p)
+                p = p_next
 
     hists = (torch.stack(hist, dim=1).reshape(
         (P, T) + (maxiter, n_waypoints, dof)) if history else None)

@@ -31,6 +31,7 @@ import torch
 from .device import fp32_matmul
 from .kernels import KernelFunc, MultiDimRQKernel, MultiQuadratic, \
     Polyharmonic, RQKernel
+from .profiling import count
 
 # iterations between host reads of the train loop's done flag
 _DONE_CHECK_EVERY = 64
@@ -47,6 +48,7 @@ def _greedy_loop(step, gains, hyp, max_iteration: int):
     it = torch.full((1,), max_iteration, device=gains.device)
     for i in range(max_iteration):
         gains, hyp, done = step(gains, hyp)
+        count('perceptron.greedy_steps')
         it = torch.where(done.all() & (it == max_iteration), i + 1, it)
         if (i + 1) % _DONE_CHECK_EVERY == 0 and bool(it < max_iteration):
             break

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..profiling import span
 from .soa import (dh_rot_trans, rot_apply, rot_compose, rot_from_axis_angle,
                   stack_points, transform_compose, vec_add)
 
@@ -130,8 +131,9 @@ class _DHFkine(torch.autograd.Function):
 
     @staticmethod
     def forward(q, st):
-        _, pts = dh_chain(st, q)
-        return stack_points(pts, flat=True)
+        with span('diffco.robots.fk'):
+            _, pts = dh_chain(st, q)
+            return stack_points(pts, flat=True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -142,9 +144,10 @@ class _DHFkine(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, = ctx.saved_tensors
-        axes, pts = dh_chain(ctx.st, q)
-        return dh_vjp(ctx.st, axes, pts, g), None
+        with span('diffco.robots.fk_vjp'):
+            q, = ctx.saved_tensors
+            axes, pts = dh_chain(ctx.st, q)
+            return dh_vjp(ctx.st, axes, pts, g), None
 
     @staticmethod
     def jvp(ctx, dq, _):
@@ -349,8 +352,9 @@ class _ChainFkine(torch.autograd.Function):
 
     @staticmethod
     def forward(q, cs):
-        _, pts = eval_chain(cs, q)
-        return stack_points(pts, flat=True)
+        with span('diffco.robots.fk'):
+            _, pts = eval_chain(cs, q)
+            return stack_points(pts, flat=True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -361,9 +365,10 @@ class _ChainFkine(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, = ctx.saved_tensors
-        joints, pts = eval_chain(ctx.cs, q)
-        return chain_vjp(ctx.cs, joints, pts, g), None
+        with span('diffco.robots.fk_vjp'):
+            q, = ctx.saved_tensors
+            joints, pts = eval_chain(ctx.cs, q)
+            return chain_vjp(ctx.cs, joints, pts, g), None
 
     @staticmethod
     def jvp(ctx, dq, _):

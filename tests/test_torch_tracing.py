@@ -1,0 +1,308 @@
+"""The package's own spans and counters (``diffco_tpu_torch.profiling``)
+and the benchmark's readers of them. With no profiler running a span
+enters no profiler range and allocates nothing, and importing the
+module starts nothing; under ``torch.profiler`` the Adam step's, the FK's
+and the update's spans nest as the readers expect; the kept entry spans
+carry the greedy trainer's step count, keep the last 4096 and agree with
+their profiler copies; and each reader in ``portbench/metrics`` gives the
+number worked out by hand on a built trace and span log, and nothing on
+a program without the spans."""
+import importlib.util
+import os
+import tracemalloc
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import diffco_tpu_torch as dc
+from diffco_tpu_torch import perceptron, profiling
+from diffco_tpu_torch.profiling import Entry
+from diffco_tpu_torch.robots.capsule_chain import CapsuleChainCollision
+from portbench.harness import manifest as mf
+from portbench.harness import trace as tr
+
+torch.set_num_threads(1)
+
+
+def _T(t):
+    m = np.eye(4)
+    m[:3, 3] = t
+    return m
+
+
+SHAPES = {'box1': {'type': 'Box', 'params': {'extents': [0.1, 0.1, 0.1]},
+                   'transform': _T([0.5, 0.5, 0.5])},
+          'sphere1': {'type': 'Sphere', 'params': {'radius': 0.1},
+                      'transform': _T([0.5, 0, 0])}}
+PLAN = {'MAXITER': 2, 'N_WAYPOINTS': 6, 'NUM_RE_TRIALS': 2, 'seed': 0}
+
+
+@pytest.fixture(scope='module')
+def checker():
+    robot = dc.PandaFK()
+    env = dc.ShapeEnv(SHAPES)
+    cap = CapsuleChainCollision(robot, link_radius=0.15, per_seg=4)
+    ck = dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
+                                    gt_check_func=cap.checker_fn(env),
+                                    device='cpu', seed=0)
+    ck.fit(num_samples=300)
+    return ck
+
+
+def _plan(ck):
+    g = torch.Generator().manual_seed(1)
+    q = ck.robot.rand_configs(2, g, 'cpu')
+    return dc.adam_traj_optimize(ck.robot, ck.score_fn(), q[0], q[1], PLAN)
+
+
+@pytest.fixture(scope='module')
+def profiled(checker):
+    """A 2-step plan and an update under the profiler: (host events
+    [(start, end, name)], the kept spans logged meanwhile)."""
+    profiling.reset_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _plan(checker)
+        checker.update(num_samples=40)
+    events = []
+    for ev in prof.profiler.kineto_results.events():
+        s = ev.start_ns()
+        events.append((s, s + ev.duration_ns(), ev.name()))
+    return events, profiling.spans()
+
+
+def _named(events, name):
+    return [(s, e) for s, e, n in events if n == name]
+
+
+def _inside(span, outer):
+    return any(s <= span[0] and span[1] <= e for s, e in outer)
+
+
+def test_no_span_enters_a_profiler_range_without_a_profiler(checker,
+                                                            monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError('a profiler range entered with no profiler')
+
+    monkeypatch.setattr(torch.autograd.profiler, 'record_function', refuse)
+    monkeypatch.setattr(torch.profiler, 'record_function', refuse)
+    monkeypatch.setattr(torch._C._profiler, '_RecordFunctionFast', refuse)
+    assert profiling.span('diffco.optim.step') is profiling.span('x')
+    _plan(checker)
+    checker.update(num_samples=40)
+    # a span off allocates nothing: the peak stays within one loop int
+    tracemalloc.start()
+    try:
+        base = tracemalloc.get_traced_memory()[0]
+        tracemalloc.reset_peak()
+        for _ in range(1000):
+            with profiling.span('diffco.optim.step'):
+                pass
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak - base < 256
+
+
+def test_importing_profiling_starts_nothing(monkeypatch):
+    """A fresh copy of the module, executed with the environment watched:
+    no read of it, no CUDA, no profiler."""
+    read = []
+
+    class Watched(dict):
+        def __getitem__(self, k):
+            read.append(k)
+            return super().__getitem__(k)
+
+        def get(self, k, default=None):
+            read.append(k)
+            return super().get(k, default)
+
+        def __contains__(self, k):
+            read.append(k)
+            return super().__contains__(k)
+
+    monkeypatch.setattr(os, 'environ', Watched(os.environ))
+    spec = importlib.util.spec_from_file_location('profiling_fresh',
+                                                  profiling.__file__)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert read == []
+    assert not torch.cuda.is_initialized()
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert not torch.autograd._profiler_enabled()
+    assert mod.spans() == [] and mod._counters == {}
+
+
+def test_adam_step_spans_nest(profiled):
+    events, _ = profiled
+    steps = _named(events, 'diffco.optim.step')
+    assert len(steps) == PLAN['MAXITER']
+    for phase in ('loss', 'backward', 'update'):
+        spans = _named(events, f'diffco.optim.{phase}')
+        assert len(spans) == len(steps)
+        assert all(_inside(s, steps) for s in spans), phase
+
+
+def test_fk_spans_nest_in_the_score_the_loss_and_the_backward(profiled):
+    events, _ = profiled
+    steps = _named(events, 'diffco.optim.step')
+    fk = [s for s in _named(events, 'diffco.robots.fk') if _inside(s, steps)]
+    # twice a step: in the proxy's score and in the loss's own FK
+    assert len(fk) == 2 * len(steps)
+    assert all(_inside(s, _named(events, 'diffco.optim.loss')) for s in fk)
+    scores = _named(events, 'diffco.checker.score')
+    assert len(scores) == len(steps)
+    assert sum(_inside(s, scores) for s in fk) == len(steps)
+    vjp = [s for s in _named(events, 'diffco.robots.fk_vjp')
+           if _inside(s, steps)]
+    assert len(vjp) == 2 * len(steps)
+    assert all(_inside(s, _named(events, 'diffco.optim.backward'))
+               for s in vjp)
+
+
+def test_update_spans_nest(profiled):
+    events, _ = profiled
+    update, = _named(events, 'diffco.checker.update')
+    fit, = _named(events, 'diffco.checker.fit')
+    assert _inside(fit, [update])
+    for name in ('diffco.checker.labels', 'diffco.perceptron.train',
+                 'diffco.perceptron.fit_poly', 'diffco.checker.verify'):
+        spans = _named(events, name)
+        assert len(spans) == 1 and _inside(spans[0], [fit]), name
+
+
+def test_kept_spans_agree_with_their_profiler_copies(profiled):
+    events, kept = profiled
+    assert [e.name for e in kept] == ['diffco.checker.fit',
+                                      'diffco.checker.update']
+    for e in kept:
+        (s, t), = _named(events, e.name)
+        assert abs(e.start_ns - s) < 1e6 and abs(e.end_ns - t) < 1e6
+
+
+def test_update_entry_counts_the_greedy_steps(checker, monkeypatch):
+    calls = []
+    loop = perceptron._greedy_loop
+
+    def counting(step, gains, hyp, max_iteration):
+        def counted(g, h):
+            calls.append(1)
+            return step(g, h)
+        return loop(counted, gains, hyp, max_iteration)
+
+    monkeypatch.setattr(perceptron, '_greedy_loop', counting)
+    profiling.reset_spans()
+    checker.update(num_samples=40)
+    fit, update = profiling.spans()
+    assert (fit.name, update.name) == ('diffco.checker.fit',
+                                       'diffco.checker.update')
+    assert fit.parent == update.id and update.parent is None
+    assert update.start_ns <= fit.start_ns <= fit.end_ns <= update.end_ns
+    assert update.counts == fit.counts == {
+        'perceptron.greedy_steps': len(calls)}
+    assert calls
+
+
+def test_the_log_keeps_the_last_entries():
+    profiling.reset_spans()
+    for i in range(profiling.SPAN_LOG + 100):
+        with profiling.span('test.kept', keep=True):
+            profiling.count('test.kept', i % 3)
+    log = profiling.spans()
+    assert profiling.SPAN_LOG == 4096 and len(log) == 4096
+    assert [e.id for e in log] == list(range(log[0].id, log[0].id + 4096))
+    assert log[-1].counts == {'test.kept': (4096 + 99) % 3}
+    assert log[-2].counts == {}          # a change of 0 is left out
+    profiling.reset_spans()
+    assert profiling.spans() == []
+
+
+# ---- the readers, on a built trace and span log (ns)
+
+REQ = tr.REQUEST
+L = 'cudaLaunchKernel'
+PLAN_HOST = [
+    (0, 1000, REQ),
+    (100, 500, 'diffco.optim.step'), (600, 1000, 'diffco.optim.step'),
+    (110, 200, 'diffco.optim.loss'), (120, 150, 'diffco.robots.fk'),
+    (210, 400, 'diffco.optim.backward'), (220, 260, 'diffco.robots.fk_vjp'),
+    (610, 640, 'diffco.robots.fk'), (650, 700, 'diffco.robots.fk_vjp'),
+    (125, 126, L), (130, 131, 'cuLaunchKernel'),
+    (230, 231, 'cudaLaunchKernelExC'), (620, 621, L),
+    (300, 301, L),                        # in the backward, not in its FK
+    (660, 661, 'cudaMemcpyAsync'),        # not a launch
+    (1200, 1300, 'diffco.robots.fk'), (1250, 1251, L),  # after the request
+]
+UPDATE_HOST = [
+    (0, 1000, REQ), (2000, 3000, REQ),
+    (10, 990, 'diffco.checker.update'), (20, 980, 'diffco.checker.fit'),
+    (100, 500, 'diffco.perceptron.train'),
+    (2010, 2990, 'diffco.checker.update'),
+    (2100, 2400, 'diffco.perceptron.train'),
+    (150, 151, L), (160, 161, L), (170, 171, L), (600, 601, L),
+    (2200, 2201, L), (2300, 2301, L),
+]
+UPDATE_LOG = [
+    Entry('diffco.checker.update', -500, -100, 1, None,
+          {'perceptron.greedy_steps': 50}),       # the set-up's warm-up
+    Entry('diffco.checker.fit', 20, 980, 3, 2,
+          {'perceptron.greedy_steps': 3}),
+    Entry('diffco.checker.update', 10, 990, 2, None,
+          {'perceptron.greedy_steps': 3}),
+    Entry('diffco.checker.update', 2010, 2990, 4, None,
+          {'perceptron.greedy_steps': 1}),
+]
+SWEEP_HOST = [
+    (0, 1000, REQ), (2000, 3000, REQ),
+    (100, 400, 'diffco.ops.fk_score'), (200, 250, 'diffco.ops.launch'),
+    (2100, 2200, 'diffco.ops.fk_score'), (2150, 2190, 'diffco.ops.launch'),
+]
+SETUP_LOG = [
+    Entry('diffco.checker.fit', -5_000_000_000, -3_000_000_000, 1, None, {}),
+    Entry('diffco.native.build', -2_000_000_000, -1_500_000_000, 2, None,
+          {}),
+    Entry('diffco.checker.fit', -900_000_000, -600_000_000, 4, 3, {}),
+    Entry('diffco.checker.update', -1_000_000_000, -500_000_000, 3, None,
+          {}),
+    Entry('diffco.checker.fit', 100, 200, 5, None, {}),   # in a request
+]
+
+READINGS = {
+    # 4 launches in the FK spans of the request, over 2 steps
+    'adam.fk_launches_per_step': (PLAN_HOST, [], {'adam_steps': 2}, 2.0),
+    # FK (30 + 40 + 30 + 50) over the steps (400 + 400)
+    'adam.fk_share': (PLAN_HOST, [], {'adam_steps': 2}, 100 * 150 / 800),
+    # 3 + 2 launches in the trainer over 3 + 1 greedy steps
+    'update.launches_per_greedy_step': (UPDATE_HOST, UPDATE_LOG,
+                                        {'updates': 2}, 5 / 4),
+    'update.train_share': (UPDATE_HOST, [], {'updates': 2},
+                           100 * 700 / 1960),
+    # (300 - 50) + (100 - 40) ns over 2 requests, in ms
+    'router.host_ms': (SWEEP_HOST, [], {'calls': 2}, 310 / 2 * 1e-6),
+    # the top-level fit before the requests; the build before them
+    'setup.fit_s': (SWEEP_HOST, SETUP_LOG, {'calls': 2}, 2.0),
+    'setup.native_s': (SWEEP_HOST, SETUP_LOG, {'calls': 2}, 0.5),
+}
+
+
+@pytest.mark.parametrize('name', sorted(READINGS))
+def test_reader_by_hand(name, monkeypatch):
+    host, log, counts, want = READINGS[name]
+    monkeypatch.setattr(profiling, 'spans', lambda: list(log))
+    ctx = SimpleNamespace(trace=tr.Trace(1e-6, [], host), counts=counts,
+                          setup_s=10.0, window=None)
+    assert mf.metric(name).read(ctx) == pytest.approx(want)
+
+
+@pytest.mark.parametrize('name', sorted(READINGS))
+def test_reader_finds_nothing_without_the_spans(name, monkeypatch):
+    """The parent program: no spans in its trace, no kept spans."""
+    host, _, counts, _ = READINGS[name]
+    monkeypatch.delattr(profiling, 'spans')
+    bare = [h for h in host if not h[2].startswith('diffco.')]
+    ctx = SimpleNamespace(trace=tr.Trace(1e-6, [], bare), counts=counts,
+                          setup_s=10.0, window=None)
+    assert mf.metric(name).read(ctx) is None
