@@ -15,8 +15,12 @@ the first two on its fp64 instance,
 and at F = 72, 102, 150 and 192 on its wide instance; the FK kernels'
 wide instance, for chains past their own bounds, as B1 and B4 launch it
 on a 9-joint DH chain and B3 and B5 on the 35-link rope; every wide
-instance with DMMA, the fp64 tensor cores' mma, in its SASS), then drives
-eleven paths through the entry points a user calls:
+instance with DMMA, the fp64 tensor cores' mma, in its SASS; the DH FK
+and its VJP (csrc/dh_fk.cu, ``_DHFkine``'s route on a float32 CUDA batch)
+against the eager ops in float32 and float64 on Baxter's arm at B = 448
+and 28672, PandaFK, PandaFK's chain with 16 points and the dual arm's
+right chain), then drives eleven paths through the entry points a user
+calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -34,7 +38,8 @@ eleven paths through the entry points a user calls:
 - the Baxter benchmarks' journey (scripts/baxter_trajopt_benchmark.py,
   scripts/batch_trajopt_bench.py): BaxterLeftArmFK in their table / pole /
   ball scene -> fit -> verify / collision_score sweeps (B1 and B2 at
-  FP = 16) -> 64 problems in one adam_traj_optimize_batch -> ground-truth
+  FP = 16) -> 64 problems in one adam_traj_optimize_batch (the FK and its
+  VJP on csrc/dh_fk.cu) -> ground-truth
   check -> a batched repair against the ground truth's signed distance ->
   al_traj_optimize on 2 problems -> SLSQP and trust-constr on one problem
   each (their derivatives on CPU float64, the scipy paths' route) -> one
@@ -377,7 +382,8 @@ def _ptxas_report(log):
                       r'|dh_ablation_kernel|dh_dual_score_tc_kernel'
                       r'|(?:dh|poly|chain)_score_tc_kernel'
                       r'|poly_score_(?:f64|wide)_kernel'
-                      r'|chain_wide_score_kernel)I((?:L[ib]\d+E)+)E',
+                      r'|chain_wide_score_kernel'
+                      r'|dh_fk(?:_vjp)?_kernel)I((?:L[ib]\d+E)+)E',
                       ln)
         if 'Compiling entry function' in ln and m:
             args = re.findall(r'L[ib](\d+)E', m.group(2))
@@ -469,6 +475,29 @@ def _check_tc_ptxas(regs):
                              f'fp64 instances {sorted(f64)}, wide '
                              f'instances {sorted(wide)}, the FK kernels\' '
                              f'wide instances {sorted(chain_wide)}')
+
+
+# the DH FK kernels' instances (csrc/dh_fk.cu) at KP control points, and
+# their launch bound (its kFkThreads)
+FK_INSTANCES = {8, 16}
+FK_THREADS = 128
+
+
+def _check_fk_ptxas(regs):
+    """Every instance of the DH FK and its VJP (FK_INSTANCES, each kernel)
+    within its launch bound's registers (65536 over ``FK_THREADS``, at
+    most 255) and unspilled, or fail."""
+    limit = min(255, 65536 // FK_THREADS)
+    found = {'dh_fk_kernel': set(), 'dh_fk_vjp_kernel': set()}
+    for line in regs:
+        m = re.match(r'(dh_fk(?:_vjp)?_kernel)<(\d+)>: (\d+) regs/(\d+) B '
+                     r'spilled', line)
+        if m:
+            found[m.group(1)].add(int(m.group(2)))
+            if int(m.group(3)) > limit or int(m.group(4)) != 0:
+                raise AssertionError(f'ptxas: {line}')
+    if any(v != FK_INSTANCES for v in found.values()):
+        raise AssertionError(f'ptxas: DH FK instances found {found}')
 
 
 def _max_err(pairs):
@@ -1220,6 +1249,80 @@ def roofline_path(dev):
     for name, v in dual['variants'].items():
         if not v['rel_grad_err_vs_prod'] < 1e-3:
             raise AssertionError(f'{name} against the B1 kernel: {v}')
+
+
+def _eager_fk(st, q, g=None):
+    """``_DHFkine``'s eager ops: points [B, 3P], or with point cotangents g
+    the VJP dq [B, J]."""
+    from diffco_tpu_torch.robots import fk_jvp
+    axes, pts = fk_jvp.dh_chain(st, q)
+    if g is None:
+        return fk_jvp.stack_points(pts, flat=True)
+    return fk_jvp.dh_vjp(st, axes, pts, g)
+
+
+# (robot, B) for the DH FK kernels: Baxter's arm (P = 4) at the plan
+# cells' batches (a problem's 7 restarts x 64 dense points, and 64 such
+# problems), PandaFK (P = 7), its chain with 16 points (the KP = 16
+# instance) and the dual arm's right chain (a base transform, q a block
+# of columns)
+FK_CASES = (('Baxter', 448), ('Baxter', 28672), ('PandaFK', 28672),
+            ('PandaFK chain, 16 points', 28672), ('dual arm, right', 448))
+
+
+def check_dh_fk_kernel(dev):
+    """The DH FK and its VJP (csrc/dh_fk.cu through
+    ``robots.fk_jvp._dh_fk_kernel``) at FK_CASES against the eager ops on
+    the same float32 rows and in float64 (cotangents ~ N(0, 1)): points
+    within 1e-5, dq within 1e-5 of its largest component, one launch a
+    call. Returns the errors and Baxter's B = 28672 case for the kernel
+    table."""
+    import diffco_tpu_torch as dc
+    from diffco_tpu_torch.robots import fk_jvp
+    from diffco_tpu_torch.robots.analytic import panda_with_points
+    t0 = time.perf_counter()
+    cases, out = [], {}
+    for name, B in FK_CASES:
+        gen = torch.Generator().manual_seed(B + 11)
+        if name == 'dual arm, right':
+            robot = dc.BaxterDualArmFK()
+            fk, q = robot._arm_fkine[1], robot.rand_configs(B, gen, dev)
+            q = q[:, 7:14]
+        else:
+            robot = {'Baxter': dc.BaxterLeftArmFK, 'PandaFK': dc.PandaFK,
+                     'PandaFK chain, 16 points':
+                         lambda: panda_with_points(16)}[name]()
+            fk, q = robot._fkine_flat, robot.rand_configs(B, gen, dev)
+        st, c = fk.statics, fk.dh_spec
+        g = torch.randn(B, 3 * c.P, generator=gen).to(dev)
+        row = dict(robot=name, B=B, J=c.J, P=c.P)
+        for kind, gk in (('fk', None), ('vjp', g)):
+            before = fk_jvp.dh_fk_launches + fk_jvp.dh_fk_vjp_launches
+            got = fk_jvp._dh_fk_kernel(q, c, gk)
+            if fk_jvp.dh_fk_launches + fk_jvp.dh_fk_vjp_launches != \
+                    before + 1:
+                raise AssertionError(f'dh_fk {kind} on {name}: not one '
+                                     'launch')
+            tol = 1e-5 if kind == 'fk' else 1e-5 * max(
+                1.0, float(got.abs().max()))
+            for prec, qq, gg in (('f32', q, gk),
+                                 ('f64', q.double(),
+                                  None if gk is None else gk.double())):
+                err = float((got.double() - _eager_fk(st, qq, gg).double()
+                             ).abs().max())
+                row[f'{kind}_err_{prec}'] = err
+                if not err <= tol:
+                    raise AssertionError(f'dh_fk {kind} on {name} at B = '
+                                         f'{B}: {prec} error {err:.3g} > '
+                                         f'{tol:.3g}')
+        cases.append(row)
+        if (name, B) == ('Baxter', 28672):
+            out['args'] = (q, c, g, st)
+    _phase('DH FK kernels', t0, cases=json.dumps(cases))
+    out['cases'] = cases
+    out['err'] = max(r['fk_err_f32'] for r in cases)
+    out['vjp_err'] = max(r['vjp_err_f32'] for r in cases)
+    return out
 
 
 def _scene():
@@ -2923,7 +3026,7 @@ def _time_ms(fn, warmup, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
+def kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, launches):
     """Time each kernel and its plain twin at the checked shapes; the bound
     counts each input read once and each output written once, and
     ``score_ops`` for the score block (with C weight columns for B4, B5),
@@ -2942,8 +3045,13 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
     ``tc_bound``). ``ms`` is the wrapper's time per call
     over back-to-back calls, which the host's launches bound for the
     fastest kernels; B1, B6 and B7 also give ``device_ms``, the kernel's
-    own time on the card (``roofline_fk_score.device_ms``)."""
+    own time on the card (``roofline_fk_score.device_ms``). The DH FK and
+    its VJP (csrc/dh_fk.cu) at Baxter's B = 28672, against the eager ops,
+    with ``device_ms`` and a bound of q (and g) read and the points (dq)
+    written once, and ``dh_ops`` without (the FK) or with (the VJP, which
+    recomputes the chain) the backward."""
     from diffco_tpu_torch.ops import _native, fk_score, fused_score
+    from diffco_tpu_torch.robots import fk_jvp
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
     from diffco_tpu_torch.scripts import roofline_fk_score as rf
     x, sup, w = b2['args']
@@ -3104,6 +3212,21 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
                 lambda m=mode: rf.dh_ablation(q6, sup6, w6, spec6, m),
                 rf.instance_pattern('dh_ablation_kernel', rf.MODES[mode])))
         for mode in rf.MODES]
+    qf, cf, gf, stf = fk['args']
+    Bf, Jf, Pf = qf.shape[0], cf.J, cf.P
+    fk_rows = [
+        row(name, 'diffco_tpu_torch/csrc/dh_fk.cu',
+            'diffco_tpu/robots/fk_jvp.py:51', [Bf, Jf, Pf], dict(err=err),
+            lambda gk=gk: fk_jvp._dh_fk_kernel(qf, cf, gk),
+            lambda gk=gk: _eager_fk(stf, qf, gk),
+            *bound(Bf * 4 * (n_q * Jf + 3 * Pf), dh_ops(Jf, Pf, C) * Bf),
+            device_ms=rf.device_ms(
+                lambda gk=gk: fk_jvp._dh_fk_kernel(qf, cf, gk),
+                rf.instance_pattern(f'{name}_kernel',
+                                    8 if Pf <= 8 else 16)))
+        for name, gk, n_q, C, err in (('dh_fk', None, 1, 0, fk['err']),
+                                      ('dh_fk_vjp', gf, 2, 1,
+                                       fk['vjp_err']))]
     return [
         row('poly_score_grad', 'diffco_tpu_torch/csrc/poly_score.cu',
             'diffco_tpu/ops/fused_score.py:138', [B, S, F], b2,
@@ -3169,7 +3292,7 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, launches):
             plans={C: b5[f'plan_c{C}'] for C in (1, 2, 5, 8)},
             warps_per_sm=b5['plan_c5']['warps_per_sm'],
             wide=wide_at(wide['chain_multi_score_grad'])),
-    ] + dual_rows + mode_rows
+    ] + dual_rows + mode_rows + fk_rows
 
 
 _FK_KERNELS = ('dh_score_grad', 'chain_score_grad', 'dh_multi_score_grad',
@@ -3180,6 +3303,7 @@ def _read_launches():
     """Every launch counter: one per wrapper, and per B6 variant and B7
     mode as '<wrapper>:<variant or mode>'."""
     from diffco_tpu_torch.ops import fk_score, fused_score
+    from diffco_tpu_torch.robots import fk_jvp
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
     from diffco_tpu_torch.scripts import roofline_fk_score as rf
     out = {'poly_score_grad': fused_score.poly_score_grad_launches}
@@ -3190,11 +3314,14 @@ def _read_launches():
     out['dh_ablation'] = rf.dh_ablation_launches
     out.update({f'dh_ablation:{k}': n
                 for k, n in rf.dh_ablation_launches_by_mode.items()})
+    out['dh_fk'] = fk_jvp.dh_fk_launches
+    out['dh_fk_vjp'] = fk_jvp.dh_fk_vjp_launches
     return out
 
 
 def _zero_launches():
     from diffco_tpu_torch.ops import fk_score, fused_score
+    from diffco_tpu_torch.robots import fk_jvp
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
     from diffco_tpu_torch.scripts import roofline_fk_score as rf
     fused_score.poly_score_grad_launches = 0
@@ -3205,6 +3332,7 @@ def _zero_launches():
         dict.fromkeys(ab.VARIANTS, 0))
     rf.dh_ablation_launches = 0
     rf.dh_ablation_launches_by_mode.update(dict.fromkeys(rf.MODES, 0))
+    fk_jvp.dh_fk_launches = fk_jvp.dh_fk_vjp_launches = 0
 
 
 def main():
@@ -3237,6 +3365,7 @@ def main():
     print('ptxas: ' + '; '.join(regs), flush=True)
     _check_multi_ptxas(regs)
     _check_tc_ptxas(regs)
+    _check_fk_ptxas(regs)
 
     robot = dc.PandaFK()
     b2 = check_poly_kernel(robot, dev)
@@ -3251,6 +3380,7 @@ def main():
     b4 = check_dh_multi_kernel(robot, dev)
     b5 = check_chain_multi_kernel(dev)
     b67 = check_roofline_kernels(robot, dev)
+    fk = check_dh_fk_kernel(dev)
 
     # count only each main path's own launches
     launches, planar, rigid, multi = {}, {}, {}, {}
@@ -3280,6 +3410,8 @@ def main():
                     ('FrankaPanda multi-class', 'chain_multi_score_grad'),
                     ('Baxter', 'dh_score_grad'),
                     ('Baxter', 'poly_score_grad'),
+                    ('Baxter', 'dh_fk'),
+                    ('Baxter', 'dh_fk_vjp'),
                     ('PandaFK active', 'dh_score_grad'),
                     ('PandaFK active', 'poly_score_grad'),
                     ('planar', 'poly_score_grad'),
@@ -3300,7 +3432,7 @@ def main():
 
     t0 = time.perf_counter()
     b2['planar'], b2['rigid'], b2['multi'] = planar, rigid, multi
-    rows = kernel_table(b2, b1, b3, b4, b5, b67, wide, launches)
+    rows = kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, launches)
     _phase('kernel timing', t0)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.perf_counter() - t_start:.1f}s', flush=True)

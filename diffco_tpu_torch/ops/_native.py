@@ -278,6 +278,25 @@ class DHSpec(ctypes.Structure):
                 ('base_t', ctypes.c_float * 3)]
 
 
+def dh_spec(st) -> DHSpec | None:
+    """The by-value ``DHSpec`` of a DH chain, ``st`` a
+    ``robots.fk_jvp.DHStatics``; None past the kernels' 1 to MAX_J joints
+    and 1 to MAX_P control points."""
+    J, P = len(st.dh_const), len(st.point_specs)
+    if not (1 <= J <= MAX_J and 1 <= P <= MAX_P):
+        return None
+    c = DHSpec()
+    c.J, c.P = J, P
+    for j, row in enumerate(st.dh_const):
+        c.dh[j][:] = row
+    for k, (fi, off) in enumerate(st.point_specs):
+        c.frame[k] = fi
+        c.off[k][:] = off
+    c.base_r[:] = st.base_rot
+    c.base_t[:] = st.base_trans
+    return c
+
+
 def _chain_spec_fields(mm, mcp):
     return [('M', ctypes.c_int),
             ('P', ctypes.c_int),
@@ -451,6 +470,15 @@ def _bind(libs):
     fn.restype = cint
     fn = libs['dh_dual_score'].dh_dual_score_grad
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint,
+                   ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
+    # the FK and its VJP (robots/fk_jvp.py::_DHFkine): q's row stride
+    fn = libs['dh_fk'].dh_fk
+    fn.argtypes = [ptr, ctypes.c_longlong, ptr, cint, ctypes.POINTER(DHSpec),
+                   ptr]
+    fn.restype = cint
+    fn = libs['dh_fk'].dh_fk_vjp
+    fn.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, cint,
                    ctypes.POINTER(DHSpec), ptr]
     fn.restype = cint
 

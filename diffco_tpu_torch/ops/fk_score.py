@@ -90,20 +90,12 @@ def _c_spec(spec):
     instance's bounds."""
     dh_const, point_specs, base = spec
     st = _statics(spec)
-    J, P = len(dh_const), len(point_specs)
+    J = len(dh_const)
     if not all(1 <= fi <= J for fi, _ in point_specs):
         raise ValueError('dh_score_grad: point frame ids must lie in 1..J')
-    if J > _native.MAX_J or P > _native.MAX_P:
+    c = _native.dh_spec(st)
+    if c is None:
         return _chain_struct(*_fold_dh(st), J, 'dh_score_grad', narrow=False)
-    c = _native.DHSpec()
-    c.J, c.P = J, P
-    for j, row in enumerate(dh_const):
-        c.dh[j][:] = row
-    for k, (fi, off) in enumerate(point_specs):
-        c.frame[k] = fi
-        c.off[k][:] = off
-    c.base_r[:] = st.base_rot
-    c.base_t[:] = st.base_trans
     return c
 
 

@@ -739,8 +739,10 @@ def _scipy_setup(robot, start_cfg, target_cfg, options):
 
 def _jacobian(fn, x):
     """``torch.autograd.functional.jacobian``, its backward passes batched
-    over the outputs (``vectorize``: the FK Functions' backward is plain
-    torch ops, which batch)."""
+    over the outputs (``vectorize``: the FK Functions' backward takes its
+    plain torch ops, which batch, on a cotangent batched by vmap; the DH
+    FK's VJP kernel takes only cotangents with storage,
+    ``robots.fk_jvp.takes_kernel``)."""
     return torch.autograd.functional.jacobian(fn, x, vectorize=True)
 
 

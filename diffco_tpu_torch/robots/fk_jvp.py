@@ -17,7 +17,10 @@ through sums over the chain:
 
 ``make_dh_fkine`` wraps both in one ``torch.autograd.Function``. Its
 ``backward`` recomputes the chain from ``q`` with differentiable ops, so
-the FK stays differentiable to higher orders in reverse mode.
+the FK stays differentiable to higher orders in reverse mode. A float32
+CUDA batch of a chain within the kernels' bounds runs the forward, and the
+backward where no graph of the gradient is built, as one hand-written
+kernel each (``csrc/dh_fk.cu``, ``takes_kernel``).
 
 General (tree-topology, URDF) chains do not admit the prefix/suffix
 factoring; ``make_chain_fkine`` sums over each point's static set of
@@ -26,17 +29,23 @@ joints about any axis, prismatic joints and mimic multipliers.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..profiling import span
+from ..ops import _native
+from ..profiling import count, span
 from .soa import (dh_rot_trans, rot_apply, rot_compose, rot_from_axis_angle,
                   stack_points, transform_compose, vec_add)
 
 _ZERO3 = (0.0, 0.0, 0.0)
 _IDENT9 = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+
+# launches of the FK kernels (csrc/dh_fk.cu), for run accounting
+dh_fk_launches = 0
+dh_fk_vjp_launches = 0
 
 
 def _cross(a, b):
@@ -126,19 +135,70 @@ def dh_jvp(st: DHStatics, axes, pts, dq):
     return torch.stack(cols, dim=-1)
 
 
+def takes_kernel(q, c, g=None) -> bool:
+    """Whether ``_DHFkine`` runs ``q`` [B, J] on its kernels
+    (``csrc/dh_fk.cu``): a float32 CUDA tensor whose rows are contiguous
+    (a block of columns of a wider one too), of a chain with a by-value
+    spec ``c`` (None past ``_native.MAX_J`` joints or ``MAX_P`` points).
+    The backward (``g``, the point cotangents, given) only where no graph
+    of the gradient is being built (``create_graph=True`` keeps the
+    differentiable eager VJP) and ``g`` has storage: a cotangent batched
+    by vmap, as ``torch.autograd.functional.jacobian(vectorize=True)``
+    passes, has none and keeps the eager VJP, whose ops batch. The CPU,
+    float64 and forward mode (``jvp``) stay on the eager ops."""
+    return (c is not None and q.device.type == 'cuda'
+            and q.dtype == torch.float32 and q.dim() == 2
+            and q.stride(1) == 1
+            and (g is None or (not torch.is_grad_enabled()
+                               and torch._C._has_storage(g))))
+
+
+def _dh_fk_kernel(q, c, g=None):
+    """The FK x [B, 3P] of ``q`` [B, J] (``g`` None) or its VJP dq [B, J]
+    with point cotangents ``g`` [B, 3P], on ``csrc/dh_fk.cu``: one launch
+    on the current stream (none for an empty batch), counted in
+    ``<entry>_launches`` and the counter ``robots.fk_kernel``."""
+    if q.shape[1] != c.J:
+        raise ValueError(f'dh_fk: q has {q.shape[1]} columns, the chain '
+                         f'{c.J} joints')
+    B = q.shape[0]
+    out = q.new_empty((B, 3 * c.P) if g is None else (B, c.J))
+    if B == 0:
+        return out
+    if g is None:
+        name, ptrs = 'dh_fk', (q.data_ptr(), q.stride(0), out.data_ptr())
+    else:
+        name, g = 'dh_fk_vjp', g.contiguous()
+        _native.check_cuda_inputs(name, g)
+        if g.device != q.device or g.shape != (B, 3 * c.P):
+            raise ValueError(f'dh_fk_vjp: g {tuple(g.shape)} on {g.device} '
+                             f'for {B} rows of {c.P} points on {q.device}')
+        ptrs = (q.data_ptr(), q.stride(0), g.data_ptr(), out.data_ptr())
+    rc = getattr(_native.build()['dh_fk'], name)(
+        *ptrs, B, ctypes.byref(c),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _native.raise_on_error(name, rc)
+    globals()[f'{name}_launches'] += 1
+    count('robots.fk_kernel')
+    return out
+
+
 class _DHFkine(torch.autograd.Function):
-    """q [B, J] -> control points [B, 3P] with analytic VJP and JVP."""
+    """q [B, J] -> control points [B, 3P] with analytic VJP and JVP; the
+    forward and the VJP on ``csrc/dh_fk.cu`` where ``takes_kernel``."""
 
     @staticmethod
-    def forward(q, st):
+    def forward(q, st, c):
         with span('diffco.robots.fk'):
+            if takes_kernel(q, c):
+                return _dh_fk_kernel(q, c)
             _, pts = dh_chain(st, q)
             return stack_points(pts, flat=True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, st = inputs
-        ctx.st = st
+        q, st, c = inputs
+        ctx.st, ctx.c = st, c
         ctx.save_for_backward(q)
         ctx.save_for_forward(q)
 
@@ -146,11 +206,13 @@ class _DHFkine(torch.autograd.Function):
     def backward(ctx, g):
         with span('diffco.robots.fk_vjp'):
             q, = ctx.saved_tensors
+            if takes_kernel(q, ctx.c, g):
+                return _dh_fk_kernel(q, ctx.c, g), None, None
             axes, pts = dh_chain(ctx.st, q)
-            return dh_vjp(ctx.st, axes, pts, g), None
+            return dh_vjp(ctx.st, axes, pts, g), None, None
 
     @staticmethod
-    def jvp(ctx, dq, _):
+    def jvp(ctx, dq, _st, _c):
         q, = ctx.saved_tensors
         axes, pts = dh_chain(ctx.st, q)
         return dh_jvp(ctx.st, axes, pts, dq)
@@ -169,6 +231,9 @@ def make_dh_fkine(dh_const: Sequence[Tuple[float, float, float, float,
         frame index in chain order (non-decreasing) and an offset in that
         frame.
     base: optional base transform ``(rot 9 floats, trans 3 floats)``.
+
+    The chain's by-value kernel spec (``_native.dh_spec``, None past the
+    kernels' bounds) is built once here and kept as ``fkine_flat.dh_spec``.
     """
     dh_const = tuple(tuple(float(v) for v in row) for row in dh_const)
     point_specs = tuple((int(fi), tuple(float(v) for v in off))
@@ -183,10 +248,13 @@ def make_dh_fkine(dh_const: Sequence[Tuple[float, float, float, float,
                        tuple(float(v) for v in base[0]),
                        tuple(float(v) for v in base[1]))
 
+    c = _native.dh_spec(st)
+
     def fkine_flat(q):
-        return _DHFkine.apply(q, st)
+        return _DHFkine.apply(q, st, c)
 
     fkine_flat.statics = st
+    fkine_flat.dh_spec = c
     return fkine_flat
 
 

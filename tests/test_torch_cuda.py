@@ -10,8 +10,9 @@ import torch
 
 from diffco_tpu_torch import robot_data
 from diffco_tpu_torch.ops import _native, fk_score, fused_score
-from diffco_tpu_torch.robots import PandaFK, URDFRobot
+from diffco_tpu_torch.robots import PandaFK, URDFRobot, fk_jvp
 from diffco_tpu_torch.robots.analytic import baxter_arm, panda_with_points
+from diffco_tpu_torch.robots.soa import stack_points
 from diffco_tpu_torch.scripts import ab_dual_tile as ab
 from diffco_tpu_torch.scripts import roofline_fk_score as rf
 
@@ -60,6 +61,15 @@ CHAIN_MULTI_CASES = [('panda_simple.urdf', 37, 5, 3),
                      ('lift_rig.urdf', 4096 + 5, 128, 2),
                      ('lift_rig.urdf', 300, 37, 8),
                      ('lift_rig.urdf', 64, 0, 5)]
+
+# the DH FK kernels (csrc/dh_fk.cu) at an empty batch, one row, the
+# trajectory optimizers' 448 (a plan) and 28672 (a batch of 64) and a
+# ragged 2^16 + 1; on the KP = 8 instance at 4 and 7 points, the KP = 16
+# one and the dual arm's right chain (a non-identity base, q the right
+# half of 14 columns)
+DH_FK_BATCHES = [0, 1, 448, 28672, 65537]
+DH_FK_ROBOTS = ['Baxter', 'PandaFK', 'PandaFK chain, 16 points',
+                'dual arm, right']
 
 # B6 and B7 at a ragged small shape and the roofline path's shape; B7
 # against its twin at rf.ABLATION_TOL
@@ -1018,3 +1028,182 @@ def test_score_fn_takes_cpu_float64(cuda):
     s64 = fn(q.double())
     assert s64.dtype == torch.float64 and s64.device.type == 'cpu'
     _close(s64, fn(q.to(cuda)).cpu().double(), 1e-5)
+
+
+def _dh_fk_case(name, B, dev):
+    """(the FK closure, the leaf configurations [B, dof] on ``dev``, the
+    chain's columns of them)."""
+    import diffco_tpu_torch as dc
+    g = torch.Generator().manual_seed(B + 7)
+    if name == 'dual arm, right':
+        robot = dc.BaxterDualArmFK()
+        return robot._arm_fkine[1], robot.rand_configs(B, g, dev), \
+            slice(7, 14)
+    robot = {'Baxter': dc.BaxterLeftArmFK, 'PandaFK': PandaFK,
+             'PandaFK chain, 16 points': lambda: panda_with_points(16)
+             }[name]()
+    return robot._fkine_flat, robot.rand_configs(B, g, dev), slice(0, 7)
+
+
+def _eager_fk(st, q, g=None):
+    """The eager ops of ``_DHFkine``: points [B, 3P], or with point
+    cotangents g the VJP dq [B, J]."""
+    axes, pts = fk_jvp.dh_chain(st, q)
+    if g is None:
+        return stack_points(pts, flat=True)
+    return fk_jvp.dh_vjp(st, axes, pts, g)
+
+
+def _launches():
+    return fk_jvp.dh_fk_launches, fk_jvp.dh_fk_vjp_launches
+
+
+@pytest.mark.parametrize('B', DH_FK_BATCHES)
+@pytest.mark.parametrize('name', DH_FK_ROBOTS)
+def test_dh_fk_kernels_match_the_eager_ops(cuda, name, B):
+    """The FK and its VJP of a float32 CUDA batch (``_DHFkine`` through
+    autograd, ``create_graph`` off) on csrc/dh_fk.cu, one launch each (none
+    for an empty batch), against the eager ops on the same float32 rows
+    and in float64 (the Function's eager path): points 1e-5, dq 1e-5 of
+    its largest component (float32 rounding over the 7-joint chain)."""
+    fk, full, cols = _dh_fk_case(name, B, cuda)
+    st = fk.statics
+    P = len(st.point_specs)
+    full = full.requires_grad_(True)
+    g = torch.randn(B, 3 * P, generator=torch.Generator().manual_seed(B),
+                    ).to(cuda)
+    before = _launches()
+    x = fk(full[:, cols])
+    mid = _launches()
+    dq, = torch.autograd.grad(x, full, g)
+    dq = dq[:, cols]
+    after = _launches()
+    one = int(B > 0)
+    assert mid == (before[0] + one, before[1])
+    assert after == (mid[0], mid[1] + one)
+    q, x = full.detach()[:, cols], x.detach()
+    assert torch.isfinite(x).all() and torch.isfinite(dq).all()
+    dq_tol = 1e-5 * max(1.0, float(dq.abs().max())) if B else 0.0
+    for ref_q, ref_g in ((q, g), (q.double(), g.double())):
+        _close(x.double(), _eager_fk(st, ref_q).double(), 1e-5)
+        ref = _eager_fk(st, ref_q, ref_g).double()
+        np.testing.assert_allclose(dq.double().cpu().numpy(),
+                                   ref.cpu().numpy(), rtol=0, atol=dq_tol)
+    q64 = q.double().requires_grad_(True)
+    x64 = fk(q64)
+    dq64, = torch.autograd.grad(x64, q64, g.double())
+    assert _launches() == after
+    _close(x.double(), x64.detach(), 1e-5)
+    np.testing.assert_allclose(dq.double().cpu().numpy(),
+                               dq64.cpu().numpy(), rtol=0, atol=dq_tol)
+
+
+@pytest.mark.parametrize('name', DH_FK_ROBOTS)
+def test_dh_fk_higher_orders_keep_the_eager_ops(cuda, name):
+    """On a float32 CUDA batch the forward runs on the kernel, but a
+    backward with ``create_graph=True`` and forward mode keep the
+    differentiable eager VJP and JVP: no VJP launch; the gradient, the
+    gradient of its squared norm and the tangent equal the eager ops'
+    (1e-5 of the largest component)."""
+    import torch.autograd.forward_ad as fwAD
+    fk, full, cols = _dh_fk_case(name, 448, cuda)
+    st = fk.statics
+    P = len(st.point_specs)
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn(448, 3 * P, generator=gen).to(cuda)
+    v = torch.randn(448, st.n_joints, generator=gen).to(cuda)
+
+    def grads(fn):
+        leaf = full.detach().clone().requires_grad_(True)
+        dq, = torch.autograd.grad(fn(leaf[:, cols]), leaf, g,
+                                  create_graph=True)
+        ddq, = torch.autograd.grad((dq ** 2).sum(), leaf)
+        return dq.detach()[:, cols], ddq[:, cols]
+
+    def close(a, b):
+        tol = 1e-5 * max(1.0, float(b.abs().max()))
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=0, atol=tol)
+
+    before = _launches()
+    got = grads(fk)
+    assert _launches() == (before[0] + 1, before[1])
+    for a, b in zip(got, grads(lambda q: _eager_fk(st, q))):
+        close(a, b)
+    q = full.detach()[:, cols].contiguous()
+    before = _launches()
+    with fwAD.dual_level():
+        tangent = fwAD.unpack_dual(fk(fwAD.make_dual(q, v))).tangent
+    assert _launches() == (before[0] + 1, before[1])
+    close(tangent, fk_jvp.dh_jvp(st, *fk_jvp.dh_chain(st, q), v))
+
+
+def test_dh_fk_kernels_leave_adam_on_baxter_as_the_eager_ops(cuda,
+                                                             monkeypatch):
+    """adam_traj_optimize (one problem) and adam_traj_optimize_batch (3
+    problems) on the card with the FK on its kernels give the eager ops'
+    paths (joints 1-6 and control points 1e-3), costs (rtol 1e-3) and
+    success, the tolerances of the card-against-CPU parity test; the
+    kernels launch only on their own route."""
+    from diffco_tpu_torch import optim
+    robot, cpu, card, gt = _baxter_checkers(cuda)
+    g = torch.Generator().manual_seed(3)
+    q = robot.rand_configs(256, g, 'cpu')
+    free = q[~gt(q)]
+    starts, targets = free[:3].to(cuda), free[3:6].to(cuda)
+    opts = {'N_WAYPOINTS': 12, 'NUM_RE_TRIALS': 4, 'MAXITER': 15,
+            'dense_sub': 3, 'seed': 2, 'safety_margin': -cpu.safety_bias}
+    fn = card.score_fn(0.0)
+    runs, launched = [], []
+    for route in ('kernels', 'eager'):
+        if route == 'eager':
+            monkeypatch.setattr(fk_jvp, 'takes_kernel',
+                                lambda *a, **k: False)
+        before = _launches()
+        runs.append([optim.adam_traj_optimize(robot, fn, starts[0],
+                                              targets[0], opts)]
+                    + optim.adam_traj_optimize_batch(robot, fn, starts,
+                                                     targets, opts))
+        launched.append([b - a for a, b in zip(before, _launches())])
+    assert min(launched[0]) >= 2 * opts['MAXITER'] and launched[1] == [0, 0]
+    for a, b in zip(*runs):
+        _baxter_paths_close(robot, a['solution'], b['solution'], 1e-3)
+        assert abs(a['cost'] - b['cost']) <= 1e-3 * abs(a['cost']) + 1e-6
+        assert a['success'] == b['success']
+
+
+
+@pytest.mark.parametrize('name', ['givengrad', 'trustconstr'])
+def test_dh_fk_scipy_paths_in_float32_on_the_card(cuda, name):
+    """With ``scipy_fp64=False`` the scipy paths evaluate BaxterLeftArmFK
+    in float32 on the card, their Jacobians vectorized over the outputs:
+    the FK's backward gets a cotangent batched by vmap, with no storage,
+    and keeps the eager VJP. ``optim._jacobian`` of the FK on the card
+    equals the CPU float64 one (1e-5 of its largest entry) with no VJP
+    launch, and givengrad_traj_optimize / trustconstr_traj_optimize run
+    from a card ``start_cfg`` to a finite cost there."""
+    from diffco_tpu_torch import optim
+    robot, cpu, card, gt = _baxter_checkers(cuda)
+    g = torch.Generator().manual_seed(4)
+    q = robot.rand_configs(256, g, 'cpu')
+    free = q[~gt(q)]
+    x = free[:5].reshape(-1)
+
+    def fk_sum(flat):
+        return robot.fkine(flat.reshape(-1, 7), flat=True).sum(0)
+    before = _launches()
+    jac = optim._jacobian(fk_sum, x.to(cuda))
+    assert _launches()[1] == before[1]
+    ref = optim._jacobian(fk_sum, x.double())
+    np.testing.assert_allclose(jac.double().cpu().numpy(), ref.numpy(),
+                               rtol=0, atol=1e-5 * float(ref.abs().max()))
+    opts = {'N_WAYPOINTS': 8, 'NUM_RE_TRIALS': 1, 'MAXITER': 10, 'seed': 0,
+            'scipy_fp64': False, 'safety_margin': -cpu.safety_bias}
+    if name == 'trustconstr':
+        opts['free_waypoints'] = 4
+    rec = getattr(optim, f'{name}_traj_optimize')(
+        robot, card.score_fn(0.0), free[5].to(cuda), free[6].to(cuda), opts)
+    assert torch.device(rec['eval_device']).type == cuda.type
+    assert rec['eval_dtype'] == 'float32'
+    assert np.isfinite(rec['cost'])
+    assert np.isfinite(np.asarray(rec['solution'])).all()

@@ -1288,3 +1288,144 @@ def test_ablation_tc_replay_matches_plain(tc_bins, tmp_path, mode):
     assert np.isfinite(out).all()
     err = np.abs(out - ref).max()
     assert err <= rf.ABLATION_TOL[mode] * np.abs(ref).max(), (mode, err)
+
+
+# The FK kernels (csrc/dh_fk.cu: robots/fk_jvp.py::_DHFkine's forward and
+# VJP) replayed a block of kFkThreads threads at a time, their shared
+# arrays as statics (one block runs at a time):
+#   replay fk|vjp B LDQ COL0 IN OUT
+# IN holds the DHSpec, q [B, LDQ] (the chain reads columns COL0 to
+# COL0 + J - 1) and, for the VJP, g [B, 3P]; OUT gets x [B, 3P] or
+# dq [B, J], NaN where the kernel wrote nothing.
+FK_RUNNER = r'''
+template <class K>
+void run_blocks(int B, K kernel) {
+  const int T = diffco::kFkThreads;
+  for (int bx = 0; bx * T < B; ++bx) {
+    std::barrier<> bar(T);
+    g_barrier = &bar;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < T; ++t)
+      ts.emplace_back([&, t] {
+        threadIdx = Dim3{unsigned(t), 0, 0};
+        blockIdx = Dim3{unsigned(bx), 0, 0};
+        blockDim = Dim3{unsigned(T), 1, 1};
+        kernel();
+      });
+    for (auto& th : ts) th.join();
+  }
+}
+
+template <int KP>
+void run(bool vjp, const float* q, long long ldq, const float* g,
+         float* out, int B, const diffco::DHSpec& sp) {
+  if (vjp)
+    run_blocks(B, [&] {
+      diffco::dh_fk_vjp_kernel<KP>(q, ldq, g, out, B, sp);
+    });
+  else
+    run_blocks(B, [&] { diffco::dh_fk_kernel<KP>(q, ldq, out, B, sp); });
+}
+
+int main(int argc, char** argv) {
+  if (argc != 7) return 2;
+  const bool vjp = std::string(argv[1]) == "vjp";
+  const int B = std::atoi(argv[2]);
+  const long long ldq = std::atoll(argv[3]);
+  const int col0 = std::atoi(argv[4]);
+  FILE* f = std::fopen(argv[5], "rb");
+  if (!f) return 3;
+  diffco::DHSpec sp;
+  size_t got = std::fread(&sp, sizeof sp, 1, f);
+  std::vector<float> q(static_cast<size_t>(B) * ldq);
+  std::vector<float> g(static_cast<size_t>(B) * 3 * sp.P);
+  got += std::fread(q.data(), 4, q.size(), f);
+  if (vjp) got += std::fread(g.data(), 4, g.size(), f);
+  std::fclose(f);
+  std::vector<float> out(static_cast<size_t>(B) * (vjp ? sp.J : 3 * sp.P),
+                         NAN);
+  const float* qc = q.data() + col0;
+  if (sp.P <= 8)
+    run<8>(vjp, qc, ldq, g.data(), out.data(), B, sp);
+  else
+    run<16>(vjp, qc, ldq, g.data(), out.data(), B, sp);
+  f = std::fopen(argv[6], "wb");
+  if (!f) return 3;
+  std::fwrite(out.data(), 4, out.size(), f);
+  std::fclose(f);
+  return 0;
+}
+'''
+
+
+@pytest.fixture(scope='module')
+def fk_replay_bin(tmp_path_factory):
+    """The FK kernels' replay executable (g++ -std=c++20)."""
+    gxx = _gxx()
+    d = tmp_path_factory.mktemp('dh_fk_replay')
+    src, exe = d / 'fk.cpp', d / 'fk'
+    src.write_text(PRELUDE + '#undef __shared__\n#define __shared__ static\n'
+                   + _tc_device_code('dh_fk.cu') + FK_RUNNER)
+    build = subprocess.run(
+        [_gxx(), '-std=c++20', '-O1', '-pthread', '-w', '-I',
+         str(_native._CSRC), '-o', str(exe), str(src)],
+        capture_output=True, text=True, timeout=300)
+    assert build.returncode == 0, build.stderr[-4000:]
+    return exe
+
+
+def _fk_case(name):
+    """(the FK closure, q [B, LDQ] as numpy, the chain's first column): the
+    KP = 8 instance at 4 and 7 points, the KP = 16 one, and the dual arm's
+    right chain (a non-identity base) on the right half of 14 columns."""
+    from diffco_tpu_torch.robots.analytic import (BaxterDualArmFK,
+                                                  BaxterLeftArmFK)
+    if name == 'dual arm, right':
+        robot = BaxterDualArmFK()
+        fk, col0 = robot._arm_fkine[1], 7
+    else:
+        robot = {'Baxter arm': BaxterLeftArmFK, 'PandaFK': PandaFK,
+                 'PandaFK chain, 16 points': lambda: panda_with_points(16)
+                 }[name]()
+        fk, col0 = robot._fkine_flat, 0
+    lims = np.asarray(robot.joint_limits, np.float32)
+    u = np.random.default_rng(31).uniform(size=(B, lims.shape[0]))
+    q = (u * (lims[:, 1] - lims[:, 0]) + lims[:, 0]).astype(np.float32)
+    return fk, q, col0
+
+
+@pytest.mark.parametrize('vjp', [False, True], ids=['fk', 'vjp'])
+@pytest.mark.parametrize('name', ['Baxter arm', 'PandaFK',
+                                  'PandaFK chain, 16 points',
+                                  'dual arm, right'])
+def test_dh_fk_replay_matches_the_eager_ops(fk_replay_bin, tmp_path, name,
+                                            vjp):
+    """The FK kernel and its VJP against the eager ops (``dh_chain``,
+    ``dh_vjp``) in float32 on the same rows, B = 133 (a ragged second
+    block): points 1e-5, dq 1e-5 of its largest component, every output
+    written."""
+    from diffco_tpu_torch.robots import fk_jvp
+    fk, q, col0 = _fk_case(name)
+    st, c = fk.statics, fk.dh_spec
+    J, P = st.n_joints, len(st.point_specs)
+    g = np.random.default_rng(32).normal(size=(B, 3 * P)).astype(np.float32)
+    src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
+    src.write_bytes(bytes(c) + q.tobytes() + (g.tobytes() if vjp else b''))
+    proc = subprocess.run([str(fk_replay_bin), 'vjp' if vjp else 'fk',
+                           str(B), str(q.shape[1]), str(col0), str(src),
+                           str(dst)], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+    out = np.frombuffer(dst.read_bytes(), np.float32)
+    qt = torch.from_numpy(q[:, col0:col0 + J])
+    axes, pts = fk_jvp.dh_chain(st, qt)
+    if vjp:
+        ref = fk_jvp.dh_vjp(st, axes, pts, torch.from_numpy(g)).numpy()
+        out = out.reshape(B, J)
+        tol = 1e-5 * float(np.abs(ref).max())
+    else:
+        ref = torch.stack([v for p in pts for v in p], -1).numpy()
+        out = out.reshape(B, 3 * P)
+        tol = 1e-5
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
