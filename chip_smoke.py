@@ -2817,12 +2817,11 @@ def _temporal(dev, timers):
 
 
 def rope_world(dev):
-    """The 35-link rope (robot_data.generate_rope_urdf, 4 spheres a link)
-    in tests/test_rope.py's box and sphere: (URDFRobot, ShapeEnv)."""
+    """The 35-link rope (``RopeRobot``: robot_data.generate_rope_urdf, 4
+    spheres a link) in tests/test_rope.py's box and sphere: (RopeRobot,
+    ShapeEnv)."""
     import diffco_tpu_torch as dc
-    from diffco_tpu_torch import robot_data
-    robot = dc.URDFRobot(robot_data.generate_rope_urdf(n_links=ROPE_LINKS),
-                         setup_acm=False, link_spheres=4, device=dev)
+    robot = dc.RopeRobot(n_links=ROPE_LINKS, device=dev)
     env = dc.ShapeEnv({
         'box1': {'type': 'Box', 'params': {'extents': [0.25, 0.25, 0.25]},
                  'transform': _T([0.18, 0.0, 0.05])},

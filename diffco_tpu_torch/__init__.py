@@ -62,7 +62,7 @@ from .robots import (Model, RevolutePlanarRobot, RigidPlanarBody, RigidBody,
                      BaxterFK, BaxterDualArmFK, PointRobot1D, ChainSpec)
 from .robots.capsule_chain import CapsuleChainCollision
 from .robots.urdf import (URDFRobot, MultiURDFRobot, KUKAiiwa, FrankaPanda,
-                          TwoLinkRobot, TrifingerEdu, parse_urdf,
+                          TwoLinkRobot, TrifingerEdu, RopeRobot, parse_urdf,
                           robot_description_folder)
 from .envs import ShapeEnv, PCDEnv, CollisionEnv, load_moveit_scene
 from .geometry.geometry2d import (Obstacles2D, planar_robot_signed_dist,
@@ -94,7 +94,8 @@ __all__ = [
     'DHParameters', 'PointRobot1D', 'ChainSpec', 'MultiURDFRobot',
     'DHChainRobot', 'PandaFK', 'DualPandaFK', 'BaxterLeftArmFK',
     'BaxterRightArmFK', 'BaxterFK', 'BaxterDualArmFK', 'CapsuleChainCollision', 'URDFRobot',
-    'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu', 'parse_urdf',
+    'KUKAiiwa', 'FrankaPanda', 'TwoLinkRobot', 'TrifingerEdu', 'RopeRobot',
+    'parse_urdf',
     'robot_description_folder', 'ShapeEnv', 'PCDEnv', 'CollisionEnv',
     'load_moveit_scene', 'Obstacles2D',
     'planar_robot_signed_dist', 'planar_robot_collision', 'OptimSampler',

@@ -34,7 +34,7 @@ from . import _native
 from .fused_score import (_poly_score_grad_plain, _poly_score_xla,
                           polyharmonic_score)
 from ..device import fp32_matmul
-from ..profiling import span, spanned
+from ..profiling import count, span, spanned
 from ..robots.analytic import DHChainRobot
 from ..robots.fk_jvp import (_FIXED, _IDENT9, _ZERO3, ChainStatics,
                              DHStatics, chain_vjp, dh_chain, dh_vjp,
@@ -146,7 +146,9 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
     (score [B, C], dq [C, B, D]); ``dq=False`` gives score [B] alone. A
     ``_native.ChainSpecWide`` ``c`` launches the wide instance,
     ``<name>_wide``, with the spec's device copy and a scratch of
-    ``_native.wide_scratch_floats`` for the joints' axes and origins."""
+    ``_native.wide_scratch_floats`` for the joints' axes and origins
+    (made in the span ``diffco.ops.wide_args``), and counts it in the
+    counter ``ops.wide_launches`` too."""
     _native.check_cuda_inputs(name, q, s, w)
     B, S = q.shape[0], s.shape[0]
     multi = w.dim() == 2
@@ -172,9 +174,11 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
                      entry or (f'{name}_wide' if wide else name))
         # held until the launch is queued, so that neither buffer's memory
         # goes to the other
-        extra = ((_on_device(bytes(c), q.device),
-                  q.new_empty(_native.wide_scratch_floats(B, c.M)))
-                 if wide else ())
+        extra = ()
+        if wide:
+            with span('diffco.ops.wide_args'):
+                extra = (_on_device(bytes(c), q.device),
+                         q.new_empty(_native.wide_scratch_floats(B, c.M)))
         with span('diffco.ops.launch'):
             rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
                     *(t.data_ptr() for t in outs), B, S,
@@ -183,6 +187,8 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
                     torch.cuda.current_stream(q.device).cuda_stream)
         _native.raise_on_error(name, rc)
         (globals() if counts is None else counts)[f'{name}_launches'] += 1
+        if wide:
+            count('ops.wide_launches')
     return tuple(outs) if dq else outs[0]
 
 

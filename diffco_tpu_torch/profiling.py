@@ -28,6 +28,9 @@ change of every counter (``count``) inside it:
     checker.update(num_samples=300)
     e = spans()[-1]            # Entry('diffco.checker.update', ...)
     e.counts['perceptron.greedy_steps'], (e.end_ns - e.start_ns) * 1e-9
+
+A counter is read outside any kept span too, as its running total
+(``counter('ops.wide_launches')``).
 """
 from __future__ import annotations
 
@@ -239,3 +242,9 @@ def reset_spans():
 def count(name: str, n: int = 1):
     """Add n to the counter ``name``."""
     _counters[name] = _counters.get(name, 0) + n
+
+
+def counter(name: str) -> int:
+    """The counter ``name`` now: all that ``count`` added to it in this
+    process (0 if nothing was)."""
+    return _counters.get(name, 0)

@@ -616,3 +616,20 @@ class TrifingerEdu(URDFRobot):
         super().__init__(
             _data_path('trifinger_edu_description', 'trifinger_edu.urdf'),
             name='trifinger_edu', **kwargs)
+
+
+class RopeRobot(URDFRobot):
+    """The rope of DiffCo's high-DOF rope test (ucsdarclab/diffco
+    examples/tests/test_rope.py:18-46), whose shipped URDF is broken: the
+    generated ``robot_data.generate_rope_urdf`` chain of ``n_links``
+    continuous joints, axes alternating y/x, 0.05 m links of radius 0.01.
+    Its control points are the link origins after the first (n_links - 1;
+    the last joint moves none). Without a self-collision matrix and with 4
+    spheres a link by default, as the rope test builds it."""
+
+    def __init__(self, n_links: int = 35, **kwargs):
+        from .. import robot_data
+        kwargs.setdefault('setup_acm', False)
+        kwargs.setdefault('link_spheres', 4)
+        super().__init__(robot_data.generate_rope_urdf(n_links=n_links),
+                         name=f'rope_{n_links}', **kwargs)
