@@ -19,8 +19,12 @@ instance with DMMA, the fp64 tensor cores' mma, in its SASS; the DH FK
 and its VJP (csrc/dh_fk.cu, ``_DHFkine``'s route on a float32 CUDA batch)
 against the eager ops in float32 and float64 on Baxter's arm at B = 448
 and 28672, PandaFK, PandaFK's chain with 16 points and the dual arm's
-right chain), then drives eleven paths through the entry points a user
-calls:
+right chain; the greedy trainer's kernel (csrc/greedy_train.cu) against
+its eager loop, bit for bit, on a warm-started update with padded rows at
+N = 820, fits at 4500 and 9000, a cut before done, C = 3 at N = 16384 and
+an oscillating pair that never finishes; every instance of each kernel
+within its launch bound's registers and unspilled), then drives eleven
+paths through the entry points a user calls:
 
 - PandaFK: ShapeEnv scene -> ForwardKinematicsDiffCo.fit -> verify /
   collision_score sweeps -> Adam trajectory optimization -> ground-truth
@@ -108,8 +112,9 @@ recomputes, and the kernel's error there, for several thresholds (their
 measurement builds): B1 and B2 on PandaFK, B3 and B2 on FrankaPanda.
 
 Each path runs with the launch counters set to 0 just before it and read
-just after, which shows that its sweeps went through its kernels. Then
-it times each kernel and its plain twin with CUDA events.
+just after, which shows that its sweeps went through its kernels and its
+fits and updates through the greedy trainer's (``perceptron.train_kernel``).
+Then it times each kernel and its plain twin with CUDA events.
 
 Prints the device, the card's name and power limit (nvidia-smi), one
 line per phase, a ``{"kernels": [...]}`` JSON line, and last
@@ -383,7 +388,8 @@ def _ptxas_report(log):
                       r'|(?:dh|poly|chain)_score_tc_kernel'
                       r'|poly_score_(?:f64|wide)_kernel'
                       r'|chain_wide_score_kernel'
-                      r'|dh_fk(?:_vjp)?_kernel)I((?:L[ib]\d+E)+)E',
+                      r'|dh_fk(?:_vjp)?_kernel|greedy_train_kernel)'
+                      r'I((?:L[ib]\d+E)+)E',
                       ln)
         if 'Compiling entry function' in ln and m:
             args = re.findall(r'L[ib](\d+)E', m.group(2))
@@ -498,6 +504,30 @@ def _check_fk_ptxas(regs):
                 raise AssertionError(f'ptxas: {line}')
     if any(v != FK_INSTANCES for v in found.values()):
         raise AssertionError(f'ptxas: DH FK instances found {found}')
+
+
+# the greedy trainer's kernel (csrc/greedy_train.cu): its block's threads
+# (kGreedyThreads, the launch bound) and its instances by rows a thread
+GREEDY_THREADS = 1024
+GREEDY_INSTANCES = {1, 2, 4, 8, 16}
+
+
+def _check_greedy_ptxas(regs):
+    """Every instance of the greedy trainer's kernel (GREEDY_INSTANCES at
+    GREEDY_THREADS) within its launch bound's registers (65536 over
+    ``GREEDY_THREADS``: 64) and unspilled, or fail."""
+    limit = 65536 // GREEDY_THREADS
+    found = set()
+    for line in regs:
+        m = re.match(rf'greedy_train_kernel<{GREEDY_THREADS},(\d+)>: (\d+) '
+                     r'regs/(\d+) B spilled', line)
+        if m:
+            found.add(int(m.group(1)))
+            if int(m.group(2)) > limit or int(m.group(3)) != 0:
+                raise AssertionError(f'ptxas: {line}')
+    if found != GREEDY_INSTANCES:
+        raise AssertionError(f'ptxas: greedy trainer instances found '
+                             f'{sorted(found)}')
 
 
 def _max_err(pairs):
@@ -1322,6 +1352,107 @@ def check_dh_fk_kernel(dev):
     out['cases'] = cases
     out['err'] = max(r['fk_err_f32'] for r in cases)
     out['vjp_err'] = max(r['vjp_err_f32'] for r in cases)
+    return out
+
+
+# (case, N, C, rows off in a warm start or None for a cold one,
+# max_iteration or None for the fits' 3 N): the update's warm start with
+# padded rows, the panda_dh and baxter_dh fits, one cut before done, the
+# rope's fit, and C = 3 at the kernel's largest N
+GREEDY_CASES = (('update', 820, 1, 100, None), ('fit', 4500, 1, None, None),
+                ('max_iteration cut', 4500, 1, None, 100),
+                ('rope fit', 9000, 1, None, None),
+                ('C = 3', 16384, 3, None, None))
+# the oscillating pair's iterations in the check and in the kernel table
+GREEDY_PAIR_CHECK, GREEDY_PAIR_ITERATIONS = 500, 10000
+
+
+def _greedy_problem(N, C, dev, seed):
+    """A Gram K [N, N] (RQ kernel, gamma 10) of rows uniform in a cube and
+    labels y [N, C] in +-1 from a wave, a phase a column (about half
+    positive; the trainer runs ~0.4 N iterations, removals among them)."""
+    from diffco_tpu_torch.kernels import RQKernel
+    gen = torch.Generator().manual_seed(seed)
+    X = (2 * torch.rand(N, 3, generator=gen) - 1).to(dev)
+    y = torch.stack([torch.where(torch.sin(3 * X[:, 0] + c)
+                                 * torch.cos(3 * X[:, 1]) + 0.3 * X[:, 2]
+                                 > 0, 1.0, -1.0) for c in range(C)], 1)
+    return RQKernel(10.0)(X, X).contiguous(), y
+
+
+def _eager_train(K, y, beta, max_iteration, g0=None, h0=None, valid=None):
+    """The greedy trainer's eager loop: ``_train_columns`` without the
+    Gram."""
+    from diffco_tpu_torch import perceptron
+    return perceptron._train_columns(lambda idx: K[idx], torch.diagonal(K),
+                                     y, beta, max_iteration, g0, h0, valid)
+
+
+def check_greedy_train_kernel(dev):
+    """The greedy trainer's kernel (csrc/greedy_train.cu through
+    ``perceptron._train_kernel``) at GREEDY_CASES and on the oscillating
+    pair (two rows on one point with opposite labels: no iteration
+    finishes, so it runs to max_iteration) against the eager loop on the
+    same inputs: equal gains and hypotheses in every bit, equal
+    iterations, one ``perceptron.train_kernel`` and at most one kernel in
+    a trace a call. Returns the cases and, for the kernel table, the inputs
+    of the update, the fit, the rope's fit and the pair (at
+    GREEDY_PAIR_ITERATIONS) with their iterations."""
+    from diffco_tpu_torch import perceptron, profiling
+    t0 = time.perf_counter()
+    cases, out = [], {'args': {}, 'iterations': {}}
+    pair = (torch.ones(2, 2, device=dev),
+            torch.tensor([[1.0], [-1.0]], device=dev))
+    for name, N, C, off, it in GREEDY_CASES + (
+            ('oscillating pair', 2, 1, None, GREEDY_PAIR_CHECK),):
+        K, y = pair if N == 2 else _greedy_problem(N, C, dev, N + C)
+        it = 3 * N if it is None else it
+        g0 = h0 = valid = None
+        if off is not None:
+            h = N // 2
+            g, _, _ = _eager_train(K[:h, :h].contiguous(), y[:h], 1.0, 60)
+            g0 = torch.cat([g, g.new_zeros(N - h, C)])
+            h0 = K @ g0
+            valid = torch.ones(N, dtype=torch.bool, device=dev)
+            valid[torch.randperm(N, generator=torch.Generator()
+                                 .manual_seed(N))[:off].to(dev)] = False
+        args = (K, y, 1.0, it, g0, h0, valid)
+        if not perceptron.takes_train_kernel(K, y, it, g0, h0):
+            raise AssertionError(f'greedy_train {name}: not on the kernel')
+        calls = profiling.counter('perceptron.train_kernel')
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = perceptron._train_kernel(*args)
+            torch.cuda.synchronize()
+        launched = sum('greedy_train_kernel' in e.name()
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA)
+        if (profiling.counter('perceptron.train_kernel') != calls + 1
+                or launched > 1):
+            raise AssertionError(f'greedy_train {name}: not one launch '
+                                 f'({launched} in the trace)')
+        t1 = time.perf_counter()
+        ref = _eager_train(*args)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t1
+        for a, b, what in ((got[0], ref[0], 'gains'),
+                           (got[1], ref[1], 'hypothesis')):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f'greedy_train {name}: {what} differ '
+                                     'from the eager loop\'s')
+        n = int(got[2])
+        if n != int(ref[2]) or (N == 2 and n != it):
+            raise AssertionError(f'greedy_train {name}: {n} iterations, '
+                                 f'the eager loop {int(ref[2])}')
+        cases.append(dict(case=name, N=N, C=C, iterations=n,
+                          eager_ms_per_iteration=1e3 * eager_s / max(n, 1)))
+        if name in ('update', 'fit', 'rope fit', 'oscillating pair'):
+            if N == 2:
+                args = args[:3] + (GREEDY_PAIR_ITERATIONS,) + args[4:]
+                n = GREEDY_PAIR_ITERATIONS
+            out['args'][name], out['iterations'][name] = args, n
+    _phase('greedy trainer kernel', t0, cases=json.dumps(cases))
+    out['cases'] = cases
     return out
 
 
@@ -3025,7 +3156,7 @@ def _time_ms(fn, warmup, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, launches):
+def kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, gt, launches):
     """Time each kernel and its plain twin at the checked shapes; the bound
     counts each input read once and each output written once, and
     ``score_ops`` for the score block (with C weight columns for B4, B5),
@@ -3048,7 +3179,15 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, launches):
     its VJP (csrc/dh_fk.cu) at Baxter's B = 28672, against the eager ops,
     with ``device_ms`` and a bound of q (and g) read and the points (dq)
     written once, and ``dh_ops`` without (the FK) or with (the VJP, which
-    recomputes the chain) the backward."""
+    recomputes the chain) the backward. The greedy trainer's kernel
+    (csrc/greedy_train.cu) on the fit's inputs against its eager loop, with
+    the device us an iteration on the update's, the fit's and the rope
+    fit's, and a latency bound: no bytes or operations bound it (4N bytes
+    and ~12N operations an iteration), so ``bound_ms`` is the fit's
+    iterations at the kernel's own device time an iteration on the
+    oscillating pair, where two threads have a row: the fused block
+    reduction, both barriers and the picked row's dependent read."""
+    from diffco_tpu_torch import perceptron
     from diffco_tpu_torch.ops import _native, fk_score, fused_score
     from diffco_tpu_torch.robots import fk_jvp
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
@@ -3226,6 +3365,26 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, launches):
         for name, gk, n_q, C, err in (('dh_fk', None, 1, 0, fk['err']),
                                       ('dh_fk_vjp', gf, 2, 1,
                                        fk['vjp_err']))]
+
+    def greedy_us(case):
+        """The kernel's device us an iteration on a case's inputs."""
+        return 1e3 * rf.device_ms(
+            lambda: perceptron._train_kernel(*gt['args'][case]),
+            'greedy_train_kernel') / gt['iterations'][case]
+    floor_us = greedy_us('oscillating pair')
+    fit = gt['args']['fit']
+    greedy_rows = [row(
+        'greedy_train', 'diffco_tpu_torch/csrc/greedy_train.cu',
+        'diffco_tpu/perceptron.py:117', list(fit[1].shape), dict(err=0.0),
+        lambda: perceptron._train_kernel(*fit), lambda: _eager_train(*fit),
+        1e-3 * floor_us * gt['iterations']['fit'],
+        'latency (the oscillating pair)',
+        us_per_iteration={c: greedy_us(c)
+                          for c in ('update', 'fit', 'rope fit')},
+        floor_us_per_iteration=floor_us,
+        iterations={c: n for c, n in gt['iterations'].items()
+                    if c != 'oscillating pair'},
+        cases=gt['cases'])]
     return [
         row('poly_score_grad', 'diffco_tpu_torch/csrc/poly_score.cu',
             'diffco_tpu/ops/fused_score.py:138', [B, S, F], b2,
@@ -3291,16 +3450,22 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, launches):
             plans={C: b5[f'plan_c{C}'] for C in (1, 2, 5, 8)},
             warps_per_sm=b5['plan_c5']['warps_per_sm'],
             wide=wide_at(wide['chain_multi_score_grad'])),
-    ] + dual_rows + mode_rows + fk_rows
+    ] + dual_rows + mode_rows + fk_rows + greedy_rows
 
 
 _FK_KERNELS = ('dh_score_grad', 'chain_score_grad', 'dh_multi_score_grad',
                'chain_multi_score_grad')
 
 
+# ``perceptron.train_kernel`` at the last ``_zero_launches``
+_greedy_base = 0
+
+
 def _read_launches():
     """Every launch counter: one per wrapper, and per B6 variant and B7
-    mode as '<wrapper>:<variant or mode>'."""
+    mode as '<wrapper>:<variant or mode>'; the greedy trainer's kernel
+    from the counter ``perceptron.train_kernel``."""
+    from diffco_tpu_torch import profiling
     from diffco_tpu_torch.ops import fk_score, fused_score
     from diffco_tpu_torch.robots import fk_jvp
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
@@ -3315,10 +3480,14 @@ def _read_launches():
                 for k, n in rf.dh_ablation_launches_by_mode.items()})
     out['dh_fk'] = fk_jvp.dh_fk_launches
     out['dh_fk_vjp'] = fk_jvp.dh_fk_vjp_launches
+    out['greedy_train'] = (profiling.counter('perceptron.train_kernel')
+                           - _greedy_base)
     return out
 
 
 def _zero_launches():
+    global _greedy_base
+    from diffco_tpu_torch import profiling
     from diffco_tpu_torch.ops import fk_score, fused_score
     from diffco_tpu_torch.robots import fk_jvp
     from diffco_tpu_torch.scripts import ab_dual_tile as ab
@@ -3332,6 +3501,7 @@ def _zero_launches():
     rf.dh_ablation_launches = 0
     rf.dh_ablation_launches_by_mode.update(dict.fromkeys(rf.MODES, 0))
     fk_jvp.dh_fk_launches = fk_jvp.dh_fk_vjp_launches = 0
+    _greedy_base = profiling.counter('perceptron.train_kernel')
 
 
 def main():
@@ -3365,6 +3535,7 @@ def main():
     _check_multi_ptxas(regs)
     _check_tc_ptxas(regs)
     _check_fk_ptxas(regs)
+    _check_greedy_ptxas(regs)
 
     robot = dc.PandaFK()
     b2 = check_poly_kernel(robot, dev)
@@ -3380,6 +3551,7 @@ def main():
     b5 = check_chain_multi_kernel(dev)
     b67 = check_roofline_kernels(robot, dev)
     fk = check_dh_fk_kernel(dev)
+    gt = check_greedy_train_kernel(dev)
 
     # count only each main path's own launches
     launches, planar, rigid, multi = {}, {}, {}, {}
@@ -3411,6 +3583,10 @@ def main():
                     ('Baxter', 'poly_score_grad'),
                     ('Baxter', 'dh_fk'),
                     ('Baxter', 'dh_fk_vjp'),
+                    ('PandaFK', 'greedy_train'),
+                    ('Baxter', 'greedy_train'),
+                    ('PandaFK active', 'greedy_train'),
+                    ('multi-robot', 'greedy_train'),
                     ('PandaFK active', 'dh_score_grad'),
                     ('PandaFK active', 'poly_score_grad'),
                     ('planar', 'poly_score_grad'),
@@ -3431,7 +3607,7 @@ def main():
 
     t0 = time.perf_counter()
     b2['planar'], b2['rigid'], b2['multi'] = planar, rigid, multi
-    rows = kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, launches)
+    rows = kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, gt, launches)
     _phase('kernel timing', t0)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.perf_counter() - t_start:.1f}s', flush=True)

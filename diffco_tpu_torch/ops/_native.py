@@ -41,6 +41,7 @@ MAX_CP = 21  # chain_fk.cuh kMaxCP (control points)
 # (a DH chain folded into chain form) up to F = 3P = MAX_F
 WIDE_MAX_M = WIDE_MAX_D = WIDE_MAX_CP = 64
 MAX_C = 8    # score_block.cuh kMaxC (classes of the multi-class kernels)
+GREEDY_MAX_N = 16384   # greedy_train.cu kGreedyMaxN (the trainer's rows)
 
 # csrc/multi_score_block.cuh's block (kMultiRows, kMultiThreads,
 # kMultiChunk, kMultiCols, the register instance's kRegCols, kRegMaxFP) and the
@@ -480,6 +481,12 @@ def _bind(libs):
     fn = libs['dh_fk'].dh_fk_vjp
     fn.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, cint,
                    ctypes.POINTER(DHSpec), ptr]
+    fn.restype = cint
+    # the greedy trainer (perceptron.py::_train_kernel): K, y, the warm
+    # start's gains and hypothesis, valid (each optional one may be null),
+    # N, C, beta, max_iteration, gains, hyp, iters, stream
+    fn = libs['greedy_train'].greedy_train
+    fn.argtypes = [ptr] * 5 + [cint, cint, ctypes.c_float, cint] + [ptr] * 4
     fn.restype = cint
 
 

@@ -13,7 +13,10 @@ iterations and records on the device the iteration at which it first
 held: the result equals that of a loop that stops at once. The scalar and
 the multi-class trainers are one loop over label columns [N, C] (C = 1
 for a scalar perceptron): each class takes its own greedy step per
-iteration, and the loop is done when every class is.
+iteration, and the loop is done when every class is. Over a dense float32
+Gram on the card, without a mesh, the whole loop is one launch of
+``csrc/greedy_train.cu``, bit for bit the eager loop
+(``takes_train_kernel``).
 
 Support sets are fixed-shape padded arrays with a validity mask, as in
 the JAX package. ``train(update=True, exist_mask=...)`` warm-starts from
@@ -31,6 +34,7 @@ import torch
 from .device import fp32_matmul
 from .kernels import KernelFunc, MultiDimRQKernel, MultiQuadratic, \
     Polyharmonic, RQKernel
+from .ops import _native
 from .profiling import count
 
 # iterations between host reads of the train loop's done flag
@@ -151,15 +155,74 @@ def _class_picks_sharded(gains, hyp, y, target, diagK, valid, shard,
     return idx, delta, done, feat
 
 
+def takes_train_kernel(K, y, max_iteration: int, init_gains=None,
+                       init_hypothesis=None) -> bool:
+    """Whether ``_train_columns`` runs its loop on ``csrc/greedy_train.cu``:
+    a float32 CUDA Gram K [N, N] of 1 to ``_native.GREEDY_MAX_N`` rows,
+    labels y [N, C] (C >= 1), 0 <= max_iteration < 2^31, and a warm start,
+    if any, in float32 on K's device. The CPU, float64 and a larger N keep
+    the eager loop, as do the sharded, the lazy-row and the vector-gain
+    trainers, which hand ``_train_columns`` no Gram."""
+    if K.dim() != 2 or y.dim() != 2:
+        return False
+    N = K.shape[0]
+    return (K.device.type == 'cuda' and K.dtype == torch.float32
+            and K.shape[1] == N == y.shape[0] and y.shape[1] >= 1
+            and 1 <= N <= _native.GREEDY_MAX_N
+            and 0 <= max_iteration < 2 ** 31
+            and all(t is None or (t.dtype == torch.float32
+                                  and t.device == K.device)
+                    for t in (init_gains, init_hypothesis)))
+
+
+def _train_kernel(K, y, beta: float, max_iteration: int, init_gains=None,
+                  init_hypothesis=None, valid_mask=None):
+    """``_train_columns``' eager loop on ``csrc/greedy_train.cu``: every
+    iteration of every label column (a block a column) in one launch on
+    the current stream, the same gains, hypothesis and iterations. The
+    iterations are read back once, for the counter
+    ``perceptron.greedy_steps``, and returned as a 0-d tensor on the host;
+    the call counts one in ``perceptron.train_kernel``."""
+    N, C = y.shape
+    K, y = K.contiguous(), y.contiguous()
+    g0, h0 = (None if t is None else t.reshape(N, C).contiguous()
+              for t in (init_gains, init_hypothesis))
+    _native.check_cuda_inputs('greedy_train', K, y,
+                              *(t for t in (g0, h0) if t is not None))
+    valid = None
+    if valid_mask is not None:
+        valid = valid_mask.reshape(-1).to(torch.bool).contiguous()
+        if valid.device != K.device or valid.shape != (N,):
+            raise ValueError(f'greedy_train: valid_mask {tuple(valid.shape)}'
+                             f' on {valid.device} for {N} rows on '
+                             f'{K.device}')
+    gains, hyp = torch.empty_like(y), torch.empty_like(y)
+    iters = torch.empty(C, dtype=torch.int64, device=K.device)
+    rc = _native.build()['greedy_train'].greedy_train(
+        K.data_ptr(), y.data_ptr(), *(None if t is None else t.data_ptr()
+                                      for t in (g0, h0, valid)),
+        N, C, beta, max_iteration, gains.data_ptr(), hyp.data_ptr(),
+        iters.data_ptr(), torch.cuda.current_stream(K.device).cuda_stream)
+    _native.raise_on_error('greedy_train', rc)
+    n = max(iters.tolist())
+    count('perceptron.greedy_steps', n)
+    count('perceptron.train_kernel')
+    return gains, hyp, torch.tensor(n)
+
+
 def _train_columns(rows, diagK, y, beta: float, max_iteration: int,
                    init_gains=None, init_hypothesis=None, valid_mask=None,
-                   shard=None, feats=None):
+                   shard=None, feats=None, gram=None):
     """Greedy training of every label column of y [N, C] over one Gram:
     ``rows(idx [C])`` returns the Gram rows [C, N] a step needs (gathered
     from K, or computed lazily). Each iteration folds either update into
     one scatter-add + axpy per class::
 
         gains[idx_c, c] += delta_c;  hyp[:, c] += delta_c * K[idx_c]
+
+    ``gram``: the dense Gram K [N, N] that ``rows`` gathers from (and
+    ``diagK`` is the diagonal of), where the caller holds it; without a
+    shard the loop then runs on its kernel where ``takes_train_kernel``.
 
     With ``shard`` (``parallel.sharding.RowShard``) every row argument is
     this rank's block of the rows, and each iteration's picks are combined
@@ -171,6 +234,10 @@ def _train_columns(rows, diagK, y, beta: float, max_iteration: int,
     N, C = y.shape
     dt, dev = diagK.dtype, diagK.device
     y = y.to(dt)
+    if gram is not None and shard is None and takes_train_kernel(
+            gram, y, max_iteration, init_gains, init_hypothesis):
+        return _train_kernel(gram, y, beta, max_iteration, init_gains,
+                             init_hypothesis, valid_mask)
     target = torch.where(y > 0, torch.full_like(y, beta),
                          torch.full_like(y, -1.0))
     valid = (torch.ones(N, dtype=torch.bool, device=dev) if valid_mask is None
@@ -229,7 +296,7 @@ def perceptron_train_loop(K, y, beta: float, max_iteration: int,
     gains, hyp, it = _train_columns(
         lambda idx: K[idx], torch.diagonal(K), y.reshape(-1, 1), beta,
         max_iteration, _column(init_gains), _column(init_hypothesis),
-        valid_mask)
+        valid_mask, gram=K)
     return gains[:, 0], hyp[:, 0], it
 
 
@@ -263,7 +330,7 @@ def multiclass_train_loop(K, y, beta: float, max_iteration: int,
     _check_classes(y, num_class)
     return _train_columns(lambda idx: K[idx], torch.diagonal(K), y, beta,
                           max_iteration, init_gains, init_hypothesis,
-                          valid_mask)
+                          valid_mask, gram=K)
 
 
 def multiclass_train_loop_lazy(Xt, y, kernel_func, beta: float,
@@ -676,7 +743,8 @@ class DiffCo(Perceptron):
                     Xt, K, shard, init_gains, vg, torch.matmul)
             gains, hyp, it = _train_columns(rows, diagK, y_train, self.beta,
                                             int(max_iteration), init_gains,
-                                            init_hyp, valid, shard, feats)
+                                            init_hyp, valid, shard, feats,
+                                            gram=K)
         if shard is not None:
             gains, hyp = shard.gather(gains)[:N], shard.gather(hyp)[:N]
             K = None   # the support Gram is recomputed from the kept rows
