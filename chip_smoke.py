@@ -111,9 +111,10 @@ share of pairs that the near-pair guard of the tensor-core kernels
 recomputes, and the kernel's error there, for several thresholds (their
 measurement builds): B1 and B2 on PandaFK, B3 and B2 on FrankaPanda.
 
-Each path runs with the launch counters set to 0 just before it and read
-just after, which shows that its sweeps went through its kernels and its
-fits and updates through the greedy trainer's (``perceptron.train_kernel``).
+Each path's launches are the change of the ``launches.<kernel>`` counters
+(``profiling.counters``) over it, which shows that its sweeps went through
+its kernels and its fits and updates through the greedy trainer's
+(``launches.greedy_train``).
 Then it times each kernel and its plain twin with CUDA events.
 
 Prints the device, the card's name and power limit (nvidia-smi), one
@@ -122,6 +123,7 @@ line per phase, a ``{"kernels": [...]}`` JSON line, and last
 exits non-zero and prints no result. Without a CUDA card it exits 1
 before doing anything.
 """
+import collections
 import json
 import math
 import re
@@ -132,6 +134,7 @@ import time
 import numpy as np
 import torch
 
+from diffco_tpu_torch import profiling
 from diffco_tpu_torch.ops.bounds import (ablation_tc_bound,
                                          ablation_tc_times, ablation_work,
                                          bound, chain_ops, chain_tc_bound,
@@ -981,11 +984,11 @@ def check_wide_kernels(dev):
                          fk_score._chain_score_grad_plain),
             (False, 3): (fk_score.chain_multi_score_grad,
                          fk_score._chain_multi_score_grad_plain)}[dh, C]
-        counter = f'{kernel.__name__}_launches'
-        before = getattr(fk_score, counter)
+        counter = f'launches.{kernel.__name__}'
+        before = profiling.counter(counter)
         score, dq = kernel(q, sup, w, spec)
         torch.cuda.synchronize()
-        if getattr(fk_score, counter) != before + 1:
+        if profiling.counter(counter) != before + 1:
             raise AssertionError(f'{kernel.__name__} ({name}) not counted')
         ref, ref_dq = plain(q, sup, w, spec)
         if C == 1:
@@ -1327,10 +1330,10 @@ def check_dh_fk_kernel(dev):
         g = torch.randn(B, 3 * c.P, generator=gen).to(dev)
         row = dict(robot=name, B=B, J=c.J, P=c.P)
         for kind, gk in (('fk', None), ('vjp', g)):
-            before = fk_jvp.dh_fk_launches + fk_jvp.dh_fk_vjp_launches
+            before = _launch_counts()
             got = fk_jvp._dh_fk_kernel(q, c, gk)
-            if fk_jvp.dh_fk_launches + fk_jvp.dh_fk_vjp_launches != \
-                    before + 1:
+            if _launch_counts() - before != {
+                    'dh_fk' if gk is None else 'dh_fk_vjp': 1}:
                 raise AssertionError(f'dh_fk {kind} on {name}: not one '
                                      'launch')
             tol = 1e-5 if kind == 'fk' else 1e-5 * max(
@@ -1394,11 +1397,11 @@ def check_greedy_train_kernel(dev):
     pair (two rows on one point with opposite labels: no iteration
     finishes, so it runs to max_iteration) against the eager loop on the
     same inputs: equal gains and hypotheses in every bit, equal
-    iterations, one ``perceptron.train_kernel`` and at most one kernel in
+    iterations, one ``launches.greedy_train`` and at most one kernel in
     a trace a call. Returns the cases and, for the kernel table, the inputs
     of the update, the fit, the rope's fit and the pair (at
     GREEDY_PAIR_ITERATIONS) with their iterations."""
-    from diffco_tpu_torch import perceptron, profiling
+    from diffco_tpu_torch import perceptron
     t0 = time.perf_counter()
     cases, out = [], {'args': {}, 'iterations': {}}
     pair = (torch.ones(2, 2, device=dev),
@@ -1419,7 +1422,7 @@ def check_greedy_train_kernel(dev):
         args = (K, y, 1.0, it, g0, h0, valid)
         if not perceptron.takes_train_kernel(K, y, it, g0, h0):
             raise AssertionError(f'greedy_train {name}: not on the kernel')
-        calls = profiling.counter('perceptron.train_kernel')
+        calls = profiling.counter('launches.greedy_train')
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             got = perceptron._train_kernel(*args)
@@ -1427,7 +1430,7 @@ def check_greedy_train_kernel(dev):
         launched = sum('greedy_train_kernel' in e.name()
                        for e in prof.profiler.kineto_results.events()
                        if e.device_type() == torch.autograd.DeviceType.CUDA)
-        if (profiling.counter('perceptron.train_kernel') != calls + 1
+        if (profiling.counter('launches.greedy_train') != calls + 1
                 or launched > 1):
             raise AssertionError(f'greedy_train {name}: not one launch '
                                  f'({launched} in the trace)')
@@ -1968,13 +1971,13 @@ def baxter_journey(dev):
     gt = cap.checker_fn(env)
     checker = dc.ForwardKinematicsDiffCo(robot=robot, gt_check_func=gt,
                                          seed=0, device=dev)
-    b1_before = fk_score.dh_score_grad_launches
+    b1_before = profiling.counter('launches.dh_score_grad')
     _fit(checker, FIT_SAMPLES, 'Baxter')
     spec = fk_score.robot_spec(robot)
     _sweeps(checker, robot, gt, dev,
             lambda q, s, w: fk_score._dh_score_grad_plain(q, s, w, spec),
             'Baxter')
-    b1 = fk_score.dh_score_grad_launches - b1_before
+    b1 = profiling.counter('launches.dh_score_grad') - b1_before
     _phase('Baxter fit and sweeps (B1 at FP = 16 on the fitted proxy)', t0,
            b1_launches=b1, points=len(spec[1]))
     if b1 <= 0:
@@ -2993,11 +2996,11 @@ def _rope(dev, timers):
             raise AssertionError('the rope does not take B3\'s wide instance')
         _fit(checker, ROPE_FIT, 'rope')
     with timers.span('rope, sweeps', block=True):
-        before = fk_score.chain_score_grad_launches
+        before = profiling.counter('launches.chain_score_grad')
         fitted = _sweeps(checker, robot, checker.gt_check_func, dev,
                          lambda q, s, w: fk_score._chain_score_grad_plain(
                              q, s, w, cs), 'rope')
-        if fk_score.chain_score_grad_launches == before:
+        if profiling.counter('launches.chain_score_grad') == before:
             raise AssertionError('B3 did not launch on the rope\'s sweep')
     e = fitted['errs']
     print('rope sweeps, the wide instances against float64 (the first wide '
@@ -3453,55 +3456,18 @@ def kernel_table(b2, b1, b3, b4, b5, b67, wide, fk, gt, launches):
     ] + dual_rows + mode_rows + fk_rows + greedy_rows
 
 
-_FK_KERNELS = ('dh_score_grad', 'chain_score_grad', 'dh_multi_score_grad',
-               'chain_multi_score_grad')
-
-
-# ``perceptron.train_kernel`` at the last ``_zero_launches``
-_greedy_base = 0
-
-
-def _read_launches():
-    """Every launch counter: one per wrapper, and per B6 variant and B7
-    mode as '<wrapper>:<variant or mode>'; the greedy trainer's kernel
-    from the counter ``perceptron.train_kernel``."""
-    from diffco_tpu_torch import profiling
-    from diffco_tpu_torch.ops import fk_score, fused_score
-    from diffco_tpu_torch.robots import fk_jvp
-    from diffco_tpu_torch.scripts import ab_dual_tile as ab
-    from diffco_tpu_torch.scripts import roofline_fk_score as rf
-    out = {'poly_score_grad': fused_score.poly_score_grad_launches}
-    out.update({k: getattr(fk_score, f'{k}_launches') for k in _FK_KERNELS})
-    out['dh_dual_score_grad'] = ab.dh_dual_score_grad_launches
-    out.update({f'dh_dual_score_grad:{k}': n for k, n in
-                ab.dh_dual_score_grad_launches_by_variant.items()})
-    out['dh_ablation'] = rf.dh_ablation_launches
-    out.update({f'dh_ablation:{k}': n
-                for k, n in rf.dh_ablation_launches_by_mode.items()})
-    out['dh_fk'] = fk_jvp.dh_fk_launches
-    out['dh_fk_vjp'] = fk_jvp.dh_fk_vjp_launches
-    out['greedy_train'] = (profiling.counter('perceptron.train_kernel')
-                           - _greedy_base)
+def _launch_counts():
+    """The ``launches.<kernel>`` counters now, by kernel; a B6 variant's
+    and a B7 mode's ('<kernel>:<variant or mode>') count under
+    '<kernel>' too. Subtracting two gives the launches between them."""
+    out = collections.Counter()
+    for name, n in profiling.counters().items():
+        if name.startswith('launches.'):
+            kernel = name[len('launches.'):]
+            out[kernel] += n
+            if ':' in kernel:
+                out[kernel.split(':')[0]] += n
     return out
-
-
-def _zero_launches():
-    global _greedy_base
-    from diffco_tpu_torch import profiling
-    from diffco_tpu_torch.ops import fk_score, fused_score
-    from diffco_tpu_torch.robots import fk_jvp
-    from diffco_tpu_torch.scripts import ab_dual_tile as ab
-    from diffco_tpu_torch.scripts import roofline_fk_score as rf
-    fused_score.poly_score_grad_launches = 0
-    for k in _FK_KERNELS:
-        setattr(fk_score, f'{k}_launches', 0)
-    ab.dh_dual_score_grad_launches = 0
-    ab.dh_dual_score_grad_launches_by_variant.update(
-        dict.fromkeys(ab.VARIANTS, 0))
-    rf.dh_ablation_launches = 0
-    rf.dh_ablation_launches_by_mode.update(dict.fromkeys(rf.MODES, 0))
-    fk_jvp.dh_fk_launches = fk_jvp.dh_fk_vjp_launches = 0
-    _greedy_base = profiling.counter('perceptron.train_kernel')
 
 
 def main():
@@ -3510,6 +3476,8 @@ def main():
         return 1
     import diffco_tpu_torch as dc
     from diffco_tpu_torch.ops import _native
+    from diffco_tpu_torch.scripts import ab_dual_tile as ab
+    from diffco_tpu_torch.scripts import roofline_fk_score as rf
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -3569,10 +3537,11 @@ def main():
                           multi_robot_journey(dev))),
                       ('mesh', lambda: mesh_journey(robot, dev)),
                       ('roofline', lambda: roofline_path(dev))):
-        _zero_launches()
+        before = _launch_counts()
         run()
-        launches[path] = _read_launches()
-    print(f'launches on the main paths: {launches}', flush=True)
+        launches[path] = _launch_counts() - before
+    print('launches on the main paths: '
+          f'{ {k: dict(n) for k, n in launches.items()} }', flush=True)
     for path, k in (('PandaFK', 'poly_score_grad'),
                     ('PandaFK', 'dh_score_grad'),
                     ('FrankaPanda', 'poly_score_grad'),
@@ -3598,9 +3567,9 @@ def main():
                     ('roofline', 'dh_score_grad'),
                     ('roofline', 'dh_dual_score_grad'),
                     ('roofline', 'dh_ablation'),
-                    *(('roofline', k) for k in launches['roofline']
-                      if k.startswith(('dh_dual_score_grad:',
-                                       'dh_ablation:')))):
+                    *(('roofline', f'dh_dual_score_grad:{v}')
+                      for v in ab.VARIANTS),
+                    *(('roofline', f'dh_ablation:{m}') for m in rf.MODES)):
         if launches[path][k] <= 0:
             raise AssertionError(f'{k} was never launched on the {path} '
                                  'path')

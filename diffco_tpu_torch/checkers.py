@@ -40,6 +40,12 @@ from .sampler import (path_band_samples,
                       uniform_sample_on_transformed_manifold)
 
 
+def _safety_bias(scores):
+    """The safety bias of a sweep's scores, min(|min|, |max|) / 3, as a
+    0-d tensor."""
+    return torch.minimum(torch.abs(scores.min()), torch.abs(scores.max())) / 3
+
+
 def _numpy(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -239,13 +245,25 @@ class RBFDiffCo(CollisionChecker):
                 kernel_func=kernel.Polyharmonic(k=1, epsilon=1),
                 target='label')
         with span('diffco.checker.verify'):
-            self.safety_bias = self._calculate_safety_bias(q_verify)
+            # one sweep gives the safety bias and the metrics, one host
+            # read brings them back; an empty split (a warm update with no
+            # new rows) takes the bias from 100 fresh configurations, as
+            # _calculate_safety_bias does
+            with torch.no_grad():
+                rows = (q_verify if q_verify.shape[0]
+                        else self._rand_configs(100))
+                scores = self._sweep_scores(rows)
+            bias = _safety_bias(scores)
+            verify_acc = verify_tpr = verify_tnr = None
             if verify_ratio:
-                verify_acc, verify_tpr, verify_tnr = self.verify(
-                    q_verify, labels_verify, verbose=verbose)
+                metrics = self._verify_metrics(
+                    scores if rows is q_verify else scores[:0], bias,
+                    labels_verify, verbose)
+                (self.safety_bias, verify_acc, verify_tpr,
+                 verify_tnr) = torch.stack([bias, *metrics]).tolist()
                 self.q_verify = q_verify
             else:
-                verify_acc = verify_tpr = verify_tnr = None
+                self.safety_bias = float(bias)
         self.perceptron_trained = True
         return verify_acc, verify_tpr, verify_tnr
 
@@ -339,11 +357,18 @@ class RBFDiffCo(CollisionChecker):
         q_verify = self._tensor(q_verify)
         with torch.no_grad():
             scores = self._sweep_scores(q_verify)
-        preds = 2 * (scores > 0).long() - 1
-        biased_preds = 2 * (scores + self.safety_bias > 0).long() - 1
         if labels_verify is None:
             labels_verify = (2 * self._tensor(self._gt_labels(q_verify))
                              - 1)
+        return tuple(torch.stack(self._verify_metrics(
+            scores, self.safety_bias, labels_verify, verbose)).tolist())
+
+    def _verify_metrics(self, scores, bias, labels_verify, verbose=False):
+        """The biased (acc, tpr, tnr) of sweep scores against labels in
+        +-1, as 0-d tensors on the scores' device; ``verbose`` prints the
+        unbiased and the biased ones."""
+        preds = 2 * (scores > 0).long() - 1
+        biased_preds = 2 * (scores + bias > 0).long() - 1
         labels_verify = self._tensor(labels_verify).reshape(-1)
 
         def metrics(p):
@@ -363,7 +388,7 @@ class RBFDiffCo(CollisionChecker):
         if verbose:
             print(f'Biased Test acc: {bacc:.4f}, TPR {btpr:.4f}, '
                   f'TNR {btnr:.4f}')
-        return (float(bacc), float(btpr), float(btnr))
+        return bacc, btpr, btnr
 
     # -- inference ------------------------------------------------------------
 
@@ -435,10 +460,7 @@ class RBFDiffCo(CollisionChecker):
         """min(|min score|, |max score|) / 3."""
         if q_verify.shape[0] == 0:
             q_verify = self._rand_configs(100)
-        scores = self._sweep_scores(q_verify)
-        min_polar = torch.minimum(torch.abs(scores.min()),
-                                  torch.abs(scores.max()))
-        return float(min_polar / 3)
+        return float(_safety_bias(self._sweep_scores(q_verify)))
 
     def normalizer(self, unnormalized_q):
         lims = self.robot.joint_limits.to(unnormalized_q.device)

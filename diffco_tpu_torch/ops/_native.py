@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from ..profiling import span
+from ..profiling import count, span
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD = Path(__file__).resolve().parents[2] / 'build' / 'diffco_tpu_torch'
@@ -563,3 +563,13 @@ def check_cuda_inputs(name, *tensors):
 def raise_on_error(name, rc: int):
     if rc != 0:
         raise RuntimeError(f'{name}: CUDA launch failed with cudaError {rc}')
+
+
+def launch(lib: str, entry: str, *args, kernel: str | None = None):
+    """Launch a kernel: call the C entry ``entry`` of the library ``lib``
+    (looked up in ``build()`` at each call) with ``args``, raise on a
+    nonzero return code, else count one in the counter
+    ``launches.<kernel>`` (default ``launches.<entry>``). Every
+    production launch of the package goes through here."""
+    raise_on_error(entry, getattr(build()[lib], entry)(*args))
+    count(f'launches.{kernel or entry}')

@@ -46,12 +46,6 @@ from ..robots.urdf import URDFRobot
 # below it the route stays twice-differentiable in every argument
 _FK_FUSED_MIN_BATCH = 4096
 
-# launches of each CUDA kernel (not of the plain twins), for run accounting
-dh_score_grad_launches = 0
-chain_score_grad_launches = 0
-dh_multi_score_grad_launches = 0
-chain_multi_score_grad_launches = 0
-
 
 def robot_spec(robot) -> Tuple:
     """Hashable (dh_const, point_specs, base) spec for a DHChainRobot."""
@@ -136,19 +130,17 @@ def _on_device(blob: bytes, device: torch.device) -> torch.Tensor:
     return torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
 
 
-def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
-            dq=True):
+def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, dq=True):
     """Check the inputs of a one-pass FK kernel, allocate its outputs and
     launch the C function ``entry`` (default ``name``) of ``lib``, with
-    ``ints`` after B and S, counting the launch in ``<name>_launches`` of
-    the namespace ``counts`` (default this module's): weights w [S] give
-    (score [B], dq [B, D]), weight columns W [S, C] give
-    (score [B, C], dq [C, B, D]); ``dq=False`` gives score [B] alone. A
-    ``_native.ChainSpecWide`` ``c`` launches the wide instance,
-    ``<name>_wide``, with the spec's device copy and a scratch of
-    ``_native.wide_scratch_floats`` for the joints' axes and origins
-    (made in the span ``diffco.ops.wide_args``), and counts it in the
-    counter ``ops.wide_launches`` too."""
+    ``ints`` after B and S, counted in ``launches.<name>``
+    (``_native.launch``): weights w [S] give (score [B], dq [B, D]),
+    weight columns W [S, C] give (score [B, C], dq [C, B, D]);
+    ``dq=False`` gives score [B] alone. A ``_native.ChainSpecWide`` ``c``
+    launches the wide instance, ``<name>_wide``, with the spec's device
+    copy and a scratch of ``_native.wide_scratch_floats`` for the joints'
+    axes and origins (made in the span ``diffco.ops.wide_args``), and
+    counts it in the counter ``ops.wide_launches`` too."""
     _native.check_cuda_inputs(name, q, s, w)
     B, S = q.shape[0], s.shape[0]
     multi = w.dim() == 2
@@ -170,8 +162,6 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
     if wide and entry is not None:
         raise ValueError(f'{name}: the wide instance has no entry {entry}')
     if B > 0:
-        fn = getattr(_native.build()[lib],
-                     entry or (f'{name}_wide' if wide else name))
         # held until the launch is queued, so that neither buffer's memory
         # goes to the other
         extra = ()
@@ -180,13 +170,13 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, counts=None,
                 extra = (_on_device(bytes(c), q.device),
                          q.new_empty(_native.wide_scratch_floats(B, c.M)))
         with span('diffco.ops.launch'):
-            rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
-                    *(t.data_ptr() for t in outs), B, S,
-                    *((C,) if multi else ()), *ints, ctypes.byref(c),
-                    *(t.data_ptr() for t in extra),
-                    torch.cuda.current_stream(q.device).cuda_stream)
-        _native.raise_on_error(name, rc)
-        (globals() if counts is None else counts)[f'{name}_launches'] += 1
+            _native.launch(
+                lib, entry or (f'{name}_wide' if wide else name),
+                q.data_ptr(), s.data_ptr(), w.data_ptr(),
+                *(t.data_ptr() for t in outs), B, S,
+                *((C,) if multi else ()), *ints, ctypes.byref(c),
+                *(t.data_ptr() for t in extra),
+                torch.cuda.current_stream(q.device).cuda_stream, kernel=name)
         if wide:
             count('ops.wide_launches')
     return tuple(outs) if dq else outs[0]
@@ -210,14 +200,13 @@ def dh_score_guard_pairs(q, s, w, spec, kappa):
     recomputes d2 by direct difference where the expanded form falls below
     kappa (|x~|^2 + |s~|^2)): (score [B], dq [B, J], the number of
     (configuration, support) pairs the guard recomputed). A measurement
-    entry for float32 CUDA tensors; production launches go through
-    ``dh_score_grad`` and are the only ones counted."""
+    entry for float32 CUDA tensors, counted under its own entry name;
+    production launches go through ``dh_score_grad``."""
     pairs = torch.zeros(1, dtype=torch.int64, device=q.device)
-    score, dq = _launch('dh_score_grad', 'dh_score', q, s, w, _c_spec(spec),
-                        len(spec[0]), len(spec[1]),
+    score, dq = _launch('dh_score_grad_guard', 'dh_score', q, s, w,
+                        _c_spec(spec), len(spec[0]), len(spec[1]),
                         ctypes.c_float(kappa), pairs.data_ptr(),
-                        entry='dh_score_grad_guard', counts={
-                            'dh_score_grad_launches': 0})
+                        entry='dh_score_grad_guard')
     return score, dq, int(pairs.item())
 
 
@@ -406,13 +395,12 @@ def chain_score_guard_pairs(q, s, w, cs: ChainStatics, kappa):
     """B3's kernel in its measurement build (``chain_score_grad_guard``),
     as ``dh_score_guard_pairs`` is B1's: (score [B], dq [B, D], the
     number of pairs the near-pair guard recomputed at threshold
-    ``kappa``). Not counted as a launch."""
+    ``kappa``), counted under its own entry name."""
     c = _c_chain_spec(cs)
     pairs = torch.zeros(1, dtype=torch.int64, device=q.device)
-    score, dq = _launch('chain_score_grad', 'chain_score', q, s, w, c, c.D,
-                        c.P, ctypes.c_float(kappa), pairs.data_ptr(),
-                        entry='chain_score_grad_guard', counts={
-                            'chain_score_grad_launches': 0})
+    score, dq = _launch('chain_score_grad_guard', 'chain_score', q, s, w, c,
+                        c.D, c.P, ctypes.c_float(kappa), pairs.data_ptr(),
+                        entry='chain_score_grad_guard')
     return score, dq, int(pairs.item())
 
 

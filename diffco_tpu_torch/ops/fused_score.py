@@ -26,9 +26,6 @@ from ..device import fp32_matmul
 # the JAX package's batch gate (fused_score.py:57-59), kept as the contract
 _FUSED_MIN_BATCH = 16384
 
-# launches of the CUDA kernel (not of the plain twin), for run accounting
-poly_score_grad_launches = 0
-
 _PLAIN_ROWS = 4096   # rows per chunk of the plain twin's [rows, S, F] block
 
 
@@ -54,8 +51,8 @@ def _poly_score_grad_plain(x, s, w):
 
 def _poly_launch(x, s, w, *args, entry='poly_score_grad'):
     """Check B2's inputs, allocate its outputs and launch the C function
-    ``entry`` of ``csrc/poly_score.cu`` with ``args`` after F:
-    (score [B], dx [B, F])."""
+    ``entry`` of ``csrc/poly_score.cu`` with ``args`` after F, counted in
+    ``launches.<entry>`` (``_native.launch``): (score [B], dx [B, F])."""
     _native.check_cuda_inputs('poly_score_grad', x, s, w)
     B, F = x.shape
     S = s.shape[0]
@@ -67,11 +64,10 @@ def _poly_launch(x, s, w, *args, entry='poly_score_grad'):
     score = torch.empty(B, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     if B > 0:
-        fn = getattr(_native.build()['poly_score'], entry)
-        rc = fn(x.data_ptr(), s.data_ptr(), w.data_ptr(), score.data_ptr(),
-                dx.data_ptr(), B, S, F, *args,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        _native.raise_on_error(entry, rc)
+        _native.launch('poly_score', entry, x.data_ptr(), s.data_ptr(),
+                       w.data_ptr(), score.data_ptr(), dx.data_ptr(), B, S,
+                       F, *args,
+                       torch.cuda.current_stream(x.device).cuda_stream)
     return score, dx
 
 
@@ -82,21 +78,17 @@ def poly_score_grad(x, s, w):
     ``csrc/tc_score_block.cuh``, or at F <= 8 its fp64 instance and at
     F = 65-192 its wide one) or raises; a CPU tensor runs the plain
     twin."""
-    global poly_score_grad_launches
     if x.device.type == 'cpu':
         return _poly_score_grad_plain(x, s, w)
-    score, dx = _poly_launch(x, s, w)
-    if x.shape[0] > 0:
-        poly_score_grad_launches += 1
-    return score, dx
+    return _poly_launch(x, s, w)
 
 
 def poly_score_guard_pairs(x, s, w, kappa):
     """B2's kernel in its measurement build (``poly_score_grad_guard``)
     with the near-pair guard at threshold ``kappa``: (score [B], dx [B, F],
     the number of (row, support) pairs the guard recomputed). A
-    measurement entry for float32 CUDA tensors, not counted as a launch;
-    production launches go through ``poly_score_grad``."""
+    measurement entry for float32 CUDA tensors, counted under its own
+    entry name; production launches go through ``poly_score_grad``."""
     pairs = torch.zeros(1, dtype=torch.int64, device=x.device)
     score, dx = _poly_launch(x, s, w, ctypes.c_float(kappa),
                              pairs.data_ptr(), entry='poly_score_grad_guard')

@@ -182,7 +182,8 @@ def _train_kernel(K, y, beta: float, max_iteration: int, init_gains=None,
     the current stream, the same gains, hypothesis and iterations. The
     iterations are read back once, for the counter
     ``perceptron.greedy_steps``, and returned as a 0-d tensor on the host;
-    the call counts one in ``perceptron.train_kernel``."""
+    the launch counts one in ``launches.greedy_train``
+    (``_native.launch``)."""
     N, C = y.shape
     K, y = K.contiguous(), y.contiguous()
     g0, h0 = (None if t is None else t.reshape(N, C).contiguous()
@@ -198,15 +199,13 @@ def _train_kernel(K, y, beta: float, max_iteration: int, init_gains=None,
                              f'{K.device}')
     gains, hyp = torch.empty_like(y), torch.empty_like(y)
     iters = torch.empty(C, dtype=torch.int64, device=K.device)
-    rc = _native.build()['greedy_train'].greedy_train(
-        K.data_ptr(), y.data_ptr(), *(None if t is None else t.data_ptr()
-                                      for t in (g0, h0, valid)),
+    _native.launch(
+        'greedy_train', 'greedy_train', K.data_ptr(), y.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (g0, h0, valid)),
         N, C, beta, max_iteration, gains.data_ptr(), hyp.data_ptr(),
         iters.data_ptr(), torch.cuda.current_stream(K.device).cuda_stream)
-    _native.raise_on_error('greedy_train', rc)
     n = max(iters.tolist())
     count('perceptron.greedy_steps', n)
-    count('perceptron.train_kernel')
     return gains, hyp, torch.tensor(n)
 
 

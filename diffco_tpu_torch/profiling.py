@@ -30,7 +30,8 @@ change of every counter (``count``) inside it:
     e.counts['perceptron.greedy_steps'], (e.end_ns - e.start_ns) * 1e-9
 
 A counter is read outside any kept span too, as its running total
-(``counter('ops.wide_launches')``).
+(``counter('ops.wide_launches')``). Every launch of a hand-written kernel
+counts one in ``launches.<kernel>`` (``ops._native.launch``).
 """
 from __future__ import annotations
 
@@ -248,3 +249,8 @@ def counter(name: str) -> int:
     """The counter ``name`` now: all that ``count`` added to it in this
     process (0 if nothing was)."""
     return _counters.get(name, 0)
+
+
+def counters() -> Dict[str, int]:
+    """Every counter now, by name (a copy)."""
+    return dict(_counters)

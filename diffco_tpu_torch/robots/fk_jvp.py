@@ -36,16 +36,12 @@ import numpy as np
 import torch
 
 from ..ops import _native
-from ..profiling import count, span
+from ..profiling import span
 from .soa import (dh_rot_trans, rot_apply, rot_compose, rot_from_axis_angle,
                   stack_points, transform_compose, vec_add)
 
 _ZERO3 = (0.0, 0.0, 0.0)
 _IDENT9 = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
-
-# launches of the FK kernels (csrc/dh_fk.cu), for run accounting
-dh_fk_launches = 0
-dh_fk_vjp_launches = 0
 
 
 def _cross(a, b):
@@ -157,7 +153,7 @@ def _dh_fk_kernel(q, c, g=None):
     """The FK x [B, 3P] of ``q`` [B, J] (``g`` None) or its VJP dq [B, J]
     with point cotangents ``g`` [B, 3P], on ``csrc/dh_fk.cu``: one launch
     on the current stream (none for an empty batch), counted in
-    ``<entry>_launches`` and the counter ``robots.fk_kernel``."""
+    ``launches.dh_fk`` or ``launches.dh_fk_vjp`` (``_native.launch``)."""
     if q.shape[1] != c.J:
         raise ValueError(f'dh_fk: q has {q.shape[1]} columns, the chain '
                          f'{c.J} joints')
@@ -174,12 +170,8 @@ def _dh_fk_kernel(q, c, g=None):
             raise ValueError(f'dh_fk_vjp: g {tuple(g.shape)} on {g.device} '
                              f'for {B} rows of {c.P} points on {q.device}')
         ptrs = (q.data_ptr(), q.stride(0), g.data_ptr(), out.data_ptr())
-    rc = getattr(_native.build()['dh_fk'], name)(
-        *ptrs, B, ctypes.byref(c),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _native.raise_on_error(name, rc)
-    globals()[f'{name}_launches'] += 1
-    count('robots.fk_kernel')
+    _native.launch('dh_fk', name, *ptrs, B, ctypes.byref(c),
+                   torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 

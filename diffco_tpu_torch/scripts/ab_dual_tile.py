@@ -41,27 +41,22 @@ from . import roofline_fk_score as rf
 VARIANTS = {'dual_seq_256': 0, 'dual_pipe_256': 1, 'dual_pipe_persist': 2}
 N_CHECK = 4096
 
-# launches of the B6 kernel (not of its plain twin), for run accounting
-dh_dual_score_grad_launches = 0
-dh_dual_score_grad_launches_by_variant = dict.fromkeys(VARIANTS, 0)
-
 
 def dh_dual_score_grad(q, s, w, spec, variant='dual_pipe_256'):
     """Kernel B6: B1's function, q [B, J] -> (score [B], dq [B, J]), in
     the ``variant`` of ``VARIANTS``. A CUDA tensor launches
-    ``csrc/dh_dual_score.cu`` (or raises); a CPU tensor runs B1's plain
-    twin, ``fk_score._dh_score_grad_plain``."""
+    ``csrc/dh_dual_score.cu``, counted in
+    ``launches.dh_dual_score_grad:<variant>`` (or raises); a CPU tensor
+    runs B1's plain twin, ``fk_score._dh_score_grad_plain``."""
     if variant not in VARIANTS:
         raise ValueError(f'dh_dual_score_grad: variant {variant!r}, not one '
                          f'of {list(VARIANTS)}')
     if q.device.type == 'cpu':
         return fk_score._dh_score_grad_plain(q, s, w, spec)
     c = rf.fp24_spec('dh_dual_score_grad', spec)
-    out = fk_score._launch('dh_dual_score_grad', 'dh_dual_score', q, s, w, c,
-                           c.J, c.P, VARIANTS[variant], counts=globals())
-    if q.shape[0]:   # launched, and counted in dh_dual_score_grad_launches
-        dh_dual_score_grad_launches_by_variant[variant] += 1
-    return out
+    return fk_score._launch(f'dh_dual_score_grad:{variant}', 'dh_dual_score',
+                            q, s, w, c, c.J, c.P, VARIANTS[variant],
+                            entry='dh_dual_score_grad')
 
 
 def run(device='cuda', batch=rf.B, supports=rf.S):

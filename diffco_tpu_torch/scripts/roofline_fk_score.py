@@ -86,10 +86,6 @@ FP_BUILT = 24   # the padded point width the B6 and B7 kernels are built for
 ABLATION_TOL = {'fk_only': 1e-4, 'mxu': 1e-4, 'mxu_rsqrt': 1e-4,
                 'fwd': 1e-4, 'mv_f32_full': 1e-3, 'mv_bf16_full': 1e-3}
 
-# launches of the B7 kernel (not of its plain twin), for run accounting
-dh_ablation_launches = 0
-dh_ablation_launches_by_mode = dict.fromkeys(MODES, 0)
-
 
 def flagship_score_setup(n_supports=S, seed=0, device='cuda'):
     """PandaFK, supports = FK points of ``n_supports`` random
@@ -171,25 +167,23 @@ def _dh_ablation_plain(q, s, w, spec, mode):
 def dh_ablation(q, s, w, spec, mode):
     """Kernel B7: one float per configuration by ``mode`` (a key of
     ``MODES``), q [B, J] -> out [B]. A CUDA tensor launches
-    ``csrc/dh_ablation.cu`` (or raises); a CPU tensor runs the plain
-    twin."""
+    ``csrc/dh_ablation.cu``, counted in ``launches.dh_ablation:<mode>``
+    (or raises); a CPU tensor runs the plain twin."""
     if mode not in MODES:
         raise ValueError(f'dh_ablation: mode {mode!r}, not one of '
                          f'{list(MODES)}')
     if q.device.type == 'cpu':
         return _dh_ablation_plain(q, s, w, spec, mode)
     c = fp24_spec('dh_ablation', spec)
-    out = fk_score._launch('dh_ablation', 'dh_ablation', q, s, w, c, c.J,
-                           c.P, MODES[mode], counts=globals(), dq=False)
-    if q.shape[0]:          # launched, and counted in dh_ablation_launches
-        dh_ablation_launches_by_mode[mode] += 1
-    return out
+    return fk_score._launch(f'dh_ablation:{mode}', 'dh_ablation', q, s, w,
+                            c, c.J, c.P, MODES[mode], entry='dh_ablation',
+                            dq=False)
 
 
 def dh_score_grad_threads(q, s, w, spec, threads):
     """Kernel B1 (``csrc/dh_score.cu``) at ``threads`` (64, 128, 256 or
     512) per block, for the block-size sweep: (score [B], dq [B, J]),
-    counted in ``fk_score.dh_score_grad_launches``. A CPU tensor runs the
+    counted in ``launches.dh_score_grad``. A CPU tensor runs the
     plain twin."""
     if q.device.type == 'cpu':
         return fk_score._dh_score_grad_plain(q, s, w, spec)

@@ -15,7 +15,7 @@ import torch
 from diffco_tpu.ops import fk_score as jfk
 from diffco_tpu.ops.fused_score import _poly_score_xla
 from diffco_tpu.robots import urdf as jurdf
-from diffco_tpu_torch import robot_data
+from diffco_tpu_torch import profiling, robot_data
 from diffco_tpu_torch.ops import _native
 from diffco_tpu_torch.ops import fk_score as tfk
 from diffco_tpu_torch.ops.fused_score import _poly_score_grad_plain
@@ -93,11 +93,11 @@ def test_auto_router_matches_jax(B):
     qt = torch.from_numpy(q).requires_grad_(True)
     st = torch.from_numpy(sup).requires_grad_(True)
     wt = torch.from_numpy(w).requires_grad_(True)
-    before = tfk.chain_score_grad_launches
+    before = profiling.counter('launches.chain_score_grad')
     out = tfk.fk_polyharmonic_score_auto(
         qt, tr, st, wt, torch.from_numpy(mask), epsilon=1.5)
     g, gs, gw = torch.autograd.grad(out.sum(), (qt, st, wt))
-    assert tfk.chain_score_grad_launches == before
+    assert profiling.counter('launches.chain_score_grad') == before
     assert not tfk.chain_score_grad_available(tr, qt)
 
     def jf(qq, ss, ww):
@@ -252,9 +252,9 @@ def test_wrapper_uses_plain_twin_on_cpu_without_counting():
     _, tr = _robots('trifinger_simple.urdf')
     q, sup, w = _inputs(tr, B=16, S=16, seed=4)
     cs = tfk.robot_chain_statics(tr)
-    before = tfk.chain_score_grad_launches
+    before = profiling.counter('launches.chain_score_grad')
     score, dq = tfk.chain_score_grad(*map(torch.from_numpy, (q, sup, w)), cs)
     ref = tfk._chain_score_grad_plain(*map(torch.from_numpy, (q, sup, w)),
                                       cs)
     assert torch.equal(score, ref[0]) and torch.equal(dq, ref[1])
-    assert tfk.chain_score_grad_launches == before
+    assert profiling.counter('launches.chain_score_grad') == before

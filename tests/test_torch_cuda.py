@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from diffco_tpu_torch import robot_data
+from diffco_tpu_torch import profiling, robot_data
 from diffco_tpu_torch.ops import _native, fk_score, fused_score
 from diffco_tpu_torch.robots import PandaFK, URDFRobot, fk_jvp
 from diffco_tpu_torch.robots.analytic import baxter_arm, panda_with_points
@@ -131,10 +131,10 @@ def test_poly_score_kernel_matches_plain(cuda, B, S):
     x = robot.fkine(q, flat=True).contiguous()
     if S >= 12:
         sup = _near_points(x[:12], sup, seed=S)
-    before = fused_score.poly_score_grad_launches
+    before = profiling.counter('launches.poly_score_grad')
     score, dx = fused_score.poly_score_grad(x, sup, w)
     torch.cuda.synchronize()
-    assert fused_score.poly_score_grad_launches == before + 1
+    assert profiling.counter('launches.poly_score_grad') == before + 1
     ref, ref_dx = fused_score._poly_score_grad_plain(x, sup, w)
     if S >= 12:
         _close_near(score, dx, ref, ref_dx)
@@ -271,9 +271,9 @@ def test_poly_score_kernel_on_the_fitted_rope_proxy(cuda):
     w = (p.rbf_nodes.reshape(-1) * p.valid_mask.float()
          / p.rbf_kernel.epsilon).contiguous()
     sup = p.support_transformed.contiguous()
-    before = fused_score.poly_score_grad_launches
+    before = profiling.counter('launches.poly_score_grad')
     score, dx = fused_score.poly_score_grad(x, sup, w)
-    assert fused_score.poly_score_grad_launches == before + 1
+    assert profiling.counter('launches.poly_score_grad') == before + 1
     ref, ref_dx = fused_score._poly_score_grad_plain(x.double(), sup.double(),
                                                      w.double())
     _close(score.double(), ref, 1e-4)
@@ -302,12 +302,12 @@ def test_rope_sweeps_through_the_wide_b3_instance(cuda, tmp_path):
     w = p.rbf_nodes.reshape(-1) * p.valid_mask.float() / p.rbf_kernel.epsilon
     g = torch.Generator().manual_seed(1)
     for B in (8192, 65536):
-        before = fk_score.chain_score_grad_launches
+        before = profiling.counter('launches.chain_score_grad')
         q = rope.rand_configs(B, g, cuda).requires_grad_(True)
         s = ck.collision_score(q)
         dq, = torch.autograd.grad(s.sum(), q)
         torch.cuda.synchronize()
-        assert fk_score.chain_score_grad_launches == before + 1
+        assert profiling.counter('launches.chain_score_grad') == before + 1
         ref, ref_dq = fk_score._chain_score_grad_plain(
             q.detach().double(), p.support_transformed.double(), w.double(),
             cs)
@@ -362,11 +362,11 @@ def test_wide_instances_match_plain(cuda, tmp_path, name, C):
         c = fk_score._c_spec(spec)
     assert isinstance(c, _native.ChainSpecWide)
     w = W[:, 0].contiguous() if C == 1 else W
-    counter = f'{kernel.__name__}_launches'
-    before = getattr(fk_score, counter)
+    counter = f'launches.{kernel.__name__}'
+    before = profiling.counter(counter)
     score, dq = kernel(q, sup, w, spec)
     torch.cuda.synchronize()
-    assert getattr(fk_score, counter) == before + 1
+    assert profiling.counter(counter) == before + 1
     ref, ref_dq = plain(q, sup, w, spec)
     if C == 1:
         _close_near(score, dq, ref, ref_dq)
@@ -386,10 +386,10 @@ def test_dh_score_kernel_matches_plain(cuda, B, S):
     if S >= 12:
         sup = _near_supports(robot, q, sup, seed=1)
     spec = fk_score.robot_spec(robot)
-    before = fk_score.dh_score_grad_launches
+    before = profiling.counter('launches.dh_score_grad')
     score, dq = fk_score.dh_score_grad(q, sup, w, spec)
     torch.cuda.synchronize()
-    assert fk_score.dh_score_grad_launches == before + 1
+    assert profiling.counter('launches.dh_score_grad') == before + 1
     ref, ref_dq = fk_score._dh_score_grad_plain(q, sup, w, spec)
     _close_near(score, dq, ref, ref_dq)
 
@@ -569,10 +569,10 @@ def test_mesh_sweep_on_the_card_launches_b1(cuda):
         ck.fit(num_samples=2000)
         q = robot.rand_configs(65536, torch.Generator().manual_seed(3), cuda)
         qg = q.clone().requires_grad_(True)
-        before = fk_score.dh_score_grad_launches
+        before = profiling.counter('launches.dh_score_grad')
         s = ck.collision_score(qg)
         dq, = torch.autograd.grad(s.sum(), qg)
-        assert fk_score.dh_score_grad_launches > before
+        assert profiling.counter('launches.dh_score_grad') > before
         out.append((ck.perceptron.num_valid, s.detach(), dq))
     dist.destroy_process_group()
     assert out[0][0] == out[1][0]
@@ -633,16 +633,16 @@ def test_float64_batches_take_the_plain_route(cuda):
     reference does off the TPU: no kernel launch, real support
     cotangents, the float32 kernel's values."""
     robot, q, sup, w = _inputs(4096, 64, cuda, seed=13)
-    before = (fk_score.dh_score_grad_launches,
-              fused_score.poly_score_grad_launches)
+    before = (profiling.counter('launches.dh_score_grad'),
+              profiling.counter('launches.poly_score_grad'))
     st = sup.double().requires_grad_(True)
     out = fk_score.fk_polyharmonic_score_auto(q.double(), robot, st,
                                               w.double())
     gs, = torch.autograd.grad(out.sum(), st)
     x = robot.fkine(q, flat=True).repeat(4, 1).double()
     out_x = fused_score.polyharmonic_score(x, sup.double(), w.double())
-    assert (fk_score.dh_score_grad_launches,
-            fused_score.poly_score_grad_launches) == before
+    assert (profiling.counter('launches.dh_score_grad'),
+            profiling.counter('launches.poly_score_grad')) == before
     assert bool(gs.any())
     ref, _ = fk_score.dh_score_grad(q, sup, w, fk_score.robot_spec(robot))
     _close(out[:, 0].detach().float(), ref, 1e-4)
@@ -686,10 +686,10 @@ def test_chain_score_kernel_matches_plain(cuda, name, B, S):
     if S >= 12:
         sup = _near_supports(robot, q, sup, seed=S)
     cs = fk_score.robot_chain_statics(robot)
-    before = fk_score.chain_score_grad_launches
+    before = profiling.counter('launches.chain_score_grad')
     score, dq = fk_score.chain_score_grad(q, sup, w, cs)
     torch.cuda.synchronize()
-    assert fk_score.chain_score_grad_launches == before + 1
+    assert profiling.counter('launches.chain_score_grad') == before + 1
     ref, ref_dq = fk_score._chain_score_grad_plain(q, sup, w, cs)
     if S >= 12:
         _close_near(score, dq, ref, ref_dq)
@@ -752,10 +752,10 @@ def test_dh_multi_score_kernel_matches_plain(cuda, B, S, C):
     robot, q, sup, _ = _inputs(B, S, cuda, seed=5)
     W = _weights(S, C, cuda, seed=C)
     spec = fk_score.robot_spec(robot)
-    before = fk_score.dh_multi_score_grad_launches
+    before = profiling.counter('launches.dh_multi_score_grad')
     score, dq = fk_score.dh_multi_score_grad(q, sup, W, spec)
     torch.cuda.synchronize()
-    assert fk_score.dh_multi_score_grad_launches == before + 1
+    assert profiling.counter('launches.dh_multi_score_grad') == before + 1
     assert score.shape == (B, C) and dq.shape == (C, B, 7)
     ref, ref_dq = fk_score._dh_multi_score_grad_plain(q, sup, W, spec)
     _close(score, ref, 1e-4)
@@ -767,10 +767,10 @@ def test_chain_multi_score_kernel_matches_plain(cuda, name, B, S, C):
     robot, q, sup, _ = _chain_inputs(name, B, S, cuda, seed=6)
     W = _weights(S, C, cuda, seed=C)
     cs = fk_score.robot_chain_statics(robot)
-    before = fk_score.chain_multi_score_grad_launches
+    before = profiling.counter('launches.chain_multi_score_grad')
     score, dq = fk_score.chain_multi_score_grad(q, sup, W, cs)
     torch.cuda.synchronize()
-    assert fk_score.chain_multi_score_grad_launches == before + 1
+    assert profiling.counter('launches.chain_multi_score_grad') == before + 1
     assert score.shape == (B, C) and dq.shape == (C, B, q.shape[1])
     ref, ref_dq = fk_score._chain_multi_score_grad_plain(q, sup, W, cs)
     _close(score, ref, 1e-4)
@@ -848,10 +848,10 @@ def test_multi_kernels_reject_what_they_cannot_take(cuda):
 def test_ablation_kernel_matches_plain(cuda, mode, B, S):
     robot, q, sup, w = _inputs(B, S, cuda, seed=10)
     spec = fk_score.robot_spec(robot)
-    before = rf.dh_ablation_launches
+    before = profiling.counter(f'launches.dh_ablation:{mode}')
     out = rf.dh_ablation(q, sup, w, spec, mode)
     torch.cuda.synchronize()
-    assert rf.dh_ablation_launches == before + 1
+    assert profiling.counter(f'launches.dh_ablation:{mode}') == before + 1
     ref = rf._dh_ablation_plain(q, sup, w, spec, mode)
     assert out.shape == (B,) and bool(torch.isfinite(out).all())
     err = float((out - ref).abs().max())
@@ -867,10 +867,11 @@ def test_ablation_kernel_matches_plain(cuda, mode, B, S):
 def test_dual_kernel_matches_plain_and_b1(cuda, variant, B, S):
     robot, q, sup, w = _inputs(B, S, cuda, seed=11)
     spec = fk_score.robot_spec(robot)
-    before = ab.dh_dual_score_grad_launches
+    counter = f'launches.dh_dual_score_grad:{variant}'
+    before = profiling.counter(counter)
     score, dq = ab.dh_dual_score_grad(q, sup, w, spec, variant)
     torch.cuda.synchronize()
-    assert ab.dh_dual_score_grad_launches == before + 1
+    assert profiling.counter(counter) == before + 1
     for ref, ref_dq in (fk_score._dh_score_grad_plain(q, sup, w, spec),
                         fk_score.dh_score_grad(q, sup, w, spec)):
         _close(score, ref, 1e-4)
@@ -1004,11 +1005,11 @@ def test_baxter_collision_score_launches_b1(cuda):
     (FP = 16) and matches the float64 plain twin: score 1e-4, dq 1e-3."""
     robot, _, card, _ = _baxter_checkers(cuda)
     q = robot.rand_configs(65536, torch.Generator().manual_seed(4), cuda)
-    before = fk_score.dh_score_grad_launches
+    before = profiling.counter('launches.dh_score_grad')
     qg = q.clone().requires_grad_(True)
     s = card.collision_score(qg, bias=0.0)
     dq, = torch.autograd.grad(s.sum(), qg)
-    assert fk_score.dh_score_grad_launches > before
+    assert profiling.counter('launches.dh_score_grad') > before
     p = card.perceptron
     w = p.rbf_nodes * p.valid_mask.to(p.rbf_nodes.dtype) / \
         p.rbf_kernel.epsilon
@@ -1055,7 +1056,8 @@ def _eager_fk(st, q, g=None):
 
 
 def _launches():
-    return fk_jvp.dh_fk_launches, fk_jvp.dh_fk_vjp_launches
+    return (profiling.counter('launches.dh_fk'),
+            profiling.counter('launches.dh_fk_vjp'))
 
 
 @pytest.mark.parametrize('B', DH_FK_BATCHES)

@@ -13,6 +13,7 @@ from jax.experimental import pallas as pl
 
 from diffco_tpu.ops import fk_score as jfk
 from diffco_tpu.robots import PandaFK as JPanda
+from diffco_tpu_torch import profiling
 from diffco_tpu_torch.ops import fk_score as tfk
 from diffco_tpu_torch.robots import PandaFK as TPanda
 from diffco_tpu_torch.scripts import ab_dual_tile as ab
@@ -77,11 +78,14 @@ def test_wrapper_runs_plain_twin_on_cpu_without_counting():
     q, sup, w = map(torch.from_numpy, inputs(seed=2))
     spec = tfk.robot_spec(TPanda())
     want = tfk._dh_score_grad_plain(q, sup, w, spec)
-    before = ab.dh_dual_score_grad_launches
+    def launches():
+        return sum(profiling.counter(f'launches.dh_dual_score_grad:{v}')
+                   for v in ab.VARIANTS)
+    before = launches()
     for variant in ab.VARIANTS:
         score, dq = ab.dh_dual_score_grad(q, sup, w, spec, variant)
         assert torch.equal(score, want[0]) and torch.equal(dq, want[1])
-    assert ab.dh_dual_score_grad_launches == before
+    assert launches() == before
     with pytest.raises(ValueError, match='variant'):
         ab.dh_dual_score_grad(q, sup, w, spec, variant='dual_pipe_128')
 

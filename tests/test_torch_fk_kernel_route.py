@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import diffco_tpu_torch as tdc
+from diffco_tpu_torch import profiling
 from diffco_tpu_torch.ops import _native, fk_score
 from diffco_tpu_torch.robots import fk_jvp
 from diffco_tpu_torch.robots.analytic import (DHChainRobot, DHParameters,
@@ -102,7 +103,8 @@ def test_dh_fk_route(case):
     spec = _spec(robot)
     assert _route(make_q(), spec, g, grad) is takes
     if case == 'cpu':
-        before = (fk_jvp.dh_fk_launches, fk_jvp.dh_fk_vjp_launches)
+        before = (profiling.counter('launches.dh_fk'),
+                  profiling.counter('launches.dh_fk_vjp'))
         q = robot.rand_configs(5, torch.Generator().manual_seed(0),
                                'cpu').requires_grad_()
         x = robot.fkine(q, flat=True)
@@ -111,7 +113,8 @@ def test_dh_fk_route(case):
         ref_dq, = torch.autograd.grad(ref.sum(), q)
         torch.testing.assert_close(x, ref)
         torch.testing.assert_close(dq, ref_dq)
-        assert (fk_jvp.dh_fk_launches, fk_jvp.dh_fk_vjp_launches) == before
+        assert (profiling.counter('launches.dh_fk'),
+                profiling.counter('launches.dh_fk_vjp')) == before
 
 
 def _dual_arm_base():

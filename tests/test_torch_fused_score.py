@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from diffco_tpu.ops import fused_score as jfs
+from diffco_tpu_torch import profiling
 from diffco_tpu_torch.ops import fused_score as tfs
 
 torch.set_num_threads(1)
@@ -131,9 +132,9 @@ def test_below_gate_twice_differentiable():
 
 def test_wrapper_uses_plain_twin_on_cpu_without_counting():
     x, s, w = _inputs(B=40, S=16, seed=4)
-    before = tfs.poly_score_grad_launches
+    before = profiling.counter('launches.poly_score_grad')
     score, dx = tfs.poly_score_grad(*map(torch.from_numpy, (x, s, w)))
     ref_s, ref_dx = tfs._poly_score_grad_plain(*map(torch.from_numpy,
                                                     (x, s, w)))
     assert torch.equal(score, ref_s) and torch.equal(dx, ref_dx)
-    assert tfs.poly_score_grad_launches == before
+    assert profiling.counter('launches.poly_score_grad') == before

@@ -278,17 +278,17 @@ def test_the_kernel_route_gives_the_eager_result(stub, monkeypatch, case):
 
 def test_the_counters_follow_the_kernel(stub):
     """``perceptron.greedy_steps`` adds the kernel's iterations (read back
-    once a call), ``perceptron.train_kernel`` one a kernel call."""
+    once a call), ``launches.greedy_train`` one a kernel launch."""
     steps = profiling.counter('perceptron.greedy_steps')
-    calls = profiling.counter('perceptron.train_kernel')
+    calls = profiling.counter('launches.greedy_train')
     p = _diffco_fit(perceptron.DiffCo, 1)
-    assert profiling.counter('perceptron.train_kernel') - calls == 1
+    assert profiling.counter('launches.greedy_train') - calls == 1
     assert (profiling.counter('perceptron.greedy_steps') - steps
             == p.train_iterations > 0)
     steps = profiling.counter('perceptron.greedy_steps')
-    calls = profiling.counter('perceptron.train_kernel')
+    calls = profiling.counter('launches.greedy_train')
     _diffco_fit(perceptron.DiffCo, 1, lazy=True)
-    assert profiling.counter('perceptron.train_kernel') == calls
+    assert profiling.counter('launches.greedy_train') == calls
     assert profiling.counter('perceptron.greedy_steps') > steps
 
 
@@ -549,10 +549,10 @@ def both(monkeypatch):
     train = perceptron._train_columns
 
     def twice(*args, gram=None, **kw):
-        before = profiling.counter('perceptron.train_kernel')
+        before = profiling.counter('launches.greedy_train')
         out = train(*args, gram=gram, **kw)
         if gram is not None:
-            ran = profiling.counter('perceptron.train_kernel') - before
+            ran = profiling.counter('launches.greedy_train') - before
             seen.append((ran, out, train(*args, **kw)))
         return out
     monkeypatch.setattr(perceptron, '_train_columns', twice)
@@ -625,9 +625,9 @@ def test_direct_calls_on_the_card(cuda, case):
     g0, h0, valid = (None if t is None else t.to(cuda)
                      for t in (g0, h0, valid))
     it = 3 * N if it is None else it
-    before = profiling.counter('perceptron.train_kernel')
+    before = profiling.counter('launches.greedy_train')
     out = perceptron.multiclass_train_loop(K, y, 1.0, it, C, g0, h0, valid)
-    assert profiling.counter('perceptron.train_kernel') == before + 1
+    assert profiling.counter('launches.greedy_train') == before + 1
     ref = _eager(K, y, 1.0, it, g0, h0, valid)
     _same(out, ref)
     print(case, 'iterations', int(out[2]))

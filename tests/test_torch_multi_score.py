@@ -16,7 +16,7 @@ import torch
 from diffco_tpu.ops import fk_score as jfk
 from diffco_tpu.robots import PandaFK as JPandaFK
 from diffco_tpu.robots import urdf as jurdf
-from diffco_tpu_torch import robot_data
+from diffco_tpu_torch import profiling, robot_data
 from diffco_tpu_torch.ops import _native
 from diffco_tpu_torch.ops import fk_score as tfk
 from diffco_tpu_torch.robots import PandaFK
@@ -200,8 +200,10 @@ def test_wrappers_use_twins_on_cpu_without_counting():
     robot = PandaFK()
     q, sup, W, _ = _inputs(robot, B=16, S=16, C=2, seed=4)
     spec = tfk.robot_spec(robot)
-    before = (tfk.dh_multi_score_grad_launches,
-              tfk.chain_multi_score_grad_launches)
+    def launches():
+        return (profiling.counter('launches.dh_multi_score_grad'),
+                profiling.counter('launches.chain_multi_score_grad'))
+    before = launches()
     args = tuple(map(torch.from_numpy, (q, sup, W)))
     out = tfk.dh_multi_score_grad(*args, spec)
     ref = tfk._dh_multi_score_grad_plain(*args, spec)
@@ -213,8 +215,7 @@ def test_wrappers_use_twins_on_cpu_without_counting():
     out = tfk.chain_multi_score_grad(*args, cs)
     ref = tfk._chain_multi_score_grad_plain(*args, cs)
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
-    assert (tfk.dh_multi_score_grad_launches,
-            tfk.chain_multi_score_grad_launches) == before
+    assert launches() == before
 
 
 def test_chain_multi_plan_fits_the_card():

@@ -16,6 +16,7 @@ from jax.experimental import pallas as pl
 
 from diffco_tpu.ops import fk_score as jfk
 from diffco_tpu.robots import PandaFK as JPanda
+from diffco_tpu_torch import profiling
 from diffco_tpu_torch.ops import bounds
 from diffco_tpu_torch.ops import fk_score as tfk
 from diffco_tpu_torch.robots import PandaFK as TPanda
@@ -142,14 +143,17 @@ def test_ablation_twin_matches_tpu_kernel_and_fp32_math(interpret, ref, mode):
 def test_wrapper_runs_plain_twin_on_cpu_without_counting():
     q, sup, w = map(torch.from_numpy, inputs(seed=1))
     spec = tfk.robot_spec(TPanda())
-    before = rf.dh_ablation_launches
+    def launches():
+        return sum(profiling.counter(f'launches.dh_ablation:{mode}')
+                   for mode in rf.MODES)
+    before = launches()
     for mode in rf.MODES:
         assert torch.equal(rf.dh_ablation(q, sup, w, spec, mode),
                            rf._dh_ablation_plain(q, sup, w, spec, mode))
     score, dq = rf.dh_score_grad_threads(q, sup, w, spec, 256)
     ref_score, ref_dq = tfk._dh_score_grad_plain(q, sup, w, spec)
     assert torch.equal(score, ref_score) and torch.equal(dq, ref_dq)
-    assert rf.dh_ablation_launches == before
+    assert launches() == before
     with pytest.raises(ValueError, match='mode'):
         rf.dh_ablation(q, sup, w, spec, 'bwd')
 

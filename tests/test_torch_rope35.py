@@ -279,11 +279,11 @@ def test_the_rope_call_launches_the_wide_instance_once_on_the_card(card):
     _, mix, _, kind = cell.build(CELL, 20260, card,
                                  mix_overrides={'pools': 2})
     assert mix['batch'] == 262144
-    b3 = fk_score.chain_score_grad_launches
+    b3 = profiling.counter('launches.chain_score_grad')
     wide = profiling.counter('ops.wide_launches')
     cell.Window(kind, requests=3)
     kind.window_closed()
-    assert fk_score.chain_score_grad_launches - b3 == 3
+    assert profiling.counter('launches.chain_score_grad') - b3 == 3
     assert profiling.counter('ops.wide_launches') - wide == 3
     assert kind.counts['wide_launches'] == 3
     limits = mf.limits(CELL)

@@ -18,6 +18,7 @@ import torch
 
 import diffco_tpu_torch as dc
 from diffco_tpu_torch import perceptron, profiling
+from diffco_tpu_torch.ops import _native, fk_score
 from diffco_tpu_torch.profiling import Entry
 from diffco_tpu_torch.robots.capsule_chain import CapsuleChainCollision
 from portbench.harness import manifest as mf
@@ -39,14 +40,18 @@ SHAPES = {'box1': {'type': 'Box', 'params': {'extents': [0.1, 0.1, 0.1]},
 PLAN = {'MAXITER': 2, 'N_WAYPOINTS': 6, 'NUM_RE_TRIALS': 2, 'seed': 0}
 
 
-@pytest.fixture(scope='module')
-def checker():
+def _checker():
     robot = dc.PandaFK()
     env = dc.ShapeEnv(SHAPES)
     cap = CapsuleChainCollision(robot, link_radius=0.15, per_seg=4)
-    ck = dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
-                                    gt_check_func=cap.checker_fn(env),
-                                    device='cpu', seed=0)
+    return dc.ForwardKinematicsDiffCo(robot=robot, environment=env,
+                                      gt_check_func=cap.checker_fn(env),
+                                      device='cpu', seed=0)
+
+
+@pytest.fixture(scope='module')
+def checker():
+    ck = _checker()
     ck.fit(num_samples=300)
     return ck
 
@@ -218,6 +223,106 @@ def test_the_log_keeps_the_last_entries():
     assert log[-2].counts == {}          # a change of 0 is left out
     profiling.reset_spans()
     assert profiling.spans() == []
+
+
+def _stand_in(monkeypatch, rc):
+    """``_native.build`` replaced by stand-in libraries whose every C entry
+    records its name and arguments and returns ``rc``, and the card-only
+    helpers by no-ops. Returns the calls."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, entry):
+            return lambda *args: calls.append((entry, args)) or rc
+    monkeypatch.setattr(_native, 'build', lambda: {
+        'greedy_train': Lib(), 'dh_dual_score': Lib(), 'chain_score': Lib()})
+    monkeypatch.setattr(_native, 'check_cuda_inputs', lambda *a: None)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+def _wide_launch():
+    """B3's wide instance through ``fk_score._launch``: 4 rows of a chain
+    of 3 dofs, 2 moving joints and 2 points, 5 supports."""
+    c = _native.ChainSpecWide()
+    c.M = 2
+    fk_score._launch('chain_score_grad', 'chain_score', torch.zeros(4, 3),
+                     torch.zeros(5, 6), torch.zeros(5), c, 3, 2)
+
+
+# (case, the launch, its C entry, the counters it adds to)
+LAUNCHES = {
+    'launch': (lambda: _native.launch('greedy_train', 'greedy_train', 1, 2),
+               'greedy_train', ['launches.greedy_train']),
+    'launch under a kernel name': (
+        lambda: _native.launch('dh_dual_score', 'dh_dual_score_grad', 3,
+                               kernel='dh_dual_score_grad:dual_seq_256'),
+        'dh_dual_score_grad', ['launches.dh_dual_score_grad:dual_seq_256']),
+    'wide launch': (_wide_launch, 'chain_score_grad_wide',
+                    ['launches.chain_score_grad', 'ops.wide_launches']),
+}
+
+
+@pytest.mark.parametrize('fails', [False, True])
+@pytest.mark.parametrize('case', list(LAUNCHES))
+def test_a_launch_counts_once_under_its_kernel(monkeypatch, case, fails):
+    """``_native.launch`` calls the C entry through ``build()`` once and
+    counts one under the kernel's name (a wide launch in
+    ``ops.wide_launches`` too); a nonzero return code raises and counts
+    nothing."""
+    calls = _stand_in(monkeypatch, 2 if fails else 0)
+    launch, entry, names = LAUNCHES[case]
+    before = profiling.counters()
+    if fails:
+        with pytest.raises(RuntimeError, match=f'{entry}: CUDA launch '
+                                               'failed with cudaError 2'):
+            launch()
+    else:
+        launch()
+    assert [e for e, _ in calls] == [entry]
+    after = profiling.counters()
+    assert {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)} == ({} if fails else dict.fromkeys(
+                names, 1))
+
+
+# (case, the fit or update after a fit on 300 samples)
+FITS = {
+    'split fit': lambda ck: ck.fit(num_samples=300),
+    'warm update, verify 0.2': lambda ck: ck.update(num_samples=40,
+                                                    verify=0.2),
+    'verify_ratio 0': lambda ck: ck.fit(num_samples=300, verify_ratio=0),
+}
+
+
+@pytest.mark.parametrize('case', list(FITS))
+def test_fit_sweeps_its_verify_rows_once(monkeypatch, case):
+    """``fit`` scores its verify rows (without a split, 100 fresh
+    configurations) in one sweep, and its safety bias and biased metrics
+    are, bit for bit, those of ``_calculate_safety_bias`` and ``verify``
+    called on the same rows afterwards."""
+    ck = _checker()
+    if case != 'split fit':
+        ck.fit(num_samples=300)
+    swept = []
+    sweep = ck._sweep_scores
+
+    def counted(q):
+        swept.append(q.clone())
+        return sweep(q)
+    monkeypatch.setattr(ck, '_sweep_scores', counted)
+    got = FITS[case](ck)
+    rows, = swept
+    assert rows.shape[0] == (100 if case == 'verify_ratio 0' else
+                             ck.q_verify.shape[0]) > 0
+    assert ck._calculate_safety_bias(rows) == ck.safety_bias
+    if case == 'verify_ratio 0':
+        assert got == (None, None, None)
+    else:
+        assert torch.equal(rows, ck.q_verify)
+        assert ck.verify(rows) == got
+        assert all(isinstance(m, float) for m in got)
 
 
 # ---- the readers, on a built trace and span log (ns)
