@@ -381,7 +381,8 @@ def _phase(name, t0, **info):
 def _ptxas_report(log):
     """'kernel<template args>: registers/spill stores/stack frame' per
     compiled kernel instance, from nvcc's ``-Xptxas -v`` output (an
-    ablation kernel's mode by name)."""
+    ablation kernel's mode by name; the wide block's prologue,
+    ``wide_prep_kernel``, by its name alone; other kernels left out)."""
     from diffco_tpu_torch.scripts.roofline_fk_score import MODES
     mode_names = {str(v): k for k, v in MODES.items()}
     out, kernel, spill, stack = [], None, None, None
@@ -394,6 +395,8 @@ def _ptxas_report(log):
                       r'|dh_fk(?:_vjp)?_kernel|greedy_train_kernel)'
                       r'I((?:L[ib]\d+E)+)E',
                       ln)
+        if 'Compiling entry function' in ln:
+            kernel = 'wide_prep_kernel' if 'wide_prep_kernel' in ln else None
         if 'Compiling entry function' in ln and m:
             args = re.findall(r'L[ib](\d+)E', m.group(2))
             if m.group(1) == 'dh_ablation_kernel':
@@ -443,17 +446,16 @@ def _check_tc_ptxas(regs):
     within the launch bound's 128 registers and unspilled, and B2's fp64
     (F64_INSTANCES) and wide (WIDE_INSTANCES) instances and the FK
     kernels' wide one (CHAIN_WIDE_INSTANCES, built into each of B1, B3,
-    B4 and B5; its launch bound one block per SM from K = 5,
-    ``_native.chain_wide_min_blocks``) within theirs (65536 over the
+    B4 and B5; the wide block's launch bound ``_native.wide_threads`` x
+    ``_native.wide_min_blocks`` at each K) within theirs (65536 over the
     threads of their least blocks per SM, at most 255) and unspilled, or
     fail."""
     from diffco_tpu_torch.ops import _native
     f64_regs = 65536 // (_native.F64_ROWS * _native.F64_MIN_BLOCKS)
 
     def wide_regs(kind, K):
-        blocks = (_native.WIDE_MIN_BLOCKS if kind == 'poly_score_wide'
-                  else _native.chain_wide_min_blocks(K))
-        return min(255, 65536 // (_native.WIDE_THREADS * blocks))
+        return min(255, 65536 // (_native.wide_threads(K)
+                                  * _native.wide_min_blocks(K)))
     found = {k: set() for k in TC_INSTANCES}
     f64, wide, chain_wide = set(), set(), set()
     for line in regs:
@@ -564,8 +566,7 @@ def check_poly_kernel(robot, dev):
     then at every FP instance (POLY_FS; F <= 8 is the fp64 instance) on
     rows uniform in a box. Prints B2's launch plan as the card gives it
     (fails unless ops/_native.py::poly_plan_holds and it keeps 16 warps
-    per SM, 8 at FP = 64 and on the wide instance past F = 128, at every
-    FP)."""
+    per SM, 8 at FP = 64 and on the wide instance, at every FP)."""
     from diffco_tpu_torch.ops import _native, fused_score
     t0 = time.perf_counter()
     q, sup, w = _inputs(robot, B_RAGGED, S_BENCH, dev, seed=1)
@@ -580,9 +581,9 @@ def check_poly_kernel(robot, dev):
     for F in POLY_FS:
         card = plans[F] = _native.poly_score_plan_on_card(F)
         # one block (8 warps) per SM at FP = 64, whose per-chunk running
-        # sums take 36 KB of shared memory, and on the wide instance past
-        # F = 128 (118-139 KB)
-        least = 8 if 56 < F <= _native.TC_MAX_F or F > 128 else 16
+        # sums take 36 KB of shared memory, and 8 warps on the wide
+        # instance (~200 registers a thread of accumulators)
+        least = 8 if F > 56 else 16
         if not _native.poly_plan_holds(card, F) or \
                 card['warps_per_sm'] < least:
             raise AssertionError(f'B2 plan {card} on the card at F = {F}, '
@@ -948,7 +949,7 @@ def check_wide_kernels(dev):
     the plain twins at B = 65536 + 37, S = 512, configurations 0-11 on or
     near a support; with its launch plan from the card (fails unless
     ops/_native.py::chain_wide_plan_holds: chain_wide_plan's shared bytes,
-    threads and rows and at least its blocks per SM, 16 warps). Returns
+    threads and rows and at least its blocks and warps per SM). Returns
     per case the error and the arguments for the timing table. First DMMA
     in the SASS of every wide instance (B2's and the FK kernels':
     sass_counts.wide_dmma), or fail."""
@@ -1004,7 +1005,7 @@ def check_wide_kernels(dev):
         card = _native.chain_wide_plan_on_card(c.P, c.M)
         plan = _native.chain_wide_plan(c.P, c.M)
         if (not _native.chain_wide_plan_holds(card, c.P, c.M)
-                or card['warps_per_sm'] < 16):
+                or card['warps_per_sm'] < plan['warps_per_sm']):
             raise AssertionError(f'wide plan {card} on the card for {name}, '
                                  f'{plan} in ops/_native.py::'
                                  'chain_wide_plan')

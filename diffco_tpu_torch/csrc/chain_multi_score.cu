@@ -201,14 +201,14 @@ extern "C" int chain_multi_score_plan(int P, int C, int* out) {
 }
 
 // The wide instance (chain_wide.cuh) for a chain past the multi-class
-// block's bounds, W [S, C]: `host` is the ChainSpecWide as the host built
-// it, `dev` its copy in device memory, `zo` a scratch of B M 6 floats.
-// Returns the cudaError_t of the launch.
+// block's bounds, after its prologue (wide_prep) has written the supports
+// and the C weight columns into `prep`: `host` is the ChainSpecWide as the
+// host built it, `dev` its copy in device memory, `zo` a scratch of B M 6
+// floats. Returns the cudaError_t of the launch.
 extern "C" int chain_multi_score_grad_wide(
-    const float* q, const float* s, const float* W, float* score,
-    float* dq, int B, int S, int C, const diffco::ChainSpecWide* host,
+    const float* q, const double* prep, float* score, float* dq, int B,
+    int S, int C, const diffco::ChainSpecWide* host,
     const diffco::ChainSpecWide* dev, float* zo, void* stream) {
-  return diffco::chain_wide_launch(q, s, W, score, dq, B, S, C, host,
-                                   dev, zo,
-                                   static_cast<cudaStream_t>(stream));
+  return diffco::chain_wide_launch(q, prep, score, dq, B, S, C, host, dev,
+                                   zo, static_cast<cudaStream_t>(stream));
 }

@@ -231,16 +231,16 @@ extern "C" int chain_score_plan(int P, int M, int* out) {
 }
 
 // The wide instance (chain_wide.cuh) for a chain past the tensor-core
-// kernel's bounds: `host` is the ChainSpecWide as the host built it,
-// `dev` its copy in device memory, `zo` a scratch of B M 6 floats.
+// kernel's bounds, after its prologue (wide_prep) has written the supports
+// and weights into `prep`: `host` is the ChainSpecWide as the host built
+// it, `dev` its copy in device memory, `zo` a scratch of B M 6 floats.
 // Returns the cudaError_t of the launch.
 extern "C" int chain_score_grad_wide(
-    const float* q, const float* s, const float* w, float* score,
-    float* dq, int B, int S, const diffco::ChainSpecWide* host,
+    const float* q, const double* prep, float* score, float* dq, int B,
+    int S, const diffco::ChainSpecWide* host,
     const diffco::ChainSpecWide* dev, float* zo, void* stream) {
-  return diffco::chain_wide_launch(q, s, w, score, dq, B, S, 1, host,
-                                   dev, zo,
-                                   static_cast<cudaStream_t>(stream));
+  return diffco::chain_wide_launch(q, prep, score, dq, B, S, 1, host, dev,
+                                   zo, static_cast<cudaStream_t>(stream));
 }
 
 // The wide instance's launch plan for P control points and M moving

@@ -47,13 +47,15 @@
 // all in fp64, rounded to float32 once at the end. At F <= 8 a pair is
 // ~4F + 12 fp64 operations, against the H100's 1:2 fp64 rate.
 //
-// At F = 65-192 (poly_score_wide_kernel<K>, K = ceil(F / 32)) the pairs
-// run on the wide score block of wide_score_block.cuh, both products on
-// the fp64 tensor cores (mma.sync m16n8k4 .f64) and the pair work in
-// fp64: control-point rows of 22-64 points (three Panda arms, the 35-link
-// rope, a rigid body of many keypoints), which the JAX kernel takes at
-// any F and the 3xTF32 block's shared memory and registers do not. 32
-// rows a block, centred in fp64; its rows are copies of row B - 1 past B.
+// At F = 65-192 (poly_score_wide_kernel<K>, K = ceil(F / 32), its own
+// entry poly_score_grad_wide after the prologue wide_prep) the pairs run
+// on the wide score block of wide_score_block.cuh, both products on the
+// fp64 tensor cores (mma.sync .f64) and the pair work in fp64:
+// control-point rows of 22-64 points (three Panda arms, the 35-link rope,
+// a rigid body of many keypoints), which the JAX kernel takes at any F and
+// the 3xTF32 block's shared memory and registers do not. 64 rows a block,
+// centred in fp64 on the prologue's centre; its rows are copies of row
+// B - 1 past B.
 // At the rope's sweep (F = 102, S = 1536) the two products are ~4.2e10
 // fp64 operations: bound by the fp64 tensor cores' 67 TFLOP/s
 // (ops/bounds.py::wide_f64_tc_bound), not by the ~27 MB it moves.
@@ -174,29 +176,31 @@ poly_score_f64_kernel(const float* __restrict__ x,
 }
 
 // B2 at F = 65-kWideMaxF (file comment): kWideRows rows a block on the
-// wide score block.
+// wide score block, after its prologue (wide_prep) has written the
+// supports into `prep`.
 template <int K>
-__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
+__global__ void __launch_bounds__(kWideThreads<K>, kWideMinBlocks<K>)
 poly_score_wide_kernel(const float* __restrict__ x,
-                       const float* __restrict__ s,
-                       const float* __restrict__ w, float* __restrict__ score,
-                       float* __restrict__ dx, int B, int S, int F) {
+                       const double* __restrict__ prep,
+                       float* __restrict__ score, float* __restrict__ dx,
+                       int B, int S, int F) {
   using L = WideSmem<K>;
   double* sm = reinterpret_cast<double*>(diffco_tc_smem);
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * kWideRows;
   const int live = min(kWideRows, B - b0);   // rows of the block below B
   // the block's rows, consecutive threads on consecutive components; a
-  // row past B reads row B - 1
-  float* xr = reinterpret_cast<float*>(sm + L::kRows);
-  for (int i = tid; i < kWideRows * F; i += kWideThreads) {
-    const int r = i / F, f = i % F;
-    xr[r * L::kS + f] = x[static_cast<size_t>(b0 + min(r, live - 1)) * F + f];
+  // row past B reads row B - 1; zeros past F
+  float* xr = reinterpret_cast<float*>(sm + L::kX);
+  for (int i = tid; i < kWideRows * L::kSx; i += kWideThreads<K>) {
+    const int r = i / L::kSx, f = i % L::kSx;
+    xr[i] = f < F ? x[static_cast<size_t>(b0 + min(r, live - 1)) * F + f]
+                  : 0.f;
   }
   __syncthreads();
-  wide_rows_setup<K>(sm, F);
-  wide_tc_pairs<K>(s, w, 1, S, F, sm);
-  for (int i = tid; i < live * F; i += kWideThreads) {
+  wide_rows_setup<K>(prep, sm, F);
+  wide_tc_pairs<K>(prep, S, F, 0, sm);
+  for (int i = tid; i < live * F; i += kWideThreads<K>) {
     const int r = i / F, f = i % F;
     dx[static_cast<size_t>(b0 + r) * F + f] =
         static_cast<float>(wide_row_grad<K>(sm, r, f, F));
@@ -209,6 +213,8 @@ poly_score_wide_kernel(const float* __restrict__ x,
 }  // namespace diffco
 
 // ---- launch code (the CPU replay test compiles the file up to here)
+
+#include "wide_launch.cuh"
 
 namespace diffco {
 namespace {
@@ -254,29 +260,28 @@ int poly_f64_dispatch(const float* x, const float* s, const float* w,
   }
 }
 
-// B2's wide instance (F = 65-kWideMaxF) over B rows on `st`.
+// B2's wide instance (F = 65-kWideMaxF) over B rows on `st`, on the
+// prologue's buffer `prep`.
 template <int K>
-int poly_wide_launch(const float* x, const float* s, const float* w,
-                     float* score, float* dx, int B, int S, int F,
-                     cudaStream_t st) {
+int poly_wide_launch(const float* x, const double* prep, float* score,
+                     float* dx, int B, int S, int F, cudaStream_t st) {
   const auto kernel = poly_score_wide_kernel<K>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       WideSmem<K>::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<(B + kWideRows - 1) / kWideRows, kWideThreads,
-           WideSmem<K>::kBytes, st>>>(x, s, w, score, dx, B, S, F);
+  kernel<<<(B + kWideRows - 1) / kWideRows, kWideThreads<K>,
+           WideSmem<K>::kBytes, st>>>(x, prep, score, dx, B, S, F);
   return static_cast<int>(cudaGetLastError());
 }
 
-int poly_wide_dispatch(const float* x, const float* s, const float* w,
-                       float* score, float* dx, int B, int S, int F,
-                       cudaStream_t st) {
+int poly_wide_dispatch(const float* x, const double* prep, float* score,
+                       float* dx, int B, int S, int F, cudaStream_t st) {
   switch ((F + 31) / 32) {
-    case 3: return poly_wide_launch<3>(x, s, w, score, dx, B, S, F, st);
-    case 4: return poly_wide_launch<4>(x, s, w, score, dx, B, S, F, st);
-    case 5: return poly_wide_launch<5>(x, s, w, score, dx, B, S, F, st);
-    case 6: return poly_wide_launch<6>(x, s, w, score, dx, B, S, F, st);
+    case 3: return poly_wide_launch<3>(x, prep, score, dx, B, S, F, st);
+    case 4: return poly_wide_launch<4>(x, prep, score, dx, B, S, F, st);
+    case 5: return poly_wide_launch<5>(x, prep, score, dx, B, S, F, st);
+    case 6: return poly_wide_launch<6>(x, prep, score, dx, B, S, F, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -291,10 +296,10 @@ int poly_wide_plan(int* out) {
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, kWideThreads, WideSmem<K>::kBytes);
+        &blocks, kernel, kWideThreads<K>, WideSmem<K>::kBytes);
   out[0] = WideSmem<K>::kBytes;
   out[1] = blocks;
-  out[2] = kWideThreads;
+  out[2] = kWideThreads<K>;
   out[3] = kWideRows;
   return static_cast<int>(e);
 }
@@ -358,18 +363,16 @@ int poly_plan(int* out) {
     default: return cudaErrorInvalidValue;   \
   }
 
-// Returns the cudaError_t of the launch (0 on success). Launches on
-// `stream` and does not synchronise.
+// B2 at F = 1-64 (at F > 64 its wide instance, poly_score_grad_wide,
+// after the prologue wide_prep). Returns the cudaError_t of the launch (0
+// on success). Launches on `stream` and does not synchronise.
 extern "C" int poly_score_grad(const float* x, const float* s, const float* w,
                                float* score, float* dx, int B, int S, int F,
                                void* stream) {
-  if (B <= 0 || F <= 0 || F > diffco::kWideMaxF || S < 0)
-    return cudaErrorInvalidValue;
+  if (B <= 0 || F <= 0 || F > 64 || S < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F <= diffco::kF64MaxF)
     return diffco::poly_f64_dispatch(x, s, w, score, dx, B, S, F, st);
-  if (F > 64)
-    return diffco::poly_wide_dispatch(x, s, w, score, dx, B, S, F, st);
 #define DIFFCO_LAUNCH(FPV)                                                 \
   diffco::poly_launch<FPV, false>(x, s, w, score, dx, B, S, F,             \
                                   diffco::kTcGuard, nullptr, st)
@@ -377,23 +380,34 @@ extern "C" int poly_score_grad(const float* x, const float* s, const float* w,
 #undef DIFFCO_LAUNCH
 }
 
+// B2's wide instance at F = 65-kWideMaxF, after its prologue (wide_prep,
+// on the same stream before) has written the supports and weights into
+// `prep`. Returns the cudaError_t of the launch.
+extern "C" int poly_score_grad_wide(const float* x, const double* prep,
+                                    float* score, float* dx, int B, int S,
+                                    int F, void* stream) {
+  if (B <= 0 || F <= 64 || F > diffco::kWideMaxF || S < 0 ||
+      prep == nullptr)
+    return cudaErrorInvalidValue;
+  return diffco::poly_wide_dispatch(x, prep, score, dx, B, S, F,
+                                    static_cast<cudaStream_t>(stream));
+}
+
 // poly_score_grad's kernel in its measurement build: the near-pair guard
 // at threshold `kappa`, its recomputations added to the device counter
 // *guard_pairs (a measurement entry; production launches go through
-// poly_score_grad). The fp64 instance (F <= 8) and the wide one (F > 64)
-// have no guard and add nothing.
+// poly_score_grad), F = 1-64. The fp64 instance (F <= 8) has no guard
+// and adds nothing; nor has the wide instance past F = 64, which
+// poly_score_guard_pairs launches through poly_score_grad_wide.
 extern "C" int poly_score_grad_guard(const float* x, const float* s,
                                      const float* w, float* score, float* dx,
                                      int B, int S, int F, float kappa,
                                      unsigned long long* guard_pairs,
                                      void* stream) {
-  if (B <= 0 || F <= 0 || F > diffco::kWideMaxF || S < 0)
-    return cudaErrorInvalidValue;
+  if (B <= 0 || F <= 0 || F > 64 || S < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F <= diffco::kF64MaxF)
     return diffco::poly_f64_dispatch(x, s, w, score, dx, B, S, F, st);
-  if (F > 64)
-    return diffco::poly_wide_dispatch(x, s, w, score, dx, B, S, F, st);
 #define DIFFCO_LAUNCH(FPV)                                                 \
   diffco::poly_launch<FPV, true>(x, s, w, score, dx, B, S, F, kappa,       \
                                  guard_pairs, st)

@@ -155,37 +155,65 @@ def dh_tc_plan(P: int) -> dict:
 # floats in shared memory, __launch_bounds__ minimum kF64MinBlocks)
 F64_MAX_F, F64_ROWS, F64_CHUNK, F64_MIN_BLOCKS = 8, 256, 256, 3
 # its wide instance at TC_MAX_F < F <= MAX_F (poly_score_wide_kernel<K>,
-# K = ceil(F / 32), on csrc/wide_score_block.cuh: kWideThreads threads
-# and kWideRows rows a block, kWideChunk supports a chunk, kWideGroups
-# warps a row tile, kWideMinBlocks in the launch bound)
+# K = ceil(F / 32), on csrc/wide_score_block.cuh: kWideRows rows a block
+# in kWideRowTiles row tiles of 16, kWideSplit<K> warps a row tile,
+# kWideChunk supports a chunk in a ring of kWideStages, kWideMinBlocks<K>
+# in the launch bound) and the FK kernels' wide instance on the same block
+# (csrc/chain_wide.cuh)
 TC_MAX_F = 64
-WIDE_THREADS, WIDE_CHUNK, WIDE_MIN_BLOCKS = 256, 32, 2
-WIDE_ROWS, WIDE_GROUPS = 32, 4
+WIDE_CHUNK, WIDE_ROW_TILES = 32, 4
+WIDE_ROWS = 16 * WIDE_ROW_TILES
+WIDE_STAGES = WIDE_ROWS // WIDE_CHUNK
+
+
+def wide_split(K: int) -> int:
+    """``kWideSplit<K>``: warps a row tile, one up to K = 4, two above."""
+    return 1 if K <= 4 else 2
+
+
+def wide_threads(K: int) -> int:
+    """``kWideThreads<K>``: the wide block's threads."""
+    return 32 * WIDE_ROW_TILES * wide_split(K)
+
+
+def wide_min_blocks(K: int) -> int:
+    """``kWideMinBlocks<K>``: the launch bound's blocks per SM, 16 warps
+    per SM at K = 1, 12 at K = 2, 8 above, at least one block."""
+    warps_per_sm = {1: 16, 2: 12}.get(K, 8)
+    return max(1, warps_per_sm // (wide_threads(K) // 32))
+
+
+def wide_stride(F: int) -> int:
+    """``wide_stride(F)``: the row stride of s~ and the sums (doubles)
+    and of the rows' points (floats), 32 ceil(F / 32) + 4."""
+    return -(-F // 32) * 32 + 4
+
+
+def wide_prep_doubles(S: int, F: int, C: int) -> int:
+    """``wide_prep_doubles``: the wide block's prologue buffer, every wide
+    entry's ``prep``: the centre, s~ [Sp, stride] and per weight column
+    (|s~|^2, w) [Sp, 2], Sp = S padded to whole chunks."""
+    sp = -(-S // WIDE_CHUNK) * WIDE_CHUNK
+    return wide_stride(F) * (1 + sp) + 2 * sp * C
 
 
 def wide_smem_doubles(K: int) -> int:
     """``WideSmem<K>::kEnd``: the wide block's shared doubles: the centre
-    and the row stride 32 K + 4, |x~|^2, the groups' scores, x~ [rows],
-    then the chunk: raw floats [chunk][32 K], weights, s~ [chunk], (|s~|^2,
-    w), coef [rows][40]."""
+    and the row stride 32 K + 4, |x~|^2 and the scores [rows], the rows'
+    fp32 points [rows][stride], then the ring: s~ [stages][chunk][stride]
+    (the sums [rows][stride] after the loop) and (|s~|^2, w)
+    [stages][chunk]."""
     stride = 32 * K + 4
-    area = stride + WIDE_ROWS + WIDE_GROUPS * WIDE_ROWS + WIDE_ROWS * stride
-    return (area + WIDE_CHUNK * 16 * K + WIDE_CHUNK // 2
-            + WIDE_CHUNK * stride + 2 * WIDE_CHUNK + WIDE_ROWS * 40)
+    return (stride + 2 * WIDE_ROWS + WIDE_ROWS * stride // 2
+            + WIDE_STAGES * WIDE_CHUNK * (stride + 2))
 
 
-def chain_wide_min_blocks(K: int) -> int:
-    """``kChainWideMinBlocks<K>`` (csrc/chain_wide.cuh): the wide FK
-    instance's launch bound, two blocks per SM up to K = 4, one above."""
-    return WIDE_MIN_BLOCKS if K <= 4 else 1
-
-
-def _wide_plan(K: int, smem: int, min_blocks: int = WIDE_MIN_BLOCKS) -> dict:
-    blocks = min(min_blocks,
+def _wide_plan(K: int, smem: int) -> dict:
+    blocks = min(wide_min_blocks(K),
                  SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED))
     return dict(fp=32 * K, smem_bytes=smem, blocks_per_sm=blocks,
-                warps_per_sm=blocks * WIDE_THREADS // 32,
-                threads=WIDE_THREADS, rows=WIDE_ROWS)
+                warps_per_sm=blocks * wide_threads(K) // 32,
+                threads=wide_threads(K), rows=WIDE_ROWS)
 
 
 def poly_tc_plan(F: int) -> dict:
@@ -235,18 +263,35 @@ def chain_tc_plan(P: int, M: int) -> dict:
 def chain_wide_plan(P: int, M: int) -> dict:
     """The wide FK instances' launch plan (``csrc/chain_wide.cuh``,
     K = ceil(3P / 32)) for P control points and M moving joints: the wide
-    block's shared memory (``wide_smem_doubles``; the backward's rows and
-    joints' values go over its chunk buffers), the spec
-    (``ChainSpecWide``, in whole 16-byte words) and the points' ancestor
-    masks (2 WIDE_MAX_CP floats), whatever M (the joints' axes and origins
-    go to a scratch in device memory, ``wide_scratch_floats``);
-    WIDE_THREADS threads and WIDE_ROWS rows, and the blocks per SM that
-    the launch bound (``chain_wide_min_blocks``) and shared memory
-    allow."""
+    block's shared memory (``wide_smem_doubles``; the backward's gradients
+    go over its sums), the spec (``ChainSpecWide``, in whole 16-byte
+    words), the points' ancestor masks (2 WIDE_MAX_CP floats) and each
+    warp's joints' values (WIDE_MAX_M + 1 floats, in whole 16-byte words),
+    whatever M (the joints' axes and origins go to a scratch in device
+    memory, ``wide_scratch_floats``); ``wide_threads(K)`` threads and
+    WIDE_ROWS rows, and the blocks per SM that the launch bound
+    (``wide_min_blocks``) and shared memory allow."""
     K = -(-3 * P // 32)
     spec = (ctypes.sizeof(ChainSpecWide) // 4 + 3) // 4 * 4
+    jv = (WIDE_MAX_M + 1 + 3) // 4 * 4
     return _wide_plan(K, 8 * wide_smem_doubles(K) + 4 * (
-        spec + 2 * WIDE_MAX_CP), chain_wide_min_blocks(K))
+        spec + 2 * WIDE_MAX_CP + wide_threads(K) // 32 * jv))
+
+
+# the libraries with a wide instance, each exporting the prologue
+WIDE_LIBS = ('poly_score', 'dh_score', 'chain_score', 'dh_multi_score',
+             'chain_multi_score')
+
+
+def wide_prep(lib: str, s, W, F: int, C: int, out, stream):
+    """Launch the wide block's prologue (``csrc/wide_launch.cuh``'s
+    ``wide_prep`` of ``lib``, counted in ``launches.wide_prep``) on
+    ``stream``: supports s [S, F] and weight columns W (the C columns of
+    [S, C], or [S] at C = 1) ready for the tensor cores in ``out`` (a
+    float32 tensor of ``2 * wide_prep_doubles(S, F, C)``), the wide
+    entries' ``prep``."""
+    launch(lib, 'wide_prep', s.data_ptr(), W.data_ptr(), s.shape[0], F, C,
+           out.data_ptr(), stream)
 
 
 def wide_scratch_floats(B: int, M: int) -> int:
@@ -433,8 +478,10 @@ def _bind(libs):
     fn = libs['chain_score'].chain_score_plan
     fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
     fn.restype = cint
-    # the wide instances (csrc/chain_wide.cuh): host spec, device copy,
-    # the joints' axes and origins' scratch
+    # the wide instances, each after the wide block's prologue: x or q,
+    # the prologue's buffer, score, dx or dq, B, S, then F (B2) or [C],
+    # host spec, device copy, the joints' axes and origins' scratch
+    # (csrc/chain_wide.cuh), the stream
     wide = ctypes.POINTER(ChainSpecWide)
     for lib, name, n_int in (('dh_score', 'dh_score_grad', 2),
                              ('chain_score', 'chain_score_grad', 2),
@@ -442,7 +489,16 @@ def _bind(libs):
                              ('chain_multi_score', 'chain_multi_score_grad',
                               3)):
         fn = getattr(libs[lib], f'{name}_wide')
-        fn.argtypes = [ptr] * 5 + [cint] * n_int + [wide, ptr, ptr, ptr]
+        fn.argtypes = [ptr] * 4 + [cint] * n_int + [wide, ptr, ptr, ptr]
+        fn.restype = cint
+    fn = libs['poly_score'].poly_score_grad_wide
+    fn.argtypes = [ptr] * 4 + [cint] * 3 + [ptr]
+    fn.restype = cint
+    # the wide block's prologue, which each source with a wide instance
+    # exports: s, W, S, F, C, the buffer, the stream
+    for lib in WIDE_LIBS:
+        fn = libs[lib].wide_prep
+        fn.argtypes = [ptr, ptr, cint, cint, cint, ptr, ptr]
         fn.restype = cint
     fn = libs['chain_score'].chain_score_wide_plan
     fn.argtypes = [cint, cint, ctypes.POINTER(cint)]

@@ -137,10 +137,14 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, dq=True):
     (``_native.launch``): weights w [S] give (score [B], dq [B, D]),
     weight columns W [S, C] give (score [B, C], dq [C, B, D]);
     ``dq=False`` gives score [B] alone. A ``_native.ChainSpecWide`` ``c``
-    launches the wide instance, ``<name>_wide``, with the spec's device
-    copy and a scratch of ``_native.wide_scratch_floats`` for the joints'
-    axes and origins (made in the span ``diffco.ops.wide_args``), and
-    counts it in the counter ``ops.wide_launches`` too."""
+    launches the wide instance, ``<name>_wide``, after the wide block's
+    prologue (``_native.wide_prep``, counted in ``launches.wide_prep``)
+    has written the supports and weights ready for the tensor cores into
+    a buffer of its own, with the spec's device copy and a scratch of
+    ``_native.wide_scratch_floats`` for the joints' axes and origins (the
+    three made in the span ``diffco.ops.wide_args``); it counts the wide
+    instance in the counter ``ops.wide_launches`` too. Each launch runs in
+    a span ``diffco.ops.launch``."""
     _native.check_cuda_inputs(name, q, s, w)
     B, S = q.shape[0], s.shape[0]
     multi = w.dim() == 2
@@ -162,18 +166,22 @@ def _launch(name, lib, q, s, w, c, D, P, *ints, entry=None, dq=True):
     if wide and entry is not None:
         raise ValueError(f'{name}: the wide instance has no entry {entry}')
     if B > 0:
-        # held until the launch is queued, so that neither buffer's memory
-        # goes to the other
-        extra = ()
+        # held until the launch is queued, so that no buffer's memory goes
+        # to another
+        inputs, extra = (q, s, w), ()
         if wide:
             with span('diffco.ops.wide_args'):
+                prep = q.new_empty(2 * _native.wide_prep_doubles(S, 3 * P, C))
                 extra = (_on_device(bytes(c), q.device),
                          q.new_empty(_native.wide_scratch_floats(B, c.M)))
+                stream = torch.cuda.current_stream(q.device).cuda_stream
+            with span('diffco.ops.launch'):
+                _native.wide_prep(lib, s, w, 3 * P, C, prep, stream)
+            inputs = (q, prep)
         with span('diffco.ops.launch'):
             _native.launch(
                 lib, entry or (f'{name}_wide' if wide else name),
-                q.data_ptr(), s.data_ptr(), w.data_ptr(),
-                *(t.data_ptr() for t in outs), B, S,
+                *(t.data_ptr() for t in (*inputs, *outs)), B, S,
                 *((C,) if multi else ()), *ints, ctypes.byref(c),
                 *(t.data_ptr() for t in extra),
                 torch.cuda.current_stream(q.device).cuda_stream, kernel=name)

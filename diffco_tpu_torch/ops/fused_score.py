@@ -52,7 +52,11 @@ def _poly_score_grad_plain(x, s, w):
 def _poly_launch(x, s, w, *args, entry='poly_score_grad'):
     """Check B2's inputs, allocate its outputs and launch the C function
     ``entry`` of ``csrc/poly_score.cu`` with ``args`` after F, counted in
-    ``launches.<entry>`` (``_native.launch``): (score [B], dx [B, F])."""
+    ``launches.<entry>`` (``_native.launch``): (score [B], dx [B, F]).
+    Past ``_native.TC_MAX_F`` the wide instance, ``poly_score_grad_wide``,
+    runs instead (still counted in ``launches.<entry>``), after the wide
+    block's prologue (``_native.wide_prep``), without ``args``: it has
+    no guard."""
     _native.check_cuda_inputs('poly_score_grad', x, s, w)
     B, F = x.shape
     S = s.shape[0]
@@ -64,10 +68,17 @@ def _poly_launch(x, s, w, *args, entry='poly_score_grad'):
     score = torch.empty(B, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     if B > 0:
-        _native.launch('poly_score', entry, x.data_ptr(), s.data_ptr(),
-                       w.data_ptr(), score.data_ptr(), dx.data_ptr(), B, S,
-                       F, *args,
-                       torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if F > _native.TC_MAX_F:
+            prep = s.new_empty(2 * _native.wide_prep_doubles(S, F, 1))
+            _native.wide_prep('poly_score', s, w, F, 1, prep, stream)
+            _native.launch('poly_score', 'poly_score_grad_wide',
+                           x.data_ptr(), prep.data_ptr(), score.data_ptr(),
+                           dx.data_ptr(), B, S, F, stream, kernel=entry)
+        else:
+            _native.launch('poly_score', entry, x.data_ptr(), s.data_ptr(),
+                           w.data_ptr(), score.data_ptr(), dx.data_ptr(), B,
+                           S, F, *args, stream)
     return score, dx
 
 
@@ -86,9 +97,10 @@ def poly_score_grad(x, s, w):
 def poly_score_guard_pairs(x, s, w, kappa):
     """B2's kernel in its measurement build (``poly_score_grad_guard``)
     with the near-pair guard at threshold ``kappa``: (score [B], dx [B, F],
-    the number of (row, support) pairs the guard recomputed). A
-    measurement entry for float32 CUDA tensors, counted under its own
-    entry name; production launches go through ``poly_score_grad``."""
+    the number of (row, support) pairs the guard recomputed; 0 past
+    ``_native.TC_MAX_F``, where the wide instance, which has no guard,
+    runs). A measurement entry for float32 CUDA tensors, counted under its
+    own entry name; production launches go through ``poly_score_grad``."""
     pairs = torch.zeros(1, dtype=torch.int64, device=x.device)
     score, dx = _poly_launch(x, s, w, ctypes.c_float(kappa),
                              pairs.data_ptr(), entry='poly_score_grad_guard')

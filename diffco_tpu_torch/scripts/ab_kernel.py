@@ -22,7 +22,7 @@ one card in one process.
     python3 -m diffco_tpu_torch.scripts.ab_kernel --kernel b3 --wide-rope \
         --source build/parent/diffco_tpu_torch/csrc/chain_score.cu \
         --ablate wideChunkSums wideNoP1 wideNoP2 wideNoTransform wideNoFK \
-        wideNoBackward
+        wideNoBackward wideRows128
 
 ``--source OTHER.cu`` is any source that defines the kernel's C entry
 (``chain_multi_score_grad``, ``dh_multi_score_grad``, ``dh_score_grad``,
@@ -90,16 +90,21 @@ sweep, chip_smoke.py's multi-robot shape: ``robot_data.
 generate_rope_urdf(35)`` (34 points on 35 moving joints, F = 102), ``--supports``
 supports (default 1536; 512 for the shorter sweep) with the weights that
 interpolate ``rope_ball_gt``'s +-1 labels, B2 from the points and B3
-from q (its ``chain_score_grad_wide`` entry), every build held to or
-reported against the float64 twin; a ``--source`` of the parent's file
-times the parent's wide design in the same process. The wide block's
-ablations (``WIDE_ABLATIONS``): ``wideChunkSums`` sums product 2 per
-chunk of 32 supports into running sums (the design the block keeps one
-fp64 accumulator in place of), ``wideNoP2`` takes product 2 out,
-``wideNoP1`` product 1 (d2 from the norms alone), ``wideNoTransform``
-the centring of each chunk into fp64 (s~ stays unwritten),
-``wideNoFK`` (b3) the chain FK (the rows' points stay as staged) and
-``wideNoBackward`` (b3) the joints' backward. ``directDist`` and
+from q (its ``chain_score_grad_wide`` entry; B2 through
+``poly_score_grad_wide``), each after its build's prologue
+(``wide_prep``), every build held to or reported against the float64
+twin; a ``--source`` of the parent's file times the parent's wide design
+in the same process (a source from before the prologue launches without
+it). The wide block's ablations (``WIDE_ABLATIONS``): ``wideChunkSums``
+sums product 2 per chunk of 32 supports into running sums (the design the
+block keeps one fp64 accumulator in place of), ``wideNoP2`` takes
+product 2 out, ``wideNoP1`` product 1 (d2 from the norms alone),
+``wideNoTransform`` the per-call preparation of the supports (the
+prologue returns at once; the buffer stays unwritten), ``wideRows128``
+runs 128 rows and 8 warps a block (one block per SM, 4 chunk buffers: a
+design, not a part, whose error matches production's), ``wideNoFK`` (b3)
+the chain FK (the rows' points stay as staged) and ``wideNoBackward``
+(b3) the joints' backward. ``directDist`` and
 ``tf32x1`` compute the function and their error against the twin (and a
 float64 twin) is reported beside their time, which shows what the split
 buys; none of them is held to the tolerance. Each build is
@@ -214,12 +219,15 @@ _WSB, _CW = 'wide_score_block.cuh', 'chain_wide.cuh'
 WIDE_ABLATIONS = {
     'wideChunkSums': [(_WSB, 'constexpr bool kWideChunkSums = false;',
                        'constexpr bool kWideChunkSums = true;')],
-    'wideNoP2': [(_WSB, 'for (int nt = 0; nt < kWideChunk / 8; ++nt) {',
-                  'for (int nt = 0; nt < 0; ++nt) {')],
+    'wideNoP2': [(_WSB, 'for (int kk = 0; kk < 8 / J2; ++kk) {',
+                  'for (int kk = 0; kk < 0; ++kk) {')],
     'wideNoP1': [(_WSB, 'for (int ks = 0; ks < KS1; ++ks)',
                   'for (int ks = 0; ks < 0; ++ks)')],
-    'wideNoTransform': [(_WSB, 'for (int f = e; f < F; f += 8) {',
-                         'for (int f = e; f < 0; f += 8) {')],
+    'wideNoTransform': [(_WSB, '  const int n0 = min(S, kWideChunk);',
+                         '  if (S >= 0) return;\n'
+                         '  const int n0 = min(S, kWideChunk);')],
+    'wideRows128': [(_WSB, 'constexpr int kWideRowTiles = 4;',
+                     'constexpr int kWideRowTiles = 8;')],
 }
 _WIDE_FK_ABLATIONS = {
     'wideNoFK': [(_CW, 'chain_fk<kWideMaxCP>(',
@@ -259,7 +267,11 @@ def _build_all(sources, entry, lib=None):
     built into a library with the production flags (one nvcc per source
     not yet built, all started together; a build's nvcc output is kept
     beside it). ``lib``: the production library whose ``entry`` gives the
-    argument types (default ``entry`` without ``_grad``)."""
+    argument types (default ``entry`` without ``_grad``); ``entry`` may be
+    a function of the source (the production library's entry of that name
+    gives the types). A build with the wide block's prologue
+    (``_wide_prologue``) has its ``wide_prep`` entry in
+    ``PROLOGUES[source]``."""
     outs, procs, reports = {}, [], {}
     _native._BUILD.mkdir(parents=True, exist_ok=True)
     for source in sources:
@@ -282,14 +294,31 @@ def _build_all(sources, entry, lib=None):
     for source, out in outs.items():
         log = out.with_suffix('.log')
         reports[source] = _ptxas(log.read_text()) if log.exists() else []
-    argtypes = getattr(_native.build()[lib or entry.replace('_grad', '')],
-                       entry).argtypes
+    name_of = entry if callable(entry) else (lambda source: entry)
+    prod = _native.build()[lib or name_of(sources[0]).replace('_grad', '')]
     fns = {}
     for source, out in outs.items():
-        fn = fns[source] = getattr(ctypes.CDLL(str(out)), entry)
-        fn.argtypes = argtypes
+        name = name_of(source)
+        lib_ = ctypes.CDLL(str(out))
+        fn = fns[source] = getattr(lib_, name)
+        fn.argtypes = getattr(prod, name).argtypes
         fn.restype = ctypes.c_int
+        if _wide_prologue(source):
+            prep = PROLOGUES[source] = lib_.wide_prep
+            prep.argtypes = prod.wide_prep.argtypes
+            prep.restype = ctypes.c_int
     return fns, reports
+
+
+# source -> the wide block's prologue entry of its build (_build_all)
+PROLOGUES = {}
+
+
+def _wide_prologue(source):
+    """Whether the wide instances of the build of ``source`` read the
+    supports from the wide block's prologue (``wide_launch.cuh``; this
+    tree's do, a source from before it, the parent's, does not)."""
+    return (Path(source).resolve().parent / 'wide_launch.cuh').exists()
 
 
 def _wide_scratch(source):
@@ -575,18 +604,25 @@ def run_single(builds, kernel, S=None, fitted=False, planar=False,
     entry = KERNELS[kernel]['entry']
     if wide_rope and kernel == 'b3':
         entry += '_wide'
-    libs, ptxas = _build_all([src for src, _ in builds.values()], entry,
+    # B2's wide instance has its own entry since the prologue
+    entry_of = (lambda src: entry + '_wide' if _wide_prologue(src)
+                else entry) if wide_rope and kernel == 'b2' else entry
+    libs, ptxas = _build_all([src for src, _ in builds.values()], entry_of,
                              KERNELS[kernel]['source'][:-3])
     g = torch.Generator().manual_seed(0)
     args, wrapper, plain, spec, tail, n_grad, plan = _single_setup(
         kernel, dev, g, S, fitted, planar, rope, wide_rope)
     plan = dict(plan)
     keep = plan.pop('keep', None)   # the tail points into these
-    if keep is not None:
-        for src, _ in builds.values():
-            if not _wide_scratch(src):   # an older wide entry: no scratch
-                libs[src].argtypes = (libs[src].argtypes[:-2]
-                                      + libs[src].argtypes[-1:])
+    for src, _ in builds.values():
+        fn = libs[src]
+        if keep is not None and not _wide_scratch(src):
+            # an older wide entry: no scratch
+            fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
+        if kernel == 'b3' and wide_rope and not _wide_prologue(src):
+            # a wide entry from before the prologue reads s and w
+            fn.argtypes = [fn.argtypes[0], ctypes.c_void_p,
+                           *fn.argtypes[1:]]
     fitted = fitted or planar or rope or wide_rope
     if planar or rope or wide_rope:
         builds = {k: (src, False) for k, (src, _) in builds.items()}
@@ -605,14 +641,27 @@ def run_single(builds, kernel, S=None, fitted=False, planar=False,
 
         own_tail = (tail if keep is None or _wide_scratch(src)
                     else tail[:-1])
+        prep = PROLOGUES.get(src) if wide_rope else None
 
-        def alt(fn=fn, own_tail=own_tail):
-            # as the wrapper: allocate, launch, check
+        def alt(fn=fn, own_tail=own_tail, prep=prep):
+            # as the wrapper: allocate, launch (the prologue first, where
+            # the build has one, into a buffer the entry reads in place
+            # of s and w), check
             score, grad = args[0].new_empty(Bq), args[0].new_empty(
                 (Bq, n_grad))
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            inputs = args
+            if prep is not None:
+                s, w = args[1], args[2]
+                buf = s.new_empty(2 * _native.wide_prep_doubles(
+                    S, s.shape[1], 1))
+                _native.raise_on_error(f'wide_prep ({name})', prep(
+                    s.data_ptr(), w.data_ptr(), S, s.shape[1], 1,
+                    buf.data_ptr(), stream))
+                inputs = (args[0], buf)
             _native.raise_on_error(f'{entry} ({name})', fn(
-                *(t.data_ptr() for t in (*args, score, grad)), Bq, S,
-                *own_tail, torch.cuda.current_stream(dev).cuda_stream))
+                *(t.data_ptr() for t in (*inputs, score, grad)), Bq, S,
+                *own_tail, stream))
             return score, grad
         row = {}
         for who, f in (('production', prod), (name, alt)):

@@ -76,6 +76,9 @@ inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 # OUT gets the instance (int32), score [B, C] and dq [C, B, D].
 RUNNER = r'''
 alignas(16) float diffco_multi_smem[1 << 15];
+// the wide block's (chain_wide.cuh, included by both sources; its
+// prologue kernel is compiled here, not run)
+alignas(16) float diffco_tc_smem[4];
 
 template <class K>
 void run_blocks(int nblocks, K&& kernel) {
@@ -315,7 +318,7 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 struct WarpScratch {
   float a[32][4], b[32][2], v[32];
   unsigned ua[32][4], ub[32][2];
-  double dv[32], da[32][2], db[32];
+  double dv[32], fa[2][32][8], fb[2][32][4];
   std::barrier<>* bar;
 };
 WarpScratch g_warps[16];
@@ -405,29 +408,33 @@ float diffco_replay_shfl_xor(float v, int mask) {
   w.bar->arrive_and_wait();
   return o;
 }
-// m16n8k4 fp64 (mma.sync .f64): A a0, a1 at (row, k) = (g, t), (g + 8, t);
-// B b0 at (k, n) = (t, g); C c0..c3 at (g, 2t), (g, 2t + 1), (g + 8, 2t),
-// (g + 8, 2t + 1); each product added to the accumulator in order of k,
-// in double
-void diffco_replay_mma_f64(double (&d)[4], double a0, double a1, double b) {
+// m16n8kKK fp64 (mma.sync .f64, KK = 4, 8, 16): A a[i] at (row, k) =
+// (g + 8 (i % 2), t + 4 (i / 2)); B b[i] at (k, n) = (t + 4 i, g); C
+// c0..c3 at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1); each
+// product added to the accumulator in order of k, in double. The operands
+// alternate between two scratch slots, so one meeting of the warp a
+// product suffices: a lane can write a slot again only after every lane
+// has met it at the next product, past its reads.
+thread_local unsigned g_mma_f64_calls = 0;
+template <int KK>
+void diffco_replay_mma_f64(double (&d)[4], const double (&a)[KK / 2],
+                           const double (&b)[KK / 4]) {
   WarpScratch& w = my_warp();
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  w.da[lane][0] = a0;
-  w.da[lane][1] = a1;
-  w.db[lane] = b;
+  const int p = g_mma_f64_calls++ & 1;
+  for (int i = 0; i < KK / 2; ++i) w.fa[p][lane][i] = a[i];
+  for (int i = 0; i < KK / 4; ++i) w.fb[p][lane][i] = b[i];
   w.bar->arrive_and_wait();
-  double out[4];
   for (int i = 0; i < 4; ++i) {
     const int m = i < 2 ? g : g + 8, n = 2 * t + (i & 1);
     double acc = d[i];
-    for (int k = 0; k < 4; ++k)
-      // A (m, k) in lane 4 (m % 8) + k, register m / 8; B (k, n) in lane
-      // 4 n + k
-      acc = std::fma(w.da[4 * (m % 8) + k][m / 8], w.db[4 * n + k], acc);
-    out[i] = acc;
+    for (int k = 0; k < KK; ++k)
+      // A (m, k) in lane 4 (m % 8) + k % 4, register 2 (k / 4) + m / 8;
+      // B (k, n) in lane 4 n + k % 4, register k / 4
+      acc = std::fma(w.fa[p][4 * (m % 8) + k % 4][2 * (k / 4) + m / 8],
+                     w.fb[p][4 * n + k % 4][k / 4], acc);
+    d[i] = acc;
   }
-  w.bar->arrive_and_wait();
-  for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 void diffco_replay_syncwarp() { my_warp().bar->arrive_and_wait(); }
 double diffco_replay_shfl_xor_f64(double v, int mask) {
@@ -501,6 +508,23 @@ int put(const char* path, unsigned long long guard,
 }
 '''
 
+# The wide block's prologue (csrc/wide_score_block.cuh's wide_prep_kernel)
+# on its grid, as csrc/wide_launch.cuh launches it: the buffer, filled
+# with NaN first, that B2's and the FK kernels' wide instances read.
+WIDE_PREP = r'''
+std::vector<double> run_wide_prep(const std::vector<float>& s,
+                                  const std::vector<float>& W, int S, int F,
+                                  int C) {
+  std::vector<double> prep(diffco::wide_prep_doubles(S, F, C),
+                           std::nan(""));
+  const int grid = S > 0 ? diffco::wide_padded(S) / diffco::kWideChunk : 1;
+  run_tc_blocks(0, 8 * diffco::wide_stride(F), [&] {
+    diffco::wide_prep_kernel(s.data(), W.data(), S, F, C, prep.data());
+  }, 1, diffco::kWidePrepThreads, grid);
+  return prep;
+}
+'''
+
 # B1 (its measurement build, at the production threshold):
 #   replay B S IN OUT
 # IN holds the DHSpec, then q [B, J], s [S, 3P], w [S] (float32);
@@ -557,7 +581,7 @@ int main(int argc, char** argv) {
 # IN holds x [B, F], s [S, F], w [S] (float32); `replay plan` prints
 # kF64Smem, then PolySmem<FP>::kBytes at FP = 16-64, then the wide
 # instance's shared bytes and rows at K = 3-6.
-POLY_RUNNER = TC_COMMON + r'''
+POLY_RUNNER = TC_COMMON + WIDE_PREP + r'''
 template <int F>
 void run_poly_f64(const std::vector<float>& x, const std::vector<float>& s,
                   const std::vector<float>& w, std::vector<float>& score,
@@ -585,10 +609,11 @@ template <int K>
 void run_poly_wide(const std::vector<float>& x, const std::vector<float>& s,
                    const std::vector<float>& w, std::vector<float>& score,
                    std::vector<float>& dx, int B, int S, int F) {
+  const std::vector<double> prep = run_wide_prep(s, w, S, F, 1);
   run_tc_blocks(B, diffco::WideSmem<K>::kBytes, [&] {
-    diffco::poly_score_wide_kernel<K>(x.data(), s.data(), w.data(),
-                                      score.data(), dx.data(), B, S, F);
-  }, diffco::kWideRows);
+    diffco::poly_score_wide_kernel<K>(x.data(), prep.data(), score.data(),
+                                      dx.data(), B, S, F);
+  }, diffco::kWideRows, diffco::kWideThreads<K>);
 }
 
 template <int FP>
@@ -652,10 +677,11 @@ int main(int argc, char** argv) {
 # for each (P, M) of WIDE_PLAN_PM.
 # IN holds the ChainSpec, then q [B, D], s [S, 3P], w [S] (float32);
 # `replay plan` prints ChainSmem<FP>::bytes(M) at FP = 8-64 (rows) for
-# M in CHAIN_PLAN_M (columns).
+# M in CHAIN_PLAN_M (columns); `replay prep S F C IN OUT` runs the wide
+# block's prologue alone on s [S, F] and W [S, C].
 CHAIN_PLAN_M = (1, 4, 7, 9, 11, 16)
 WIDE_PLAN_PM = ((19, 20), (34, 35), (9, 9), (64, 64), (50, 40), (22, 16))
-CHAIN_RUNNER = TC_COMMON + r'''
+CHAIN_RUNNER = TC_COMMON + WIDE_PREP + r'''
 template <int FP>
 void run_chain(const std::vector<float>& q, const std::vector<float>& s,
                const std::vector<float>& w, std::vector<float>& score,
@@ -680,11 +706,29 @@ void run_wide(const std::vector<float>& q, const std::vector<float>& s,
               std::vector<float>& dq, int B, int S, int C,
               const diffco::ChainSpecWide& sp) {
   std::vector<float> zo(size_t(B) * sp.M * 6, std::nanf(""));
+  const std::vector<double> prep = run_wide_prep(s, W, S, 3 * sp.P, C);
   run_tc_blocks(B, diffco::chain_wide_smem_bytes<K>(), [&] {
-    diffco::chain_wide_score_kernel<K>(q.data(), s.data(), W.data(),
-                                       score.data(), dq.data(), B, S, C,
-                                       &sp, zo.data());
-  }, diffco::kWideRows);
+    diffco::chain_wide_score_kernel<K>(q.data(), prep.data(), score.data(),
+                                       dq.data(), B, S, C, &sp, zo.data());
+  }, diffco::kWideRows, diffco::kWideThreads<K>);
+}
+
+// the prologue alone: replay prep S F C IN OUT, IN holding s [S, F] and
+// W [S, C]; OUT gets the buffer (wide_prep_doubles(S, F, C) doubles)
+int run_prep_main(char** argv) {
+  const int S = std::atoi(argv[2]), F = std::atoi(argv[3]),
+            C = std::atoi(argv[4]);
+  FILE* in = std::fopen(argv[5], "rb");
+  if (!in) return 2;
+  const auto s = take<float>(in, size_t(S) * F);
+  const auto W = take<float>(in, size_t(S) * C);
+  std::fclose(in);
+  const std::vector<double> prep = run_wide_prep(s, W, S, F, C);
+  FILE* out = std::fopen(argv[6], "wb");
+  if (!out) return 2;
+  std::fwrite(prep.data(), sizeof(double), prep.size(), out);
+  std::fclose(out);
+  return 0;
 }
 
 // the wide instance: replay wide B S C IN OUT, IN holding the
@@ -723,6 +767,7 @@ void wide_plan(int /* M: the plan does not depend on it */) {
 
 int main(int argc, char** argv) {
   if (argc == 7 && std::string(argv[1]) == "wide") return run_wide_main(argv);
+  if (argc == 7 && std::string(argv[1]) == "prep") return run_prep_main(argv);
   if (argc == 2 && std::string(argv[1]) == "wideplan") {
     WIDE_PLAN_CALLS
     return 0;
@@ -1032,14 +1077,14 @@ def _plan(exe):
 def test_poly_tc_plan_matches_the_block(tc_bins):
     """ops/_native.py::poly_tc_plan's shared bytes are B2's kernel's
     (csrc/poly_score.cu: kF64Smem for the fp64 instance at F <= 8,
-    PolySmem<FP> at every FP = 16-64, and the wide instance's chunk and
-    rows at K = 3-6, F = 65-192), two blocks (16 warps) per SM on the
-    tensor-core block up to FP = 56 and the wide instance up to K = 4, one
-    (8 warps) at FP = 64, whose per-chunk running sums take 36 KB of
-    shared memory, and on the wide instance at K = 5, 6 (118 and 139 KB),
-    and at least three (24 warps) on the fp64 instance (on the card,
-    test_poly_score_kernel_at_every_fp holds the plan to the occupancy
-    calculator)."""
+    PolySmem<FP> at every FP = 16-64, and the wide instance's rows, ring
+    and rows a block at K = 3-6, F = 65-192), two blocks (16 warps) per SM
+    on the tensor-core block up to FP = 56, one (8 warps) at FP = 64,
+    whose per-chunk running sums take 36 KB of shared memory, 8 warps on
+    the wide instance (two blocks of 4 at K = 3, 4, 78 and 102 KB; one of
+    8 at K = 5, 6, 126 and 151 KB), and at least three (24 warps) on the
+    fp64 instance (on the card, test_poly_score_kernel_at_every_fp holds
+    the plan to the occupancy calculator)."""
     got = [int(v) for v in _plan(tc_bins['poly'])]
     assert got[:8] == [_native.poly_tc_plan(F)['smem_bytes']
                        for F in range(8, 65, 8)]
@@ -1047,8 +1092,7 @@ def test_poly_tc_plan_matches_the_block(tc_bins):
              _native.poly_tc_plan(F)['rows']) for F in (96, 128, 160, 192)]
     assert list(zip(got[8::2], got[9::2])) == wide
     assert all(_native.poly_tc_plan(F)['warps_per_sm']
-               == (24 if F <= _native.F64_MAX_F else
-                   8 if 56 < F <= _native.TC_MAX_F or F > 128 else 16)
+               == (24 if F <= _native.F64_MAX_F else 8 if F > 56 else 16)
                for F in range(1, _native.MAX_F + 1))
 
 
@@ -1103,20 +1147,24 @@ def _wide_case(name, tmp_path):
 # the 20-link rope (20 moving joints, 19 points: K = 2), the 35-link rope
 # (34 points, F = 102: K = 4) at one and three classes, the lift rig and
 # the trifinger (K = 1 and 1) and the 9-joint DH chain folded into chain
-# form (K = 1) at one and two
+# form (K = 1) at one and two; the 28-, 48- and 60-link ropes (F = 81,
+# 141, 177: K = 3, 5 and 6, the last two with two warps a row tile) at one
+# and three
 WIDE_CASES = [('rope20', 1), ('rope35', 1), ('rope35', 3),
               ('lift_rig.urdf', 2), ('trifinger_simple.urdf', 1),
-              ('dh9', 1), ('dh9', 2)]
+              ('dh9', 1), ('dh9', 2), ('rope28', 1), ('rope28', 3),
+              ('rope48', 1), ('rope48', 3), ('rope60', 1), ('rope60', 3)]
 
 
 @pytest.mark.parametrize('name,C', WIDE_CASES)
 def test_chain_wide_replay_matches_plain(tc_bins, tmp_path, name, C):
-    """The wide instance of B1, B3, B4 and B5 (csrc/chain_wide.cuh) against
-    the plain twins, as B1's replay (``_check_tc``: score 1e-4, dq 1e-3 of
-    max away from rows 0-3, which sit on a support), at B = 128 + 5 and
-    S = 70 (chunks of 32, 32 and 6), shared memory filled with NaN; with
-    C > 1 the classes' weight columns W [S, C] give score [B, C] and
-    dq [C, B, D]."""
+    """The wide instance of B1, B3, B4 and B5 (csrc/chain_wide.cuh) after
+    its prologue against the plain twins, as B1's replay (``_check_tc``:
+    score 1e-4, dq 1e-3 of max away from rows 0-3, which sit on a
+    support), at B = 128 + 5 (blocks of 64, 64 and 5 live rows) and S = 70
+    (the prologue's chunks of 32, 32 and 6 with 26 zero supports), shared
+    memory and the prologue's buffer filled with NaN; with C > 1 the
+    classes' weight columns W [S, C] give score [B, C] and dq [C, B, D]."""
     robot, c, plain, plain_multi, spec = _wide_case(name, tmp_path)
     assert isinstance(c, _native.ChainSpecWide)
     q, sup, w = _near_support_inputs(robot, seed=len(name) + C)
@@ -1146,12 +1194,49 @@ def test_chain_wide_replay_matches_plain(tc_bins, tmp_path, name, C):
                   guarded=False)
 
 
+@pytest.mark.parametrize('S,F,C', [(70, 102, 3), (32, 192, 1),
+                                   (5, 72, 2), (0, 81, 1)])
+def test_wide_prep_replay_lays_out_the_supports(tc_bins, tmp_path, S, F, C):
+    """The wide block's prologue (csrc/wide_score_block.cuh's
+    wide_prep_kernel on its grid, its buffer filled with NaN first) writes
+    every double of its buffer: the centre (the mean of the first chunk's
+    supports, zeros past F), s~ = s - c at the row stride 32 ceil(F / 32)
+    + 4 with 1 at component F and zeros after it, and per weight column
+    (|s~|^2, w), supports past S zeros with weight 0 up to whole chunks of
+    32; at S = 0 the centre alone (zeros)."""
+    rng = np.random.default_rng(S + F)
+    s = rng.uniform(-0.3, 0.9, size=(S, F)).astype(np.float32)
+    W = rng.normal(size=(S, C)).astype(np.float32)
+    src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
+    src.write_bytes(s.tobytes() + W.tobytes())
+    proc = subprocess.run([str(tc_bins['chain']), 'prep', str(S), str(F),
+                           str(C), str(src), str(dst)],
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+    got = np.frombuffer(dst.read_bytes(), np.float64)
+    stride, sp = _native.wide_stride(F), -(-S // _native.WIDE_CHUNK) * 32
+    assert got.size == _native.wide_prep_doubles(S, F, C)
+    c = np.zeros(stride)
+    if S:
+        c[:F] = s[:min(S, 32)].astype(np.float64).mean(0)
+    st = np.zeros((sp, stride))
+    st[:, F] = 1.0
+    st[:S, :F] = s - c[:F]
+    nsw = np.zeros((C, sp, 2))
+    nsw[:, :S, 0] = (st[:S, :F] ** 2).sum(1)
+    nsw[:, :S, 1] = W.T
+    want = np.concatenate([c, st.ravel(), nsw.ravel()])
+    np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-15)
+
+
 def test_chain_wide_plan_matches_the_kernel(tc_bins):
     """ops/_native.py::chain_wide_plan's shared bytes and rows are the wide
     instance's (csrc/chain_wide.cuh: the wide block's WideSmem<K>, the
-    ChainSpecWide and the ancestor masks, whatever the chain's joints),
-    and it keeps 16 warps per SM up to K = 4 (the 35-link rope), 8 at
-    K = 5 and 6."""
+    ChainSpecWide, the ancestor masks and the warps' joints' values,
+    whatever the chain's joints), and it keeps 16 warps per SM at K = 1
+    (four blocks of 4), 12 at K = 2 (three), and 8 from K = 3 (two blocks
+    of 4 warps up to K = 4, the 35-link rope, whose warps each hold ~200
+    registers of accumulators; one of 8 at K = 5 and 6)."""
     got = [tuple(map(int, ln.split())) for ln in
            subprocess.run([str(tc_bins['chain']), 'wideplan'],
                           capture_output=True, text=True,
@@ -1161,7 +1246,7 @@ def test_chain_wide_plan_matches_the_kernel(tc_bins):
             for P, M in WIDE_PLAN_PM]
     assert got == want
     assert [_native.chain_wide_plan(P, M)['warps_per_sm']
-            for P, M in WIDE_PLAN_PM] == [16, 16, 16, 8, 8, 16]
+            for P, M in WIDE_PLAN_PM] == [12, 8, 16, 8, 8, 8]
 
 
 def _cancelling_rope_case(S_fit, seed):

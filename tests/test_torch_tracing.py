@@ -18,7 +18,7 @@ import torch
 
 import diffco_tpu_torch as dc
 from diffco_tpu_torch import perceptron, profiling
-from diffco_tpu_torch.ops import _native, fk_score
+from diffco_tpu_torch.ops import _native, fk_score, fused_score
 from diffco_tpu_torch.profiling import Entry
 from diffco_tpu_torch.robots.capsule_chain import CapsuleChainCollision
 from portbench.harness import manifest as mf
@@ -225,17 +225,20 @@ def test_the_log_keeps_the_last_entries():
     assert profiling.spans() == []
 
 
-def _stand_in(monkeypatch, rc):
+def _stand_in(monkeypatch, rc, failing=None):
     """``_native.build`` replaced by stand-in libraries whose every C entry
-    records its name and arguments and returns ``rc``, and the card-only
-    helpers by no-ops. Returns the calls."""
+    records its name and arguments and returns ``rc`` (only the entry
+    ``failing`` does, if given; the others 0), and the card-only helpers
+    by no-ops. Returns the calls."""
     calls = []
 
     class Lib:
         def __getattr__(self, entry):
-            return lambda *args: calls.append((entry, args)) or rc
+            code = rc if failing in (None, entry) else 0
+            return lambda *args: calls.append((entry, args)) or code
     monkeypatch.setattr(_native, 'build', lambda: {
-        'greedy_train': Lib(), 'dh_dual_score': Lib(), 'chain_score': Lib()})
+        'greedy_train': Lib(), 'dh_dual_score': Lib(), 'chain_score': Lib(),
+        'poly_score': Lib()})
     monkeypatch.setattr(_native, 'check_cuda_inputs', lambda *a: None)
     monkeypatch.setattr(torch.cuda, 'current_stream',
                         lambda device=None: SimpleNamespace(cuda_stream=0))
@@ -244,23 +247,48 @@ def _stand_in(monkeypatch, rc):
 
 def _wide_launch():
     """B3's wide instance through ``fk_score._launch``: 4 rows of a chain
-    of 3 dofs, 2 moving joints and 2 points, 5 supports."""
+    of 3 dofs, 2 moving joints and 2 points, 5 supports; the wide block's
+    prologue first."""
     c = _native.ChainSpecWide()
     c.M = 2
     fk_score._launch('chain_score_grad', 'chain_score', torch.zeros(4, 3),
                      torch.zeros(5, 6), torch.zeros(5), c, 3, 2)
 
 
-# (case, the launch, its C entry, the counters it adds to)
+def _poly_wide_launch():
+    """B2's wide instance (F = 70 > ``_native.TC_MAX_F``) through
+    ``fused_score._poly_launch``: 4 rows, 5 supports; the wide block's
+    prologue first."""
+    fused_score._poly_launch(torch.zeros(4, 70), torch.zeros(5, 70),
+                             torch.zeros(5))
+
+
+def _guard_wide_launch():
+    """B2's guarded measurement entry at F = 70: the wide instance, which
+    has no guard, after its prologue, and 0 pairs recomputed."""
+    *_, pairs = fused_score.poly_score_guard_pairs(
+        torch.zeros(4, 70), torch.zeros(5, 70), torch.zeros(5), 0.25)
+    assert pairs == 0
+
+
+# (case, the launch, its C entries in order, the counters it adds to)
 LAUNCHES = {
     'launch': (lambda: _native.launch('greedy_train', 'greedy_train', 1, 2),
-               'greedy_train', ['launches.greedy_train']),
+               ['greedy_train'], ['launches.greedy_train']),
     'launch under a kernel name': (
         lambda: _native.launch('dh_dual_score', 'dh_dual_score_grad', 3,
                                kernel='dh_dual_score_grad:dual_seq_256'),
-        'dh_dual_score_grad', ['launches.dh_dual_score_grad:dual_seq_256']),
-    'wide launch': (_wide_launch, 'chain_score_grad_wide',
-                    ['launches.chain_score_grad', 'ops.wide_launches']),
+        ['dh_dual_score_grad'],
+        ['launches.dh_dual_score_grad:dual_seq_256']),
+    'wide launch': (_wide_launch, ['wide_prep', 'chain_score_grad_wide'],
+                    ['launches.wide_prep', 'launches.chain_score_grad',
+                     'ops.wide_launches']),
+    'wide B2 launch': (_poly_wide_launch,
+                       ['wide_prep', 'poly_score_grad_wide'],
+                       ['launches.wide_prep', 'launches.poly_score_grad']),
+    'guarded wide B2 launch': (
+        _guard_wide_launch, ['wide_prep', 'poly_score_grad_wide'],
+        ['launches.wide_prep', 'launches.poly_score_grad_guard']),
 }
 
 
@@ -268,23 +296,42 @@ LAUNCHES = {
 @pytest.mark.parametrize('case', list(LAUNCHES))
 def test_a_launch_counts_once_under_its_kernel(monkeypatch, case, fails):
     """``_native.launch`` calls the C entry through ``build()`` once and
-    counts one under the kernel's name (a wide launch in
-    ``ops.wide_launches`` too); a nonzero return code raises and counts
-    nothing."""
+    counts one under the kernel's name (a wide launch its prologue, in
+    ``launches.wide_prep``, then the instance, in ``ops.wide_launches``
+    too); a nonzero return code raises and counts nothing."""
     calls = _stand_in(monkeypatch, 2 if fails else 0)
-    launch, entry, names = LAUNCHES[case]
+    launch, entries, names = LAUNCHES[case]
     before = profiling.counters()
     if fails:
-        with pytest.raises(RuntimeError, match=f'{entry}: CUDA launch '
+        with pytest.raises(RuntimeError, match=f'{entries[0]}: CUDA launch '
                                                'failed with cudaError 2'):
             launch()
     else:
         launch()
-    assert [e for e, _ in calls] == [entry]
+    assert [e for e, _ in calls] == (entries[:1] if fails else entries)
     after = profiling.counters()
     assert {k: n - before.get(k, 0) for k, n in after.items()
             if n != before.get(k, 0)} == ({} if fails else dict.fromkeys(
                 names, 1))
+
+
+@pytest.mark.parametrize('case', ['wide launch', 'wide B2 launch'])
+def test_a_failed_wide_instance_counts_its_prologue_alone(monkeypatch,
+                                                          case):
+    """Where the prologue launches and the wide instance after it fails,
+    the call raises naming the instance, and only the prologue counts:
+    neither the instance's ``launches.<kernel>`` nor
+    ``ops.wide_launches``."""
+    launch, entries, _ = LAUNCHES[case]
+    calls = _stand_in(monkeypatch, 2, failing=entries[1])
+    before = profiling.counters()
+    with pytest.raises(RuntimeError, match=f'{entries[1]}: CUDA launch '
+                                           'failed with cudaError 2'):
+        launch()
+    assert [e for e, _ in calls] == entries
+    after = profiling.counters()
+    assert {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)} == {'launches.wide_prep': 1}
 
 
 # (case, the fit or update after a fit on 300 samples)
